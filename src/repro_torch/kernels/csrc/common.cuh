@@ -1,0 +1,65 @@
+// Shared helpers of the port's hand-written Hopper kernels: warp/block
+// reductions with explicit tie-breaks (the Pallas kernels' lax.top_k /
+// jnp.argmin / jnp.argmax order: on equal values the lower index wins).
+#pragma once
+#include <cuda_runtime.h>
+#include <climits>
+
+constexpr float kNeg = 3.4e38f;        // distance sentinel, repro.kernels.ref.NEG
+
+__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// (v, i) is "better" than (bv, bi) under min-order: smaller value, then
+// smaller index.
+__device__ __forceinline__ bool min_before(float v, int i, float bv, int bi) {
+  return v < bv || (v == bv && i < bi);
+}
+
+__device__ __forceinline__ bool max_before(float v, int i, float bv, int bi) {
+  return v > bv || (v == bv && i < bi);
+}
+
+__device__ __forceinline__ void warp_argmin(float& v, int& i) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    float ov = __shfl_xor_sync(0xffffffffu, v, off);
+    int oi = __shfl_xor_sync(0xffffffffu, i, off);
+    if (min_before(ov, oi, v, i)) { v = ov; i = oi; }
+  }
+}
+
+__device__ __forceinline__ void warp_argmax(float& v, int& i) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    float ov = __shfl_xor_sync(0xffffffffu, v, off);
+    int oi = __shfl_xor_sync(0xffffffffu, i, off);
+    if (max_before(ov, oi, v, i)) { v = ov; i = oi; }
+  }
+}
+
+// Block-wide argmin with lower-index tie-break; every thread gets the
+// result. `sv`/`si` are >= 32-entry shared scratch. Contains barriers:
+// call from all threads of the block.
+__device__ __forceinline__ void block_argmin(float& v, int& i, float* sv, int* si) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = (blockDim.x + 31) >> 5;
+  warp_argmin(v, i);
+  __syncthreads();                       // scratch may hold a previous round
+  if (lane == 0) { sv[warp] = v; si[warp] = i; }
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < nw ? sv[lane] : inf_f();
+    i = lane < nw ? si[lane] : INT_MAX;
+    warp_argmin(v, i);
+    if (lane == 0) { sv[0] = v; si[0] = i; }
+  }
+  __syncthreads();
+  v = sv[0];
+  i = si[0];
+}

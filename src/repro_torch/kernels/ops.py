@@ -1,0 +1,194 @@
+"""Wrappers of the port's CUDA kernels.
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs with `torch.empty`, and launches its kernel on the current CUDA
+stream. Tensors on the CPU take the kernel's plain version in `ref.py`
+(that is how the CPU tests run); tensors on a GPU launch the kernel or
+raise, never fall back. Each wrapper counts its kernel launches in
+`<wrapper>.launches` (`launch_counts`, `reset_launch_counts`), so a run
+can show that its path went through the kernels.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+KERNELS = ("kmeans_assign", "ecoscan", "scr_select", "decode_attention_paged")
+
+
+def _device(*ts: torch.Tensor) -> torch.device:
+    dev = ts[0].device
+    for t in ts[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on {dev} and {t.device}")
+    return dev
+
+
+def _check(t: torch.Tensor, name: str, dtype, ndim: int) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {ndim}-d")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor):
+    """x [N, d] f32; centroids [NC, d] f32 -> (assign [N] i32, sqdist [N]
+    f32): each row's nearest centroid (lower id on ties) and its squared
+    distance."""
+    dev = _device(x, centroids)
+    _check(x, "x", torch.float32, 2)
+    _check(centroids, "centroids", torch.float32, 2)
+    N, d = x.shape
+    NC = centroids.shape[0]
+    if centroids.shape[1] != d or NC == 0:
+        raise ValueError(f"centroids {tuple(centroids.shape)} vs x "
+                         f"{tuple(x.shape)}")
+    if dev.type == "cpu":
+        return ref.kmeans_assign(x, centroids)
+    assign = torch.empty(N, dtype=torch.int32, device=dev)
+    sqdist = torch.empty(N, dtype=torch.float32, device=dev)
+    if N:
+        _raise_on(build.library("kmeans_assign").kmeans_assign(
+            x.data_ptr(), centroids.data_ptr(), N, NC, d, assign.data_ptr(),
+            sqdist.data_ptr(), _stream()), "kmeans_assign")
+        kmeans_assign.launches += 1
+    return assign, sqdist
+
+
+def ecoscan(q: torch.Tensor, data: torch.Tensor, lens: torch.Tensor,
+            probes: torch.Tensor, k: int,
+            block_map: Optional[torch.Tensor] = None):
+    """q [B, d] f32; data [R, CAP, d] f32; lens [R] i32; probes [B, P] i32
+    (< 0: padding); block_map [NC] i32 (identity when None). Returns the
+    k nearest probed rows per query: (dists [B, k] f32, slots [B, k] i32
+    = row*CAP + j), (NEG, -1) past the valid candidates."""
+    dev = _device(q, data, lens, probes)
+    _check(q, "q", torch.float32, 2)
+    _check(data, "data", torch.float32, 3)
+    _check(lens, "lens", torch.int32, 1)
+    _check(probes, "probes", torch.int32, 2)
+    B, d = q.shape
+    R, CAP, d2 = data.shape
+    P = probes.shape[1]
+    if d2 != d or lens.shape[0] != R or probes.shape[0] != B or k < 1:
+        raise ValueError("ecoscan shapes disagree")
+    if block_map is None:
+        block_map = torch.arange(R, dtype=torch.int32, device=dev)
+    _device(q, block_map)
+    _check(block_map, "block_map", torch.int32, 1)
+    if dev.type == "cpu":
+        return ref.ecoscan(q, data, lens, probes, k, block_map=block_map)
+    out_d = torch.full((B, k), ref.NEG, dtype=torch.float32, device=dev)
+    out_i = torch.full((B, k), -1, dtype=torch.int32, device=dev)
+    if B == 0 or P == 0:
+        return out_d, out_i
+    sc_d = torch.empty((B, P, k), dtype=torch.float32, device=dev)
+    sc_i = torch.empty((B, P, k), dtype=torch.int32, device=dev)
+    sc_f = torch.empty((B, P, k), dtype=torch.int32, device=dev)
+    _raise_on(build.library("ecoscan").ecoscan(
+        q.data_ptr(), data.data_ptr(), lens.data_ptr(), probes.data_ptr(),
+        block_map.data_ptr(), B, CAP, d, P, k, sc_d.data_ptr(),
+        sc_i.data_ptr(), sc_f.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+        _stream()), "ecoscan")
+    ecoscan.launches += 1
+    return out_d, out_i
+
+
+def scr_select(q: torch.Tensor, data: torch.Tensor, lens: torch.Tensor,
+               doc_ids: torch.Tensor):
+    """q [B, d] f32; data [ND, CAPW, d] f32; lens [ND] i32; doc_ids
+    [B, K] i32 (< 0: padding). Returns (scores [B, K] f32, wins [B, K]
+    i32): each doc's best window score and id, (-NEG, -1) for padding
+    and windowless docs."""
+    dev = _device(q, data, lens, doc_ids)
+    _check(q, "q", torch.float32, 2)
+    _check(data, "data", torch.float32, 3)
+    _check(lens, "lens", torch.int32, 1)
+    _check(doc_ids, "doc_ids", torch.int32, 2)
+    B, d = q.shape
+    ND, CAPW, d2 = data.shape
+    K = doc_ids.shape[1]
+    if d2 != d or lens.shape[0] != ND or doc_ids.shape[0] != B:
+        raise ValueError("scr_select shapes disagree")
+    if dev.type == "cpu":
+        return ref.scr_select(q, data, lens, doc_ids)
+    scores = torch.full((B, K), -ref.NEG, dtype=torch.float32, device=dev)
+    wins = torch.full((B, K), -1, dtype=torch.int32, device=dev)
+    if B == 0 or K == 0 or ND == 0 or CAPW == 0:
+        return scores, wins
+    _raise_on(build.library("scr_select").scr_select(
+        q.data_ptr(), data.data_ptr(), lens.data_ptr(), doc_ids.data_ptr(),
+        B, CAPW, d, K, scores.data_ptr(), wins.data_ptr(), _stream()),
+        "scr_select")
+    scr_select.launches += 1
+    return scores, wins
+
+
+_DECODE_FNS = {torch.float32: "decode_attention_paged_f32",
+               torch.bfloat16: "decode_attention_paged_bf16"}
+
+
+def decode_attention_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           kv_len: torch.Tensor, table: torch.Tensor):
+    """q [B, H, dh]; k, v [P, ps, G, dh] one layer of the page pool (f32
+    or bf16, same as q); kv_len [B] i32; table [B, W] i32 valid page ids.
+    Returns [B, H, dh] in q's dtype."""
+    dev = _device(q, k, v, kv_len, table)
+    if q.dtype not in _DECODE_FNS:
+        raise TypeError(f"q: dtype {q.dtype}, expected f32 or bf16")
+    _check(q, "q", q.dtype, 3)
+    _check(k, "k", q.dtype, 4)
+    _check(v, "v", q.dtype, 4)
+    _check(kv_len, "kv_len", torch.int32, 1)
+    _check(table, "table", torch.int32, 2)
+    B, H, dh = q.shape
+    P, ps, G, dh2 = k.shape
+    W = table.shape[1]
+    if (v.shape != k.shape or dh2 != dh or H % G or kv_len.shape[0] != B
+            or table.shape[0] != B):
+        raise ValueError("decode_attention_paged shapes disagree")
+    if dev.type == "cpu":
+        return ref.decode_attention_paged(q, k, v, kv_len, table)
+    Hg = H // G
+    if Hg > 16 or Hg * dh > 1024 or (Hg * (dh + ps) + 3 * Hg) * 4 > 227 * 1024:
+        raise ValueError(f"decode_attention_paged: Hg={Hg}, dh={dh}, ps={ps} "
+                         "outside the kernel's limits (Hg <= 16, "
+                         "Hg*dh <= 1024)")
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    fn = getattr(build.library("decode_attention_paged"), _DECODE_FNS[q.dtype])
+    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+                 table.data_ptr(), B, H, G, dh, ps, W, out.data_ptr(),
+                 _stream()), "decode_attention_paged")
+    decode_attention_paged.launches += 1
+    return out
+
+
+_WRAPPERS = {n: globals()[n] for n in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for w in _WRAPPERS.values():
+        w.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {n: w.launches for n, w in _WRAPPERS.items()}
+
+
+reset_launch_counts()

@@ -1,0 +1,40 @@
+"""The port stands alone: `repro_torch` and `chip_smoke.py` import
+neither `jax` nor anything of the JAX package `repro`."""
+import pathlib
+import re
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_BLOCKED_IMPORT = re.compile(r"^\s*(from|import)\s+(jax|repro)(\.|\s|$)",
+                             re.MULTILINE)
+
+
+def test_import_with_jax_and_repro_blocked():
+    code = f"""
+import sys, pkgutil, importlib
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.path[:0] = [{str(ROOT / "src")!r}, {str(ROOT)!r}]
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+assert "jax" not in sys.modules or sys.modules["jax"] is None
+print(len(names))
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20
+
+
+def test_no_jax_or_repro_import_lines():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+           for f in files for m in _BLOCKED_IMPORT.finditer(f.read_text())]
+    assert len(files) > 20 and not bad, bad
