@@ -10,23 +10,35 @@ Phases, any failure exits non-zero (nothing is caught):
    a [256, CAP, 384] EcoVector pack and a [16384, 10, 384] window pack)
    with full-width qwen2.5-0.5B in bf16 (24 layers, random weights from a
    seed), `answer_batch(16 questions, generate=True, max_new=16)` through
-   4 slots. Every kernel launch counter is zeroed just before the
-   pipeline is built and read just after the answers return; each kernel
-   must have launched. The port has no retrieval or SCR fallback: a
-   fault raises, so zero fallbacks is the run reaching its end.
-3. Each kernel against its plain PyTorch version on the main path's own
-   inputs and shapes, plus one edge case each, with kernel, plain and
-   library-call times (CUDA events) and the bound of the work:
-   ids exact except at ties within the value tolerance, ecoscan and
-   scr_select values 2e-5, kmeans_assign 1e-4 (relative), decode
-   attention 1e-5 in f32 and 2e-2 in bf16. TF32 is off for every
-   float32 matmul and convolution (the plain versions run in full f32).
-4. The same pipeline on a small corpus with the float32 reduced model,
+   4 slots; the chunked prefill runs `flash_prefill`. The port has no
+   retrieval or SCR fallback: a fault raises, so zero fallbacks is the run
+   reaching its end.
+3. The wave path of the same model: the 16 prompts, left-padded to
+   32-token buckets, through `Engine.generate(continuous=False,
+   max_new=16)` (`flash_prefill` prefill, `decode_attention` decode),
+   with the share of greedy tokens equal to the continuous engine's on
+   the same prompts (reported, not asserted: bf16).
+4. Full-width h2o-danube-1.8b in bf16 (24 layers, d 2560, window 4096,
+   random weights from a seed) on the wave path: 2 prompts of 4,608
+   tokens, max_new=16, so the 4,096-slot ring wraps in prefill and decode.
+   Every launch counter is zeroed just before each of phases 2-4 and read
+   just after it; each kernel of that path must have launched.
+5. Each kernel against its plain PyTorch version on the inputs and shapes
+   of phases 2-4, plus edge cases, with kernel, plain and library-call
+   times (CUDA events) and the bound of the work: ids exact except at
+   ties within the value tolerance, ecoscan and scr_select values 2e-5,
+   kmeans_assign 1e-4 (relative), attention 1e-5 in f32 and 2e-2 in bf16.
+   TF32 is off for every float32 matmul and convolution (the plain
+   versions run in full f32).
+6. The same pipeline on a small corpus with the float32 reduced model,
    on the GPU (kernels) and on the CPU (plain versions): the same doc
-   ids, prompts and greedy tokens.
-5. A torch.profiler window over steady decode steps (device busy and
-   idle share, the kernels that take the device time) and over each
-   kernel wrapper alone (device time per call).
+   ids, prompts and greedy tokens; the same wave tokens on both, equal to
+   the continuous engine's on the GPU; and the float32 reduced h2o on an
+   80-token prompt (its 64-slot ring wraps), the same wave tokens on both.
+7. torch.profiler windows over steady decode steps of the main path,
+   over a wave's prefill and decode steps (qwen2.5 and h2o; device busy
+   and idle share, the kernels and host ops that take the time) and over
+   each kernel wrapper alone (device time per call).
 
 The line before the last is the kernel summary as JSON; the last line is
 `{"ok": true, "device": {...}}`.
@@ -47,7 +59,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.synthetic import make_qa_corpus  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models.dense import DenseLM, cache_len  # noqa: E402
 from repro_torch.serving.embedder import HashEmbedder  # noqa: E402
+from repro_torch.serving.engine import Engine  # noqa: E402
 from repro_torch.serving.rag import MobileRAG  # noqa: E402
 from repro_torch.serving.trace import TraceSink  # noqa: E402
 
@@ -58,11 +73,24 @@ BF16_FLOPS_S = 989e12          # bf16 tensor cores, dense
 DEV = "cuda"
 N_DOCS = 16384
 GEN_CONFIG = get_config("qwen25_0_5b")
+MAX_NEW = 16
+# the sliding-window model of phase 4: prompts past its 4,096 window
+H2O_CONFIG = get_config("h2o_danube_1_8b")
+H2O_PROMPT = 4608
 REPLACES = {
     "kmeans_assign": "src/repro/kernels/kmeans_assign.py:37",
     "ecoscan": "src/repro/kernels/ecoscan.py:163",
     "scr_select": "src/repro/kernels/scr_select.py:115",
     "decode_attention_paged": "src/repro/kernels/decode_attention.py:135",
+    "flash_prefill": "src/repro/kernels/flash_prefill.py:95",
+    "decode_attention": "src/repro/kernels/decode_attention.py:188",
+}
+# the kernels each path must launch
+PATH_KERNELS = {
+    "main": ("kmeans_assign", "ecoscan", "scr_select",
+             "decode_attention_paged", "flash_prefill"),
+    "wave": ("flash_prefill", "decode_attention"),
+    "h2o": ("flash_prefill", "decode_attention"),
 }
 
 
@@ -290,6 +318,136 @@ def check_decode(q, kp, vp, kv_len, table):
         library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
 
 
+def _expand(t, rep):
+    """[B, S, G, dh] -> [B, G*rep, S, dh], the layout SDPA takes."""
+    return t.repeat_interleave(rep, dim=2).transpose(1, 2)
+
+
+def unmasked_pairs(sq, q_offset, kv_len, window, causal):
+    """(query, key) pairs that causal / window / kv_len leave unmasked."""
+    qpos = q_offset + np.arange(sq)
+    hi = np.minimum(kv_len, qpos + 1) if causal else np.full(sq, kv_len)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(sq)
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def check_flash_prefill(label, q, k, v, *, window=None, q_offset=0,
+                        kv_len=None, causal=True, plain_iters=20):
+    """flash_prefill at one path shape: kernel against plain in q's type
+    (bf16: 2e-2) and in f32 (1e-5); times, and the bound of the work."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              kv_len=kv_len)
+    B, Sq, H, dh = q.shape
+    Sk, G = k.shape[1], k.shape[2]
+    kv = Sk if kv_len is None else min(kv_len, Sk)
+    bf16 = q.dtype == torch.bfloat16
+    tol = 2e-2 if bf16 else 1e-5
+    err = close(f"flash_prefill {label}", ops.flash_prefill(q, k, v, **kw),
+                ref.flash_prefill(q, k, v, **kw), tol, tol)
+    if bf16:
+        a32 = [t.float() for t in (q, k, v)]
+        close(f"flash_prefill {label} f32", ops.flash_prefill(*a32, **kw),
+              ref.flash_prefill(*a32, **kw), 1e-5, 1e-5)
+    esz = q.element_size()
+    pairs = unmasked_pairs(Sq, q_offset, kv, window, causal)
+    b_ms, b_by = bound((2 * q.numel() + 2 * B * kv * G * dh) * esz,
+                       4.0 * dh * H * B * pairs,
+                       BF16_FLOPS_S if bf16 else F32_FLOPS_S)
+    qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = kpos < kv
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window:
+        mask = mask & (qpos - kpos < window)
+    qq, kk, vv = q.transpose(1, 2), _expand(k, H // G), _expand(v, H // G)
+    return dict(
+        shape=f"{label}: q {list(q.shape)}, k {list(k.shape)}, window "
+              f"{window}, q_offset {q_offset}, kv_len {kv}, {q.dtype}",
+        err=err, ties=0,
+        ms=time_ms(lambda: ops.flash_prefill(q, k, v, **kw)),
+        plain_ms=time_ms(lambda: ref.flash_prefill(q, k, v, **kw),
+                         iters=plain_iters),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qq, kk, vv, attn_mask=mask)),
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def check_decode_attention(label, q, k, v, kv_len, ring):
+    """decode_attention at one path shape: kernel against plain in q's
+    type (bf16: 2e-2) and in f32 (1e-5); times, and the bound."""
+    B, H, dh = q.shape
+    S, G = k.shape[1], k.shape[2]
+    bf16 = q.dtype == torch.bfloat16
+    tol = 2e-2 if bf16 else 1e-5
+    err = close(f"decode_attention {label}",
+                ops.decode_attention(q, k, v, kv_len, ring=ring),
+                ref.decode_attention(q, k, v, kv_len, ring=ring), tol, tol)
+    if bf16:
+        a32 = [t.float() for t in (q, k, v)]
+        close(f"decode_attention {label} f32",
+              ops.decode_attention(*a32, kv_len, ring=ring),
+              ref.decode_attention(*a32, kv_len, ring=ring), 1e-5, 1e-5)
+    n = kv_len.long().clamp(max=S)
+    n = torch.where(n > 0, n, S)
+    esz = q.element_size()
+    b_ms, b_by = bound(2 * int(n.sum()) * G * dh * esz + 2 * q.numel() * esz
+                       + 4 * B, 4.0 * int(n.sum()) * H * dh,
+                       BF16_FLOPS_S if bf16 else F32_FLOPS_S)
+    mask = (torch.arange(S, device=q.device)[None, :] < n[:, None])
+    mask = mask[:, None, None, :]
+    kk, vv = _expand(k, H // G), _expand(v, H // G)
+    return dict(
+        shape=f"{label}: q {list(q.shape)}, k {list(k.shape)}, kv_len "
+              f"{kv_len.tolist()[:4]}..., ring {ring}, {q.dtype}",
+        err=err, ties=0,
+        ms=time_ms(lambda: ops.decode_attention(q, k, v, kv_len, ring=ring),
+                   iters=50),
+        plain_ms=time_ms(lambda: ref.decode_attention(q, k, v, kv_len,
+                                                      ring=ring)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kk, vv, attn_mask=mask)),
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def attention_edges():
+    """Edge cases of the two attention kernels in f32 (1e-5): ragged S
+    with Hg 2, a window smaller than a tile at dh 80, a chunk whose keys
+    past kv_len are huge (they must get zero weight), dh 128 without the
+    causal mask; decode with kv_len 1, a ring with kv_len > S, and a
+    scalar kv_len equal to the same [B] one."""
+    g = torch.Generator(device=DEV).manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=DEV)
+    kc, vc = rnd(1, 96, 2, 64), rnd(1, 96, 2, 64)
+    kc[:, 50:] = 1e4
+    vc[:, 50:] = 1e4
+    cases = [
+        ("ragged", rnd(2, 77, 4, 32), rnd(2, 77, 2, 32), rnd(2, 77, 2, 32),
+         dict()),
+        ("window 5", rnd(1, 100, 8, 80), rnd(1, 100, 2, 80),
+         rnd(1, 100, 2, 80), dict(window=5)),
+        ("chunk", rnd(1, 10, 14, 64), kc, vc, dict(q_offset=40, kv_len=50)),
+        ("dh 128", rnd(1, 40, 4, 128), rnd(1, 40, 4, 128),
+         rnd(1, 40, 4, 128), dict(causal=False)),
+    ]
+    for label, q, k, v, kw in cases:
+        close(f"flash_prefill edge {label}", ops.flash_prefill(q, k, v, **kw),
+              ref.flash_prefill(q, k, v, **kw), 1e-5, 1e-5)
+    qd, kd, vd = rnd(4, 4, 32), rnd(4, 40, 2, 32), rnd(4, 40, 2, 32)
+    one = torch.ones(4, dtype=torch.int32, device=DEV)
+    lens = torch.tensor([1, 17, 40, 63], dtype=torch.int32, device=DEV)
+    for label, kv, ring in (("kv_len 1", one, False), ("ring", lens, True)):
+        close(f"decode_attention edge {label}",
+              ops.decode_attention(qd, kd, vd, kv, ring=ring),
+              ref.decode_attention(qd, kd, vd, kv, ring=ring), 1e-5, 1e-5)
+    assert torch.equal(ops.decode_attention(qd, kd, vd, 17),
+                       ops.decode_attention(qd, kd, vd, one * 17)), \
+        "decode_attention: a scalar kv_len differs from the same [B] one"
+    return len(cases) + 3
+
+
 # ------------------------------------------------------------- profile
 
 
@@ -302,58 +460,116 @@ def _device_events(prof):
     return out
 
 
+def _profiled(fn, n):
+    """torch.profiler over n calls of fn: wall and device ms per call,
+    the device's idle share, and the device kernels and host ops that
+    take the most time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n * 1e3
+    dev = _device_events(prof)
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    busy = sum(t for _, t, _ in dev) / n / 1e3
+    return {
+        "wall_ms": wall, "device_ms": busy or None,
+        "device_idle_share": (1 - busy / wall) if busy else None,
+        "top_device_kernels": [
+            {"name": k[:60], "ms_per_call": t / n / 1e3, "calls": c}
+            for k, t, c in sorted(dev, key=lambda e: -e[1])[:6]],
+        "top_host_ops": [
+            {"name": e.key[:60], "ms_per_call": e.self_cpu_time_total / n
+             / 1e3, "calls": e.count} for e in host[:6]],
+    }
+
+
 def profile_phase(slm, prompts, kernel_calls):
     """torch.profiler over steady decode steps of the main path's engine
     (4 slots decoding) and over each kernel wrapper alone: device busy
     share of a step, the kernels that take its device time, and each
     port kernel's device time per call (without the host launch cost
-    that the CUDA-event loop of phase 3 includes)."""
-    from torch.profiler import ProfilerActivity, profile
+    that the CUDA-event loop of phase 5 includes)."""
     eng = slm.engine
     for p in prompts:
         eng.submit(p, 40)
     started = set()
     while len(started) < len(prompts) and eng.pending:
         started |= {ev.rid for ev in eng.step() if ev.kind == "token"}
-    torch.cuda.synchronize()
-    n = 8
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            eng.step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / n
+    step = _profiled(eng.step, 8)
     while eng.pending:
         eng.step()
-    dev = _device_events(prof)
-    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
-    busy = sum(t for _, t, _ in dev) / n / 1e3             # ms per step
-    top = sorted(dev, key=lambda e: -e[1])[:6]
     per_kernel = {}
     for name, call in kernel_calls.items():
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as kp:
-            for _ in range(20):
-                call()
-            torch.cuda.synchronize()
-        t = sum(t for _, t, _ in _device_events(kp))
-        per_kernel[name] = t / 20 / 1e3 if t else None
-    return {
-        "decode_step_wall_ms": wall * 1e3,
-        "decode_step_device_ms": busy if busy else None,
-        "device_idle_share": (1 - busy / (wall * 1e3)) if busy else None,
-        "top_device_kernels": [
-            {"name": k[:60], "ms_per_step": t / n / 1e3, "calls": c}
-            for k, t, c in top],
-        "top_host_ops": [
-            {"name": e.key[:60], "ms_per_step": e.self_cpu_time_total / n / 1e3,
-             "calls": e.count} for e in host[:8]],
-        "kernel_device_ms": per_kernel,
-    }
+        per_kernel[name] = _profiled(call, 20)["device_ms"]
+    return {"decode_step": step, "kernel_device_ms": per_kernel}
+
+
+def profile_wave(eng, prompts, steps=4):
+    """A wave's prefill and decode steps under the profiler (the wave
+    has run once before, so nothing compiles or allocates cold)."""
+    toks = torch.tensor(np.stack(prompts), dtype=torch.long, device=DEV)
+    prefill = _profiled(lambda: eng.model.prefill(toks), 1)
+    logits, cache = eng.model.prefill(toks)
+    cache = eng._grow_cache(cache)
+    tok = ref.first_argmax(logits.float(), -1)[:, None]
+    pos = iter(range(toks.shape[1], toks.shape[1] + steps))
+    decode = _profiled(lambda: eng.model.decode_step(cache, tok, next(pos)),
+                       steps)
+    return {"prefill": prefill, "decode_step": decode}
 
 
 # ------------------------------------------------------------- phases
+
+
+def drive(path, fn):
+    """Run one path with every launch count zeroed just before and read
+    just after; each kernel of the path must have launched."""
+    ops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    missing = [n for n in PATH_KERNELS[path] if counts[n] == 0]
+    assert not missing, f"kernels not launched on the {path} path: {missing}"
+    print(f"launches on the {path} path:", json.dumps(counts))
+    return out, counts
+
+
+def check_tokens(results, max_new, vocab):
+    for r in results:
+        assert r is not None, "a request did not complete"
+        assert 1 <= len(r.tokens) <= max_new
+        assert all(0 <= t < vocab for t in r.tokens)
+
+
+def wave_summary(results):
+    """TTFT p50 over requests, and decode tok/s: the tokens after each
+    request's first over the summed decode time of the waves (requests
+    of one prompt length share a wave and its times)."""
+    waves = {r.prompt_len: r for r in results}
+    ttft = sorted(r.prefill_s for r in results)
+    return {"waves": len(waves), "requests": len(results),
+            "ttft_p50_s": ttft[len(ttft) // 2],
+            "prefill_s_total": sum(r.prefill_s for r in waves.values()),
+            "decode_tok_s": sum(len(r.tokens) - 1 for r in results)
+            / sum(r.decode_s for r in waves.values()),
+            "tokens": sum(len(r.tokens) for r in results)}
+
+
+def h2o_inputs(lm, prompt):
+    """Layer 0's q, k, v of `prompt` ([1, S] tokens) and the ring cache of
+    its prefill: real inputs of the two kernels at h2o's wave shapes."""
+    cfg = lm.cfg
+    S = prompt.shape[1]
+    with torch.no_grad():
+        y = L.rmsnorm(lm._embed(prompt), lm.attn_norm[0], cfg.norm_eps)
+        q, k, v = lm._qkv(0, y, torch.arange(S, device=DEV)[None])
+    _, cache = lm.prefill(prompt)
+    return q, k, v, cache["k"][0].contiguous(), cache["v"][0].contiguous()
 
 
 def word_corpus(n_docs, seed):
@@ -367,7 +583,10 @@ def word_corpus(n_docs, seed):
 
 def small_input_agreement():
     """The pipeline on the GPU against its plain versions on the CPU:
-    float32 reduced model, same random weights, same corpus."""
+    float32 reduced models, same random weights. MobileRAG end to end;
+    the qwen2.5 wave path (and, on the GPU, its continuous engine) on the
+    bucketed prompts; the h2o wave path on an 80-token prompt, past its
+    64-slot window."""
     docs = word_corpus(200, seed=11)
     queries = [docs[i].split(". ")[2 + i % 5] for i in range(3, 200, 33)]
     cfg = get_config("qwen25_0_5b").reduced(dtype="float32")
@@ -383,6 +602,24 @@ def small_input_agreement():
         assert a.doc_ids == b.doc_ids, (a.doc_ids, b.doc_ids)
         assert a.prompt == b.prompt
         assert a.gen_tokens == b.gen_tokens, (a.gen_tokens, b.gen_tokens)
+    prompts = [gpu.slm.encode_prompt(a.prompt, bucket=True) for a in on_gpu]
+    wave_gpu = gpu.slm.wave.generate(prompts, max_new=8, continuous=False)
+    wave_cpu = cpu.slm.wave.generate(prompts, max_new=8, continuous=False)
+    cont_gpu = gpu.slm.wave.generate(prompts, max_new=8)
+    for w, c, e in zip(wave_gpu, wave_cpu, cont_gpu):
+        assert w.tokens == c.tokens, ("wave GPU vs CPU", w.tokens, c.tokens)
+        assert w.tokens == e.tokens, ("wave vs continuous", w.tokens,
+                                      e.tokens)
+    hcfg = H2O_CONFIG.reduced(dtype="float32")
+    h_gpu = DenseLM(hcfg, device=DEV, seed=3)
+    h_cpu = DenseLM(hcfg, device="cpu", params={
+        n: p.detach().cpu() for n, p in h_gpu.named_parameters()})
+    prompt = [np.random.default_rng(13).integers(4, 500, 80).astype(np.int32)]
+    assert cache_len(hcfg, 80) == 64 < 80
+    t_gpu = Engine(h_gpu, max_len=96).generate(prompt, 8, continuous=False)
+    t_cpu = Engine(h_cpu, max_len=96).generate(prompt, 8, continuous=False)
+    assert t_gpu[0].tokens == t_cpu[0].tokens, (t_gpu[0].tokens,
+                                                t_cpu[0].tokens)
     return len(queries)
 
 
@@ -401,6 +638,7 @@ def main() -> int:
     build_s = build.build_all()
     print(f"kernel build: {build_s:.2f} s nvcc "
           f"({time.perf_counter() - t0:.2f} s with loading)")
+    dev = DEV
 
     # ---- main path
     corpus = make_qa_corpus(n_docs=N_DOCS, n_questions=16,
@@ -408,24 +646,23 @@ def main() -> int:
     questions = [e.question for e in corpus.examples]
     embed = HashEmbedder(dim=384)
     sink = TraceSink()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    pipe = MobileRAG(corpus.docs, embed, top_k=3, gen_config=GEN_CONFIG,
-                     seed=0, trace=sink, device=DEV)
+
+    def main_path():
+        t0 = time.perf_counter()
+        pipe = MobileRAG(corpus.docs, embed, top_k=3, gen_config=GEN_CONFIG,
+                         seed=0, trace=sink, device=DEV)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        answers = pipe.answer_batch(questions, generate=True,
+                                    max_new=MAX_NEW)
+        torch.cuda.synchronize()
+        return pipe, answers, t1 - t0, time.perf_counter() - t1
+    (pipe, answers, build_wall, wall), launches = drive("main", main_path)
     slm = pipe.slm
-    torch.cuda.synchronize()
-    build_wall = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    answers = pipe.answer_batch(questions, generate=True, max_new=16)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    missing = [n for n, c in launches.items() if c == 0]
-    assert not missing, f"kernels not launched on the main path: {missing}"
     vocab = slm.cfg.vocab_padded
     for a in answers:
         assert a is not None, "a request did not complete"
-        assert 1 <= len(a.gen_tokens) <= 16
+        assert 1 <= len(a.gen_tokens) <= MAX_NEW
         assert all(0 <= t < vocab for t in a.gen_tokens)
         assert len(a.doc_ids) == 3 and a.prompt.startswith("Context:")
     data, lens, _, cap = pipe.index.device_pack()
@@ -449,10 +686,54 @@ def main() -> int:
         "prefix_hits": slm.engine.prefix_hits,
     }
     print("main path:", json.dumps(main))
-    print("launches on the main path:", json.dumps(launches))
 
-    # ---- kernels against their plain versions, on the main path's inputs
-    dev = DEV
+    # ---- wave path, same model, the 16 prompts in 32-token buckets
+    prompts = [slm.encode_prompt(a.prompt, bucket=True) for a in answers]
+    wave, wave_launches = drive("wave", lambda: slm.wave.generate(
+        prompts, max_new=MAX_NEW, continuous=False))
+    check_tokens(wave, MAX_NEW, vocab)
+    by_len = {}
+    for p_ in prompts:
+        by_len.setdefault(len(p_), []).append(p_)
+    big = max(by_len.values(), key=len)
+    print("wave profile:", json.dumps(profile_wave(slm.wave, big)))
+    cont = slm.wave.generate(prompts, max_new=MAX_NEW)
+    same = sum(a == b for w, c in zip(wave, cont)
+               for a, b in zip(w.tokens, c.tokens))
+    total = sum(max(len(w.tokens), len(c.tokens)) for w, c in zip(wave, cont))
+    wave_info = dict(wave_summary(wave), greedy_equal_share=same / total,
+                     bucket_lens=sorted({len(p) for p in prompts}))
+    print("wave path:", json.dumps(wave_info))
+
+    # ---- h2o-danube-1.8b at full width, 2 prompts past the window
+    h2o = DenseLM(H2O_CONFIG, device=dev, seed=1)
+    rng = np.random.default_rng(12)
+    hp = [rng.integers(4, H2O_CONFIG.vocab_size, H2O_PROMPT).astype(np.int32)
+          for _ in range(2)]
+    h2o_eng = Engine(h2o, max_len=H2O_PROMPT + MAX_NEW, eos_id=-1)
+    h2o_res, h2o_launches = drive("h2o", lambda: h2o_eng.generate(
+        hp, max_new=MAX_NEW, continuous=False))
+    check_tokens(h2o_res, MAX_NEW, H2O_CONFIG.vocab_padded)
+    ring = cache_len(H2O_CONFIG, H2O_PROMPT + MAX_NEW)
+    assert ring == H2O_CONFIG.sliding_window < H2O_PROMPT
+    h2o_info = {
+        "prompts": len(hp), "prompt_len": H2O_PROMPT, "ring_slots": ring,
+        "last_decode_pos": min(H2O_PROMPT + MAX_NEW - 1,
+                               h2o_eng.max_len - 1),
+        "prefill_s": h2o_res[0].prefill_s, "decode_s": h2o_res[0].decode_s,
+        "decode_tok_s": sum(len(r.tokens) - 1 for r in h2o_res)
+        / h2o_res[0].decode_s,
+        "param_gb": sum(p.numel() * p.element_size()
+                        for p in h2o.parameters()) / 1e9,
+    }
+    print("h2o-danube-1.8b wave path:", json.dumps(h2o_info))
+    print("h2o profile:", json.dumps(profile_wave(h2o_eng, hp)))
+    hq, hk, hv, hck, hcv = h2o_inputs(h2o, torch.tensor(
+        np.stack(hp[:1]), dtype=torch.long, device=dev))
+    del h2o, h2o_eng
+    torch.cuda.empty_cache()
+
+    # ---- kernels against their plain versions, on the paths' inputs
     x = torch.tensor(embed(corpus.docs), device=dev)
     cent = torch.tensor(pipe.index.centroids, device=dev)
     qv = torch.tensor(embed(questions[:4]), device=dev)
@@ -464,20 +745,57 @@ def main() -> int:
     pool = slm.engine.cache
     ps = slm.engine.page_size
     P, W = pool["k"].shape[1], slm.engine.table_width
+    H, G, dh = slm.cfg.num_heads, slm.cfg.num_kv_heads, \
+        slm.cfg.resolved_head_dim
     g = torch.Generator(device=dev).manual_seed(4)
-    q_dec = (torch.randn(4, slm.cfg.num_heads, slm.cfg.resolved_head_dim,
-                         generator=g, device=dev)).to(torch.bfloat16)
+    q_dec = (torch.randn(4, H, dh, generator=g, device=dev)
+             ).to(torch.bfloat16)
     table = torch.stack([torch.randperm(P, generator=g, device=dev)[:W]
                          for _ in range(4)]).to(torch.int32)
     plens = [len(slm.encode_prompt(a.prompt)) + len(a.gen_tokens)
              for a in answers[:4]]
     kv_len = torch.tensor(plens, dtype=torch.int32, device=dev)
+    # the main path's prefill chunk: 32 queries at q_offset 64 over a
+    # slot's gathered W*ps-position buffer
+    j = torch.arange(W * ps, device=dev)
+    gather = table[0].long()[j // ps] * ps + (j % ps)
+    k_slot = pool["k"][0].reshape(P * ps, G, dh)[gather][None]
+    v_slot = pool["v"][0].reshape(P * ps, G, dh)[gather][None]
+    q_chunk = torch.randn(1, slm.PREFILL_CHUNK, H, dh, generator=g,
+                          device=dev).to(torch.bfloat16)
+    # the qwen2.5 wave decode: the largest bucket's grown cache
+    _, wcache = slm.model.prefill(torch.tensor(np.stack(big), dtype=torch.long,
+                                               device=dev))
+    wcache = slm.wave._grow_cache(wcache)
+    k_wave, v_wave = wcache["k"][0].contiguous(), wcache["v"][0].contiguous()
+    q_wave = torch.randn(len(big), H, dh, generator=g, device=dev
+                         ).to(torch.bfloat16)
+    len_wave = torch.full((len(big),), len(big[0]) + MAX_NEW // 2,
+                          dtype=torch.int32, device=dev)
+    q_ring = torch.randn(1, H2O_CONFIG.num_heads, H2O_CONFIG.head_dim,
+                         generator=g, device=dev).to(torch.bfloat16)
+    len_ring = torch.tensor([H2O_PROMPT + 1], dtype=torch.int32, device=dev)
+    window = H2O_CONFIG.sliding_window
+    flash_shapes = [
+        check_flash_prefill("main-path chunk", q_chunk, k_slot, v_slot,
+                            q_offset=64, kv_len=64 + slm.PREFILL_CHUNK),
+        check_flash_prefill("h2o wave", hq, hk, hv, window=window,
+                            plain_iters=3),
+    ]
+    decode_shapes = [
+        check_decode_attention("qwen wave", q_wave, k_wave, v_wave,
+                               len_wave, False),
+        check_decode_attention("h2o ring", q_ring, hck, hcv, len_ring, True),
+    ]
+    n_edges = attention_edges()
     results = {
         "kmeans_assign": check_kmeans(x, cent),
         "ecoscan": check_ecoscan(qv, d_t, l_t, probes, pipe.top_k),
         "scr_select": check_scr_select(qv, w_t, wl_t, ids),
         "decode_attention_paged": check_decode(
             q_dec, pool["k"][0], pool["v"][0], kv_len, table),
+        "flash_prefill": dict(flash_shapes[0], shapes=flash_shapes),
+        "decode_attention": dict(decode_shapes[0], shapes=decode_shapes),
     }
     calls = {
         "kmeans_assign": lambda: ops.kmeans_assign(x, cent),
@@ -485,25 +803,44 @@ def main() -> int:
         "scr_select": lambda: ops.scr_select(qv, w_t, wl_t, ids),
         "decode_attention_paged": lambda: ops.decode_attention_paged(
             q_dec, pool["k"][0], pool["v"][0], kv_len, table),
+        "flash_prefill": lambda: ops.flash_prefill(
+            q_chunk, k_slot, v_slot, q_offset=64,
+            kv_len=64 + slm.PREFILL_CHUNK),
+        "flash_prefill h2o wave": lambda: ops.flash_prefill(
+            hq, hk, hv, window=window),
+        "decode_attention": lambda: ops.decode_attention(
+            q_wave, k_wave, v_wave, len_wave),
+        "decode_attention h2o ring": lambda: ops.decode_attention(
+            q_ring, hck, hcv, len_ring, ring=True),
     }
     prof = profile_phase(slm, [slm.encode_prompt(a.prompt)
                                for a in answers[:4]], calls)
     print("profile:", json.dumps(prof))
     n_small = small_input_agreement()
-    print(f"small input: {n_small} queries agree GPU vs CPU "
-          "(doc ids, prompts, greedy tokens)")
+    print(f"small input: {n_small} queries agree GPU vs CPU (doc ids, "
+          "prompts, greedy tokens; wave tokens, wave = continuous on the "
+          "GPU); reduced h2o wave tokens agree GPU vs CPU")
+    print(f"attention edge cases: {n_edges} agree with the plain versions")
     for name, r in results.items():
-        print(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-              f"ms, library {r['library_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max abs err "
-              f"{r['err']:.3g}, ties {r['ties']}")
+        for sh in r.get("shapes", [r]):
+            print(f"{name}: kernel {sh['ms']:.4f} ms, plain "
+                  f"{sh['plain_ms']:.4f} ms, library {sh['library_ms']:.4f} "
+                  f"ms, bound {sh['bound_ms']:.6f} ms ({sh['bound_by']}), "
+                  f"max abs err {sh['err']:.3g}, ties {sh['ties']}"
+                  + (f" [{sh['shape']}]" if "shape" in sh else ""))
+    paths = {"main": launches, "wave": wave_launches, "h2o": h2o_launches}
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-        "replaces": REPLACES[name], "launches": launches[name],
+        "replaces": REPLACES[name],
+        "launches": sum(c[name] for c in paths.values()),
+        "launches_by_path": {p_: c[name] for p_, c in paths.items()},
         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        "library_ms": r["library_ms"]} for name, r in results.items()]
+        "library_ms": r["library_ms"],
+        "device_ms": prof["kernel_device_ms"][name]}
+        for name, r in results.items()]
+    assert all(k["launches"] > 0 for k in kernels)
     assert all(math.isfinite(k["ms"]) for k in kernels)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,12 @@
 """Model configuration: the part of `repro.config.ModelConfig` that the
-port's dense model needs (causal, RoPE, SwiGLU; same field names and
-defaults as the reference, and the same `reduced` sizes)."""
+port's dense model needs (causal, RoPE, SwiGLU, optional sliding window;
+same field names and defaults as the reference, and the same `reduced`
+sizes)."""
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -21,6 +22,7 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0             # 0 -> d_model // num_heads
     qkv_bias: bool = False
+    sliding_window: Optional[int] = None
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
@@ -51,5 +53,7 @@ class ModelConfig:
             vocab_size=512,
             head_dim=32,
         )
+        if self.sliding_window:
+            kw["sliding_window"] = 64
         kw.update(over)
         return dataclasses.replace(self, **kw)

@@ -5,7 +5,7 @@ import importlib
 
 from repro_torch.config import ModelConfig
 
-ARCH_IDS = ["qwen25_0_5b"]
+ARCH_IDS = ["qwen25_0_5b", "h2o_danube_1_8b"]
 
 
 def get_config(arch: str) -> ModelConfig:

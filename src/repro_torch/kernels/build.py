@@ -26,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points of each library: name -> argument types (return: int,
 # the cudaError_t of the launch)
 SIGNATURES: Dict[str, Dict[str, list]] = {
@@ -42,6 +42,16 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                                        _I, _I, _P, _P],
         "decode_attention_paged_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                         _I, _I, _P, _P]},
+    "decode_attention": {
+        "decode_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                 _P, _P],
+        "decode_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                  _P, _P]},
+    "flash_prefill": {
+        "flash_prefill_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _F, _P, _P],
+        "flash_prefill_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _F, _P, _P]},
 }
 
 _lock = threading.Lock()

@@ -1,17 +1,43 @@
 // Shared helpers of the port's hand-written Hopper kernels: warp/block
 // reductions with explicit tie-breaks (the Pallas kernels' lax.top_k /
-// jnp.argmin / jnp.argmax order: on equal values the lower index wins).
+// jnp.argmin / jnp.argmax order: on equal values the lower index wins),
+// and the f32 <-> storage-type conversions of the attention kernels.
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <climits>
 
 constexpr float kNeg = 3.4e38f;        // distance sentinel, repro.kernels.ref.NEG
+constexpr float kMask = -1e30f;        // masked attention score
+
+template <typename T> __device__ __forceinline__ float to_f(T v);
+template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+// a probability as the PV product sees it: rounded to the value type
+// (the Pallas kernels' `p.astype(v.dtype)`)
+template <typename T> __device__ __forceinline__ float as_v(float p) {
+  return to_f<T>(from_f<T>(p));
+}
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
 

@@ -19,8 +19,6 @@
 // update the running max/sum; then each thread updates its (head, dim)
 // accumulators in f32 registers. The table entries are read by the block
 // itself (the TPU kernel scalar-prefetched them).
-#include <cuda_bf16.h>
-
 #include "common.cuh"
 
 namespace {
@@ -28,22 +26,6 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kMaxHg = 16;                     // query heads per kv head
 constexpr int kMaxOut = 8;                     // outputs per thread: Hg*dh <= 1024
-constexpr float kMask = -1e30f;
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-// probability as the PV product sees it: rounded to the value type
-template <typename T> __device__ __forceinline__ float as_v(float p) {
-  return to_f<T>(from_f<T>(p));
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)

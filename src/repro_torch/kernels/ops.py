@@ -10,13 +10,15 @@ can show that its path went through the kernels.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+from typing import Dict, Optional, Union
 
 import torch
 
 from repro_torch.kernels import build, ref
 
-KERNELS = ("kmeans_assign", "ecoscan", "scr_select", "decode_attention_paged")
+KERNELS = ("kmeans_assign", "ecoscan", "scr_select", "decode_attention_paged",
+           "flash_prefill", "decode_attention")
 
 
 def _device(*ts: torch.Tensor) -> torch.device:
@@ -43,6 +45,16 @@ def _stream() -> int:
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+_DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _attention_dtype(q: torch.Tensor) -> str:
+    """The C entry point's suffix for q's dtype (f32 or bf16)."""
+    if q.dtype not in _DTYPE_SUFFIX:
+        raise TypeError(f"q: dtype {q.dtype}, expected f32 or bf16")
+    return _DTYPE_SUFFIX[q.dtype]
 
 
 def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor):
@@ -138,18 +150,13 @@ def scr_select(q: torch.Tensor, data: torch.Tensor, lens: torch.Tensor,
     return scores, wins
 
 
-_DECODE_FNS = {torch.float32: "decode_attention_paged_f32",
-               torch.bfloat16: "decode_attention_paged_bf16"}
-
-
 def decode_attention_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            kv_len: torch.Tensor, table: torch.Tensor):
     """q [B, H, dh]; k, v [P, ps, G, dh] one layer of the page pool (f32
     or bf16, same as q); kv_len [B] i32; table [B, W] i32 valid page ids.
     Returns [B, H, dh] in q's dtype."""
     dev = _device(q, k, v, kv_len, table)
-    if q.dtype not in _DECODE_FNS:
-        raise TypeError(f"q: dtype {q.dtype}, expected f32 or bf16")
+    suffix = _attention_dtype(q)
     _check(q, "q", q.dtype, 3)
     _check(k, "k", q.dtype, 4)
     _check(v, "v", q.dtype, 4)
@@ -171,11 +178,100 @@ def decode_attention_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0:
         return out
-    fn = getattr(build.library("decode_attention_paged"), _DECODE_FNS[q.dtype])
+    fn = getattr(build.library("decode_attention_paged"),
+                 f"decode_attention_paged_{suffix}")
     _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
                  table.data_ptr(), B, H, G, dh, ps, W, out.data_ptr(),
                  _stream()), "decode_attention_paged")
     decode_attention_paged.launches += 1
+    return out
+
+
+FLASH_PREFILL_DH = (32, 64, 80, 128)
+
+
+def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  q_offset: int = 0, kv_len: Optional[int] = None):
+    """q [B, Sq, H, dh]; k, v [B, Sk, G, dh] (f32 or bf16, same as q;
+    H % G == 0). Query i at absolute position q_offset + i attends the
+    keys at positions < kv_len (Sk when None) that `causal` and `window`
+    leave unmasked. Returns [B, Sq, H, dh] in q's dtype."""
+    dev = _device(q, k, v)
+    suffix = _attention_dtype(q)
+    _check(q, "q", q.dtype, 4)
+    _check(k, "k", q.dtype, 4)
+    _check(v, "v", q.dtype, 4)
+    B, Sq, H, dh = q.shape
+    Bk, Sk, G, dhk = k.shape
+    if v.shape != k.shape or Bk != B or dhk != dh or G == 0 or H % G:
+        raise ValueError(f"flash_prefill shapes disagree: q {tuple(q.shape)},"
+                         f" k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if q_offset < 0 or (window is not None and window < 1):
+        raise ValueError(f"q_offset {q_offset} < 0 or window {window} < 1")
+    kv = Sk if kv_len is None else max(0, min(int(kv_len), Sk))
+    if dev.type == "cpu":
+        return ref.flash_prefill(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset, kv_len=kv)
+    if dh not in FLASH_PREFILL_DH:
+        raise ValueError(f"flash_prefill: dh {dh} not in {FLASH_PREFILL_DH}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_prefill: q, k, v must be 16-byte aligned")
+    out = torch.empty_like(q)
+    if B == 0 or Sq == 0 or H == 0:
+        return out
+    fn = getattr(build.library("flash_prefill"), f"flash_prefill_{suffix}")
+    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), B, Sq, Sk, H, G,
+                 dh, int(causal), window or 0, q_offset, kv,
+                 1.0 / math.sqrt(dh), out.data_ptr(), _stream()),
+              "flash_prefill")
+    flash_prefill.launches += 1
+    return out
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len: Union[int, torch.Tensor], ring: bool = False):
+    """q [B, H, dh]; k, v [B, S, G, dh] (f32 or bf16, same as q); kv_len
+    an int or an i32 [B] tensor of each row's length. `ring`: the cache is
+    a sliding-window ring (mask length min(kv_len, S)). Returns
+    [B, H, dh] in q's dtype."""
+    dev = _device(q, k, v)
+    suffix = _attention_dtype(q)
+    _check(q, "q", q.dtype, 3)
+    _check(k, "k", q.dtype, 4)
+    _check(v, "v", q.dtype, 4)
+    B, H, dh = q.shape
+    Bk, S, G, dhk = k.shape
+    if v.shape != k.shape or Bk != B or dhk != dh or G == 0 or H % G:
+        raise ValueError(f"decode_attention shapes disagree: q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    if isinstance(kv_len, torch.Tensor):
+        _device(q, kv_len)
+        _check(kv_len, "kv_len", torch.int32, 1)
+        if kv_len.shape[0] != B:
+            raise ValueError(f"kv_len: {kv_len.shape[0]} rows, q has {B}")
+    if dev.type == "cpu":
+        return ref.decode_attention(q, k, v, kv_len, ring=ring)
+    Hg = H // G
+    smem = (Hg * dh + 64 * (2 * dh + 1) + Hg * 64 + 3 * Hg) * 4
+    if Hg * dh > 2048 or dh % 8 or smem > 227 * 1024:
+        raise ValueError(f"decode_attention: Hg={Hg}, dh={dh} outside the "
+                         "kernel's limits (Hg*dh <= 2048, dh a multiple of "
+                         "8, 227 KB of shared memory)")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("decode_attention: k, v must be 16-byte aligned")
+    if not isinstance(kv_len, torch.Tensor):
+        kv_len = torch.full((B,), int(kv_len), dtype=torch.int32, device=dev)
+    out = torch.empty_like(q)
+    if B == 0 or S == 0:
+        return out
+    # over S positions, ring's min(kv_len, S) is the same mask as kv_len
+    fn = getattr(build.library("decode_attention"),
+                 f"decode_attention_{suffix}")
+    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+                 B, S, H, G, dh, 1.0 / math.sqrt(dh), out.data_ptr(),
+                 _stream()), "decode_attention")
+    decode_attention.launches += 1
     return out
 
 

@@ -111,23 +111,66 @@ def scr_select(q, data, lens, doc_ids):
     return scores, wins
 
 
+def flash_prefill(q, k, v, *, causal: bool = True, window=None,
+                  q_offset: int = 0, kv_len=None):
+    """Masked softmax attention of a block of queries. q [B, Sq, H, dh];
+    k, v [B, Sk, G, dh] with H % G == 0 (query head h reads kv head
+    h // (H/G)). Query i sits at absolute position q_offset + i, key j at
+    j; a key is masked with -1e30 when it is past the query (`causal`),
+    `window` or more positions behind it, or at j >= kv_len. Scores
+    q.k * (1/sqrt(dh)) and the softmax in f32, the probabilities rounded
+    to v's type before the PV product. Returns [B, Sq, H, dh] in q's
+    dtype."""
+    b, sq, h, dh = q.shape
+    sk, g = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, g, h // g, dh).float()
+    s = torch.einsum("bqgnd,bkgd->bgnqk", qg, k.float()) * (1.0 /
+                                                           math.sqrt(dh))
+    qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    if kv_len is not None:
+        mask &= kpos < kv_len
+    s = torch.where(mask, s, torch.full_like(s, MASK))
+    p = torch.softmax(s, dim=-1).to(v.dtype).float()
+    ctx = torch.einsum("bgnqk,bkgd->bqgnd", p, v.float())
+    return ctx.reshape(b, sq, h, dh).to(q.dtype)
+
+
+def decode_attention(q, k, v, kv_len, ring: bool = False):
+    """q [B, H, dh]; k, v [B, S, G, dh]; kv_len an int (shared length)
+    or a [B] tensor. Softmax over each row's first kv_len positions
+    (masked with -1e30), scores and softmax in f32, probabilities rounded
+    to v's type before the PV product. `ring=True`: the cache is a
+    sliding-window ring whose filled slots are all valid, so the mask
+    length is min(kv_len, S). Returns [B, H, dh] in q's dtype."""
+    B, H, dh = q.shape
+    S, G = k.shape[1], k.shape[2]
+    lens = torch.as_tensor(kv_len, device=q.device).long().reshape(-1)
+    lens = lens.expand(B)
+    if ring:
+        lens = lens.clamp(max=S)
+    qg = q.float().reshape(B, G, H // G, dh)
+    s = torch.einsum("bgnd,bsgd->bgns", qg, k.float()) * (1.0 / math.sqrt(dh))
+    mask = torch.arange(S, device=q.device)[None, :] < lens[:, None]
+    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, MASK))
+    p = torch.softmax(s, dim=-1).to(v.dtype).float()
+    o = torch.einsum("bgns,bsgd->bgnd", p, v.float())
+    return o.reshape(B, H, dh).to(q.dtype)
+
+
 def decode_attention_paged(q, k, v, kv_len, table):
     """q [B, H, dh]; k, v [P, ps, G, dh] one layer of the page pool;
     kv_len [B]; table [B, W] page ids (entry w backs positions
-    [w*ps, (w+1)*ps)). Gathers each row's logical K/V through its table,
-    masks positions >= kv_len with -1e30, softmax in f32, probabilities
-    rounded to v's type before the PV product. Returns [B, H, dh]."""
-    B, H, dh = q.shape
-    P, ps, G, _ = k.shape
+    [w*ps, (w+1)*ps)). Gathers each row's logical K/V through its table
+    and attends as `decode_attention` does. Returns [B, H, dh]."""
+    P, ps, G, dh = k.shape
     W = table.shape[1]
     j = torch.arange(W * ps, device=q.device)
     idx = table.long()[:, j // ps] * ps + (j % ps)              # [B, W*ps]
-    kg = k.reshape(P * ps, G, dh)[idx].float()                 # [B,S,G,dh]
-    vg = v.reshape(P * ps, G, dh)[idx]
-    qg = q.float().reshape(B, G, H // G, dh)
-    s = torch.einsum("bgnd,bsgd->bgns", qg, kg) * (1.0 / math.sqrt(dh))
-    mask = j[None, :] < kv_len.long()[:, None]                   # [B, S]
-    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, MASK))
-    p = torch.softmax(s, dim=-1).to(v.dtype).float()
-    o = torch.einsum("bgns,bsgd->bgnd", p, vg.float())
-    return o.reshape(B, H, dh).to(q.dtype)
+    return decode_attention(q, k.reshape(P * ps, G, dh)[idx],
+                            v.reshape(P * ps, G, dh)[idx], kv_len)

@@ -1,14 +1,23 @@
-"""Dense decoder LM over a block-table paged KV cache (the port of the
-paged serving path of `repro.models.dense` for causal RoPE SwiGLU
-configs without sliding window or int8 KV, tensor-parallel degree 1).
+"""Dense decoder LM (the port of `repro.models.dense` for causal RoPE
+SwiGLU configs, optionally with a sliding window; no int8 KV,
+tensor-parallel degree 1).
 
 `DenseLM` keeps the reference's parameter layout: per-layer weights are
 stacked on a leading layer axis ([L, d, out]) and applied as `x @ w`.
-Decode runs one `decode_attention_paged` kernel per layer directly on
-that layer's page pool (the reference gathers pages with jnp and calls
-`layers.decode_attention`, the same function); chunked prefill gathers
-the slot's logical buffer and runs `layers.attention` with the chunk's
-query offset and kv length. The page pool is updated in place.
+Two serving paths, each attention on a kernel:
+
+- the wave path: `prefill` runs the full prompt through `flash_prefill`
+  and returns a contiguous cache [L, B, Sc, G, dh]; `decode_step` writes
+  one position into it and runs `decode_attention`. A sliding-window
+  cache is a ring of Sc = window slots: position p lives in slot p % Sc.
+- the paged path (no sliding window yet): `decode_step_paged` runs one
+  `decode_attention_paged` kernel per layer directly on that layer's page
+  pool (the reference gathers pages with jnp and calls
+  `layers.decode_attention`, the same function); `prefill_chunk_paged`
+  gathers the slot's logical buffer and runs `flash_prefill` with the
+  chunk's query offset and kv length.
+
+Caches and page pools are updated in place.
 """
 from __future__ import annotations
 
@@ -48,6 +57,25 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     if not cfg.tie_embeddings:
         defs["lm_head"] = ((d, cfg.vocab_padded), "normal")
     return defs
+
+
+def cache_len(cfg: ModelConfig, seq_len: int) -> int:
+    """Slots of a wave cache for `seq_len` positions: capped at the
+    sliding window, whose cache is a ring."""
+    if cfg.sliding_window:
+        return min(seq_len, cfg.sliding_window)
+    return seq_len
+
+
+def init_cache(cfg: ModelConfig, b: int, seq_len: int, device="cuda"
+               ) -> Dict[str, torch.Tensor]:
+    """Contiguous wave KV cache in the model's dtype: {"k", "v"} of
+    [L, b, cache_len(cfg, seq_len), G, dh]."""
+    shape = (cfg.num_layers, b, cache_len(cfg, seq_len), cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)}
 
 
 def init_page_pool(cfg: ModelConfig, num_pages: int, page_size: int,
@@ -117,7 +145,69 @@ class DenseLM(nn.Module):
         head = self.tok_embed.T if self.cfg.tie_embeddings else self.lm_head
         return x @ head.to(x.dtype)
 
+    # ------------------------------------------------------------- wave
+
+    @torch.no_grad()
+    def prefill(self, tokens):
+        """Full-sequence forward of equal-length prompts, tokens [B, S]
+        int. Returns (last-position logits [B, V], the K/V cache
+        `init_cache(cfg, B, S)` filled): position p in slot p, or, when
+        S exceeds the sliding window, the last Sc positions rolled by
+        S % Sc so that position p lives in ring slot p % Sc."""
+        cfg = self.cfg
+        b, S = tokens.shape
+        positions = torch.arange(S, device=tokens.device)[None].expand(b, S)
+        cache = init_cache(cfg, b, S, device=tokens.device)
+        sc = cache["k"].shape[2]
+        x = self._embed(tokens)
+        for i in range(cfg.num_layers):
+            y = L.rmsnorm(x, self.attn_norm[i], cfg.norm_eps)
+            q, k, v = self._qkv(i, y, positions)
+            for name, t in (("k", k), ("v", v)):
+                cache[name][i] = (t if sc == S else
+                                  torch.roll(t[:, S - sc:], S % sc, dims=1))
+            ctx = ops.flash_prefill(q, k, v, causal=True,
+                                    window=cfg.sliding_window)
+            x = x + ctx.reshape(b, S, -1) @ self.wo[i]
+            x = self._mlp_residual(i, x)
+        x = L.rmsnorm(x[:, -1:], self.final_norm, cfg.norm_eps)
+        return self.logits_from_hidden(x)[:, 0], cache
+
+    @torch.no_grad()
+    def decode_step(self, cache, token, pos: int):
+        """One decode position for every row of a wave. token [B, 1] int;
+        pos: the position written (shared by the rows). K/V go into slot
+        pos, or pos % Sc of a sliding-window ring, of the [L, B, Sc, G,
+        dh] `cache` (in place); attention covers pos + 1 positions
+        (min(pos + 1, Sc) on a ring). Returns logits [B, V]."""
+        cfg = self.cfg
+        b = token.shape[0]
+        ring = cfg.sliding_window is not None
+        slot = pos % cache["k"].shape[2] if ring else pos
+        positions = torch.full((b, 1), pos, device=token.device)
+        kv_len = torch.full((b,), pos + 1, dtype=torch.int32,
+                            device=token.device)
+        x = self._embed(token)
+        for i in range(cfg.num_layers):
+            y = L.rmsnorm(x, self.attn_norm[i], cfg.norm_eps)
+            q, k, v = self._qkv(i, y, positions)
+            ck, cv = cache["k"][i], cache["v"][i]
+            ck[:, slot] = k[:, 0]
+            cv[:, slot] = v[:, 0]
+            ctx = ops.decode_attention(q[:, 0], ck, cv, kv_len, ring=ring)
+            x = x + ctx.reshape(b, 1, -1) @ self.wo[i]
+            x = self._mlp_residual(i, x)
+        x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
+        return self.logits_from_hidden(x)[:, 0]
+
     # ------------------------------------------------------------ paged
+
+    def _check_paged(self) -> None:
+        if self.cfg.sliding_window:
+            raise NotImplementedError(
+                "the paged path of a sliding-window config (ring pages) is "
+                "not ported (ROADMAP.md Queue A 2); use the wave Engine "
+                "with continuous=False")
 
     @torch.no_grad()
     def decode_step_paged(self, cache, token, pos, active, table, *,
@@ -127,6 +217,7 @@ class DenseLM(nn.Module):
         (only active slots write K/V); table [B, W] int32 page ids (tail
         entries past kv_len are masked). Returns logits [B, V]; `cache`
         is updated in place."""
+        self._check_paged()
         cfg = self.cfg
         ps = page_size
         b = token.shape[0]
@@ -158,8 +249,9 @@ class DenseLM(nn.Module):
         of the slot whose page-table row is `row` ([W] int32). Its K/V
         scatter through the row (positions past the mapped width are
         dropped); its queries attend the gathered logical buffer causally
-        up to offset + C. Returns chunk logits [1, C, V]; `cache` is
-        updated in place."""
+        up to offset + C through `flash_prefill`. Returns chunk logits
+        [1, C, V]; `cache` is updated in place."""
+        self._check_paged()
         cfg = self.cfg
         ps = page_size
         c = tokens.shape[1]
@@ -182,8 +274,8 @@ class DenseLM(nn.Module):
             P = ck.shape[0]
             kslot = ck.reshape((P * ps,) + ck.shape[2:])[gather][None]
             vslot = cv.reshape((P * ps,) + cv.shape[2:])[gather][None]
-            ctx = L.attention(q, kslot.to(k.dtype), vslot.to(v.dtype),
-                              q_offset=offset, kv_len=offset + c)
+            ctx = ops.flash_prefill(q, kslot, vslot, causal=True,
+                                    q_offset=offset, kv_len=offset + c)
             x = x + ctx.reshape(1, c, -1) @ self.wo[i]
             x = self._mlp_residual(i, x)
         x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)

@@ -1,5 +1,8 @@
-"""Continuous-batching generation engine over a block-table paged KV pool
-(the port of `repro.serving.engine.ContinuousEngine`, greedy decoding).
+"""Generation engines (the port of `repro.serving.engine`, greedy
+decoding): `ContinuousEngine`, continuous batching over a block-table
+paged KV pool, and `Engine`, the length-bucketed wave path that is its
+`continuous=False` parity baseline and the path of sliding-window
+configs.
 
 One global page pool [L, num_pages, page_size, G, dh] holds every slot's
 K/V; each slot maps an ordered list of pages through its [W] page-table
@@ -10,7 +13,7 @@ cached map the shared pages read-only and copy-on-write fork at most one
 partially matching page (serving/pager.py). The host-side control flow
 is the reference's, line for line, so the same requests get the same
 slots, pages and chunk boundaries; the device work goes through
-`DenseLM` and its `decode_attention_paged` kernel.
+`DenseLM` and its `flash_prefill` and `decode_attention_paged` kernels.
 
 Sampled decoding is not ported: the reference draws from threefry
 streams that PyTorch cannot reproduce, so `submit(greedy=False)` raises.
@@ -377,3 +380,120 @@ class ContinuousEngine:
                         f"request {ev.rid} shed: {ev.reason} "
                         f"(prompt + max_new exceed the page budget)")
         return [results[r] for r in rids]
+
+
+class Engine:
+    """Serving engine over one `DenseLM`: `generate()` routes through a
+    shared `ContinuousEngine`, or through length-bucketed waves
+    (`generate_wave`) when asked with `continuous=False`. A wave prefills its equal-length prompts in one
+    full-sequence forward (`flash_prefill`) and decodes them together
+    over a contiguous cache (`decode_attention`); a sliding-window cache
+    is a ring of window slots. The paged path of sliding-window configs
+    is not ported, so they run waves only."""
+
+    def __init__(self, model: DenseLM, *, max_len: int = 512,
+                 eos_id: int = 2, prefill_chunk: Optional[int] = None,
+                 slots: int = 4, page_size: int = 32):
+        """`max_len`: KV budget per request (prompt + generation);
+        `slots`, `prefill_chunk` (default 32) and `page_size`: the
+        shared ContinuousEngine's."""
+        self.model = model
+        self.cfg = model.cfg
+        self.device = model.device
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.slots = slots
+        self.prefill_chunk = prefill_chunk or 32
+        self.page_size = page_size
+        self._cont: Dict[int, ContinuousEngine] = {}
+
+    def continuous(self, slots: Optional[int] = None) -> ContinuousEngine:
+        """The shared continuous engine over the same model and KV budget
+        (one per slot count)."""
+        n = slots or self.slots
+        if n not in self._cont:
+            self._cont[n] = ContinuousEngine(
+                self.model, slots=n, max_len=self.max_len,
+                eos_id=self.eos_id, prefill_chunk=self.prefill_chunk,
+                page_size=self.page_size)
+        return self._cont[n]
+
+    def _grow_cache(self, cache: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """Prefill sizes the cache to the prompt; decode needs max_len,
+        capped at the sliding window: growing a ring past its window
+        would change the `pos % len` cursor modulus that the prefill roll
+        already baked into the layout."""
+        target = self.max_len
+        if self.cfg.sliding_window:
+            target = min(target, self.cfg.sliding_window)
+        grown = {}
+        for name, x in cache.items():
+            if x.shape[2] < target:
+                pad = x.new_zeros(x.shape[:2] + (target - x.shape[2],)
+                                  + x.shape[3:])
+                x = torch.cat([x, pad], dim=2)
+            grown[name] = x
+        return grown
+
+    def generate(self, prompts: List[np.ndarray], max_new: int = 32,
+                 continuous: Optional[bool] = None) -> List[GenResult]:
+        """Greedy generation. `continuous` (None or True) takes the
+        continuous engine, as the reference does for every dense config;
+        `continuous=False` runs waves of equal-length prompts, shortest
+        first. Both give the same tokens. A sliding-window config raises
+        unless `continuous=False`."""
+        if continuous is None or continuous:
+            if self.cfg.sliding_window:
+                raise NotImplementedError(
+                    "continuous batching of a sliding-window config needs "
+                    "ring pages, not ported (ROADMAP.md Queue A 2); pass "
+                    "continuous=False")
+            return self.continuous().generate(prompts, max_new=max_new)
+        buckets: Dict[int, List[int]] = {}
+        for i, p in enumerate(prompts):
+            buckets.setdefault(len(p), []).append(i)
+        results: List[Optional[GenResult]] = [None] * len(prompts)
+        for _, idxs in sorted(buckets.items()):
+            wave = [prompts[i] for i in idxs]
+            for i, r in zip(idxs, self.generate_wave(wave, max_new)):
+                results[i] = r
+        return results
+
+    def generate_wave(self, prompts: List[np.ndarray],
+                      max_new: int = 32) -> List[GenResult]:
+        """One wave: prompts are 1-D int token arrays of EQUAL length.
+        Every result carries the wave's prefill time (through the first
+        token's logits) and its decode time."""
+        b = len(prompts)
+        plen = max(len(p) for p in prompts)
+        if any(len(p) != plen for p in prompts):
+            raise ValueError("generate_wave requires equal-length prompts "
+                             "(use generate())")
+        dev = self.device
+        toks = torch.tensor(np.stack([np.asarray(p, np.int64)
+                                      for p in prompts]), device=dev)
+        t0 = time.perf_counter()
+        logits, cache = self.model.prefill(toks)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t_prefill = time.perf_counter() - t0
+        cache = self._grow_cache(cache)
+        outs: List[List[int]] = [[] for _ in range(b)]
+        done = np.zeros(b, bool)
+        t1 = time.perf_counter()
+        for step in range(max_new):
+            tok = first_argmax(logits.float(), -1)
+            tok_np = tok.cpu().numpy()
+            for i in range(b):
+                if not done[i]:
+                    outs[i].append(int(tok_np[i]))
+                    if tok_np[i] == self.eos_id:
+                        done[i] = True
+            if done.all():
+                break
+            pos = min(plen + step, self.max_len - 1)
+            logits = self.model.decode_step(cache, tok[:, None], pos)
+        t_decode = time.perf_counter() - t1
+        return [GenResult(outs[i], len(prompts[i]), t_prefill, t_decode)
+                for i in range(b)]

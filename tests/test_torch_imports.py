@@ -23,6 +23,12 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+# the wave path and the second configuration
+for name in ("repro_torch.configs.h2o_danube_1_8b",
+             "repro_torch.serving.engine", "repro_torch.models.dense"):
+    assert name in names, name
+from repro_torch.serving.engine import Engine
+from repro_torch.kernels.ops import decode_attention, flash_prefill
 import chip_smoke
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 print(len(names))
@@ -30,7 +36,7 @@ print(len(names))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20
+    assert int(out.stdout.split()[-1]) >= 21
 
 
 def test_no_jax_or_repro_import_lines():
