@@ -40,6 +40,17 @@ Phases, any failure exits non-zero (nothing is caught):
    and idle share, the kernels and host ops that take the time) and over
    each kernel wrapper alone (device time per call).
 
+Two more paths run after phase 4, and their kernels join phases 5-7:
+- the legacy SCR path: the main path's pipeline with
+  `use_window_index=False`, so each query re-embeds its retrieved
+  documents' windows and scores them with `scr_score` (one launch per
+  query), beside the window-index path's SCR time;
+- the baselines path: IVF, IVFPQ, IVF-DISK and IVFPQ-DISK over 100,000
+  SIFT-like vectors (128-d, 390 clusters, m_pq 8), 200 queries at k 10
+  and n_probe 4 and 16, recall@10 against an exact search on the card;
+  the PQ indexes score each query with one `pq_adc` launch, re-checked
+  against the plain version on the same stacked codes.
+
 The line before the last is the kernel summary as JSON; the last line is
 `{"ok": true, "device": {...}}`.
 """
@@ -57,7 +68,10 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.data.synthetic import make_qa_corpus  # noqa: E402
+from repro_torch.core.baselines import make_index  # noqa: E402
+from repro_torch.core.scr import (SCRConfig, sliding_windows,  # noqa: E402
+                                  split_sentences)
+from repro_torch.data.synthetic import make_qa_corpus, sift_like  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.dense import DenseLM, cache_len  # noqa: E402
@@ -77,6 +91,14 @@ MAX_NEW = 16
 # the sliding-window model of phase 4: prompts past its 4,096 window
 H2O_CONFIG = get_config("h2o_danube_1_8b")
 H2O_PROMPT = 4608
+# the baselines path: the paper's SIFT-1M cut to 0.1x (the k-means++
+# seeding, a numpy copy of the reference's so both give the same
+# centroids, is O(N * NC * d) on the host)
+SIFT_N = 100_000
+SIFT_NQ = 200
+BASELINES = ("IVF", "IVFPQ", "IVF-DISK", "IVFPQ-DISK")
+N_PROBES = (4, 16)
+M_PQ = 8
 REPLACES = {
     "kmeans_assign": "src/repro/kernels/kmeans_assign.py:37",
     "ecoscan": "src/repro/kernels/ecoscan.py:163",
@@ -84,6 +106,8 @@ REPLACES = {
     "decode_attention_paged": "src/repro/kernels/decode_attention.py:135",
     "flash_prefill": "src/repro/kernels/flash_prefill.py:95",
     "decode_attention": "src/repro/kernels/decode_attention.py:188",
+    "scr_score": "src/repro/kernels/scr_score.py:33",
+    "pq_adc": "src/repro/kernels/pq_adc.py:44",
 }
 # the kernels each path must launch
 PATH_KERNELS = {
@@ -91,6 +115,9 @@ PATH_KERNELS = {
              "decode_attention_paged", "flash_prefill"),
     "wave": ("flash_prefill", "decode_attention"),
     "h2o": ("flash_prefill", "decode_attention"),
+    "legacy": ("kmeans_assign", "ecoscan", "scr_score",
+               "decode_attention_paged", "flash_prefill"),
+    "baselines": ("kmeans_assign", "pq_adc"),
 }
 
 
@@ -271,6 +298,76 @@ def check_scr_select(q, data, lens, ids):
         ms=time_ms(lambda: ops.scr_select(q, data, lens, ids)),
         plain_ms=time_ms(lambda: ref.scr_select(q, data, lens, ids)),
         library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
+
+
+def check_scr_score(w, q):
+    """scr_score at one legacy query's shape, against plain at 1e-5 (sums
+    in another order), plus edges: NW 1, NW not a multiple of the 8 rows
+    of a block, d 32 and 48 (float4 loads), d 50 (scalar loads), B 3."""
+    B, NW, d = w.shape
+    err = close("scr_score", ops.scr_score(w, q), ref.scr_score(w, q),
+                1e-5, 1e-5)
+    g = torch.Generator(device=DEV).manual_seed(6)
+    for b_, nw, dd in ((1, 1, 384), (1, 37, 384), (3, 13, 32), (2, 9, 48),
+                       (2, 11, 50)):
+        we = torch.randn(b_, nw, dd, generator=g, device=DEV)
+        qe = torch.randn(b_, dd, generator=g, device=DEV)
+        close(f"scr_score edge {b_}x{nw}x{dd}", ops.scr_score(we, qe),
+              ref.scr_score(we, qe), 1e-5, 1e-5)
+    b_ms, b_by = bound((B * NW * d + B * d + B * NW) * 4, 2.0 * B * NW * d,
+                       F32_FLOPS_S)
+    q3 = q[:, :, None].contiguous()
+    return dict(
+        shape=f"legacy query: windows {list(w.shape)}, q {list(q.shape)}",
+        err=err, ties=0,
+        ms=time_ms(lambda: ops.scr_score(w, q), iters=50),
+        plain_ms=time_ms(lambda: ref.scr_score(w, q), iters=50),
+        library_ms=time_ms(lambda: torch.bmm(w, q3), iters=50),
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def _pq_times(label, lut, codes, iters=50):
+    """pq_adc against plain at 1e-5 (sums in another order), with times,
+    the bytes bound and the library yardstick: `embedding_bag` in sum
+    mode over the flattened [M*K] table, one call per query row (the
+    offset codes are made outside the timing)."""
+    B, M, K = lut.shape
+    N = codes.shape[0]
+    err = close(f"pq_adc {label}", ops.pq_adc(lut, codes),
+                ref.pq_adc(lut, codes), 1e-5, 1e-5)
+    b_ms, b_by = bound(N * M + (B * M * K + B * N) * 4, float(B * N * M),
+                       F32_FLOPS_S)
+    flat = codes.long() + K * torch.arange(M, device=DEV)
+    tabs = [lut[b].reshape(M * K, 1) for b in range(B)]
+
+    def library():
+        return [F.embedding_bag(flat, t, mode="sum") for t in tabs]
+    return dict(
+        shape=f"{label}: lut {list(lut.shape)}, codes {list(codes.shape)}",
+        err=err, ties=0,
+        ms=time_ms(lambda: ops.pq_adc(lut, codes), iters=iters),
+        plain_ms=time_ms(lambda: ref.pq_adc(lut, codes), iters=iters),
+        library_ms=time_ms(library, iters=iters),
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def check_pq_adc(lut, codes, flat_lut, flat_codes):
+    """pq_adc at a real query's shape (n_probe 16 stacked codes) and at a
+    flat shape (16 queries over every code; not a path shape), plus
+    edges: M 4 and 16, N 1, K 16 < 256, codes 0 and 255."""
+    g = torch.Generator(device=DEV).manual_seed(7)
+    for b_, m, k, n in ((2, 4, 256, 300), (3, 16, 256, 64), (1, 8, 256, 1),
+                        (2, 8, 16, 500), (1, 5, 256, 77)):
+        le = torch.randn(b_, m, k, generator=g, device=DEV)
+        ce = torch.randint(0, k, (n, m), generator=g, device=DEV
+                           ).to(torch.uint8)
+        ce[0] = k - 1
+        ce[-1] = 0
+        close(f"pq_adc edge B{b_} M{m} K{k} N{n}", ops.pq_adc(le, ce),
+              ref.pq_adc(le, ce), 1e-5, 1e-5)
+    path = _pq_times("n_probe 16 query", lut, codes)
+    flat = _pq_times("flat, not a path shape", flat_lut, flat_codes, iters=10)
+    return dict(path, shapes=[path, flat])
 
 
 def check_decode(q, kp, vp, kv_len, table):
@@ -572,6 +669,87 @@ def h2o_inputs(lm, prompt):
     return q, k, v, cache["k"][0].contiguous(), cache["v"][0].contiguous()
 
 
+def _windows(sents):
+    cfg = SCRConfig()
+    return sliding_windows(sents, cfg.sliding_window_size, cfg.overlap_size)
+
+
+def legacy_windows(answer, docs, embed, question):
+    """The [1, NW, d] windows and [1, d] query that the legacy path's
+    `apply_scr` scored for one answer (its docs in retrieval order)."""
+    order = answer.scr.order
+    ids = [answer.doc_ids[order.index(j)] for j in range(len(order))]
+    win_texts = []
+    for i in ids:
+        sents = split_sentences(docs[i])
+        win_texts += [" ".join(sents[a:b]) for a, b in _windows(sents)]
+    w = torch.tensor(embed(win_texts)[None], device=DEV)
+    return w, torch.tensor(embed([question]), device=DEV)
+
+
+def run_baselines(base, queries):
+    """Build the four IVF baselines through `make_index` and search every
+    query at k 10 and each probe width: build s, per-query host wall
+    times, ids and dists, and the search stats."""
+    n_clusters = len(base) // 256          # benchmarks/common.py's rule
+    out = {}
+    for name in BASELINES:
+        kw = dict(n_clusters=n_clusters, device=DEV)
+        if "PQ" in name:
+            kw["m_pq"] = M_PQ
+        t0 = time.perf_counter()
+        idx = make_index(name, base.shape[1], **kw).build(base)
+        torch.cuda.synchronize()
+        runs = {"build_s": time.perf_counter() - t0}
+        for n_probe in N_PROBES:
+            idx.stats.reset()
+            ids, dists, times = [], [], []
+            for q in queries:
+                t = time.perf_counter()
+                i, d_ = idx.search(q, k=10, n_probe=n_probe)
+                times.append(time.perf_counter() - t)
+                ids.append(i)
+                dists.append(d_)
+            runs[n_probe] = dict(ids=ids, dists=dists, times=times,
+                                 disk_loads=idx.stats.disk_loads,
+                                 disk_bytes=idx.stats.disk_bytes,
+                                 distance_ops=idx.stats.distance_ops)
+        out[name] = (idx, runs)
+    return out
+
+
+def exact_top10(base, queries):
+    """Exact ground truth: plain f32 distances on the card, top 10."""
+    x = torch.tensor(base, device=DEV)
+    q = torch.tensor(queries, device=DEV)
+    d2 = ((q * q).sum(1)[:, None] - 2.0 * q @ x.T
+          + (x * x).sum(1)[None, :])
+    return torch.topk(d2, 10, largest=False).indices.cpu().numpy()
+
+
+def rescore_pq(idx, queries, runs):
+    """Every query of a PQ index re-scored with the plain `ref.pq_adc` on
+    the same stacked codes: the top-10 ids must equal the kernel path's
+    except at ties within 1e-5. Returns the count of tied swaps."""
+    ties = 0
+    for n_probe in N_PROBES:
+        for q, got in zip(queries, runs[n_probe]["ids"]):
+            ids, codes = idx.probed_codes(q, n_probe)
+            lut = torch.tensor(idx.pq.adc_table(q)[None], device=DEV)
+            s = ref.pq_adc(lut, torch.tensor(codes, device=DEV))[0]
+            s = s.cpu().numpy()
+            want = ids[np.argsort(s)[:10]]
+            score = dict(zip(ids.tolist(), s.tolist()))
+            diff = got != want
+            if diff.any():
+                vg = np.array([score[i] for i in got[diff]])
+                vw = np.array([score[i] for i in want[diff]])
+                assert (np.abs(vg - vw) <= 1e-5 + 1e-5 * np.abs(vw)).all(), \
+                    f"{idx.name}: pq_adc ids differ beyond a tie"
+                ties += int(diff.sum())
+    return ties
+
+
 def word_corpus(n_docs, seed):
     """Random-word documents: no two SCR windows share a bag of words,
     so the small-input comparison has no ties decided by rounding."""
@@ -601,6 +779,16 @@ def small_input_agreement():
     for a, b in zip(on_gpu, on_cpu):
         assert a.doc_ids == b.doc_ids, (a.doc_ids, b.doc_ids)
         assert a.prompt == b.prompt
+        assert a.gen_tokens == b.gen_tokens, (a.gen_tokens, b.gen_tokens)
+    # the legacy SCR path, GPU against CPU, and against the window index
+    legacy = [MobileRAG(docs, HashEmbedder(dim=64), top_k=3, gen_config=cfg,
+                        gen_params=weights, use_window_index=False,
+                        device=d).answer_batch(queries, generate=True,
+                                               max_new=8)
+              for d in (DEV, "cpu")]
+    for a, b, w in zip(*legacy, on_gpu):
+        assert a.doc_ids == b.doc_ids == w.doc_ids, (a.doc_ids, b.doc_ids)
+        assert a.prompt == b.prompt == w.prompt
         assert a.gen_tokens == b.gen_tokens, (a.gen_tokens, b.gen_tokens)
     prompts = [gpu.slm.encode_prompt(a.prompt, bucket=True) for a in on_gpu]
     wave_gpu = gpu.slm.wave.generate(prompts, max_new=8, continuous=False)
@@ -687,6 +875,49 @@ def main() -> int:
     }
     print("main path:", json.dumps(main))
 
+    # ---- legacy SCR path: the same pipeline without the window index
+    legacy_sink = TraceSink()
+
+    def legacy_path():
+        t0 = time.perf_counter()
+        lpipe = MobileRAG(corpus.docs, embed, top_k=3, use_window_index=False,
+                          gen_config=GEN_CONFIG, seed=0, trace=legacy_sink,
+                          device=DEV)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = lpipe.answer_batch(questions, generate=True, max_new=MAX_NEW)
+        torch.cuda.synchronize()
+        return out, t1 - t0, time.perf_counter() - t1
+    (legacy, l_build, l_wall), legacy_launches = drive("legacy", legacy_path)
+    assert legacy_launches["scr_score"] >= len(questions), legacy_launches
+    for a in legacy:
+        assert 1 <= len(a.gen_tokens) <= MAX_NEW
+        assert all(0 <= t < vocab for t in a.gen_tokens)
+        assert len(a.doc_ids) == 3 and a.prompt.startswith("Context:")
+    l_steps = legacy_sink.durations("engine", "decode_step")
+    l_active = [r.attrs["active"] for r in legacy_sink.query(
+        comp="engine", name="decode_step") if r.ph == "B"]
+    l_ttft = sorted(a.ttft_measured_s for a in legacy)
+    legacy_info = {
+        "build_s": l_build, "answer_wall_s": l_wall,
+        "ttft_p50_s": l_ttft[len(l_ttft) // 2],
+        "decode_tok_s": sum(l_active) / sum(l_steps),
+        "scr_score_launches": legacy_launches["scr_score"],
+        "post_s_mean": float(np.mean([a.post_s for a in legacy])),
+        "window_index_post_s_mean": float(np.mean([a.post_s
+                                                   for a in answers])),
+        # reported, not asserted: index_add_ sums with atomics, so two
+        # k-means builds can differ in the last bit
+        "same_doc_set_share": float(np.mean([
+            set(a.doc_ids) == set(b.doc_ids)
+            for a, b in zip(legacy, answers)])),
+        "windows_per_query_mean": float(np.mean([
+            sum(len(_windows(split_sentences(corpus.docs[i])))
+                for i in a.doc_ids) for a in legacy])),
+    }
+    print("legacy SCR path:", json.dumps(legacy_info))
+    w_leg, q_leg = legacy_windows(legacy[0], corpus.docs, embed, questions[0])
+
     # ---- wave path, same model, the 16 prompts in 32-token buckets
     prompts = [slm.encode_prompt(a.prompt, bucket=True) for a in answers]
     wave, wave_launches = drive("wave", lambda: slm.wave.generate(
@@ -732,6 +963,46 @@ def main() -> int:
         np.stack(hp[:1]), dtype=torch.long, device=dev))
     del h2o, h2o_eng
     torch.cuda.empty_cache()
+
+    # ---- baselines path: IVF / IVFPQ / IVF-DISK / IVFPQ-DISK on SIFT-like
+    base, bq = sift_like(n=SIFT_N, nq=SIFT_NQ, d=128, seed=0)
+    print(f"baselines: SIFT-like {SIFT_N} x 128 (the paper's SIFT-1M cut "
+          f"to {SIFT_N / 1e6:g}x: the host k-means++ seeding is "
+          f"O(N * NC * d)), {SIFT_NQ} queries, {SIFT_N // 256} clusters, "
+          f"m_pq {M_PQ}, k 10, n_probe {list(N_PROBES)}")
+    indexes, base_launches = drive("baselines",
+                                   lambda: run_baselines(base, bq))
+    n_pq = sum("PQ" in n for n in BASELINES)
+    assert base_launches["pq_adc"] == n_pq * len(N_PROBES) * SIFT_NQ, \
+        base_launches
+    gt = exact_top10(base, bq)
+    base_info = {}
+    for name, (idx, runs) in indexes.items():
+        info = {"build_s": runs["build_s"], "ram_bytes": idx.ram_bytes()}
+        for n_probe in N_PROBES:
+            r = runs[n_probe]
+            assert all(len(i) == 10 for i in r["ids"])
+            info[f"n_probe {n_probe}"] = {
+                "recall_at_10": float(np.mean([
+                    len(set(i.tolist()) & set(g.tolist())) / 10
+                    for i, g in zip(r["ids"], gt)])),
+                "recall_at_1": float(np.mean([i[0] == g[0]
+                                              for i, g in zip(r["ids"], gt)])),
+                "search_ms_p50": float(np.median(r["times"]) * 1e3),
+                "disk_loads": r["disk_loads"], "disk_bytes": r["disk_bytes"],
+                "distance_ops": r["distance_ops"]}
+        if "PQ" in name:
+            info["pq_adc_tied_swaps"] = rescore_pq(idx, bq, runs)
+        base_info[name] = info
+    print("baselines path:", json.dumps(base_info))
+    ivfpq = indexes["IVFPQ"][0]
+    _, codes_q = ivfpq.probed_codes(bq[0], max(N_PROBES))
+    lut_q = torch.tensor(ivfpq.pq.adc_table(bq[0])[None], device=dev)
+    codes_q = torch.tensor(codes_q, device=dev)
+    lut_flat = torch.tensor(np.stack([ivfpq.pq.adc_table(q)
+                                      for q in bq[:16]]), device=dev)
+    codes_flat = torch.tensor(ivfpq.pq.encode(base), device=dev)
+    del indexes, ivfpq
 
     # ---- kernels against their plain versions, on the paths' inputs
     x = torch.tensor(embed(corpus.docs), device=dev)
@@ -796,6 +1067,8 @@ def main() -> int:
             q_dec, pool["k"][0], pool["v"][0], kv_len, table),
         "flash_prefill": dict(flash_shapes[0], shapes=flash_shapes),
         "decode_attention": dict(decode_shapes[0], shapes=decode_shapes),
+        "scr_score": check_scr_score(w_leg, q_leg),
+        "pq_adc": check_pq_adc(lut_q, codes_q, lut_flat, codes_flat),
     }
     calls = {
         "kmeans_assign": lambda: ops.kmeans_assign(x, cent),
@@ -812,6 +1085,8 @@ def main() -> int:
             q_wave, k_wave, v_wave, len_wave),
         "decode_attention h2o ring": lambda: ops.decode_attention(
             q_ring, hck, hcv, len_ring, ring=True),
+        "scr_score": lambda: ops.scr_score(w_leg, q_leg),
+        "pq_adc": lambda: ops.pq_adc(lut_q, codes_q),
     }
     prof = profile_phase(slm, [slm.encode_prompt(a.prompt)
                                for a in answers[:4]], calls)
@@ -819,7 +1094,8 @@ def main() -> int:
     n_small = small_input_agreement()
     print(f"small input: {n_small} queries agree GPU vs CPU (doc ids, "
           "prompts, greedy tokens; wave tokens, wave = continuous on the "
-          "GPU); reduced h2o wave tokens agree GPU vs CPU")
+          "GPU; the legacy SCR pipeline, whose prompts equal the window "
+          "index's); reduced h2o wave tokens agree GPU vs CPU")
     print(f"attention edge cases: {n_edges} agree with the plain versions")
     for name, r in results.items():
         for sh in r.get("shapes", [r]):
@@ -828,7 +1104,8 @@ def main() -> int:
                   f"ms, bound {sh['bound_ms']:.6f} ms ({sh['bound_by']}), "
                   f"max abs err {sh['err']:.3g}, ties {sh['ties']}"
                   + (f" [{sh['shape']}]" if "shape" in sh else ""))
-    paths = {"main": launches, "wave": wave_launches, "h2o": h2o_launches}
+    paths = {"main": launches, "wave": wave_launches, "h2o": h2o_launches,
+             "legacy": legacy_launches, "baselines": base_launches}
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -840,6 +1117,7 @@ def main() -> int:
         "library_ms": r["library_ms"],
         "device_ms": prof["kernel_device_ms"][name]}
         for name, r in results.items()]
+    assert len(kernels) == len(ops.KERNELS)
     assert all(k["launches"] > 0 for k in kernels)
     assert all(math.isfinite(k["ms"]) for k in kernels)
     print(json.dumps({"kernels": kernels}))

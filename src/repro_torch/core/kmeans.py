@@ -27,11 +27,9 @@ def kmeans_pp_init(x: np.ndarray, k: int, seed: int = 0) -> np.ndarray:
     return np.stack(centroids).astype(np.float32)
 
 
-ITERS = 10           # Lloyd iterations, as the reference's default
-
-
-def kmeans(x, k: int, seed: int = 0, device="cuda"):
-    """x: [N, d] -> (centroids [k, d] f32, assign [N] i32), as numpy."""
+def kmeans(x, k: int, iters: int = 10, seed: int = 0, device="cuda"):
+    """x: [N, d] -> (centroids [k, d] f32, assign [N] i32) after `iters`
+    Lloyd iterations, as numpy."""
     dev = resolve_device(device)
     x = np.asarray(x, np.float32)
     n, d = x.shape
@@ -39,7 +37,7 @@ def kmeans(x, k: int, seed: int = 0, device="cuda"):
     xt = torch.tensor(x, device=dev)
     cent = torch.tensor(kmeans_pp_init(x, k, seed), device=dev)
     ones = torch.ones(n, dtype=torch.float32, device=dev)
-    for _ in range(ITERS):
+    for _ in range(iters):
         assign, _ = ops.kmeans_assign(xt, cent)
         idx = assign.long()
         sums = torch.zeros(k, d, device=dev).index_add_(0, idx, xt)

@@ -1,9 +1,14 @@
-"""Selective Content Reduction (paper §4), batched over a corpus-resident
-window index: the port of `repro.core.scr`'s `apply_scr_batch` path.
+"""Selective Content Reduction (paper §4): the port of `repro.core.scr`.
 
-One `scr_select` kernel call scores every (query, retrieved doc) pair and
-picks each doc's best window; the host assembles the condensed texts in
-the same Python as the reference, so results and prompts are identical.
+Two paths, as in the reference:
+- `apply_scr_batch`, over a corpus-resident window index: one
+  `scr_select` kernel call scores every (query, retrieved doc) pair and
+  picks each doc's best window;
+- `apply_scr`, the legacy per-query path: it splits and re-embeds the
+  retrieved documents' windows and scores them with one `scr_score`
+  kernel call.
+The host assembles the condensed texts in the same Python as the
+reference, so results and prompts are identical.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kernels import ops
 
 _SENT_RE = re.compile(r"(?<=[.!?])\s+")
@@ -61,6 +67,72 @@ class SCRResult:
 
 def _count_tokens(text: str) -> int:
     return len(text.split())
+
+
+def segment_best_windows(scores: np.ndarray, owners: Sequence[int],
+                         n_docs: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-document argmax over flat window scores [NW] owned by `owners`
+    [NW]. Returns (best [n_docs]: flat index of each doc's first-max
+    window, valid where the doc owns windows; counts [n_docs]: windows
+    per doc)."""
+    scores = np.asarray(scores)
+    owners = np.asarray(owners, np.int64)
+    counts = np.bincount(owners, minlength=n_docs)[:n_docs]
+    if len(owners) == 0:
+        return np.zeros(n_docs, np.int64), counts
+    # sort by (owner asc, score desc, flat index asc): the first row of
+    # each owner group is that doc's first-max window
+    srt = np.lexsort((np.arange(len(owners)), -scores, owners))
+    starts = np.searchsorted(owners[srt], np.arange(n_docs), side="left")
+    best = srt[np.minimum(starts, len(owners) - 1)]
+    return best, counts
+
+
+def apply_scr(query: str, docs: Sequence[str], embed: Callable,
+              cfg: SCRConfig = SCRConfig(), device="cuda") -> SCRResult:
+    """Legacy per-query SCR: embed the query and every window of `docs`,
+    score the windows with one `scr_score` call (B = 1) on `device`, keep
+    each doc's best window with its context extension, and order the docs
+    by that score."""
+    dev = resolve_device(device)
+    qv = np.asarray(embed([query]))[0]
+    doc_sents = [split_sentences(t) for t in docs]
+    doc_spans = [sliding_windows(s, cfg.sliding_window_size, cfg.overlap_size)
+                 for s in doc_sents]
+    win_texts, owners = [], []
+    for di, (sents, spans) in enumerate(zip(doc_sents, doc_spans)):
+        for (a, b) in spans:
+            win_texts.append(" ".join(sents[a:b]))
+            owners.append(di)
+    if not win_texts:
+        return SCRResult(list(docs), list(range(len(docs))),
+                         [0.0] * len(docs), [(0, 0)] * len(docs), 0, 0)
+    wv = np.asarray(embed(win_texts), np.float32)      # [NW, d]
+    scores = ops.scr_score(
+        torch.tensor(wv[None], device=dev),
+        torch.tensor(qv[None].astype(np.float32), device=dev))[0]
+    scores = scores.cpu().numpy()
+    best, counts = segment_best_windows(scores, owners, len(docs))
+    offsets = np.concatenate(([0], np.cumsum(counts)))
+    out_texts, out_scores, out_spans = [], [], []
+    for di, (sents, spans) in enumerate(zip(doc_sents, doc_spans)):
+        if not counts[di]:
+            out_texts.append(docs[di])
+            out_scores.append(-np.inf)
+            out_spans.append((0, len(sents)))
+            continue
+        a, b = spans[int(best[di]) - int(offsets[di])]
+        a2 = max(0, a - cfg.context_extension_size)
+        b2 = min(len(sents), b + cfg.context_extension_size)
+        out_texts.append(" ".join(sents[a2:b2]))
+        out_scores.append(float(scores[best[di]]))
+        out_spans.append((a2, b2))
+    order = sorted(range(len(docs)), key=lambda i: -out_scores[i])
+    before = sum(_count_tokens(t) for t in docs)
+    after = sum(_count_tokens(out_texts[i]) for i in order)
+    return SCRResult([out_texts[i] for i in order], order,
+                     [out_scores[i] for i in order],
+                     [out_spans[i] for i in order], before, after)
 
 
 def apply_scr_batch(queries: Sequence[str],

@@ -1,7 +1,11 @@
-"""Seeded synthetic QA corpus with planted answer sentences (the port's
-own copy of `repro.data.synthetic.make_qa_corpus` in its SQuAD style;
-numpy seeding gives the same documents and questions for the same
-arguments)."""
+"""Seeded synthetic datasets (the port's own copy of
+`repro.data.synthetic`; numpy seeding gives the same arrays, documents
+and questions for the same arguments):
+
+  * SIFT-like  : 128-d non-negative int-valued patch descriptors,
+  * NYTimes-like: 256-d clustered, L2-normalised text embeddings,
+  * a QA corpus with planted answer sentences, in the SQuAD style.
+"""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -28,6 +32,31 @@ _FILLER = ["Many visitors find this interesting.",
            "Experts continue to debate the finer points.",
            "The history involves several regions.",
            "Archives preserve a number of accounts."]
+
+
+def sift_like(n: int = 10000, nq: int = 100, d: int = 128, seed: int = 0):
+    """Non-negative, heavy-tailed int-valued descriptors (SIFT histograms)."""
+    rng = np.random.default_rng(seed)
+    base = rng.gamma(2.0, 12.0, size=(n, d)).astype(np.float32)
+    base = np.floor(np.clip(base, 0, 218))
+    qidx = rng.choice(n, nq, replace=False)
+    queries = base[qidx] + rng.normal(0, 2.0, (nq, d)).astype(np.float32)
+    return base, np.clip(queries, 0, 218).astype(np.float32)
+
+
+def nytimes_like(n: int = 5000, nq: int = 100, d: int = 256, seed: int = 0,
+                 n_topics: int = 50):
+    """Clustered, unit-norm embeddings (topic structure like text vectors)."""
+    rng = np.random.default_rng(seed)
+    topics = rng.normal(size=(n_topics, d)).astype(np.float32)
+    topics /= np.linalg.norm(topics, axis=1, keepdims=True)
+    assign = rng.integers(0, n_topics, n)
+    base = topics[assign] + 0.3 * rng.normal(size=(n, d)).astype(np.float32)
+    base /= np.linalg.norm(base, axis=1, keepdims=True)
+    qidx = rng.choice(n, nq, replace=False)
+    queries = base[qidx] + 0.05 * rng.normal(size=(nq, d)).astype(np.float32)
+    queries /= np.linalg.norm(queries, axis=1, keepdims=True)
+    return base.astype(np.float32), queries.astype(np.float32)
 
 
 @dataclass

@@ -52,6 +52,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                               _I, _I, _F, _P, _P],
         "flash_prefill_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _F, _P, _P]},
+    "scr_score": {
+        "scr_score": [_P, _P, _I, _I, _I, _P, _P]},
+    "pq_adc": {
+        "pq_adc": [_P, _P, _I, _I, _I, _I, _P, _P]},
 }
 
 _lock = threading.Lock()

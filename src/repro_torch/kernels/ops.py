@@ -18,7 +18,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 KERNELS = ("kmeans_assign", "ecoscan", "scr_select", "decode_attention_paged",
-           "flash_prefill", "decode_attention")
+           "flash_prefill", "decode_attention", "scr_score", "pq_adc")
 
 
 def _device(*ts: torch.Tensor) -> torch.device:
@@ -272,6 +272,59 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  B, S, H, G, dh, 1.0 / math.sqrt(dh), out.data_ptr(),
                  _stream()), "decode_attention")
     decode_attention.launches += 1
+    return out
+
+
+def scr_score(windows: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """windows [B, NW, d] f32; q [B, d] f32 -> scores [B, NW] f32, the
+    inner product of each window with its query."""
+    dev = _device(windows, q)
+    _check(windows, "windows", torch.float32, 3)
+    _check(q, "q", torch.float32, 2)
+    B, NW, d = windows.shape
+    if tuple(q.shape) != (B, d):
+        raise ValueError(f"scr_score: q {tuple(q.shape)} vs windows "
+                         f"{tuple(windows.shape)}")
+    if dev.type == "cpu":
+        return ref.scr_score(windows, q)
+    out = torch.empty((B, NW), dtype=torch.float32, device=dev)
+    if B == 0 or NW == 0:
+        return out
+    _raise_on(build.library("scr_score").scr_score(
+        windows.data_ptr(), q.data_ptr(), B, NW, d, out.data_ptr(),
+        _stream()), "scr_score")
+    scr_score.launches += 1
+    return out
+
+
+PQ_ADC_MAX_K = 256
+
+
+def pq_adc(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """lut [B, M, K] f32 (K <= 256) distance tables; codes [N, M] uint8,
+    each < K -> scores [B, N] f32 = sum_m lut[b, m, codes[n, m]]."""
+    dev = _device(lut, codes)
+    _check(lut, "lut", torch.float32, 3)
+    _check(codes, "codes", torch.uint8, 2)
+    B, M, K = lut.shape
+    N = codes.shape[0]
+    if codes.shape[1] != M:
+        raise ValueError(f"pq_adc: codes {tuple(codes.shape)} vs lut "
+                         f"{tuple(lut.shape)}")
+    if K > PQ_ADC_MAX_K:
+        raise ValueError(f"pq_adc: K {K} > {PQ_ADC_MAX_K} (uint8 codes)")
+    if dev.type == "cpu":
+        return ref.pq_adc(lut, codes)
+    if M * K * 4 > 227 * 1024 or B > 65535:
+        raise ValueError(f"pq_adc: an [M, K] = [{M}, {K}] table beyond 227 KB"
+                         f" of shared memory, or B {B} > 65535")
+    out = torch.empty((B, N), dtype=torch.float32, device=dev)
+    if B == 0 or N == 0:
+        return out
+    _raise_on(build.library("pq_adc").pq_adc(
+        lut.data_ptr(), codes.data_ptr(), B, N, M, K, out.data_ptr(),
+        _stream()), "pq_adc")
+    pq_adc.launches += 1
     return out
 
 

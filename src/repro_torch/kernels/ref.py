@@ -111,6 +111,18 @@ def scr_select(q, data, lens, doc_ids):
     return scores, wins
 
 
+def scr_score(windows, q):
+    """windows [B, NW, d]; q [B, d] -> scores [B, NW] (inner products)."""
+    return torch.einsum("bnd,bd->bn", windows, q)
+
+
+def pq_adc(lut, codes):
+    """lut [B, M, K] distance tables; codes [N, M] uint8 (each < K) ->
+    scores [B, N] = sum_m lut[b, m, codes[n, m]], summed in f32."""
+    m = torch.arange(lut.shape[1], device=lut.device)
+    return lut[:, m[None, :], codes.long()].sum(-1)
+
+
 def flash_prefill(q, k, v, *, causal: bool = True, window=None,
                   q_offset: int = 0, kv_len=None):
     """Masked softmax attention of a block of queries. q [B, Sq, H, dh];

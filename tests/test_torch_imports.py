@@ -23,12 +23,19 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-# the wave path and the second configuration
+# the wave path and the second configuration; the legacy SCR path and
+# the IVF/PQ baselines
 for name in ("repro_torch.configs.h2o_danube_1_8b",
-             "repro_torch.serving.engine", "repro_torch.models.dense"):
+             "repro_torch.serving.engine", "repro_torch.models.dense",
+             "repro_torch.core.scr", "repro_torch.core.pq",
+             "repro_torch.core.baselines", "repro_torch.core.store",
+             "repro_torch.data.synthetic"):
     assert name in names, name
 from repro_torch.serving.engine import Engine
-from repro_torch.kernels.ops import decode_attention, flash_prefill
+from repro_torch.kernels.ops import (decode_attention, flash_prefill,
+                                     pq_adc, scr_score)
+from repro_torch.core.scr import apply_scr
+from repro_torch.core.baselines import make_index
 import chip_smoke
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 print(len(names))
@@ -36,7 +43,7 @@ print(len(names))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 21
+    assert int(out.stdout.split()[-1]) >= 31
 
 
 def test_no_jax_or_repro_import_lines():

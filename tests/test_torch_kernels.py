@@ -1,12 +1,13 @@
-"""The port's scr_select and decode_attention_paged kernel functions
-against the JAX package's Pallas kernels (interpret mode) and pure-jnp
-oracles, on the sweeps and edge cases of tests/test_kernels.py, plus the
-wrappers' input checks. On the CPU the port's wrappers run their plain
-PyTorch versions; chip_smoke.py holds the CUDA kernels to those versions
-on the card. Inputs are numpy arrays from a seed, fed to both packages.
+"""The port's scr_select, decode_attention_paged, scr_score and pq_adc
+kernel functions against the JAX package's Pallas kernels (interpret
+mode) and pure-jnp oracles, on the sweeps and edge cases of
+tests/test_kernels.py, plus the wrappers' input checks. On the CPU the
+port's wrappers run their plain PyTorch versions; chip_smoke.py holds the
+CUDA kernels to those versions on the card. Inputs are numpy arrays from
+a seed, fed to both packages.
 
 Tolerances: window ids exact; scr_select scores 2e-5 (f32 sums in
-another order); decode_attention_paged (f32) 1e-5.
+another order); decode_attention_paged (f32), scr_score and pq_adc 1e-5.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +17,8 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import \
     decode_attention_paged as j_decode_paged
+from repro.kernels.pq_adc import pq_adc as j_pq_adc
+from repro.kernels.scr_score import scr_score as j_scr_score
 from repro.kernels.scr_select import scr_select as j_scr_select
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
@@ -93,6 +96,54 @@ def test_decode_attention_paged(B, H, G, dh, P, ps, W):
                                    rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("B,NW,d", [(1, 5, 32), (3, 200, 64), (2, 257, 128),
+                                    (1, 30, 384), (2, 9, 50)])
+def test_scr_score_sweep(B, NW, d):
+    r = _rng(8)
+    w = r.standard_normal((B, NW, d)).astype(np.float32)
+    q = r.standard_normal((B, d)).astype(np.float32)
+    before = ops.launch_counts()["scr_score"]
+    st = ops.scr_score(_t(w), _t(q))
+    assert ops.launch_counts()["scr_score"] == before    # CPU: plain version
+    args = (jnp.asarray(w), jnp.asarray(q))
+    for sj in (j_scr_score(*args, interpret=True), jref.scr_score(*args)):
+        np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_scr_score_empty():
+    assert ops.scr_score(torch.zeros(0, 4, 8), torch.zeros(0, 8)).shape == \
+        (0, 4)
+    assert ops.scr_score(torch.zeros(2, 0, 8), torch.zeros(2, 8)).shape == \
+        (2, 0)
+
+
+@pytest.mark.parametrize("B,M,N", [(1, 4, 100), (2, 8, 513), (3, 16, 64),
+                                   (1, 8, 1)])
+def test_pq_adc_sweep(B, M, N):
+    r = _rng(9)
+    lut = r.standard_normal((B, M, 256)).astype(np.float32)
+    codes = r.integers(0, 256, (N, M)).astype(np.uint8)
+    codes[0] = 255
+    codes[-1] = 0
+    pt = ops.pq_adc(_t(lut), _t(codes))
+    args = (jnp.asarray(lut), jnp.asarray(codes))
+    for pj in (j_pq_adc(*args, interpret=True), jref.pq_adc(*args)):
+        np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_pq_adc_small_tables():
+    """K < 256 (nbits < 8), as the reference's IVFPQ gathers from
+    [m, ksub] tables: the sum of the looked-up entries."""
+    r = _rng(10)
+    lut = r.standard_normal((2, 5, 16)).astype(np.float32)
+    codes = r.integers(0, 16, (40, 5)).astype(np.uint8)
+    want = lut[:, np.arange(5)[None, :], codes.astype(np.int64)].sum(-1)
+    np.testing.assert_allclose(ops.pq_adc(_t(lut), _t(codes)).numpy(), want,
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_wrappers_reject_bad_inputs():
     q = torch.zeros(2, 8)
     with pytest.raises(TypeError):
@@ -103,6 +154,10 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         ops.ecoscan(q, torch.zeros(3, 4, 7), torch.zeros(3, dtype=torch.int32),
                     torch.zeros(2, 1, dtype=torch.int32), 2)
+    with pytest.raises(ValueError):
+        ops.scr_score(torch.zeros(2, 4, 8), torch.zeros(3, 8))
+    with pytest.raises(TypeError):
+        ops.scr_score(torch.zeros(2, 4, 8).double(), q.double())
 
 
 def test_cuda_entry_raises_without_gpu():

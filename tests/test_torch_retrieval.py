@@ -55,11 +55,12 @@ def test_tokenizer_and_embedder_identical(corpus):
     np.testing.assert_array_equal(emb(c.docs[:20]), jemb(c.docs[:20]))
 
 
-@pytest.mark.parametrize("n,d,k", [(300, 16, 8), (257, 32, 5)])
-def test_kmeans_matches_reference(n, d, k):
+@pytest.mark.parametrize("n,d,k,iters", [(300, 16, 8, 10), (257, 32, 5, 10),
+                                          (300, 16, 8, 8)])
+def test_kmeans_matches_reference(n, d, k, iters):
     x = np.random.default_rng(n).standard_normal((n, d)).astype(np.float32)
-    cent, assign = kmeans(x, k, seed=1, device="cpu")
-    jcent, jassign = j_kmeans(x, k, seed=1)
+    cent, assign = kmeans(x, k, iters, seed=1, device="cpu")
+    jcent, jassign = j_kmeans(x, k, iters, seed=1)
     np.testing.assert_array_equal(assign, jassign)
     np.testing.assert_allclose(cent, jcent, rtol=1e-5, atol=1e-5)
 
