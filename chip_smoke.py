@@ -27,7 +27,9 @@ Phases, any failure exits non-zero (nothing is caught):
    of phases 2-4, plus edge cases, with kernel, plain and library-call
    times (CUDA events) and the bound of the work: ids exact except at
    ties within the value tolerance, ecoscan and scr_select values 2e-5,
-   kmeans_assign 1e-4 (relative), attention 1e-5 in f32 and 2e-2 in bf16.
+   kmeans_assign 1e-4 (relative), attention 1e-5 in f32 and 2e-2 in bf16
+   (the attention edge cases run in both). Each kernel's line shows its
+   time over the library call's and the share of its bound.
    TF32 is off for every float32 matmul and convolution (the plain
    versions run in full f32).
 6. The same pipeline on a small corpus with the float32 reduced model,
@@ -508,41 +510,78 @@ def check_decode_attention(label, q, k, v, kv_len, ring):
 
 
 def attention_edges():
-    """Edge cases of the two attention kernels in f32 (1e-5): ragged S
-    with Hg 2, a window smaller than a tile at dh 80, a chunk whose keys
-    past kv_len are huge (they must get zero weight), dh 128 without the
-    causal mask; decode with kv_len 1, a ring with kv_len > S, and a
-    scalar kv_len equal to the same [B] one."""
+    """Edge cases of the two attention kernels, each in f32 (1e-5, the
+    CUDA-core route of flash_prefill) and in bf16 (2e-2, its tensor-core
+    route). flash_prefill: dh 32, 64, 80 and 128; Hg 7 (14 heads over 2);
+    Sq 1 and Sq 77 (ragged query tiles); window 5 (less than a tile);
+    the chunk whose keys past kv_len hold 1e4 (they must get weight
+    exactly zero); rows whose every key is masked (kv_len 0, and a window
+    past kv_len: the uniform average). decode_attention: kv_len 1, a ring
+    with kv_len > S, rows of mixed kv_len (1, 63, 4609 on a 4096-slot
+    ring, 0) in one launch, S not a multiple of 64, a shape the plan
+    splits at least 8 ways, and a scalar kv_len equal to the same [B]
+    one. Returns the number of (case, dtype) pairs checked."""
     g = torch.Generator(device=DEV).manual_seed(5)
 
     def rnd(*shape):
         return torch.randn(*shape, generator=g, device=DEV)
+
+    def qkv(sq, h, sk, g_, dh):
+        return rnd(1, sq, h, dh), rnd(1, sk, g_, dh), rnd(1, sk, g_, dh)
     kc, vc = rnd(1, 96, 2, 64), rnd(1, 96, 2, 64)
     kc[:, 50:] = 1e4
     vc[:, 50:] = 1e4
-    cases = [
-        ("ragged", rnd(2, 77, 4, 32), rnd(2, 77, 2, 32), rnd(2, 77, 2, 32),
-         dict()),
-        ("window 5", rnd(1, 100, 8, 80), rnd(1, 100, 2, 80),
-         rnd(1, 100, 2, 80), dict(window=5)),
-        ("chunk", rnd(1, 10, 14, 64), kc, vc, dict(q_offset=40, kv_len=50)),
-        ("dh 128", rnd(1, 40, 4, 128), rnd(1, 40, 4, 128),
-         rnd(1, 40, 4, 128), dict(causal=False)),
+    flash = [
+        ("dh 32, Sq 77", (rnd(2, 77, 4, 32), rnd(2, 77, 2, 32),
+                          rnd(2, 77, 2, 32)), dict()),
+        ("dh 80, window 5", qkv(100, 8, 100, 2, 80), dict(window=5)),
+        ("dh 80, Sq 77, window 40", qkv(77, 32, 77, 8, 80),
+         dict(window=40)),
+        ("dh 64, Hg 7, chunk, 1e4 past kv_len",
+         (rnd(1, 10, 14, 64), kc, vc), dict(q_offset=40, kv_len=50)),
+        ("dh 64, Hg 7", qkv(130, 14, 130, 2, 64), dict()),
+        ("dh 64, Sq 1", qkv(1, 14, 50, 2, 64), dict(q_offset=49)),
+        ("dh 128, not causal", qkv(40, 4, 40, 4, 128), dict(causal=False)),
+        ("dh 128, Sq 77", qkv(77, 8, 200, 2, 128), dict(q_offset=123)),
+        ("kv_len 0", qkv(70, 4, 90, 2, 64), dict(kv_len=0)),
+        ("every key masked", qkv(40, 4, 100, 2, 64),
+         dict(q_offset=60, window=8, kv_len=20)),
     ]
-    for label, q, k, v, kw in cases:
-        close(f"flash_prefill edge {label}", ops.flash_prefill(q, k, v, **kw),
-              ref.flash_prefill(q, k, v, **kw), 1e-5, 1e-5)
+    n = 0
+    for label, (q, k, v), kw in flash:
+        for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            a = [t.to(dt) for t in (q, k, v)]
+            close(f"flash_prefill edge {label} {dt}",
+                  ops.flash_prefill(*a, **kw), ref.flash_prefill(*a, **kw),
+                  tol, tol)
+            n += 1
+
+    def lens(*x):
+        return torch.tensor(x, dtype=torch.int32, device=DEV)
+    decode = [
+        ("kv_len 1", (4, 4, 40, 2, 32), lens(1, 1, 1, 1), False),
+        ("ring", (4, 4, 40, 2, 32), lens(1, 17, 40, 63), True),
+        ("mixed kv_len on a 4096 ring", (4, 32, 4096, 8, 80),
+         lens(1, 63, 4609, 0), True),
+        ("S 1000", (3, 14, 1000, 2, 64), lens(1000, 999, 70), False),
+        ("64 splits", (1, 8, 8192, 1, 128), lens(8000), False),
+    ]
+    for label, (B, H, S, G, dh), kv, ring in decode:
+        q, k, v = rnd(B, H, dh), rnd(B, S, G, dh), rnd(B, S, G, dh)
+        if label == "64 splits":
+            assert ops.decode_split_plan(B, G, S) >= 8
+        for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            a = [t.to(dt) for t in (q, k, v)]
+            close(f"decode_attention edge {label} {dt}",
+                  ops.decode_attention(*a, kv, ring=ring),
+                  ref.decode_attention(*a, kv, ring=ring), tol, tol)
+            n += 1
     qd, kd, vd = rnd(4, 4, 32), rnd(4, 40, 2, 32), rnd(4, 40, 2, 32)
-    one = torch.ones(4, dtype=torch.int32, device=DEV)
-    lens = torch.tensor([1, 17, 40, 63], dtype=torch.int32, device=DEV)
-    for label, kv, ring in (("kv_len 1", one, False), ("ring", lens, True)):
-        close(f"decode_attention edge {label}",
-              ops.decode_attention(qd, kd, vd, kv, ring=ring),
-              ref.decode_attention(qd, kd, vd, kv, ring=ring), 1e-5, 1e-5)
     assert torch.equal(ops.decode_attention(qd, kd, vd, 17),
-                       ops.decode_attention(qd, kd, vd, one * 17)), \
+                       ops.decode_attention(qd, kd, vd, lens(17, 17, 17, 17))
+                       ), \
         "decode_attention: a scalar kv_len differs from the same [B] one"
-    return len(cases) + 3
+    return n + 1
 
 
 # ------------------------------------------------------------- profile
@@ -1102,6 +1141,8 @@ def main() -> int:
             print(f"{name}: kernel {sh['ms']:.4f} ms, plain "
                   f"{sh['plain_ms']:.4f} ms, library {sh['library_ms']:.4f} "
                   f"ms, bound {sh['bound_ms']:.6f} ms ({sh['bound_by']}), "
+                  f"{sh['ms'] / sh['library_ms']:.3g}x the library's time, "
+                  f"{sh['bound_ms'] / sh['ms']:.3%} of the bound, "
                   f"max abs err {sh['err']:.3g}, ties {sh['ties']}"
                   + (f" [{sh['shape']}]" if "shape" in sh else ""))
     paths = {"main": launches, "wave": wave_launches, "h2o": h2o_launches,

@@ -44,9 +44,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                                         _I, _I, _P, _P]},
     "decode_attention": {
         "decode_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                                 _P, _P],
+                                 _I, _I, _P, _P, _P],
         "decode_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                                  _P, _P]},
+                                  _I, _I, _P, _P, _P]},
     "flash_prefill": {
         "flash_prefill_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _F, _P, _P],

@@ -1,11 +1,13 @@
 // Shared helpers of the port's hand-written Hopper kernels: warp/block
 // reductions with explicit tie-breaks (the Pallas kernels' lax.top_k /
 // jnp.argmin / jnp.argmax order: on equal values the lower index wins),
-// and the f32 <-> storage-type conversions of the attention kernels.
+// the f32 <-> storage-type conversions of the attention kernels, and the
+// cp.async copies of their tile rings.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <climits>
+#include <cstdint>
 
 constexpr float kNeg = 3.4e38f;        // distance sentinel, repro.kernels.ref.NEG
 constexpr float kMask = -1e30f;        // masked attention score
@@ -27,6 +29,24 @@ template <typename T> __device__ __forceinline__ float as_v(float p) {
 }
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
+
+// cp.async: 16 bytes global -> shared without a register stop; with
+// in == false nothing is read and the 16 bytes are zero-filled
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           bool in = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most N committed groups of copies are still in flight
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

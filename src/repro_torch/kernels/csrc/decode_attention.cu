@@ -9,35 +9,43 @@
 // PV product (`p.astype(v.dtype)` in the TPU kernel); the output is
 // acc / max(l, 1e-30). A ring cache (`ring=True`, sliding window) masks
 // min(kv_len, S) positions; over S positions that is the same mask as
-// pos < kv_len, so the kernel needs no ring flag: it walks the first
-// min(kv_len, S) positions (all S when kv_len <= 0, every position then
-// masked: the uniform average, as the plain version gives).
+// pos < kv_len, so the kernel needs no ring flag: a row walks its first
+// n = min(kv_len, S) positions (all S when kv_len <= 0, every position
+// then masked: the uniform average, as the plain version gives).
 //
-// Bound on the H100: each row reads its min(kv_len, S) K and V positions
-// once (2*n*G*dh elements) for ~4*H*dh flops per position, far below the
+// Bound on the H100: each row reads its n K and V positions once
+// (2*n*G*dh elements) for ~4*H*dh flops per position, far below the
 // card's 295 flops per byte in bf16, so it is bound by memory bytes.
-// Design: the structure of the paged kernel without the table, with each
-// tile of the cache staged in shared memory first. One block per (kv head
-// g, row b) keeps the Hg = H/G query heads of its group in shared memory
-// (Hg = 7 for qwen2.5-0.5B, 4 for h2o-danube-1.8b, 2 in the reduced
-// configs) and walks the cache in tiles of 64 positions: all threads copy
-// the tile's K and V to shared memory as f32 (16-byte loads, several in
-// flight per thread, so dh must be a multiple of 8; K rows padded to dh + 1 floats so that a column read is free of bank
-// conflicts); each thread then computes whole (head, position) scores;
-// one warp per head updates the running max and sum; each thread updates
-// its (head, dim) accumulators in f32 registers. Four barriers a tile.
-// B*G blocks leave most of the 132 SMs idle at small batch, and a tile's
-// loads do not overlap the previous tile's arithmetic: splitting the cache
-// across blocks and double-buffering the tiles are later work.
+// Design (flash-decoding): the cache is split across blocks, grid (splits,
+// G, B), so that a small batch still fills the 132 SMs, four blocks to an
+// SM; the wrapper's plan (`ops.decode_split_plan`) picks the splits from
+// the host-known shapes, each split at least two tiles. A block keeps the
+// Hg = H/G query heads of its kv group in shared memory and walks its
+// split's tiles of 64 positions, computed from its row's kv_len on the
+// device (no host sync). The tiles arrive by 16-byte cp.async copies into
+// a ring of two stages, in the cache's type (rows padded to an odd number
+// of 16 bytes, so the row-per-thread score reads are free of bank
+// conflicts): tile j + 1 loads while tile j computes, three barriers a
+// tile; rows past the split's end are zero-filled. Each thread computes
+// whole (head, position) scores, one warp per head updates the running max
+// and sum and rounds the probabilities to T, each thread updates its
+// (head, dim pair) accumulators in f32 registers over four chains. With
+// one split the block writes the output; with more it writes a partial
+// (m[Hg], l[Hg], unnormalised acc[Hg, dh]) in f32, and a second small
+// launch merges the partials of each (b, g) in split order (deterministic,
+// no atomics; a split past the row's n is empty, l = 0, and skipped). A
+// split still pays a few microseconds a tile for its serial chain of
+// scores, softmax and PV between barriers, so more, shorter splits win
+// until the merge grows. Next step: read the tiles with TMA from a
+// producer warp, score several tiles between barriers, and fold the merge
+// into the last block of each (b, g).
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTile = 64;                      // positions per tile
-constexpr int kMaxOut = 8;                     // outputs per thread: Hg*dh <= 2048
-
-constexpr int kBatch = 4;                      // staging loads per thread
+constexpr int kMaxPair = 4;                    // output pairs a thread: Hg*dh <= 2048
 
 // the kVW = 16 / sizeof(T) values of one 16-byte load, as f32
 template <typename T> __device__ __forceinline__ void unpack(const uint4& u, float* d);
@@ -58,78 +66,103 @@ template <> __device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& u
   }
 }
 
-// shared memory of a block, in floats (ops.py checks the same formula)
-inline size_t decode_smem_floats(int Hg, int dh) {
-  return (size_t)Hg * dh + (size_t)kTile * (2 * dh + 1) + (size_t)Hg * kTile +
-         3 * (size_t)Hg;
+// two neighbouring values as f32
+template <typename T> __device__ __forceinline__ float2 load2(const T* p);
+template <> __device__ __forceinline__ float2 load2<float>(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+template <> __device__ __forceinline__ float2 load2<__nv_bfloat16>(
+    const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
+// Shared memory (its size comes from ops.decode_smem_bytes): the K and V
+// rings [2][kTile][dh + kVW] in T, then in f32 the group's queries
+// [Hg, dh], the tile's scores [Hg, kTile] and the running max, sum and
+// correction [Hg] each.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const int* __restrict__ kv_len, int S,
-              int H, int G, int dh, float scale, T* __restrict__ out) {
-  extern __shared__ float sm[];
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ kv_len,
+                    int S, int H, int G, int dh, float scale, int splits,
+                    T* __restrict__ out, float* __restrict__ part) {
+  constexpr int kVW = 16 / sizeof(T);          // elements per 16-byte copy
+  extern __shared__ __align__(16) unsigned char smem[];
   const int Hg = H / G;
-  const int kr = dh + 1;            // padded K row
-  float* qs = sm;                   // [Hg, dh]
-  float* ks = qs + Hg * dh;         // [kTile, dh + 1]
-  float* vs = ks + kTile * kr;      // [kTile, dh]
-  float* ps = vs + kTile * dh;      // [Hg, kTile] scores, then probabilities
-  float* m_s = ps + Hg * kTile;     // [Hg] running max
-  float* l_s = m_s + Hg;            // [Hg] running sum
-  float* c_s = l_s + Hg;            // [Hg] this tile's correction
-  const int g = blockIdx.x, b = blockIdx.y;
+  const int kr = dh + kVW;                     // padded cache row
+  T* ks = reinterpret_cast<T*>(smem);          // [2][kTile][kr]
+  T* vs = ks + 2 * kTile * kr;                 // [2][kTile][kr]
+  float* qs = reinterpret_cast<float*>(vs + 2 * kTile * kr);  // [Hg, dh]
+  float* ps = qs + Hg * dh;                    // [Hg, kTile]
+  float* m_s = ps + Hg * kTile;                // [Hg] running max
+  float* l_s = m_s + Hg;                       // [Hg] running sum
+  float* c_s = l_s + Hg;                       // [Hg] this tile's correction
+  const int sp = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nw = blockDim.x >> 5;
   const size_t qbase = ((size_t)b * H + (size_t)g * Hg) * dh;
   for (int e = tid; e < Hg * dh; e += blockDim.x) qs[e] = to_f<T>(q[qbase + e]);
   if (tid < Hg) { m_s[tid] = kMask; l_s[tid] = 0.f; }
-  float acc[kMaxOut];
+  float2 acc[kMaxPair];                        // (head, dim pair) outputs
 #pragma unroll
-  for (int o = 0; o < kMaxOut; ++o) acc[o] = 0.f;
+  for (int o = 0; o < kMaxPair; ++o) acc[o] = make_float2(0.f, 0.f);
+  const int npair = Hg * dh / 2;
+  // this split's positions [p0, p1): tiles [sp*T/splits, (sp+1)*T/splits)
+  // of the T tiles of S (ops.decode_split_ranges), cut at the row's n
   const int len = kv_len[b];
   const int n = len > 0 ? min(len, S) : S;
+  const int tiles = (S + kTile - 1) / kTile;
+  const int p0 = (int)((long long)sp * tiles / splits) * kTile;
+  const int p1 = min(n, (int)((long long)(sp + 1) * tiles / splits) * kTile);
+  const int ntl = p1 > p0 ? (p1 - p0 + kTile - 1) / kTile : 0;
   const size_t pos_stride = (size_t)G * dh;
   const T* kb = k + (size_t)b * S * pos_stride + (size_t)g * dh;
   const T* vb = v + (size_t)b * S * pos_stride + (size_t)g * dh;
-  constexpr int kVW = 16 / sizeof(T);           // elements per 16-byte load
-  const int rv = dh / kVW;                      // loads per cache row
-  for (int t0 = 0; t0 < n; t0 += kTile) {
-    const int nt = min(kTile, n - t0);
-    // stage the tile: 16-byte loads, kBatch per thread in flight at once
-    const int nvec = nt * rv;
-    for (int e0 = tid; e0 < nvec; e0 += blockDim.x * kBatch) {
-      uint4 kbuf[kBatch], vbuf[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int e = e0 + u * blockDim.x;
-        if (e < nvec) {
-          const size_t off = (size_t)(t0 + e / rv) * pos_stride + (e % rv) * kVW;
-          kbuf[u] = *reinterpret_cast<const uint4*>(kb + off);
-          vbuf[u] = *reinterpret_cast<const uint4*>(vb + off);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int e = e0 + u * blockDim.x;
-        if (e < nvec) {
-          const int t = e / rv, c = (e % rv) * kVW;
-          unpack<T>(kbuf[u], ks + t * kr + c);
-          unpack<T>(vbuf[u], vs + t * dh + c);
-        }
-      }
+  const int rv = dh / kVW;                     // 16-byte copies per row
+  auto load = [&](int stage, int t0) {        // rows past p1 zero-filled
+    T* kd = ks + stage * kTile * kr;
+    T* vd = vs + stage * kTile * kr;
+    for (int e = tid; e < kTile * rv; e += blockDim.x) {
+      const int t = e / rv, c = (e % rv) * kVW;
+      const bool in = t0 + t < p1;
+      const size_t off = (in ? (size_t)(t0 + t) * pos_stride : 0) + c;
+      cp_async16(smem_u32(kd + t * kr + c), kb + off, in);
+      cp_async16(smem_u32(vd + t * kr + c), vb + off, in);
     }
-    __syncthreads();
-    for (int e = tid; e < Hg * nt; e += blockDim.x) {
-      const int h = e / nt, t = e % nt;
+  };
+  if (ntl > 0) {
+    load(0, p0);
+    cp_async_commit();
+  }
+  for (int i = 0; i < ntl; ++i) {
+    cp_async_wait<0>();                        // tile i has landed
+    __syncthreads();                           // and tile i - 1 is consumed
+    if (i + 1 < ntl) {
+      load((i + 1) & 1, p0 + (i + 1) * kTile);
+      cp_async_commit();
+    }
+    const int t0 = p0 + i * kTile, nt = min(kTile, p1 - t0);
+    const T* kt = ks + (i & 1) * kTile * kr;
+    const T* vt = vs + (i & 1) * kTile * kr;
+    for (int e = tid; e < Hg * kTile; e += blockDim.x) {
+      const int h = e / kTile, t = e % kTile;
       const float* qh = qs + h * dh;
-      const float* kt = ks + t * kr;
-      float s = 0.f;
-      for (int i = 0; i < dh; ++i) s = fmaf(qh[i], kt[i], s);
-      ps[h * kTile + t] = t0 + t < len ? s * scale : kMask;
+      const T* krow = kt + t * kr;
+      float s0 = 0.f, s1 = 0.f;                // even and odd dims
+      for (int c = 0; c < dh; c += kVW) {
+        float kf[kVW];
+        unpack<T>(*reinterpret_cast<const uint4*>(krow + c), kf);
+#pragma unroll
+        for (int j = 0; j < kVW; j += 2) {
+          s0 = fmaf(qh[c + j], kf[j], s0);
+          s1 = fmaf(qh[c + j + 1], kf[j + 1], s1);
+        }
+      }
+      ps[e] = t0 + t < len ? (s0 + s1) * scale : kMask;
     }
     __syncthreads();
+    // per head: the tile's max, p = exp(s - max) summed unrounded and
+    // stored rounded to T (0 past nt), the running max and sum
     for (int h = warp; h < Hg; h += nw) {
       float* row = ps + h * kTile;
       float mc = kMask;
@@ -138,9 +171,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float mp = m_s[h];
       const float mn = fmaxf(mp, mc);
       float sum = 0.f;
-      for (int t = lane; t < nt; t += 32) {
-        const float p = expf(row[t] - mn);
-        row[t] = p;
+      for (int t = lane; t < kTile; t += 32) {
+        const float p = t < nt ? expf(row[t] - mn) : 0.f;
+        row[t] = as_v<T>(p);
         sum += p;
       }
       sum = warp_sum(sum);
@@ -153,45 +186,127 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 #pragma unroll
-    for (int o = 0; o < kMaxOut; ++o) {
-      const int e = tid + o * blockDim.x;
-      if (e < Hg * dh) {
-        const int h = e / dh, dd = e % dh;
+    for (int o = 0; o < kMaxPair; ++o) {
+      const int u = tid + o * blockDim.x;
+      if (u < npair) {
+        const int h = 2 * u / dh, dd = 2 * u % dh;
         const float* prow = ps + h * kTile;
-        float pv = 0.f;
-        for (int t = 0; t < nt; ++t)
-          pv = fmaf(as_v<T>(prow[t]), vs[t * dh + dd], pv);
-        acc[o] = acc[o] * c_s[h] + pv;
+        const T* vcol = vt + dd;
+        float2 a[4];                           // four chains over positions
+#pragma unroll
+        for (int j = 0; j < 4; ++j) a[j] = make_float2(0.f, 0.f);
+#pragma unroll 4
+        for (int t = 0; t < kTile; t += 4) {
+          const float4 p = *reinterpret_cast<const float4*>(prow + t);
+          const float pj[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 vv = load2<T>(vcol + (t + j) * kr);
+            a[j].x = fmaf(pj[j], vv.x, a[j].x);
+            a[j].y = fmaf(pj[j], vv.y, a[j].y);
+          }
+        }
+        const float c = c_s[h];
+        acc[o].x = acc[o].x * c + ((a[0].x + a[1].x) + (a[2].x + a[3].x));
+        acc[o].y = acc[o].y * c + ((a[0].y + a[1].y) + (a[2].y + a[3].y));
       }
     }
-    __syncthreads();
   }
+  __syncthreads();                             // m_s, l_s final
+  if (splits == 1) {
 #pragma unroll
-  for (int o = 0; o < kMaxOut; ++o) {
-    const int e = tid + o * blockDim.x;
-    if (e < Hg * dh) {
-      const int h = e / dh;
-      out[qbase + e] = from_f<T>(acc[o] / fmaxf(l_s[h], 1e-30f));
+    for (int o = 0; o < kMaxPair; ++o) {
+      const int u = tid + o * blockDim.x;
+      if (u < npair) {
+        const float den = fmaxf(l_s[2 * u / dh], 1e-30f);
+        out[qbase + 2 * u] = from_f<T>(acc[o].x / den);
+        out[qbase + 2 * u + 1] = from_f<T>(acc[o].y / den);
+      }
     }
+    return;
+  }
+  // partial of (b, g, sp): acc [Hg, dh], then m [Hg], then l [Hg]
+  float* pb = part + (((size_t)b * G + g) * splits + sp) * Hg * (dh + 2);
+#pragma unroll
+  for (int o = 0; o < kMaxPair; ++o) {
+    const int u = tid + o * blockDim.x;
+    if (u < npair) *reinterpret_cast<float2*>(pb + 2 * u) = acc[o];
+  }
+  if (tid < Hg) {
+    pb[Hg * dh + tid] = m_s[tid];
+    pb[Hg * dh + Hg + tid] = l_s[tid];
+  }
+}
+
+// One block per (g, b): out = sum_s acc_s w_s / max(sum_s l_s w_s, 1e-30)
+// with w_s = exp(m_s - max_s m_s) over the non-empty splits (l_s > 0),
+// summed in split order. Shared memory: the partials' m, then l, then
+// the weights, each [splits, Hg], then the denominators [Hg].
+template <typename T>
+__global__ void __launch_bounds__(1024)
+decode_merge_kernel(const float* __restrict__ part, int H, int G, int dh,
+                    int splits, T* __restrict__ out) {
+  extern __shared__ float sm[];
+  const int g = blockIdx.x, b = blockIdx.y, Hg = H / G;
+  const int n = splits * Hg;
+  float* m_s = sm;
+  float* l_s = m_s + n;
+  float* w_s = l_s + n;
+  float* den = w_s + n;
+  const size_t stride = (size_t)Hg * (dh + 2);
+  const float* pb = part + ((size_t)b * G + g) * splits * stride;
+  const size_t qbase = ((size_t)b * H + (size_t)g * Hg) * dh;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const float* ps = pb + (e / Hg) * stride + Hg * dh + e % Hg;
+    m_s[e] = ps[0];
+    l_s[e] = ps[Hg];
+  }
+  __syncthreads();
+  for (int h = threadIdx.x; h < Hg; h += blockDim.x) {
+    float mt = kMask;
+    for (int s = 0; s < splits; ++s)
+      if (l_s[s * Hg + h] > 0.f) mt = fmaxf(mt, m_s[s * Hg + h]);
+    float lt = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      const float ls = l_s[s * Hg + h];
+      const float w = ls > 0.f ? expf(m_s[s * Hg + h] - mt) : 0.f;
+      w_s[s * Hg + h] = w;
+      lt += ls * w;
+    }
+    den[h] = fmaxf(lt, 1e-30f);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < Hg * dh; e += blockDim.x) {
+    const int h = e / dh;
+    float at = 0.f;
+#pragma unroll 16
+    for (int s = 0; s < splits; ++s) at += pb[s * stride + e] * w_s[s * Hg + h];
+    out[qbase + e] = from_f<T>(at / den[h]);
   }
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* kv_len,
-           int B, int S, int H, int G, int dh, float scale, void* out,
-           void* stream) {
-  const size_t smem = decode_smem_floats(H / G, dh) * sizeof(float);
+           int B, int S, int H, int G, int dh, float scale, int splits,
+           int smem, void* part, void* out, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    const cudaError_t e = cudaFuncSetAttribute(
+        decode_split_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  decode_kernel<T><<<dim3(G, B), kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
+  decode_split_kernel<T><<<dim3(splits, G, B), kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(kv_len), S, H, G, dh,
-      scale, static_cast<T*>(out));
+      scale, splits, static_cast<T*>(out), static_cast<float*>(part));
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
+  const int Hg = H / G;
+  const size_t merge_smem = (size_t)(3 * splits + 1) * Hg * sizeof(float);
+  const int merge_threads = min(1024, (Hg * dh + 31) / 32 * 32);
+  decode_merge_kernel<T><<<dim3(G, B), merge_threads, merge_smem, st>>>(
+      static_cast<const float*>(part), H, G, dh, splits, static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -199,15 +314,18 @@ int launch(const void* q, const void* k, const void* v, const void* kv_len,
 
 extern "C" int decode_attention_f32(const void* q, const void* k, const void* v,
                                     const void* kv_len, int B, int S, int H,
-                                    int G, int dh, float scale, void* out,
+                                    int G, int dh, float scale, int splits,
+                                    int smem, void* part, void* out,
                                     void* stream) {
-  return launch<float>(q, k, v, kv_len, B, S, H, G, dh, scale, out, stream);
+  return launch<float>(q, k, v, kv_len, B, S, H, G, dh, scale, splits, smem,
+                       part, out, stream);
 }
 
 extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v,
                                      const void* kv_len, int B, int S, int H,
-                                     int G, int dh, float scale, void* out,
+                                     int G, int dh, float scale, int splits,
+                                     int smem, void* part, void* out,
                                      void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, kv_len, B, S, H, G, dh, scale, out,
-                               stream);
+  return launch<__nv_bfloat16>(q, k, v, kv_len, B, S, H, G, dh, scale, splits,
+                               smem, part, out, stream);
 }

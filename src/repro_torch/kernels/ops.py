@@ -196,7 +196,8 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q [B, Sq, H, dh]; k, v [B, Sk, G, dh] (f32 or bf16, same as q;
     H % G == 0). Query i at absolute position q_offset + i attends the
     keys at positions < kv_len (Sk when None) that `causal` and `window`
-    leave unmasked. Returns [B, Sq, H, dh] in q's dtype."""
+    leave unmasked. Returns [B, Sq, H, dh] in q's dtype. On the card bf16
+    runs on the tensor cores, f32 on the CUDA cores (in full f32)."""
     dev = _device(q, k, v)
     suffix = _attention_dtype(q)
     _check(q, "q", q.dtype, 4)
@@ -229,12 +230,42 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+DECODE_TILE = 64      # positions per tile of the decode_attention kernel
+SM_COUNT = 132        # streaming multiprocessors of an H100 SXM
+DECODE_BLOCKS_PER_SM = 4   # decode_attention blocks resident on one SM
+
+
+def decode_split_plan(B: int, G: int, S: int) -> int:
+    """Splits of each row's cache for `decode_attention`, from host-known
+    shapes only: enough (splits, G, B) blocks to fill the card's SM_COUNT
+    SMs with DECODE_BLOCKS_PER_SM blocks each, each split at least two
+    DECODE_TILE tiles (so at most tiles // 2 splits, and 1 when B*G
+    blocks already fill the card or the cache is short). Split s covers
+    `ref.decode_split_ranges`."""
+    tiles = -(-S // DECODE_TILE)
+    want = -(-SM_COUNT * DECODE_BLOCKS_PER_SM // max(1, B * G))
+    return max(1, min(want, tiles // 2))
+
+
+def decode_smem_bytes(Hg: int, dh: int, esz: int) -> int:
+    """Shared memory of a `decode_attention` block: the two-stage K and V
+    rings [2, DECODE_TILE, dh + 16/esz] in the cache's type (esz bytes an
+    element), then in f32 the group's queries [Hg, dh], a tile's scores
+    [Hg, DECODE_TILE] and the running max, sum and correction [Hg]."""
+    row = dh + 16 // esz
+    return (4 * DECODE_TILE * row * esz
+            + (Hg * dh + Hg * DECODE_TILE + 3 * Hg) * 4)
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: Union[int, torch.Tensor], ring: bool = False):
     """q [B, H, dh]; k, v [B, S, G, dh] (f32 or bf16, same as q); kv_len
     an int or an i32 [B] tensor of each row's length. `ring`: the cache is
     a sliding-window ring (mask length min(kv_len, S)). Returns
-    [B, H, dh] in q's dtype."""
+    [B, H, dh] in q's dtype. On the card the cache is split across
+    `decode_split_plan(B, G, S)` blocks per (row, kv head); with more than
+    one split a second, small kernel merges the partials. The call counts
+    one launch either way."""
     dev = _device(q, k, v)
     suffix = _attention_dtype(q)
     _check(q, "q", q.dtype, 3)
@@ -253,11 +284,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dev.type == "cpu":
         return ref.decode_attention(q, k, v, kv_len, ring=ring)
     Hg = H // G
-    smem = (Hg * dh + 64 * (2 * dh + 1) + Hg * 64 + 3 * Hg) * 4
-    if Hg * dh > 2048 or dh % 8 or smem > 227 * 1024:
+    smem = decode_smem_bytes(Hg, dh, q.element_size())
+    if Hg > 16 or Hg * dh > 2048 or dh % 8 or smem > 227 * 1024:
         raise ValueError(f"decode_attention: Hg={Hg}, dh={dh} outside the "
-                         "kernel's limits (Hg*dh <= 2048, dh a multiple of "
-                         "8, 227 KB of shared memory)")
+                         "kernel's limits (Hg <= 16, Hg*dh <= 2048, dh a "
+                         "multiple of 8, 227 KB of shared memory)")
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("decode_attention: k, v must be 16-byte aligned")
     if not isinstance(kv_len, torch.Tensor):
@@ -265,12 +296,16 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0 or S == 0:
         return out
+    splits = decode_split_plan(B, G, S)
+    part = torch.empty(B * G * splits * Hg * (dh + 2) if splits > 1 else 0,
+                       dtype=torch.float32, device=dev)
     # over S positions, ring's min(kv_len, S) is the same mask as kv_len
     fn = getattr(build.library("decode_attention"),
                  f"decode_attention_{suffix}")
     _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-                 B, S, H, G, dh, 1.0 / math.sqrt(dh), out.data_ptr(),
-                 _stream()), "decode_attention")
+                 B, S, H, G, dh, 1.0 / math.sqrt(dh), splits, smem,
+                 part.data_ptr(), out.data_ptr(), _stream()),
+              "decode_attention")
     decode_attention.launches += 1
     return out
 

@@ -175,6 +175,58 @@ def decode_attention(q, k, v, kv_len, ring: bool = False):
     return o.reshape(B, H, dh).to(q.dtype)
 
 
+def decode_split_ranges(S: int, splits: int, tile: int = 64):
+    """The [lo, hi) positions that split s of the decode_attention kernel
+    covers: tiles [s*T // splits, (s+1)*T // splits) of the T tiles of S
+    (the last tile may be ragged, so hi is cut at S)."""
+    tiles = -(-S // tile)
+    return [(s * tiles // splits * tile,
+             min(S, (s + 1) * tiles // splits * tile)) for s in range(splits)]
+
+
+def decode_attention_split(q, k, v, kv_len, splits: int):
+    """The split-and-merge arithmetic of the decode_attention kernel in
+    plain PyTorch (for tests: `decode_attention` is the contract). Row b
+    walks its first n = min(kv_len, S) positions (all S when kv_len <= 0)
+    with positions >= kv_len masked; a ring's min(kv_len, S) is the same
+    mask. Each split of `decode_split_ranges` gives a partial (m, l,
+    unnormalised acc) over its positions below n, with the probabilities
+    rounded to v's type before the PV product; an empty split has l = 0
+    and is skipped. The partials merge in split order: w_s = exp(m_s -
+    max m), out = sum acc_s w_s / max(sum l_s w_s, 1e-30)."""
+    B, H, dh = q.shape
+    S, G = k.shape[1], k.shape[2]
+    lens = torch.as_tensor(kv_len, device=q.device).long().reshape(-1)
+    lens = lens.expand(B)
+    n = torch.where(lens > 0, lens.clamp(max=S), torch.full_like(lens, S))
+    qg = q.float().reshape(B, G, H // G, dh)
+    s = torch.einsum("bgnd,bsgd->bgns", qg, k.float()) * (1.0 / math.sqrt(dh))
+    pos = torch.arange(S, device=q.device)
+    s = torch.where((pos[None, :] < lens[:, None])[:, None, None, :], s,
+                    torch.full_like(s, MASK))
+    parts = []
+    for lo, hi in decode_split_ranges(S, splits):
+        inside = ((pos[None, :] >= lo) & (pos[None, :] < hi)
+                  & (pos[None, :] < n[:, None]))[:, None, None, :]
+        m = torch.where(inside, s, torch.full_like(s, MASK)).amax(-1)
+        p = torch.where(inside, torch.exp(s - m[..., None]),
+                        torch.zeros_like(s))
+        acc = torch.einsum("bgns,bsgd->bgnd", p.to(v.dtype).float(),
+                           v.float())
+        parts.append((m, p.sum(-1), acc))
+    mt = torch.full_like(parts[0][0], MASK)
+    for m, l, _ in parts:
+        mt = torch.where(l > 0, torch.maximum(mt, m), mt)
+    lt = torch.zeros_like(mt)
+    at = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        w = torch.where(l > 0, torch.exp(m - mt), torch.zeros_like(m))
+        lt = lt + l * w
+        at = at + acc * w[..., None]
+    out = at / lt.clamp(min=1e-30)[..., None]
+    return out.reshape(B, H, dh).to(q.dtype)
+
+
 def decode_attention_paged(q, k, v, kv_len, table):
     """q [B, H, dh]; k, v [P, ps, G, dh] one layer of the page pool;
     kv_len [B]; table [B, W] page ids (entry w backs positions
