@@ -28,8 +28,14 @@ Phases, any failure exits non-zero (nothing is caught):
    times (CUDA events) and the bound of the work: ids exact except at
    ties within the value tolerance, ecoscan and scr_select values 2e-5,
    kmeans_assign 1e-4 (relative), attention 1e-5 in f32 and 2e-2 in bf16
-   (the attention edge cases run in both). Each kernel's line shows its
-   time over the library call's and the share of its bound.
+   (the attention edge cases run in both). kmeans_assign runs at the
+   three shapes of its paths (the EcoVector build's, the IVF partition's
+   and a PQ sub-quantizer's, on the baselines' own data) and its edge
+   cases (`kmeans_edges`). Each kernel's line shows its time over the
+   library call's and the share of its bound. The launch path: the
+   wrappers' current stream equals `torch.cuda.current_stream()` under a
+   side stream, and `scr_score`'s cached C entry point is timed alone
+   beside its wrapper and `bmm`.
    TF32 is off for every float32 matmul and convolution (the plain
    versions run in full f32).
 6. The same pipeline on a small corpus with the float32 reduced model,
@@ -168,38 +174,68 @@ def same_or_tied(name, got_ids, want_ids, value_of, rtol, atol):
 # ------------------------------------------------------------- kernels
 
 
-def check_kmeans(x, cent):
-    N, d = x.shape
-    NC = cent.shape[0]
+def _kmeans_check(label, x, cent):
+    """kmeans_assign against plain: ids exact except ties within 1e-4,
+    sqdist 1e-4 (relative; sums in another order). Returns (ids, max abs
+    error, tied swaps)."""
     a, dist = ops.kmeans_assign(x, cent)
     pa, pdist = ref.kmeans_assign(x, cent)
     d2 = ((x * x).sum(1)[:, None] - 2.0 * x @ cent.T
           + (cent * cent).sum(1)[None, :])
-    ties = same_or_tied("kmeans_assign", a, pa,
+    ties = same_or_tied(label, a, pa,
                         lambda ids: d2.gather(1, ids.long()[:, None])[:, 0],
                         1e-4, 1e-4)
-    err = close("kmeans_assign", dist, pdist, 1e-4, 1e-4)
-    # edge: ragged row count, few centroids, exact ties (duplicate rows)
-    g = torch.Generator(device=DEV).manual_seed(1)
-    xe = torch.randn(100, 16, generator=g, device=DEV)
-    ce = torch.cat([xe[:4], xe[:1]])                # centroid 4 == centroid 0
-    ae, de = ops.kmeans_assign(xe, ce)
-    pe, pde = ref.kmeans_assign(xe, ce)
-    d2e = ((xe * xe).sum(1)[:, None] - 2.0 * xe @ ce.T
-           + (ce * ce).sum(1)[None, :])
-    same_or_tied("kmeans_assign edge", ae, pe,
-                 lambda ids: d2e.gather(1, ids.long()[:, None])[:, 0],
-                 1e-4, 1e-4)
-    assert int(ae[0]) == 0, "kmeans_assign: tie must go to the lower id"
-    close("kmeans_assign edge", de, pde, 1e-4, 1e-4)
+    return a, close(label, dist, pdist, 1e-4, 1e-4), ties
+
+
+def check_kmeans(label, x, cent):
+    """kmeans_assign at one path shape: against plain, times (library:
+    `cdist` + `argmin`), and the f32 bound of the work."""
+    N, d = x.shape
+    NC = cent.shape[0]
+    _, err, ties = _kmeans_check(f"kmeans_assign {label}", x, cent)
     b_ms, b_by = bound((N * d + NC * d) * 4 + N * 8,
                        2.0 * N * NC * d + 2.0 * (N + NC) * d, F32_FLOPS_S)
     return dict(
+        shape=f"{label}: x {list(x.shape)}, centroids {list(cent.shape)}",
         err=err, ties=ties,
         ms=time_ms(lambda: ops.kmeans_assign(x, cent)),
         plain_ms=time_ms(lambda: ref.kmeans_assign(x, cent)),
         library_ms=time_ms(lambda: torch.cdist(x, cent).argmin(1)),
         bound_ms=b_ms, bound_by=b_by)
+
+
+def kmeans_edges():
+    """Edge cases of kmeans_assign, each against plain (ids exact except
+    ties within 1e-4, sqdist 1e-4): a ragged row count with 5 centroids
+    and an exact tie (centroid 4 == centroid 0); NC 390 (a ragged last
+    128-centroid tile) at d 50 (4-byte copies, a ragged feature chunk)
+    with exact ties across two tile boundaries (centroid 128 == centroid
+    0, centroid 256 == centroid 255), which must go to the lower id; an x
+    whose base is 4 bytes off 16-byte alignment (4-byte copies); NC 1.
+    Returns the number of cases."""
+    g = torch.Generator(device=DEV).manual_seed(1)
+    xe = torch.randn(100, 16, generator=g, device=DEV)
+    ce = torch.cat([xe[:4], xe[:1]])                # centroid 4 == centroid 0
+    a, _, _ = _kmeans_check("kmeans_assign edge NC 5", xe, ce)
+    assert int(a[0]) == 0, "kmeans_assign: tie must go to the lower id"
+    ce = torch.randn(390, 50, generator=g, device=DEV)
+    ce[128] = ce[0]
+    ce[256] = ce[255]
+    xe = torch.randn(1000, 50, generator=g, device=DEV)
+    xe[:3] = ce[0]
+    xe[3:6] = ce[255]
+    a, _, _ = _kmeans_check("kmeans_assign edge NC 390, d 50", xe, ce)
+    assert a[:6].tolist() == [0, 0, 0, 255, 255, 255], \
+        "kmeans_assign: a tie across a tile boundary must go to the lower id"
+    buf = torch.randn(1 + 3000 * 64, generator=g, device=DEV)
+    xm = buf[1:1 + 3000 * 64].view(3000, 64)
+    assert xm.is_contiguous() and xm.data_ptr() % 16 == 4
+    _kmeans_check("kmeans_assign edge x off alignment", xm,
+                  torch.randn(200, 64, generator=g, device=DEV))
+    _kmeans_check("kmeans_assign edge NC 1", xm[:77],
+                  torch.randn(1, 64, generator=g, device=DEV))
+    return 4
 
 
 def _slot_dist(q, data):
@@ -319,13 +355,40 @@ def check_scr_score(w, q):
     b_ms, b_by = bound((B * NW * d + B * d + B * NW) * 4, 2.0 * B * NW * d,
                        F32_FLOPS_S)
     q3 = q[:, :, None].contiguous()
+    # the cached C entry point alone, on prepared arguments: what is left
+    # of a call without the wrapper's checks, allocation and stream lookup
+    fn = build.entry("scr_score")
+    out = torch.empty(B, NW, device=DEV)
+    args = (w.data_ptr(), q.data_ptr(), B, NW, d, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     return dict(
         shape=f"legacy query: windows {list(w.shape)}, q {list(q.shape)}",
         err=err, ties=0,
         ms=time_ms(lambda: ops.scr_score(w, q), iters=50),
         plain_ms=time_ms(lambda: ref.scr_score(w, q), iters=50),
         library_ms=time_ms(lambda: torch.bmm(w, q3), iters=50),
+        bare_call_ms=time_ms(lambda: fn(*args), iters=200),
         bound_ms=b_ms, bound_by=b_by)
+
+
+def check_current_stream(w, q):
+    """`ops._stream` gives the current stream: under a non-default stream
+    its handle equals `torch.cuda.current_stream().cuda_stream`, and a
+    wrapper launched there agrees with the plain version."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        handle = ops._stream(w.device)
+        want = torch.cuda.current_stream().cuda_stream
+        out = ops.scr_score(w, q)
+    s.synchronize()
+    assert handle == want == s.cuda_stream, (handle, want, s.cuda_stream)
+    default = ops._stream(w.device)
+    assert default == torch.cuda.current_stream().cuda_stream
+    close("scr_score on a side stream", out, ref.scr_score(w, q), 1e-5, 1e-5)
+    return {"raw_getter": ops._raw_stream is not None,
+            "side_stream": s.cuda_stream, "handle_under_side_stream": handle,
+            "handle_after": default}
 
 
 def _pq_times(label, lut, codes, iters=50):
@@ -737,9 +800,11 @@ def run_baselines(base, queries):
         if "PQ" in name:
             kw["m_pq"] = M_PQ
         t0 = time.perf_counter()
+        k0 = ops.kmeans_assign.launches
         idx = make_index(name, base.shape[1], **kw).build(base)
         torch.cuda.synchronize()
-        runs = {"build_s": time.perf_counter() - t0}
+        runs = {"build_s": time.perf_counter() - t0,
+                "kmeans_launches": ops.kmeans_assign.launches - k0}
         for n_probe in N_PROBES:
             idx.stats.reset()
             ids, dists, times = [], [], []
@@ -1017,7 +1082,8 @@ def main() -> int:
     gt = exact_top10(base, bq)
     base_info = {}
     for name, (idx, runs) in indexes.items():
-        info = {"build_s": runs["build_s"], "ram_bytes": idx.ram_bytes()}
+        info = {"build_s": runs["build_s"], "ram_bytes": idx.ram_bytes(),
+                "kmeans_launches": runs["kmeans_launches"]}
         for n_probe in N_PROBES:
             r = runs[n_probe]
             assert all(len(i) == 10 for i in r["ids"])
@@ -1041,6 +1107,17 @@ def main() -> int:
     lut_flat = torch.tensor(np.stack([ivfpq.pq.adc_table(q)
                                       for q in bq[:16]]), device=dev)
     codes_flat = torch.tensor(ivfpq.pq.encode(base), device=dev)
+    # kmeans_assign's inputs on this path: the IVF partition (all of base
+    # against the IVF index's centroids) and the first PQ sub-quantizer
+    # (its 4,096-row training sample, as IVFPQ.build draws it, against
+    # the trained codebook)
+    ivf_x = torch.tensor(base, device=dev)
+    ivf_c = torch.tensor(indexes["IVF"][0].centroids, device=dev)
+    sample = base[np.random.default_rng(0).choice(
+        len(base), min(len(base), 4096), replace=False)]
+    dsub = base.shape[1] // M_PQ
+    pq_x = torch.tensor(np.ascontiguousarray(sample[:, :dsub]), device=dev)
+    pq_c = torch.tensor(ivfpq.pq.codebooks[0], device=dev)
     del indexes, ivfpq
 
     # ---- kernels against their plain versions, on the paths' inputs
@@ -1098,8 +1175,13 @@ def main() -> int:
         check_decode_attention("h2o ring", q_ring, hck, hcv, len_ring, True),
     ]
     n_edges = attention_edges()
+    n_kmeans_edges = kmeans_edges()
+    kmeans_shapes = [check_kmeans("EcoVector build", x, cent),
+                     check_kmeans("IVF partition", ivf_x, ivf_c),
+                     check_kmeans("PQ sub-quantizer", pq_x, pq_c)]
+    stream_info = check_current_stream(w_leg, q_leg)
     results = {
-        "kmeans_assign": check_kmeans(x, cent),
+        "kmeans_assign": dict(kmeans_shapes[0], shapes=kmeans_shapes),
         "ecoscan": check_ecoscan(qv, d_t, l_t, probes, pipe.top_k),
         "scr_select": check_scr_select(qv, w_t, wl_t, ids),
         "decode_attention_paged": check_decode(
@@ -1111,6 +1193,10 @@ def main() -> int:
     }
     calls = {
         "kmeans_assign": lambda: ops.kmeans_assign(x, cent),
+        "kmeans_assign IVF partition": lambda: ops.kmeans_assign(ivf_x,
+                                                                 ivf_c),
+        "kmeans_assign PQ sub-quantizer": lambda: ops.kmeans_assign(pq_x,
+                                                                    pq_c),
         "ecoscan": lambda: ops.ecoscan(qv, d_t, l_t, probes, pipe.top_k),
         "scr_select": lambda: ops.scr_select(qv, w_t, wl_t, ids),
         "decode_attention_paged": lambda: ops.decode_attention_paged(
@@ -1136,6 +1222,17 @@ def main() -> int:
           "GPU; the legacy SCR pipeline, whose prompts equal the window "
           "index's); reduced h2o wave tokens agree GPU vs CPU")
     print(f"attention edge cases: {n_edges} agree with the plain versions")
+    print(f"kmeans_assign edge cases: {n_kmeans_edges} agree with the plain "
+          "version")
+    print("current stream:", json.dumps(stream_info))
+    sc = results["scr_score"]
+    print(f"scr_score launch path: wrapper {sc['ms']:.4f} ms a call, bare "
+          f"cached ctypes call {sc['bare_call_ms']:.4f} ms, bmm "
+          f"{sc['library_ms']:.4f} ms, device "
+          f"{prof['kernel_device_ms']['scr_score']:.5f} ms")
+    print("launch path (call ms, profiled device ms):", json.dumps({
+        name: [r["ms"], prof["kernel_device_ms"][name]]
+        for name, r in results.items()}))
     for name, r in results.items():
         for sh in r.get("shapes", [r]):
             print(f"{name}: kernel {sh['ms']:.4f} ms, plain "
@@ -1156,7 +1253,10 @@ def main() -> int:
         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"],
-        "device_ms": prof["kernel_device_ms"][name]}
+        "device_ms": prof["kernel_device_ms"][name],
+        "shapes": [{k: sh[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                       "bound_ms", "err")}
+                   for sh in r.get("shapes", [])]}
         for name, r in results.items()]
     assert len(kernels) == len(ops.KERNELS)
     assert all(k["launches"] > 0 for k in kernels)

@@ -7,7 +7,9 @@ source, all started together. Libraries land in `build/repro_torch_kernels/`
 at the repository root, named by a hash of their sources and flags, so a
 changed source rebuilds and an unchanged one is reused. nvcc's output,
 with `-Xptxas -v` register and shared-memory use, is kept beside each
-library as `<kernel>.log`.
+library as `<kernel>.log`. Every C entry point is looked up once, when
+its library loads, into `ENTRY` (name -> ctypes function), so a launch
+costs one dict lookup and the ctypes call.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -60,6 +62,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+ENTRY: Dict[str, Callable[..., int]] = {}
 
 
 def _nvcc() -> str:
@@ -115,13 +118,16 @@ def build_all() -> float:
                 f = getattr(lib, fn)
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
+                ENTRY[fn] = f
             _libs[name] = lib
         return seconds
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name` (builds everything on first
-    use)."""
-    if name not in _libs:
+def entry(fn: str):
+    """The ctypes function of C entry point `fn` (builds everything on
+    first use)."""
+    f = ENTRY.get(fn)
+    if f is None:
         build_all()
-    return _libs[name]
+        f = ENTRY[fn]
+    return f

@@ -7,6 +7,11 @@ stream. Tensors on the CPU take the kernel's plain version in `ref.py`
 raise, never fall back. Each wrapper counts its kernel launches in
 `<wrapper>.launches` (`launch_counts`, `reset_launch_counts`), so a run
 can show that its path went through the kernels.
+
+The launch path is kept short, since most calls of the port take a few
+microseconds of device time: one pass of checks per wrapper (`_checked`),
+the C entry point from `build.ENTRY`, and the current stream's raw handle
+without building a `torch.cuda.Stream` (`_stream`).
 """
 from __future__ import annotations
 
@@ -21,25 +26,38 @@ KERNELS = ("kmeans_assign", "ecoscan", "scr_select", "decode_attention_paged",
            "flash_prefill", "decode_attention", "scr_score", "pq_adc")
 
 
-def _device(*ts: torch.Tensor) -> torch.device:
-    dev = ts[0].device
-    for t in ts[1:]:
+def _checked(*specs) -> torch.device:
+    """Check each (tensor, name, dtype, ndim) of `specs`: one device for
+    all, the dtype, the number of dimensions, contiguity. Returns the
+    device."""
+    dev = specs[0][0].device
+    for t, name, dtype, ndim in specs:
         if t.device != dev:
             raise ValueError(f"tensors on {dev} and {t.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+        if t.dim() != ndim:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{ndim}-d")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: not contiguous")
     return dev
 
 
-def _check(t: torch.Tensor, name: str, dtype, ndim: int) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {ndim}-d")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
+# PyTorch's raw getter of the current stream (the one Triton's launcher
+# uses); the public call builds a torch.cuda.Stream object on every call
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(dev: torch.device) -> int:
+    """The current CUDA stream of `dev` (the current device when `dev`
+    has no index) as a cudaStream_t handle."""
+    idx = dev.index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    if _raw_stream is not None:
+        return _raw_stream(idx)
+    return torch.cuda.current_stream(idx).cuda_stream
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -60,10 +78,9 @@ def _attention_dtype(q: torch.Tensor) -> str:
 def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor):
     """x [N, d] f32; centroids [NC, d] f32 -> (assign [N] i32, sqdist [N]
     f32): each row's nearest centroid (lower id on ties) and its squared
-    distance."""
-    dev = _device(x, centroids)
-    _check(x, "x", torch.float32, 2)
-    _check(centroids, "centroids", torch.float32, 2)
+    distance (||x||^2 - 2 x.c) + ||c||^2."""
+    dev = _checked((x, "x", torch.float32, 2),
+                   (centroids, "centroids", torch.float32, 2))
     N, d = x.shape
     NC = centroids.shape[0]
     if centroids.shape[1] != d or NC == 0:
@@ -74,9 +91,10 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor):
     assign = torch.empty(N, dtype=torch.int32, device=dev)
     sqdist = torch.empty(N, dtype=torch.float32, device=dev)
     if N:
-        _raise_on(build.library("kmeans_assign").kmeans_assign(
+        _raise_on(build.entry("kmeans_assign")(
             x.data_ptr(), centroids.data_ptr(), N, NC, d, assign.data_ptr(),
-            sqdist.data_ptr(), _stream()), "kmeans_assign")
+            sqdist.data_ptr(), _stream(dev)),
+            "kmeans_assign")
         kmeans_assign.launches += 1
     return assign, sqdist
 
@@ -88,11 +106,11 @@ def ecoscan(q: torch.Tensor, data: torch.Tensor, lens: torch.Tensor,
     (< 0: padding); block_map [NC] i32 (identity when None). Returns the
     k nearest probed rows per query: (dists [B, k] f32, slots [B, k] i32
     = row*CAP + j), (NEG, -1) past the valid candidates."""
-    dev = _device(q, data, lens, probes)
-    _check(q, "q", torch.float32, 2)
-    _check(data, "data", torch.float32, 3)
-    _check(lens, "lens", torch.int32, 1)
-    _check(probes, "probes", torch.int32, 2)
+    specs = ((q, "q", torch.float32, 2), (data, "data", torch.float32, 3),
+             (lens, "lens", torch.int32, 1), (probes, "probes", torch.int32, 2))
+    if block_map is not None:
+        specs += ((block_map, "block_map", torch.int32, 1),)
+    dev = _checked(*specs)
     B, d = q.shape
     R, CAP, d2 = data.shape
     P = probes.shape[1]
@@ -100,22 +118,23 @@ def ecoscan(q: torch.Tensor, data: torch.Tensor, lens: torch.Tensor,
         raise ValueError("ecoscan shapes disagree")
     if block_map is None:
         block_map = torch.arange(R, dtype=torch.int32, device=dev)
-    _device(q, block_map)
-    _check(block_map, "block_map", torch.int32, 1)
     if dev.type == "cpu":
         return ref.ecoscan(q, data, lens, probes, k, block_map=block_map)
-    out_d = torch.full((B, k), ref.NEG, dtype=torch.float32, device=dev)
-    out_i = torch.full((B, k), -1, dtype=torch.int32, device=dev)
     if B == 0 or P == 0:
-        return out_d, out_i
-    sc_d = torch.empty((B, P, k), dtype=torch.float32, device=dev)
-    sc_i = torch.empty((B, P, k), dtype=torch.int32, device=dev)
-    sc_f = torch.empty((B, P, k), dtype=torch.int32, device=dev)
-    _raise_on(build.library("ecoscan").ecoscan(
+        return (torch.full((B, k), ref.NEG, dtype=torch.float32, device=dev),
+                torch.full((B, k), -1, dtype=torch.int32, device=dev))
+    # the merge launch writes every output slot
+    out_d = torch.empty((B, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
+    # one scratch buffer: per (query, probe) top-k distances, slots and
+    # flat candidate indices, [B, P, k] each (4-byte words)
+    n = B * P * k
+    scratch = torch.empty(3 * n, dtype=torch.int32, device=dev)
+    sc = scratch.data_ptr()
+    _raise_on(build.entry("ecoscan")(
         q.data_ptr(), data.data_ptr(), lens.data_ptr(), probes.data_ptr(),
-        block_map.data_ptr(), B, CAP, d, P, k, sc_d.data_ptr(),
-        sc_i.data_ptr(), sc_f.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-        _stream()), "ecoscan")
+        block_map.data_ptr(), B, CAP, d, P, k, sc, sc + 4 * n, sc + 8 * n,
+        out_d.data_ptr(), out_i.data_ptr(), _stream(dev)), "ecoscan")
     ecoscan.launches += 1
     return out_d, out_i
 
@@ -126,11 +145,10 @@ def scr_select(q: torch.Tensor, data: torch.Tensor, lens: torch.Tensor,
     [B, K] i32 (< 0: padding). Returns (scores [B, K] f32, wins [B, K]
     i32): each doc's best window score and id, (-NEG, -1) for padding
     and windowless docs."""
-    dev = _device(q, data, lens, doc_ids)
-    _check(q, "q", torch.float32, 2)
-    _check(data, "data", torch.float32, 3)
-    _check(lens, "lens", torch.int32, 1)
-    _check(doc_ids, "doc_ids", torch.int32, 2)
+    dev = _checked((q, "q", torch.float32, 2),
+                   (data, "data", torch.float32, 3),
+                   (lens, "lens", torch.int32, 1),
+                   (doc_ids, "doc_ids", torch.int32, 2))
     B, d = q.shape
     ND, CAPW, d2 = data.shape
     K = doc_ids.shape[1]
@@ -138,13 +156,15 @@ def scr_select(q: torch.Tensor, data: torch.Tensor, lens: torch.Tensor,
         raise ValueError("scr_select shapes disagree")
     if dev.type == "cpu":
         return ref.scr_select(q, data, lens, doc_ids)
-    scores = torch.full((B, K), -ref.NEG, dtype=torch.float32, device=dev)
-    wins = torch.full((B, K), -1, dtype=torch.int32, device=dev)
     if B == 0 or K == 0 or ND == 0 or CAPW == 0:
-        return scores, wins
-    _raise_on(build.library("scr_select").scr_select(
+        return (torch.full((B, K), -ref.NEG, dtype=torch.float32, device=dev),
+                torch.full((B, K), -1, dtype=torch.int32, device=dev))
+    # one block per (doc slot, query) writes each output entry
+    scores = torch.empty((B, K), dtype=torch.float32, device=dev)
+    wins = torch.empty((B, K), dtype=torch.int32, device=dev)
+    _raise_on(build.entry("scr_select")(
         q.data_ptr(), data.data_ptr(), lens.data_ptr(), doc_ids.data_ptr(),
-        B, CAPW, d, K, scores.data_ptr(), wins.data_ptr(), _stream()),
+        B, CAPW, d, K, scores.data_ptr(), wins.data_ptr(), _stream(dev)),
         "scr_select")
     scr_select.launches += 1
     return scores, wins
@@ -155,13 +175,10 @@ def decode_attention_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [B, H, dh]; k, v [P, ps, G, dh] one layer of the page pool (f32
     or bf16, same as q); kv_len [B] i32; table [B, W] i32 valid page ids.
     Returns [B, H, dh] in q's dtype."""
-    dev = _device(q, k, v, kv_len, table)
     suffix = _attention_dtype(q)
-    _check(q, "q", q.dtype, 3)
-    _check(k, "k", q.dtype, 4)
-    _check(v, "v", q.dtype, 4)
-    _check(kv_len, "kv_len", torch.int32, 1)
-    _check(table, "table", torch.int32, 2)
+    dev = _checked((q, "q", q.dtype, 3), (k, "k", q.dtype, 4),
+                   (v, "v", q.dtype, 4), (kv_len, "kv_len", torch.int32, 1),
+                   (table, "table", torch.int32, 2))
     B, H, dh = q.shape
     P, ps, G, dh2 = k.shape
     W = table.shape[1]
@@ -178,11 +195,10 @@ def decode_attention_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0:
         return out
-    fn = getattr(build.library("decode_attention_paged"),
-                 f"decode_attention_paged_{suffix}")
+    fn = build.entry("decode_attention_paged_" + suffix)
     _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
                  table.data_ptr(), B, H, G, dh, ps, W, out.data_ptr(),
-                 _stream()), "decode_attention_paged")
+                 _stream(dev)), "decode_attention_paged")
     decode_attention_paged.launches += 1
     return out
 
@@ -198,11 +214,9 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     keys at positions < kv_len (Sk when None) that `causal` and `window`
     leave unmasked. Returns [B, Sq, H, dh] in q's dtype. On the card bf16
     runs on the tensor cores, f32 on the CUDA cores (in full f32)."""
-    dev = _device(q, k, v)
     suffix = _attention_dtype(q)
-    _check(q, "q", q.dtype, 4)
-    _check(k, "k", q.dtype, 4)
-    _check(v, "v", q.dtype, 4)
+    dev = _checked((q, "q", q.dtype, 4), (k, "k", q.dtype, 4),
+                   (v, "v", q.dtype, 4))
     B, Sq, H, dh = q.shape
     Bk, Sk, G, dhk = k.shape
     if v.shape != k.shape or Bk != B or dhk != dh or G == 0 or H % G:
@@ -221,10 +235,10 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if B == 0 or Sq == 0 or H == 0:
         return out
-    fn = getattr(build.library("flash_prefill"), f"flash_prefill_{suffix}")
+    fn = build.entry("flash_prefill_" + suffix)
     _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), B, Sq, Sk, H, G,
                  dh, int(causal), window or 0, q_offset, kv,
-                 1.0 / math.sqrt(dh), out.data_ptr(), _stream()),
+                 1.0 / math.sqrt(dh), out.data_ptr(), _stream(dev)),
               "flash_prefill")
     flash_prefill.launches += 1
     return out
@@ -266,19 +280,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `decode_split_plan(B, G, S)` blocks per (row, kv head); with more than
     one split a second, small kernel merges the partials. The call counts
     one launch either way."""
-    dev = _device(q, k, v)
     suffix = _attention_dtype(q)
-    _check(q, "q", q.dtype, 3)
-    _check(k, "k", q.dtype, 4)
-    _check(v, "v", q.dtype, 4)
+    specs = ((q, "q", q.dtype, 3), (k, "k", q.dtype, 4), (v, "v", q.dtype, 4))
+    if isinstance(kv_len, torch.Tensor):
+        specs += ((kv_len, "kv_len", torch.int32, 1),)
+    dev = _checked(*specs)
     B, H, dh = q.shape
     Bk, S, G, dhk = k.shape
     if v.shape != k.shape or Bk != B or dhk != dh or G == 0 or H % G:
         raise ValueError(f"decode_attention shapes disagree: q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}")
     if isinstance(kv_len, torch.Tensor):
-        _device(q, kv_len)
-        _check(kv_len, "kv_len", torch.int32, 1)
         if kv_len.shape[0] != B:
             raise ValueError(f"kv_len: {kv_len.shape[0]} rows, q has {B}")
     if dev.type == "cpu":
@@ -297,15 +309,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B == 0 or S == 0:
         return out
     splits = decode_split_plan(B, G, S)
-    part = torch.empty(B * G * splits * Hg * (dh + 2) if splits > 1 else 0,
-                       dtype=torch.float32, device=dev)
+    # the partials of the splits (one split writes `out` directly)
+    part = torch.empty(B * G * splits * Hg * (dh + 2), dtype=torch.float32,
+                       device=dev) if splits > 1 else None
     # over S positions, ring's min(kv_len, S) is the same mask as kv_len
-    fn = getattr(build.library("decode_attention"),
-                 f"decode_attention_{suffix}")
+    fn = build.entry("decode_attention_" + suffix)
     _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
                  B, S, H, G, dh, 1.0 / math.sqrt(dh), splits, smem,
-                 part.data_ptr(), out.data_ptr(), _stream()),
-              "decode_attention")
+                 None if part is None else part.data_ptr(), out.data_ptr(),
+                 _stream(dev)), "decode_attention")
     decode_attention.launches += 1
     return out
 
@@ -313,21 +325,20 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def scr_score(windows: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """windows [B, NW, d] f32; q [B, d] f32 -> scores [B, NW] f32, the
     inner product of each window with its query."""
-    dev = _device(windows, q)
-    _check(windows, "windows", torch.float32, 3)
-    _check(q, "q", torch.float32, 2)
+    dev = _checked((windows, "windows", torch.float32, 3),
+                   (q, "q", torch.float32, 2))
     B, NW, d = windows.shape
     if tuple(q.shape) != (B, d):
         raise ValueError(f"scr_score: q {tuple(q.shape)} vs windows "
                          f"{tuple(windows.shape)}")
     if dev.type == "cpu":
         return ref.scr_score(windows, q)
-    out = torch.empty((B, NW), dtype=torch.float32, device=dev)
+    out = windows.new_empty((B, NW))        # f32 on windows' device
     if B == 0 or NW == 0:
         return out
-    _raise_on(build.library("scr_score").scr_score(
+    _raise_on(build.entry("scr_score")(
         windows.data_ptr(), q.data_ptr(), B, NW, d, out.data_ptr(),
-        _stream()), "scr_score")
+        _stream(dev)), "scr_score")
     scr_score.launches += 1
     return out
 
@@ -338,9 +349,8 @@ PQ_ADC_MAX_K = 256
 def pq_adc(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """lut [B, M, K] f32 (K <= 256) distance tables; codes [N, M] uint8,
     each < K -> scores [B, N] f32 = sum_m lut[b, m, codes[n, m]]."""
-    dev = _device(lut, codes)
-    _check(lut, "lut", torch.float32, 3)
-    _check(codes, "codes", torch.uint8, 2)
+    dev = _checked((lut, "lut", torch.float32, 3),
+                   (codes, "codes", torch.uint8, 2))
     B, M, K = lut.shape
     N = codes.shape[0]
     if codes.shape[1] != M:
@@ -353,12 +363,12 @@ def pq_adc(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     if M * K * 4 > 227 * 1024 or B > 65535:
         raise ValueError(f"pq_adc: an [M, K] = [{M}, {K}] table beyond 227 KB"
                          f" of shared memory, or B {B} > 65535")
-    out = torch.empty((B, N), dtype=torch.float32, device=dev)
+    out = lut.new_empty((B, N))             # f32 on lut's device
     if B == 0 or N == 0:
         return out
-    _raise_on(build.library("pq_adc").pq_adc(
+    _raise_on(build.entry("pq_adc")(
         lut.data_ptr(), codes.data_ptr(), B, N, M, K, out.data_ptr(),
-        _stream()), "pq_adc")
+        _stream(dev)), "pq_adc")
     pq_adc.launches += 1
     return out
 

@@ -88,6 +88,45 @@ def kmeans_assign(x, centroids):
     return a.to(torch.int32), torch.gather(d2, 1, a[:, None])[:, 0]
 
 
+# (rows per block, centroids per tile) of the kmeans_assign kernel: kBM
+# and kBN in csrc/kmeans_assign.cu
+KMEANS_TILE = (128, 128)
+
+
+def kmeans_assign_tiled(x, centroids, bm: int, bn: int):
+    """The tile walk of the kmeans_assign kernel in plain PyTorch (for
+    tests: `kmeans_assign` is the contract; the kernel's tile is
+    KMEANS_TILE). ||x||^2 and ||c||^2 once per row and centroid; each
+    bm-row block walks the bn-wide centroid tiles in order (the last of
+    each ragged), forms d2 = (xx - 2 x.c) + cc for the tile and keeps a
+    running (min, id) per row that a later tile replaces only when
+    strictly smaller, so ties go to the lower id."""
+    N = x.shape[0]
+    xx = (x * x).sum(1)
+    cc = (centroids * centroids).sum(1)
+    assign = torch.empty(N, dtype=torch.int32, device=x.device)
+    sqdist = torch.empty(N, dtype=x.dtype, device=x.device)
+    NC = centroids.shape[0]
+    for r0 in range(0, N, bm):
+        r1 = min(N, r0 + bm)
+        best = torch.full((r1 - r0,), math.inf, dtype=x.dtype,
+                          device=x.device)
+        best_i = torch.full((r1 - r0,), -1, dtype=torch.int64,
+                            device=x.device)
+        for c0 in range(0, NC, bn):
+            c1 = min(NC, c0 + bn)
+            d2 = ((xx[r0:r1, None] - 2.0 * x[r0:r1] @ centroids[c0:c1].T)
+                  + cc[None, c0:c1])
+            a = first_argmin(d2, 1)
+            v = torch.gather(d2, 1, a[:, None])[:, 0]
+            take = v < best
+            best = torch.where(take, v, best)
+            best_i = torch.where(take, a + c0, best_i)
+        assign[r0:r1] = best_i.to(torch.int32)
+        sqdist[r0:r1] = best
+    return assign, sqdist
+
+
 def scr_select(q, data, lens, doc_ids):
     """q [B, d]; data [ND, CAPW, d] window blocks; lens [ND]; doc_ids
     [B, K] (< 0: padding). Returns (scores [B, K] f32, wins [B, K] i32):

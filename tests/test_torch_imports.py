@@ -1,5 +1,6 @@
-"""The port stands alone: `repro_torch` and `chip_smoke.py` import
-neither `jax` nor anything of the JAX package `repro`."""
+"""The port stands alone: `repro_torch`, `chip_smoke.py` and the probes
+in `tools/` import neither `jax` nor anything of the JAX package
+`repro`."""
 import pathlib
 import re
 import subprocess
@@ -37,6 +38,8 @@ from repro_torch.kernels.ops import (decode_attention, flash_prefill,
 from repro_torch.core.scr import apply_scr
 from repro_torch.core.baselines import make_index
 import chip_smoke
+sys.path.insert(0, {str(ROOT / "tools")!r})
+import attention_probe, kmeans_probe, launch_probe
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 print(len(names))
 """
@@ -47,7 +50,9 @@ print(len(names))
 
 
 def test_no_jax_or_repro_import_lines():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tools" / "attention_probe.py",
+        ROOT / "tools" / "kmeans_probe.py", ROOT / "tools" / "launch_probe.py"]
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in _BLOCKED_IMPORT.finditer(f.read_text())]
     assert len(files) > 20 and not bad, bad

@@ -152,7 +152,7 @@ def flash_probe(variants, g):
 
 
 def decode_probe(g):
-    fn = build.library("decode_attention").decode_attention_bf16
+    fn = build.entry("decode_attention_bf16")
     for B in (1, 2):
         H, S, G, dh = 32, 4096, 8, 80
         q = torch.randn(B, H, dh, generator=g, device="cuda").bfloat16()
