@@ -28,7 +28,10 @@ Phases, any failure exits non-zero (nothing is caught):
    times (CUDA events) and the bound of the work: ids exact except at
    ties within the value tolerance, ecoscan and scr_select values 2e-5,
    kmeans_assign 1e-4 (relative), attention 1e-5 in f32 and 2e-2 in bf16
-   (the attention edge cases run in both). kmeans_assign runs at the
+   (the attention edge cases run in both). decode_attention_paged runs at
+   the main path's shape and at a long-cache shape (4 rows at kv_len
+   4,096 through 130-entry tables; no path runs it), and its edge cases
+   also at forced split counts (`paged_edges`). kmeans_assign runs at the
    three shapes of its paths (the EcoVector build's, the IVF partition's
    and a PQ sub-quantizer's, on the baselines' own data) and its edge
    cases (`kmeans_edges`). Each kernel's line shows its time over the
@@ -48,7 +51,14 @@ Phases, any failure exits non-zero (nothing is caught):
    and idle share, the kernels and host ops that take the time) and over
    each kernel wrapper alone (device time per call).
 
-Two more paths run after phase 4, and their kernels join phases 5-7:
+Two more paths run after phase 4, and their kernels join phases 5-7;
+then the F8 phase: the EcoVector partition (the main path's 16,384
+embeddings into 256 clusters) and the IVF partition (100,000 x 128 into
+390) each k-means'd twice on the card, bit for bit equal, and stepped
+against the CPU's plain versions from the same centroids: assignments
+equal except at ties within 1e-4, cluster sums equal (`kmeans_
+determinism`; a whole CPU build and two card builds with the
+`index_add_` update the port had before are reported beside them):
 - the legacy SCR path: the main path's pipeline with
   `use_window_index=False`, so each query re-embeds its retrieved
   documents' windows and scores them with `scr_score` (one launch per
@@ -76,7 +86,10 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import kmeans as kmeans_mod  # noqa: E402
 from repro_torch.core.baselines import make_index  # noqa: E402
+from repro_torch.core.kmeans import (cluster_sums,  # noqa: E402
+                                     kmeans_pp_init, lloyd)
 from repro_torch.core.scr import (SCRConfig, sliding_windows,  # noqa: E402
                                   split_sentences)
 from repro_torch.data.synthetic import make_qa_corpus, sift_like  # noqa: E402
@@ -435,32 +448,60 @@ def check_pq_adc(lut, codes, flat_lut, flat_codes):
     return dict(path, shapes=[path, flat])
 
 
-def check_decode(q, kp, vp, kv_len, table):
+def paged_forced(q, kp, vp, kv_len, table, splits):
+    """The decode_attention_paged kernel at a forced split count, through
+    its C entry point (the wrapper always takes the plan); no launch is
+    counted."""
+    B, H, dh = q.shape
+    _, ps, G, _ = kp.shape
+    W = table.shape[1]
+    out = torch.empty_like(q)
+    part = torch.empty(B * G * splits * (H // G) * (dh + 2), device=q.device)
+    err = build.entry("decode_attention_paged_" + ops._attention_dtype(q))(
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), kv_len.data_ptr(),
+        table.data_ptr(), B, H, G, dh, ps, W, splits, part.data_ptr(),
+        out.data_ptr(), ops._stream(q.device))
+    assert err == 0, f"decode_attention_paged at {splits} splits: {err}"
+    return out
+
+
+def paged_cases(label, q, kp, vp, kv_len, table, splits=()):
+    """decode_attention_paged against plain at one shape, in f32 (1e-5)
+    and in bf16 (2e-2): the wrapper (the plan's splits) and the kernel at
+    each forced split count. Returns the number of (case, dtype) pairs."""
+    n = 0
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        a = [t.to(dt) for t in (q, kp, vp)]
+        want = ref.decode_attention_paged(*a, kv_len, table)
+        close(f"decode_attention_paged {label} {dt}",
+              ops.decode_attention_paged(*a, kv_len, table), want, tol, tol)
+        for sp in splits:
+            close(f"decode_attention_paged {label} {dt} at {sp} splits",
+                  paged_forced(*a, kv_len, table, sp), want, tol, tol)
+        n += 1 + len(splits)
+    return n
+
+
+def check_decode(label, q, kp, vp, kv_len, table):
+    """decode_attention_paged at one path shape: kernel against plain in
+    q's type (bf16: 2e-2) and in f32 (1e-5); times, the bytes bound of
+    what this run's kv_len needs, and SDPA on the gathered K/V."""
     B, H, dh = q.shape
     P, ps, G, _ = kp.shape
     W = table.shape[1]
-    out = ops.decode_attention_paged(q, kp, vp, kv_len, table)
-    pout = ref.decode_attention_paged(q, kp, vp, kv_len, table)
-    err = close("decode_attention_paged bf16", out, pout, 2e-2, 2e-2)
+    err = close(f"decode_attention_paged {label}",
+                ops.decode_attention_paged(q, kp, vp, kv_len, table),
+                ref.decode_attention_paged(q, kp, vp, kv_len, table),
+                2e-2, 2e-2)
     a32 = [t.float() for t in (q, kp, vp)]
-    close("decode_attention_paged f32",
+    close(f"decode_attention_paged {label} f32",
           ops.decode_attention_paged(*a32, kv_len, table),
           ref.decode_attention_paged(*a32, kv_len, table), 1e-5, 1e-5)
-    # edge: reduced grouping (Hg = 2), kv_len 0 / 1 / page end / full
-    g = torch.Generator(device=DEV).manual_seed(3)
-    qe = torch.randn(4, 4, 32, generator=g, device=DEV)
-    ke = torch.randn(8, 16, 2, 32, generator=g, device=DEV)
-    ve = torch.randn(8, 16, 2, 32, generator=g, device=DEV)
-    le = torch.tensor([0, 1, 16, 64], dtype=torch.int32, device=DEV)
-    te = torch.tensor([[3, 1, 0, 0], [2, 5, 7, 1], [4, 4, 6, 0],
-                       [7, 6, 5, 4]], dtype=torch.int32, device=DEV)
-    close("decode_attention_paged edge",
-          ops.decode_attention_paged(qe, ke, ve, le, te),
-          ref.decode_attention_paged(qe, ke, ve, le, te), 1e-5, 1e-5)
-    kv = int(kv_len.clamp(min=0).sum())
+    kv = int(kv_len.clamp(min=0, max=W * ps).sum())
+    npg = int(((kv_len.clamp(min=0) + ps - 1) // ps).clamp(max=W).sum())
     esz = q.element_size()
-    b_ms, b_by = bound(2 * kv * G * dh * esz + 2 * B * H * dh * esz
-                       + B * (W + 1) * 4, 4.0 * kv * H * dh, BF16_FLOPS_S)
+    b_ms, b_by = bound(2 * kv * G * dh * esz + 2 * q.numel() * esz
+                       + (npg + B) * 4, 4.0 * kv * H * dh, BF16_FLOPS_S)
     j = torch.arange(W * ps, device=DEV)
     mask = (j[None, :] < kv_len[:, None])[:, None, None, :]
 
@@ -472,12 +513,70 @@ def check_decode(q, kp, vp, kv_len, table):
             q[:, :, None], kk.transpose(1, 2), vv.transpose(1, 2),
             attn_mask=mask)
     return dict(
+        shape=f"{label}: q {list(q.shape)}, pool {list(kp.shape)}, table "
+              f"{list(table.shape)}, kv_len {kv_len.tolist()[:4]}, splits "
+              f"{ops.decode_paged_split_plan(B, G, W, ps)}, {q.dtype}",
         err=err, ties=0,
         ms=time_ms(lambda: ops.decode_attention_paged(q, kp, vp, kv_len,
                                                       table), iters=50),
         plain_ms=time_ms(lambda: ref.decode_attention_paged(
             q, kp, vp, kv_len, table)),
         library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
+
+
+def long_cache_inputs(H, G, dh, g):
+    """The long-cache shape of decode_attention_paged (no path runs it):
+    4 rows at kv_len 4,096 through 130-entry tables of 32-position pages,
+    each row its own shuffled pages of a 520-page bf16 pool."""
+    B, W, ps = 4, 130, 32
+    P = B * W
+    kp, vp = (torch.randn(P, ps, G, dh, generator=g, device=DEV
+                          ).to(torch.bfloat16) for _ in range(2))
+    q = torch.randn(B, H, dh, generator=g, device=DEV).to(torch.bfloat16)
+    table = torch.randperm(P, generator=g, device=DEV).to(torch.int32
+                                                          ).view(B, W)
+    kv_len = torch.full((B,), 4096, dtype=torch.int32, device=DEV)
+    return q, kp, vp, kv_len, table
+
+
+def paged_edges(H, G, dh):
+    """Edge cases of decode_attention_paged, each in f32 and bf16 through
+    the wrapper and at forced split counts (1, several, one split per
+    table entry): reduced grouping (Hg 2, ps 16) with kv_len 0 / 1 / page
+    end / W*ps over tables that repeat, reverse and point tail entries at
+    page 0; qwen2.5's grouping over 18-entry tables at kv_len 0, 1, a
+    page end and past W*ps; Hg 16 at dh 128 (Hg*dh 2048); pages of 24
+    positions, so a 64-position tile spans pages, at dh 80. Returns the
+    number of (case, dtype, split count) triples checked."""
+    g = torch.Generator(device=DEV).manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=DEV)
+
+    def ints(*x):
+        return torch.tensor(x, dtype=torch.int32, device=DEV)
+    rev = torch.arange(17, -1, -1, dtype=torch.int32, device=DEV)
+    tail = torch.cat([ints(5, 9, 2), torch.zeros(15, dtype=torch.int32,
+                                                  device=DEV)])
+    cases = [
+        ("Hg 2, ps 16", (4, 4, 2, 32, 8, 16),
+         ints(0, 1, 16, 64), ints(3, 1, 0, 0, 2, 5, 7, 1, 4, 4, 6, 0,
+                                  7, 6, 5, 4).view(4, 4), (1, 2, 3, 4)),
+        ("qwen grouping, W 18", (4, H, G, dh, 24, 32),
+         ints(0, 1, 96, 600), torch.stack([rev, tail, rev.flip(0), tail]),
+         (1, 2, 7, 18)),
+        ("Hg 16, dh 128", (2, 32, 2, 128, 10, 32), ints(300, 17),
+         torch.stack([torch.arange(10, dtype=torch.int32, device=DEV),
+                      ints(9, 9, 0, 1, 2, 3, 4, 5, 6, 7)]), (1, 3)),
+        ("ps 24, dh 80", (3, 8, 2, 80, 12, 24), ints(70, 288, 25),
+         torch.stack([torch.arange(12, dtype=torch.int32, device=DEV)
+                      .roll(r) for r in (0, 5, 11)]), (1, 4, 12)),
+    ]
+    n = 0
+    for label, (B, H_, G_, dh_, P, ps), kv, tb, splits in cases:
+        n += paged_cases(label, rnd(B, H_, dh_), rnd(P, ps, G_, dh_),
+                         rnd(P, ps, G_, dh_), kv, tb, splits)
+    return n
 
 
 def _expand(t, rep):
@@ -854,6 +953,85 @@ def rescore_pq(idx, queries, runs):
     return ties
 
 
+def _index_add_sums(x, assign, k):
+    """The port's Lloyd sums before the fixed-order update: `index_add_`,
+    which adds with atomics in no fixed order on CUDA (the F8 yardstick)."""
+    idx = assign.long()
+    sums = torch.zeros(k, x.shape[1], device=x.device).index_add_(0, idx, x)
+    return sums, torch.bincount(idx, minlength=k)
+
+
+def _timed_lloyd(xt, init, iters):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cent, assign = lloyd(xt, init.to(xt.device), iters)
+    torch.cuda.synchronize()
+    return cent, assign, time.perf_counter() - t0
+
+
+def kmeans_determinism(label, x, k, seed=0, iters=10):
+    """F8: the k-means of `label` (k-means++ from `seed`, `iters` Lloyd
+    iterations, as the builds run it) twice on the card: the two builds
+    must be equal bit for bit. Then the card build's steps one at a time
+    against the CPU's plain versions from the same centroids: each
+    step's assignment equals the plain one (`ref.kmeans_assign` on the
+    CPU) except at ties within 1e-4, and its cluster counts equal the
+    CPU's `cluster_sums` on the same assignment and its sums within 1e-6
+    (whether they are equal bit for bit is reported); stepping this way
+    must reach the build's centroids. Reported beside them: a whole build
+    on the CPU against the card's (a tie decided the other way in an
+    early step moves a point, and the later steps carry that on), and, as
+    a yardstick, two card builds with the `index_add_` update."""
+    init = torch.tensor(kmeans_pp_init(x, k, seed))
+    xt = torch.tensor(x, device=DEV)
+    c1, a1, s1 = _timed_lloyd(xt, init, iters)
+    c2, a2, s2 = _timed_lloyd(xt, init, iters)
+    assert torch.equal(c1, c2) and torch.equal(a1, a2), \
+        f"k-means {label}: two card builds differ"
+    xc = xt.cpu()
+    cent, ties, sums_equal, sums_diff = init.to(DEV), 0, True, 0.0
+    for i in range(iters):
+        a_card, _ = ops.kmeans_assign(xt, cent)
+        a_cpu, _ = ref.kmeans_assign(xc, cent.cpu())
+        d2 = ((xt * xt).sum(1)[:, None] - 2.0 * xt @ cent.T
+              + (cent * cent).sum(1)[None, :])
+        ties += same_or_tied(
+            f"k-means {label} step {i}, card vs CPU", a_card, a_cpu.to(DEV),
+            lambda ids: d2.gather(1, ids.long()[:, None])[:, 0], 1e-4, 1e-4)
+        s_card, n_card = cluster_sums(xt, a_card, k)
+        s_cpu, n_cpu = cluster_sums(xc, a_card.cpu(), k)
+        assert torch.equal(n_card.cpu(), n_cpu), f"k-means {label}: counts"
+        close(f"k-means {label} step {i} sums", s_card.cpu(), s_cpu, 1e-6,
+              1e-6)
+        sums_equal &= bool(torch.equal(s_card.cpu(), s_cpu))
+        sums_diff = max(sums_diff, (s_card.cpu() - s_cpu).abs().max().item())
+        cent, _ = lloyd(xt, cent, 1)
+    assert torch.equal(cent, c1), f"k-means {label}: steps left the build"
+    cc, ac = lloyd(xc, init, iters)
+    fixed_sums = kmeans_mod.cluster_sums
+    kmeans_mod.cluster_sums = _index_add_sums
+    try:
+        y1, b1, t1 = _timed_lloyd(xt, init, iters)
+        y2, b2, t2 = _timed_lloyd(xt, init, iters)
+    finally:
+        kmeans_mod.cluster_sums = fixed_sums
+    return {
+        "shape": [len(x), x.shape[1]], "clusters": k, "iters": iters,
+        "card_builds_bit_equal": True, "build_s": [s1, s2],
+        "steps_tied_assign_diff": ties,
+        "steps_sums_bit_equal_cpu": sums_equal,
+        "steps_sums_max_abs_diff": sums_diff,
+        "cpu_build_centroids_bit_equal": bool(torch.equal(c1.cpu(), cc)),
+        "cpu_build_centroid_max_abs_diff": (c1.cpu() - cc).abs().max().item(),
+        "cpu_build_assign_diff": int((a1.cpu() != ac).sum()),
+        "index_add_builds_bit_equal": bool(torch.equal(y1, y2)
+                                           and torch.equal(b1, b2)),
+        "index_add_centroid_max_abs_diff": (y1 - y2).abs().max().item(),
+        "index_add_assign_diff": int((b1 != b2).sum()),
+        "index_add_build_s": [t1, t2],
+    }, c1
+
+
 def word_corpus(n_docs, seed):
     """Random-word documents: no two SCR windows share a bag of words,
     so the small-input comparison has no ties decided by rounding."""
@@ -1010,8 +1188,9 @@ def main() -> int:
         "post_s_mean": float(np.mean([a.post_s for a in legacy])),
         "window_index_post_s_mean": float(np.mean([a.post_s
                                                    for a in answers])),
-        # reported, not asserted: index_add_ sums with atomics, so two
-        # k-means builds can differ in the last bit
+        # reported, not asserted: both pipelines build the same EcoVector
+        # (k-means is the same on every run, the F8 phase), so their doc
+        # sets differ only if retrieval does
         "same_doc_set_share": float(np.mean([
             set(a.doc_ids) == set(b.doc_ids)
             for a, b in zip(legacy, answers)])),
@@ -1100,6 +1279,15 @@ def main() -> int:
             info["pq_adc_tied_swaps"] = rescore_pq(idx, bq, runs)
         base_info[name] = info
     print("baselines path:", json.dumps(base_info))
+    # ---- F8: k-means builds on the card are the same on every run
+    doc_emb = embed(corpus.docs)
+    eco_f8, eco_cent = kmeans_determinism(
+        "EcoVector partition", doc_emb, pipe.index.n_clusters)
+    eco_f8["equals_main_path_build"] = bool(np.array_equal(
+        eco_cent.cpu().numpy(), pipe.index.centroids))
+    ivf_f8, _ = kmeans_determinism("IVF partition", base, SIFT_N // 256)
+    print("k-means determinism (F8):", json.dumps(
+        {"EcoVector": eco_f8, "IVF": ivf_f8}))
     ivfpq = indexes["IVFPQ"][0]
     _, codes_q = ivfpq.probed_codes(bq[0], max(N_PROBES))
     lut_q = torch.tensor(ivfpq.pq.adc_table(bq[0])[None], device=dev)
@@ -1121,7 +1309,7 @@ def main() -> int:
     del indexes, ivfpq
 
     # ---- kernels against their plain versions, on the paths' inputs
-    x = torch.tensor(embed(corpus.docs), device=dev)
+    x = torch.tensor(doc_emb, device=dev)
     cent = torch.tensor(pipe.index.centroids, device=dev)
     qv = torch.tensor(embed(questions[:4]), device=dev)
     d_t, l_t, c_t = pipe.index.device_arrays()
@@ -1174,7 +1362,14 @@ def main() -> int:
                                len_wave, False),
         check_decode_attention("h2o ring", q_ring, hck, hcv, len_ring, True),
     ]
-    n_edges = attention_edges()
+    assert ops.decode_paged_split_plan(4, G, W, ps) > 1
+    long_in = long_cache_inputs(H, G, dh, g)
+    paged_shapes = [
+        check_decode("main path", q_dec, pool["k"][0], pool["v"][0], kv_len,
+                     table),
+        check_decode("long cache (not a path shape)", *long_in),
+    ]
+    n_edges = attention_edges() + paged_edges(H, G, dh)
     n_kmeans_edges = kmeans_edges()
     kmeans_shapes = [check_kmeans("EcoVector build", x, cent),
                      check_kmeans("IVF partition", ivf_x, ivf_c),
@@ -1184,8 +1379,7 @@ def main() -> int:
         "kmeans_assign": dict(kmeans_shapes[0], shapes=kmeans_shapes),
         "ecoscan": check_ecoscan(qv, d_t, l_t, probes, pipe.top_k),
         "scr_select": check_scr_select(qv, w_t, wl_t, ids),
-        "decode_attention_paged": check_decode(
-            q_dec, pool["k"][0], pool["v"][0], kv_len, table),
+        "decode_attention_paged": dict(paged_shapes[0], shapes=paged_shapes),
         "flash_prefill": dict(flash_shapes[0], shapes=flash_shapes),
         "decode_attention": dict(decode_shapes[0], shapes=decode_shapes),
         "scr_score": check_scr_score(w_leg, q_leg),
@@ -1201,6 +1395,8 @@ def main() -> int:
         "scr_select": lambda: ops.scr_select(qv, w_t, wl_t, ids),
         "decode_attention_paged": lambda: ops.decode_attention_paged(
             q_dec, pool["k"][0], pool["v"][0], kv_len, table),
+        "decode_attention_paged long cache":
+            lambda: ops.decode_attention_paged(*long_in),
         "flash_prefill": lambda: ops.flash_prefill(
             q_chunk, k_slot, v_slot, q_offset=64,
             kv_len=64 + slm.PREFILL_CHUNK),

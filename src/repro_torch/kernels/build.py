@@ -4,8 +4,9 @@ Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into its own
 shared library with a plain C interface, loaded with `ctypes`. All
 sources build at the first use of any kernel, one `nvcc` process per
 source, all started together. Libraries land in `build/repro_torch_kernels/`
-at the repository root, named by a hash of their sources and flags, so a
-changed source rebuilds and an unchanged one is reused. nvcc's output,
+at the repository root, named by a hash of their sources (the `.cu` and
+every shared `.cuh` header) and flags, so a changed source rebuilds and
+an unchanged one is reused. nvcc's output,
 with `-Xptxas -v` register and shared-memory use, is kept beside each
 library as `<kernel>.log`. Every C entry point is looked up once, when
 its library loads, into `ENTRY` (name -> ctypes function), so a launch
@@ -41,9 +42,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "scr_select": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]},
     "decode_attention_paged": {
         "decode_attention_paged_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                       _I, _I, _P, _P],
+                                       _I, _I, _I, _P, _P, _P],
         "decode_attention_paged_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                        _I, _I, _P, _P]},
+                                        _I, _I, _I, _P, _P, _P]},
     "decode_attention": {
         "decode_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                  _I, _I, _P, _P, _P],
@@ -75,7 +76,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+    for src in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
         h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

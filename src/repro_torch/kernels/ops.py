@@ -170,39 +170,6 @@ def scr_select(q: torch.Tensor, data: torch.Tensor, lens: torch.Tensor,
     return scores, wins
 
 
-def decode_attention_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           kv_len: torch.Tensor, table: torch.Tensor):
-    """q [B, H, dh]; k, v [P, ps, G, dh] one layer of the page pool (f32
-    or bf16, same as q); kv_len [B] i32; table [B, W] i32 valid page ids.
-    Returns [B, H, dh] in q's dtype."""
-    suffix = _attention_dtype(q)
-    dev = _checked((q, "q", q.dtype, 3), (k, "k", q.dtype, 4),
-                   (v, "v", q.dtype, 4), (kv_len, "kv_len", torch.int32, 1),
-                   (table, "table", torch.int32, 2))
-    B, H, dh = q.shape
-    P, ps, G, dh2 = k.shape
-    W = table.shape[1]
-    if (v.shape != k.shape or dh2 != dh or H % G or kv_len.shape[0] != B
-            or table.shape[0] != B):
-        raise ValueError("decode_attention_paged shapes disagree")
-    if dev.type == "cpu":
-        return ref.decode_attention_paged(q, k, v, kv_len, table)
-    Hg = H // G
-    if Hg > 16 or Hg * dh > 1024 or (Hg * (dh + ps) + 3 * Hg) * 4 > 227 * 1024:
-        raise ValueError(f"decode_attention_paged: Hg={Hg}, dh={dh}, ps={ps} "
-                         "outside the kernel's limits (Hg <= 16, "
-                         "Hg*dh <= 1024)")
-    out = torch.empty_like(q)
-    if B == 0:
-        return out
-    fn = build.entry("decode_attention_paged_" + suffix)
-    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-                 table.data_ptr(), B, H, G, dh, ps, W, out.data_ptr(),
-                 _stream(dev)), "decode_attention_paged")
-    decode_attention_paged.launches += 1
-    return out
-
-
 FLASH_PREFILL_DH = (32, 64, 80, 128)
 
 
@@ -244,9 +211,9 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-DECODE_TILE = 64      # positions per tile of the decode_attention kernel
+DECODE_TILE = 64      # positions per tile of the two decode kernels
 SM_COUNT = 132        # streaming multiprocessors of an H100 SXM
-DECODE_BLOCKS_PER_SM = 4   # decode_attention blocks resident on one SM
+DECODE_BLOCKS_PER_SM = 4   # decode kernel blocks resident on one SM
 
 
 def decode_split_plan(B: int, G: int, S: int) -> int:
@@ -262,7 +229,8 @@ def decode_split_plan(B: int, G: int, S: int) -> int:
 
 
 def decode_smem_bytes(Hg: int, dh: int, esz: int) -> int:
-    """Shared memory of a `decode_attention` block: the two-stage K and V
+    """Shared memory of a `decode_attention` or `decode_attention_paged`
+    block (both kernels' kTile is DECODE_TILE): the two-stage K and V
     rings [2, DECODE_TILE, dh + 16/esz] in the cache's type (esz bytes an
     element), then in f32 the group's queries [Hg, dh], a tile's scores
     [Hg, DECODE_TILE] and the running max, sum and correction [Hg]."""
@@ -319,6 +287,64 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  None if part is None else part.data_ptr(), out.data_ptr(),
                  _stream(dev)), "decode_attention")
     decode_attention.launches += 1
+    return out
+
+
+def decode_paged_split_plan(B: int, G: int, W: int, ps: int) -> int:
+    """Splits of each row's page table for `decode_attention_paged`, from
+    host-known shapes only (the row's kv_len stays on the device): enough
+    (splits, G, B) blocks to fill the card's SM_COUNT SMs with
+    DECODE_BLOCKS_PER_SM blocks each, but never more splits than table
+    entries W, nor than DECODE_TILE-position tiles in the table's W*ps
+    positions (so a split holds a tile's worth of positions on average).
+    Split s covers `ref.decode_paged_split_ranges(W, splits)[s]`."""
+    tiles = -(-W * ps // DECODE_TILE)
+    want = -(-SM_COUNT * DECODE_BLOCKS_PER_SM // max(1, B * G))
+    return max(1, min(want, W, tiles))
+
+
+def decode_attention_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           kv_len: torch.Tensor, table: torch.Tensor):
+    """q [B, H, dh]; k, v [P, ps, G, dh] one layer of the page pool (f32
+    or bf16, same as q); kv_len [B] i32; table [B, W] i32 valid page ids.
+    Returns [B, H, dh] in q's dtype. On the card the table is split
+    across `decode_paged_split_plan(B, G, W, ps)` blocks per (row, kv
+    head); with more than one split a second, small kernel merges the
+    partials. The call counts one launch either way."""
+    suffix = _attention_dtype(q)
+    dev = _checked((q, "q", q.dtype, 3), (k, "k", q.dtype, 4),
+                   (v, "v", q.dtype, 4), (kv_len, "kv_len", torch.int32, 1),
+                   (table, "table", torch.int32, 2))
+    B, H, dh = q.shape
+    P, ps, G, dh2 = k.shape
+    W = table.shape[1]
+    if (v.shape != k.shape or dh2 != dh or G == 0 or H % G
+            or kv_len.shape[0] != B or table.shape[0] != B):
+        raise ValueError("decode_attention_paged shapes disagree")
+    if dev.type == "cpu":
+        return ref.decode_attention_paged(q, k, v, kv_len, table)
+    Hg = H // G
+    if (Hg > 16 or Hg * dh > 2048 or dh % 8
+            or decode_smem_bytes(Hg, dh, q.element_size()) > 227 * 1024):
+        raise ValueError(f"decode_attention_paged: Hg={Hg}, dh={dh} outside "
+                         "the kernel's limits (Hg <= 16, Hg*dh <= 2048, dh a "
+                         "multiple of 8, 227 KB of shared memory)")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("decode_attention_paged: k, v must be 16-byte "
+                         "aligned")
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    splits = decode_paged_split_plan(B, G, W, ps)
+    # the partials of the splits (one split writes `out` directly)
+    part = torch.empty(B * G * splits * Hg * (dh + 2), dtype=torch.float32,
+                       device=dev) if splits > 1 else None
+    fn = build.entry("decode_attention_paged_" + suffix)
+    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+                 table.data_ptr(), B, H, G, dh, ps, W, splits,
+                 None if part is None else part.data_ptr(), out.data_ptr(),
+                 _stream(dev)), "decode_attention_paged")
+    decode_attention_paged.launches += 1
     return out
 
 

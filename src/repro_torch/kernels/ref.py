@@ -223,28 +223,23 @@ def decode_split_ranges(S: int, splits: int, tile: int = 64):
              min(S, (s + 1) * tiles // splits * tile)) for s in range(splits)]
 
 
-def decode_attention_split(q, k, v, kv_len, splits: int):
-    """The split-and-merge arithmetic of the decode_attention kernel in
-    plain PyTorch (for tests: `decode_attention` is the contract). Row b
-    walks its first n = min(kv_len, S) positions (all S when kv_len <= 0)
-    with positions >= kv_len masked; a ring's min(kv_len, S) is the same
-    mask. Each split of `decode_split_ranges` gives a partial (m, l,
-    unnormalised acc) over its positions below n, with the probabilities
-    rounded to v's type before the PV product; an empty split has l = 0
-    and is skipped. The partials merge in split order: w_s = exp(m_s -
-    max m), out = sum acc_s w_s / max(sum l_s w_s, 1e-30)."""
+def _split_merge(q, k, v, lens, n, ranges):
+    """Partials of the position ranges [lo, hi) cut at each row's n, merged
+    in range order (the arithmetic of both split decode kernels). k, v
+    [B, S, G, dh]; lens [B] masks positions >= kv_len with -1e30; a
+    partial is (m, l, unnormalised acc) with the probabilities rounded to
+    v's type before the PV product, and an empty one has l = 0 and is
+    skipped. out = sum acc_s w_s / max(sum l_s w_s, 1e-30) with w_s =
+    exp(m_s - max m)."""
     B, H, dh = q.shape
     S, G = k.shape[1], k.shape[2]
-    lens = torch.as_tensor(kv_len, device=q.device).long().reshape(-1)
-    lens = lens.expand(B)
-    n = torch.where(lens > 0, lens.clamp(max=S), torch.full_like(lens, S))
     qg = q.float().reshape(B, G, H // G, dh)
     s = torch.einsum("bgnd,bsgd->bgns", qg, k.float()) * (1.0 / math.sqrt(dh))
     pos = torch.arange(S, device=q.device)
     s = torch.where((pos[None, :] < lens[:, None])[:, None, None, :], s,
                     torch.full_like(s, MASK))
     parts = []
-    for lo, hi in decode_split_ranges(S, splits):
+    for lo, hi in ranges:
         inside = ((pos[None, :] >= lo) & (pos[None, :] < hi)
                   & (pos[None, :] < n[:, None]))[:, None, None, :]
         m = torch.where(inside, s, torch.full_like(s, MASK)).amax(-1)
@@ -266,14 +261,62 @@ def decode_attention_split(q, k, v, kv_len, splits: int):
     return out.reshape(B, H, dh).to(q.dtype)
 
 
+def decode_attention_split(q, k, v, kv_len, splits: int):
+    """The split-and-merge arithmetic of the decode_attention kernel in
+    plain PyTorch (for tests: `decode_attention` is the contract). Row b
+    walks its first n = min(kv_len, S) positions (all S when kv_len <= 0)
+    with positions >= kv_len masked; a ring's min(kv_len, S) is the same
+    mask. Each split of `decode_split_ranges` gives a partial over its
+    positions below n; the partials merge in split order (`_split_merge`)."""
+    B = q.shape[0]
+    S = k.shape[1]
+    lens = torch.as_tensor(kv_len, device=q.device).long().reshape(-1)
+    lens = lens.expand(B)
+    n = torch.where(lens > 0, lens.clamp(max=S), torch.full_like(lens, S))
+    return _split_merge(q, k, v, lens, n, decode_split_ranges(S, splits))
+
+
+def decode_paged_split_ranges(W: int, splits: int):
+    """The [lo, hi) table entries that split s of the
+    decode_attention_paged kernel covers: [s*W // splits,
+    (s+1)*W // splits)."""
+    return [(s * W // splits, (s + 1) * W // splits) for s in range(splits)]
+
+
+def _gather_pages(k, table):
+    """k [P, ps, G, dh] through table [B, W] -> each row's logical
+    [B, W*ps, G, dh] (entry w backs positions [w*ps, (w+1)*ps))."""
+    P, ps, G, dh = k.shape
+    W = table.shape[1]
+    j = torch.arange(W * ps, device=k.device)
+    idx = table.long()[:, j // ps] * ps + (j % ps)              # [B, W*ps]
+    return k.reshape(P * ps, G, dh)[idx]
+
+
+def decode_attention_paged_split(q, k, v, kv_len, table, splits: int):
+    """The split-and-merge arithmetic of the decode_attention_paged kernel
+    in plain PyTorch (for tests: `decode_attention_paged` is the
+    contract). Row b counts its first npg = ceil(kv_len / ps) table
+    entries (all W when kv_len <= 0) with positions >= kv_len masked;
+    each split of `decode_paged_split_ranges` gives a partial over its
+    entries below npg, and the partials merge in split order
+    (`_split_merge`)."""
+    B = q.shape[0]
+    ps = k.shape[1]
+    W = table.shape[1]
+    lens = kv_len.long().reshape(B)
+    npg = torch.where(lens > 0, ((lens + ps - 1) // ps).clamp(max=W),
+                      torch.full_like(lens, W))
+    ranges = [(lo * ps, hi * ps)
+              for lo, hi in decode_paged_split_ranges(W, splits)]
+    return _split_merge(q, _gather_pages(k, table), _gather_pages(v, table),
+                        lens, npg * ps, ranges)
+
+
 def decode_attention_paged(q, k, v, kv_len, table):
     """q [B, H, dh]; k, v [P, ps, G, dh] one layer of the page pool;
     kv_len [B]; table [B, W] page ids (entry w backs positions
     [w*ps, (w+1)*ps)). Gathers each row's logical K/V through its table
     and attends as `decode_attention` does. Returns [B, H, dh]."""
-    P, ps, G, dh = k.shape
-    W = table.shape[1]
-    j = torch.arange(W * ps, device=q.device)
-    idx = table.long()[:, j // ps] * ps + (j % ps)              # [B, W*ps]
-    return decode_attention(q, k.reshape(P * ps, G, dh)[idx],
-                            v.reshape(P * ps, G, dh)[idx], kv_len)
+    return decode_attention(q, _gather_pages(k, table),
+                            _gather_pages(v, table), kv_len)
