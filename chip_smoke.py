@@ -28,7 +28,16 @@ Phases, any failure exits non-zero (nothing is caught):
    times (CUDA events) and the bound of the work: ids exact except at
    ties within the value tolerance, ecoscan and scr_select values 2e-5,
    kmeans_assign 1e-4 (relative), attention 1e-5 in f32 and 2e-2 in bf16
-   (the attention edge cases run in both). decode_attention_paged runs at
+   (the attention edge cases run in both); ecoscan and scr_select also
+   give the same bits on two calls. ecoscan runs at the main path's shape
+   and at scale (no path runs it: 16 queries of 8 probes over a [1024,
+   512, 384] pack, k 10, with the identity and with a masked block_map),
+   its edge cases through the wrapper and at each forced tile
+   (`ecoscan_edges`), and its kernel launches a call are counted (the
+   kernel nodes of a CUDA graph captured around one call, `kernel_nodes`);
+   scr_select at the main path's shape, at top_k 10 (16 questions x 10
+   docs over the main path's window pack) and its edge cases
+   (`scr_select_edges`). decode_attention_paged runs at
    the main path's shape and at a long-cache shape (4 rows at kv_len
    4,096 through 130-entry tables; no path runs it), and its edge cases
    also at forced split counts (`paged_edges`). kmeans_assign runs at the
@@ -72,6 +81,7 @@ determinism`; a whole CPU build and two card builds with the
 The line before the last is the kernel summary as JSON; the last line is
 `{"ok": true, "device": {...}}`.
 """
+import ctypes
 import json
 import math
 import subprocess
@@ -264,42 +274,138 @@ def _slot_dist(q, data):
     return value_of
 
 
-def check_ecoscan(q, data, lens, probes, k):
+def _ecoscan_bound(q, data, lens, probes, k, block_map):
+    """Bytes bound of one ecoscan call: the rows of the distinct probed
+    (and mapped, unmasked) lists, q, probes, the map and the outputs."""
     B, d = q.shape
-    dist, ids = ops.ecoscan(q, data, lens, probes, k)
-    pdist, pids = ref.ecoscan(q, data, lens, probes, k)
-    ties = same_or_tied("ecoscan", ids, pids, _slot_dist(q, data), 2e-5,
-                        2e-5)
-    err = close("ecoscan", dist, pdist, 2e-5, 2e-5)
-    # edge: duplicate probe, padded probe, masked cluster, k > candidates
-    g = torch.Generator(device=DEV).manual_seed(2)
-    de = torch.randn(6, 16, 32, generator=g, device=DEV)
-    le = torch.tensor([16, 0, 3, 16, 5, 9], dtype=torch.int32, device=DEV)
-    pe = torch.tensor([[1, 1, -1, 2], [5, 3, 4, 0]], dtype=torch.int32,
-                      device=DEV)
-    bm = torch.tensor([0, 2, 5, -1, 4, 1], dtype=torch.int32, device=DEV)
-    qe = torch.randn(2, 32, generator=g, device=DEV)
-    for kk in (3, 40):
-        a = ops.ecoscan(qe, de, le, pe, kk, block_map=bm)
-        p = ref.ecoscan(qe, de, le, pe, kk, block_map=bm)
-        same_or_tied("ecoscan edge", a[1], p[1], _slot_dist(qe, de), 2e-5,
-                     2e-5)
-        close("ecoscan edge", a[0], p[0], 2e-5, 2e-5)
-    blk = torch.unique(probes[probes >= 0].long())
-    rows = int(lens[blk].sum())
-    cand = int(lens[probes.clamp(min=0).long()][probes >= 0].sum())
-    b_ms, b_by = bound(rows * d * 4 + B * d * 4 + probes.numel() * 4
-                       + B * k * 8, 2.0 * d * (cand + rows), F32_FLOPS_S)
+    blk = probes.long() if block_map is None else \
+        block_map[probes.clamp(min=0).long()].long()
+    ok = (probes >= 0) & (blk >= 0)
+    rows = int(lens[torch.unique(blk[ok])].clamp(max=data.shape[1]).sum())
+    cand = int(lens[blk.clamp(min=0)].clamp(max=data.shape[1])[ok].sum())
+    maps = 0 if block_map is None else block_map.numel()
+    return bound((rows * d + B * d + probes.numel() + maps + B * k * 2) * 4,
+                 2.0 * d * (cand + rows), F32_FLOPS_S)
+
+
+def _bit_equal(name, fn):
+    """Two calls of fn give the same bits."""
+    a, b = fn(), fn()
+    assert all(torch.equal(x, y) for x, y in zip(a, b)), \
+        f"{name}: two calls differ"
+
+
+def _ecoscan_case(label, q, data, lens, probes, k, block_map=None):
+    """ecoscan against plain through the wrapper and at each forced tile
+    (ids exact except ties within 2e-5, values 2e-5), each bit-equal
+    across two calls. Returns (max abs error, tied swaps, wrapper ids)."""
+    want = ref.ecoscan(q, data, lens, probes, k, block_map=block_map)
+    calls = [("", lambda: ops.ecoscan(q, data, lens, probes, k,
+                                      block_map=block_map))]
+    calls += [(f" at tile {t}", lambda t=t: ops.ecoscan_launch(
+        q, data, lens, probes, k, block_map, tile=t))
+        for t in ops.ECOSCAN_TILES]
+    err, ties, ids = 0.0, 0, None
+    for tag, fn in calls:
+        dist, got = fn()
+        ties = max(ties, same_or_tied(f"ecoscan {label}{tag}", got, want[1],
+                                      _slot_dist(q, data), 2e-5, 2e-5))
+        err = max(err, close(f"ecoscan {label}{tag}", dist, want[0], 2e-5,
+                             2e-5))
+        _bit_equal(f"ecoscan {label}{tag}", fn)
+        ids = got if ids is None else ids
+    return err, ties, ids
+
+
+def check_ecoscan(label, q, data, lens, probes, k, block_map=None):
+    """ecoscan at one shape: `_ecoscan_case`, times (library: `cdist` +
+    `topk` over the gathered lists) and the bound of the work."""
+    B, d = q.shape
+    err, ties, _ = _ecoscan_case(label, q, data, lens, probes, k, block_map)
+    b_ms, b_by = _ecoscan_bound(q, data, lens, probes, k, block_map)
+    blk = probes.long() if block_map is None else \
+        block_map[probes.clamp(min=0).long()].long()
 
     def library():
-        g_ = data[probes.long()].reshape(B, -1, d)
+        g_ = data[blk.clamp(min=0)].reshape(B, -1, d)
         return torch.topk(torch.cdist(q[:, None], g_)[:, 0], k,
                           largest=False)
+    call = lambda: ops.ecoscan(q, data, lens, probes, k,  # noqa: E731
+                               block_map=block_map)
     return dict(
-        err=err, ties=ties,
-        ms=time_ms(lambda: ops.ecoscan(q, data, lens, probes, k)),
-        plain_ms=time_ms(lambda: ref.ecoscan(q, data, lens, probes, k)),
+        shape=f"{label}: q {list(q.shape)}, data {list(data.shape)}, probes "
+              f"{list(probes.shape)}, k {k}, block_map "
+              f"{'identity' if block_map is None else 'masked'}",
+        err=err, ties=ties, ms=time_ms(call),
+        plain_ms=time_ms(lambda: ref.ecoscan(q, data, lens, probes, k,
+                                             block_map=block_map)),
         library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
+
+
+def ecoscan_scale_inputs(g):
+    """The at-scale ecoscan shape (no path runs it): a [1024, 512, 384]
+    f32 pack (805 MB, the pack of a ~260k-passage corpus at gte-small's
+    width) with lens uniform in [128, 512], 16 queries of 8 distinct
+    random probes, k 10; and a block_map that permutes the clusters and
+    masks every eighth."""
+    R, CAP, d, B, P = 1024, 512, 384, 16, 8
+    data = torch.randn(R, CAP, d, generator=g, device=DEV)
+    lens = torch.randint(128, CAP + 1, (R,), generator=g, device=DEV,
+                         dtype=torch.int32)
+    q = torch.randn(B, d, generator=g, device=DEV)
+    probes = torch.stack([torch.randperm(R, generator=g, device=DEV)[:P]
+                          for _ in range(B)]).to(torch.int32)
+    bm = torch.randperm(R, generator=g, device=DEV).to(torch.int32)
+    bm[::8] = -1
+    return (q, data, lens, probes, 10), bm
+
+
+def ecoscan_edges():
+    """Edge cases of ecoscan, each through the wrapper and at every forced
+    tile (`_ecoscan_case`): a duplicate probe, a padded probe, masked and
+    remapped clusters, a list with lens 0, k 3 and k past all candidates;
+    exact ties at rows 15/16, 31/32 and 63/64 of one list and in a second
+    list (small integers: every distance exact), which must come out in
+    flat order; d 50 (4-byte loads) over a ragged 70-row CAP; a pack 4
+    bytes off 16-byte alignment; a query whose probes are all padding.
+    Returns the number of (case, tile) pairs."""
+    g = torch.Generator(device=DEV).manual_seed(2)
+    n = 0
+
+    def ints(*x):
+        return torch.tensor(x, dtype=torch.int32, device=DEV)
+    de = torch.randn(6, 16, 32, generator=g, device=DEV)
+    qe = torch.randn(2, 32, generator=g, device=DEV)
+    for kk in (3, 40):
+        _ecoscan_case(f"edge probes k {kk}", qe, de, ints(16, 0, 3, 16, 5, 9),
+                      ints(1, 1, -1, 2, 5, 3, 4, 0).view(2, 4), kk,
+                      block_map=ints(0, 2, 5, -1, 4, 1))
+        n += 1
+    dt = torch.randint(-3, 4, (4, 131, 12), generator=g, device=DEV).float()
+    qt = torch.randint(-3, 4, (1, 12), generator=g, device=DEV).float()
+    tie_rows = (15, 16, 31, 32, 63, 64)
+    dt[2, list(tie_rows)] = qt[0]
+    dt[0, 5] = qt[0]
+    _, _, ids = _ecoscan_case("edge exact ties", qt, dt,
+                              ints(131, 131, 131, 0),
+                              ints(3, 2, 0).view(1, 3), 8)
+    want = [2 * 131 + j for j in tie_rows] + [5]
+    assert ids[0, :7].tolist() == want, \
+        f"ecoscan: exact ties out of flat order: {ids[0, :7].tolist()}"
+    d50 = torch.randn(9, 70, 50, generator=g, device=DEV)
+    _ecoscan_case("edge d 50", torch.randn(3, 50, generator=g, device=DEV),
+                  d50, torch.randint(0, 71, (9,), generator=g, device=DEV,
+                                     dtype=torch.int32),
+                  ints(0, 4, 8, 2, 2, 7, -1, -1, -1).view(3, 3), 5)
+    buf = torch.randn(1 + 8 * 40 * 64, generator=g, device=DEV)
+    dm = buf[1:].view(8, 40, 64)
+    assert dm.is_contiguous() and dm.data_ptr() % 16 == 4
+    _ecoscan_case("edge off alignment", torch.randn(2, 64, generator=g,
+                                                    device=DEV),
+                  dm, ints(40, 7, 33, 0, 40, 1, 20, 39), ints(1, 2, 6, 7)
+                  .view(2, 2), 100)
+    n += 3
+    return n * (1 + len(ops.ECOSCAN_TILES))
 
 
 def _win_score(q, data, ids):
@@ -312,28 +418,27 @@ def _win_score(q, data, ids):
     return value_of
 
 
-def check_scr_select(q, data, lens, ids):
+def _scr_case(label, q, data, lens, ids):
+    """scr_select against plain (ids exact except ties within 2e-5,
+    scores 2e-5), bit-equal across two calls. Returns (max abs error,
+    tied swaps, wins)."""
+    s, w = ops.scr_select(q, data, lens, ids)
+    ps_, pw = ref.scr_select(q, data, lens, ids)
+    ties = same_or_tied(f"scr_select {label}", w, pw, _win_score(q, data, ids),
+                        2e-5, 2e-5)
+    err = close(f"scr_select {label}", s, ps_, 2e-5, 2e-5)
+    _bit_equal(f"scr_select {label}", lambda: ops.scr_select(q, data, lens,
+                                                             ids))
+    return err, ties, w
+
+
+def check_scr_select(label, q, data, lens, ids):
+    """scr_select at one shape: `_scr_case`, times (library: `bmm` +
+    `max` over the gathered blocks) and the bound of the work."""
     B, d = q.shape
     ND, CAPW, _ = data.shape
     K = ids.shape[1]
-    s, w = ops.scr_select(q, data, lens, ids)
-    ps_, pw = ref.scr_select(q, data, lens, ids)
-
-    ties = same_or_tied("scr_select", w, pw, _win_score(q, data, ids),
-                        2e-5, 2e-5)
-    err = close("scr_select", s, ps_, 2e-5, 2e-5)
-    # edge: padded slots, a windowless doc, an exact first-max tie
-    de = data[:4].clone()
-    de[2, 1] = de[2, 0]
-    le = torch.tensor([3, 0, 8, 1], dtype=torch.int32, device=DEV)
-    ie = torch.tensor([[0, 1, -1], [2, 3, 1]], dtype=torch.int32,
-                      device=DEV)
-    qe = (de[2, 0] / de[2, 0].norm()).expand(2, d).contiguous()
-    a, p = ops.scr_select(qe, de, le, ie), ref.scr_select(qe, de, le, ie)
-    same_or_tied("scr_select edge", a[1], p[1], _win_score(qe, de, ie),
-                 2e-5, 2e-5)
-    assert int(a[1][1, 0]) == 0, "scr_select: tie must go to the first max"
-    close("scr_select edge", a[0], p[0], 2e-5, 2e-5)
+    err, ties, _ = _scr_case(label, q, data, lens, ids)
     valid = ids >= 0
     n_win = int(lens[ids.clamp(min=0).long()][valid].sum())
     uniq = torch.unique(ids[valid].long())
@@ -345,10 +450,77 @@ def check_scr_select(q, data, lens, ids):
         g_ = data[ids.clamp(min=0).long()].reshape(B, K * CAPW, d)
         return torch.bmm(g_, q[:, :, None]).reshape(B, K, CAPW).max(-1)
     return dict(
+        shape=f"{label}: q {list(q.shape)}, data {list(data.shape)}, "
+              f"doc_ids {list(ids.shape)}",
         err=err, ties=ties,
         ms=time_ms(lambda: ops.scr_select(q, data, lens, ids)),
         plain_ms=time_ms(lambda: ref.scr_select(q, data, lens, ids)),
         library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
+
+
+def scr_select_edges(data):
+    """Edge cases of scr_select (`_scr_case`): padded slots, a windowless
+    doc and an exact first-max tie in the main path's pack; CAPW 40 (16
+    warps a pair, three windows a warp) with exact ties between windows
+    on two warps (3, 20) and on one warp (5, 21); d 50 (4-byte loads);
+    CAPW 3 (five pairs a block) with padding. Returns the number of
+    cases."""
+    g = torch.Generator(device=DEV).manual_seed(5)
+    d = data.shape[2]
+
+    def ints(*x):
+        return torch.tensor(x, dtype=torch.int32, device=DEV)
+    de = data[:4].clone()
+    de[2, 1] = de[2, 0]
+    qe = (de[2, 0] / de[2, 0].norm()).expand(2, d).contiguous()
+    _, _, w = _scr_case("edge padded, windowless, first max", qe, de,
+                        ints(3, 0, 8, 1), ints(0, 1, -1, 2, 3, 1).view(2, 3))
+    assert int(w[1, 0]) == 0, "scr_select: tie must go to the first max"
+    dw = torch.randn(3, 40, 48, generator=g, device=DEV)
+    for first, second in ((3, 20), (5, 21)):
+        dw[1, first] = dw[1, second] = 4.0 * torch.randn(
+            48, generator=g, device=DEV)
+        qw = (dw[1, first] / dw[1, first].norm())[None]
+        _, _, w = _scr_case(f"edge CAPW 40, tie {first}/{second}", qw, dw,
+                            ints(40, 40, 9), ints(1, 0, 2, -1).view(1, 4))
+        assert int(w[0, 0]) == first,             f"scr_select: tie {first}/{second} must go to the first max"
+    _scr_case("edge d 50", torch.randn(2, 50, generator=g, device=DEV),
+              torch.randn(5, 12, 50, generator=g, device=DEV),
+              ints(12, 0, 7, 1, 12), ints(0, 1, 2, 3, 4, 0, -1, 4).view(2, 4))
+    _scr_case("edge CAPW 3", torch.randn(4, d, generator=g, device=DEV),
+              torch.randn(20, 3, d, generator=g, device=DEV),
+              torch.randint(0, 4, (20,), generator=g, device=DEV,
+                            dtype=torch.int32),
+              torch.randint(-1, 20, (4, 5), generator=g, device=DEV,
+                            dtype=torch.int32))
+    return 5
+
+
+def kernel_nodes(fn):
+    """Kernel launches of one call of fn, counted exactly: the kernel
+    nodes of a CUDA graph captured around the call (cuGraphGetNodes and
+    cuGraphNodeGetType of libcuda). torch.profiler is no count
+    here: it drops kernel events, even in a fresh process (PERF.md 7).
+    fn runs once on the capture stream first, so that nothing it sets up
+    per stream is captured."""
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, stream=s):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph, n = ctypes.c_void_p(g.raw_cuda_graph()), ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes:
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)) == 0
+        kernels += kind.value == 0          # CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels
 
 
 def check_scr_score(w, q):
@@ -1371,14 +1543,33 @@ def main() -> int:
     ]
     n_edges = attention_edges() + paged_edges(H, G, dh)
     n_kmeans_edges = kmeans_edges()
+    n_retrieval_edges = ecoscan_edges() + scr_select_edges(w_t)
+    eco_scale, eco_bm = ecoscan_scale_inputs(g)
+    ecoscan_shapes = [
+        check_ecoscan("main path", qv, d_t, l_t, probes, pipe.top_k),
+        check_ecoscan("at scale (not a path shape)", *eco_scale),
+        check_ecoscan("at scale, masked block_map (not a path shape)",
+                      *eco_scale, block_map=eco_bm)]
+    eco_launches = kernel_nodes(
+        lambda: ops.ecoscan(qv, d_t, l_t, probes, pipe.top_k))
+    assert eco_launches == 1, f"ecoscan: {eco_launches} launches a call"
+    # top_k 10 over the main path's window pack: the docs EcoVector
+    # retrieves for the 16 questions at k 10
+    ids10 = torch.tensor(pipe.index.search_device_batched(
+        embed(questions), k=10, n_probe=pipe.n_probe)[0], dtype=torch.int32,
+        device=dev)
+    q10 = torch.tensor(embed(questions), device=dev)
+    scr_shapes = [check_scr_select("main path", qv, w_t, wl_t, ids),
+                  check_scr_select("top_k 10 (not a path shape)", q10, w_t,
+                                   wl_t, ids10)]
     kmeans_shapes = [check_kmeans("EcoVector build", x, cent),
                      check_kmeans("IVF partition", ivf_x, ivf_c),
                      check_kmeans("PQ sub-quantizer", pq_x, pq_c)]
     stream_info = check_current_stream(w_leg, q_leg)
     results = {
         "kmeans_assign": dict(kmeans_shapes[0], shapes=kmeans_shapes),
-        "ecoscan": check_ecoscan(qv, d_t, l_t, probes, pipe.top_k),
-        "scr_select": check_scr_select(qv, w_t, wl_t, ids),
+        "ecoscan": dict(ecoscan_shapes[0], shapes=ecoscan_shapes),
+        "scr_select": dict(scr_shapes[0], shapes=scr_shapes),
         "decode_attention_paged": dict(paged_shapes[0], shapes=paged_shapes),
         "flash_prefill": dict(flash_shapes[0], shapes=flash_shapes),
         "decode_attention": dict(decode_shapes[0], shapes=decode_shapes),
@@ -1392,7 +1583,12 @@ def main() -> int:
         "kmeans_assign PQ sub-quantizer": lambda: ops.kmeans_assign(pq_x,
                                                                     pq_c),
         "ecoscan": lambda: ops.ecoscan(qv, d_t, l_t, probes, pipe.top_k),
+        "ecoscan at scale": lambda: ops.ecoscan(*eco_scale),
+        "ecoscan at scale, masked": lambda: ops.ecoscan(
+            *eco_scale, block_map=eco_bm),
         "scr_select": lambda: ops.scr_select(qv, w_t, wl_t, ids),
+        "scr_select top_k 10": lambda: ops.scr_select(q10, w_t, wl_t,
+                                                      ids10),
         "decode_attention_paged": lambda: ops.decode_attention_paged(
             q_dec, pool["k"][0], pool["v"][0], kv_len, table),
         "decode_attention_paged long cache":
@@ -1420,6 +1616,12 @@ def main() -> int:
     print(f"attention edge cases: {n_edges} agree with the plain versions")
     print(f"kmeans_assign edge cases: {n_kmeans_edges} agree with the plain "
           "version")
+    print(f"ecoscan and scr_select edge cases: {n_retrieval_edges} agree "
+          "with the plain versions (ecoscan through the wrapper and at "
+          f"tiles {list(ops.ECOSCAN_TILES)}), each bit-equal across two "
+          "calls")
+    print(f"ecoscan: {eco_launches} kernel launch a call at the main path's"
+          " shape (kernel nodes of a CUDA graph of one call)")
     print("current stream:", json.dumps(stream_info))
     sc = results["scr_score"]
     print(f"scr_score launch path: wrapper {sc['ms']:.4f} ms a call, bare "

@@ -37,7 +37,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "kmeans_assign": [_P, _P, _I, _I, _I, _P, _P, _P]},
     "ecoscan": {
         "ecoscan": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                    _P, _P, _P, _P, _P, _P]},
+                    _P, _P, _P, _P, _P],
+        "ecoscan_tile": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _P, _P, _P, _P, _P]},
     "scr_select": {
         "scr_select": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]},
     "decode_attention_paged": {

@@ -48,6 +48,21 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// a . b + acc over the 4 floats of a 16-byte load (or 1 of a 4-byte
+// one): the row walks of ecoscan and scr_select take V = float4 where
+// d % 4 == 0 and the base is 16-byte aligned, V = float otherwise
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, acc))));
+}
+__device__ __forceinline__ float dot4(float a, float b, float acc) {
+  return fmaf(a, b, acc);
+}
+template <typename V> __device__ __forceinline__ V vzero();
+template <> __device__ __forceinline__ float4 vzero<float4>() {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+template <> __device__ __forceinline__ float vzero<float>() { return 0.f; }
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);

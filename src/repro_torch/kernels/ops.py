@@ -16,7 +16,7 @@ without building a `torch.cuda.Stream` (`_stream`).
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -99,13 +99,35 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor):
     return assign, sqdist
 
 
+# ecoscan's merge keeps two top-k buffers of (distance, flat, slot) and
+# a chunk of 256 candidates in shared memory (csrc/ecoscan.cu)
+ECOSCAN_MAX_K = (227 * 1024 // 4 - 3 * 256) // 6
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def ecoscan_tickets(dev: torch.device, stream: int, B: int) -> torch.Tensor:
+    """The ecoscan kernel's per-query ticket counters for launches on
+    `stream` of `dev`: at least B ints, zero before a launch and zero
+    again after it (the last block of each query resets its counter).
+    One buffer a stream, so launches on two streams share no counter;
+    it is allocated (zeroed) only when a larger B first comes."""
+    t = _tickets.get((dev.index, stream))
+    if t is None or t.numel() < B:
+        t = torch.zeros(max(B, 64), dtype=torch.int32, device=dev)
+        _tickets[(dev.index, stream)] = t
+    return t
+
+
 def ecoscan(q: torch.Tensor, data: torch.Tensor, lens: torch.Tensor,
             probes: torch.Tensor, k: int,
             block_map: Optional[torch.Tensor] = None):
     """q [B, d] f32; data [R, CAP, d] f32; lens [R] i32; probes [B, P] i32
     (< 0: padding); block_map [NC] i32 (identity when None). Returns the
     k nearest probed rows per query: (dists [B, k] f32, slots [B, k] i32
-    = row*CAP + j), (NEG, -1) past the valid candidates."""
+    = row*CAP + j), (NEG, -1) past the valid candidates. On the card one
+    launch scans tiles of ref.ECOSCAN_TILE rows of every probed list and
+    the last block of each query merges them; a None block_map is a null
+    pointer, the kernel's identity."""
     specs = ((q, "q", torch.float32, 2), (data, "data", torch.float32, 3),
              (lens, "lens", torch.int32, 1), (probes, "probes", torch.int32, 2))
     if block_map is not None:
@@ -116,26 +138,51 @@ def ecoscan(q: torch.Tensor, data: torch.Tensor, lens: torch.Tensor,
     P = probes.shape[1]
     if d2 != d or lens.shape[0] != R or probes.shape[0] != B or k < 1:
         raise ValueError("ecoscan shapes disagree")
-    if block_map is None:
-        block_map = torch.arange(R, dtype=torch.int32, device=dev)
     if dev.type == "cpu":
         return ref.ecoscan(q, data, lens, probes, k, block_map=block_map)
-    if B == 0 or P == 0:
+    if B == 0 or P == 0 or CAP == 0:
         return (torch.full((B, k), ref.NEG, dtype=torch.float32, device=dev),
                 torch.full((B, k), -1, dtype=torch.int32, device=dev))
-    # the merge launch writes every output slot
-    out_d = torch.empty((B, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
-    # one scratch buffer: per (query, probe) top-k distances, slots and
-    # flat candidate indices, [B, P, k] each (4-byte words)
-    n = B * P * k
-    scratch = torch.empty(3 * n, dtype=torch.int32, device=dev)
-    sc = scratch.data_ptr()
-    _raise_on(build.entry("ecoscan")(
-        q.data_ptr(), data.data_ptr(), lens.data_ptr(), probes.data_ptr(),
-        block_map.data_ptr(), B, CAP, d, P, k, sc, sc + 4 * n, sc + 8 * n,
-        out_d.data_ptr(), out_i.data_ptr(), _stream(dev)), "ecoscan")
+    if B > 65535 or k > ECOSCAN_MAX_K:
+        raise ValueError(f"ecoscan: B {B} > 65535 or k {k} > {ECOSCAN_MAX_K}"
+                         " (the merge's shared memory)")
+    out = ecoscan_launch(q, data, lens, probes, k, block_map)
     ecoscan.launches += 1
+    return out
+
+
+ECOSCAN_TILES = (16, 32, 64)    # the tiles of the C entry `ecoscan_tile`
+
+
+def ecoscan_launch(q, data, lens, probes, k: int, block_map=None,
+                   tile: Optional[int] = None):
+    """Launch the ecoscan kernel on CUDA tensors that pass `ecoscan`'s
+    checks (no launch counted): through the C entry `ecoscan` at
+    ref.ECOSCAN_TILE when `tile` is None (the wrapper's call), else
+    through `ecoscan_tile` at a forced tile of ECOSCAN_TILES rows (probes
+    and checks on the card). Returns (dists, slots) as `ecoscan`."""
+    B, d = q.shape
+    CAP = data.shape[1]
+    P = probes.shape[1]
+    t = ref.ECOSCAN_TILE if tile is None else tile
+    # the merge writes every output slot; scratch: a sorted list of
+    # min(k, t) (distance, flat, slot) triples for each of the tiles
+    out_d = torch.empty((B, k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((B, k), dtype=torch.int32, device=q.device)
+    scratch = torch.empty(3 * B * P * (-(-CAP // t)) * min(k, t),
+                          dtype=torch.int32, device=q.device)
+    stream = _stream(q.device)
+    args = (q.data_ptr(), data.data_ptr(), lens.data_ptr(), probes.data_ptr(),
+            None if block_map is None else block_map.data_ptr(), B, CAP, d,
+            P, k)
+    rest = (scratch.data_ptr(), ecoscan_tickets(q.device, stream,
+                                                B).data_ptr(),
+            out_d.data_ptr(), out_i.data_ptr(), stream)
+    if tile is None:
+        _raise_on(build.entry("ecoscan")(*args, *rest), "ecoscan")
+    else:
+        _raise_on(build.entry("ecoscan_tile")(*args, tile, *rest),
+                  f"ecoscan at tile {tile}")
     return out_d, out_i
 
 
@@ -159,7 +206,7 @@ def scr_select(q: torch.Tensor, data: torch.Tensor, lens: torch.Tensor,
     if B == 0 or K == 0 or ND == 0 or CAPW == 0:
         return (torch.full((B, K), -ref.NEG, dtype=torch.float32, device=dev),
                 torch.full((B, K), -1, dtype=torch.int32, device=dev))
-    # one block per (doc slot, query) writes each output entry
+    # one warp of each (query, doc slot) pair writes its output entry
     scores = torch.empty((B, K), dtype=torch.float32, device=dev)
     wins = torch.empty((B, K), dtype=torch.int32, device=dev)
     _raise_on(build.entry("scr_select")(

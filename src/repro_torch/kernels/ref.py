@@ -70,6 +70,58 @@ def ecoscan(q, data, lens, probes, k: int, block_map=None):
     return out_d, out_i
 
 
+# rows of a probed list per block of the ecoscan kernel (kTile in
+# csrc/ecoscan.cu), and the candidates its merge reads a pass (kThreads)
+ECOSCAN_TILE = 32
+ECOSCAN_CHUNK = 256
+
+
+def ecoscan_tiled(q, data, lens, probes, k: int, block_map=None,
+                  tile: int = ECOSCAN_TILE, chunk: int = ECOSCAN_CHUNK):
+    """The tile walk of the ecoscan kernel in plain PyTorch (for tests:
+    `ecoscan` is the contract; the kernel's tile is ECOSCAN_TILE). Each
+    probed list is cut into `tile`-row tiles, list L = p*ceil(CAP/tile) +
+    t; a tile's valid rows are sorted by (distance, flat index f =
+    p*CAP + j) and its first kt = min(k, tile) kept, in kt slots. The
+    merge of a query reads the slots position-major (slot i of every list,
+    then slot i + 1), `chunk` at a time: a candidate joins when the top
+    holds fewer than k or it comes before the top's k-th, and the top
+    keeps the k first of the union. (NEG, -1) pads. Distances as
+    `ecoscan`."""
+    B = q.shape[0]
+    R, CAP, _ = data.shape
+    P = probes.shape[1]
+    if block_map is None:
+        block_map = torch.arange(R, dtype=torch.int32, device=q.device)
+    blk = torch.where(probes >= 0, block_map[probes.clamp(min=0).long()], -1)
+    safe = blk.clamp(min=0).long()
+    g = data[safe]                                              # [B,P,CAP,d]
+    dist = (((g * g).sum(-1) - 2.0 * torch.einsum("bpcd,bd->bpc", g, q))
+            + (q * q).sum(-1)[:, None, None]).tolist()
+    n = torch.where(blk >= 0, lens[safe].clamp(max=CAP), 0).tolist()
+    kt = min(k, tile)
+    out_d = torch.full((B, k), NEG, dtype=torch.float32, device=q.device)
+    out_i = torch.full((B, k), -1, dtype=torch.int32, device=q.device)
+    for b in range(B):
+        lists = []                      # kt slots a list; None: no candidate
+        for p in range(P):
+            r = int(safe[b, p])
+            for j0 in range(0, CAP, tile):
+                lst = sorted((dist[b][p][j], p * CAP + j, r * CAP + j)
+                             for j in range(j0, min(n[b][p], j0 + tile)))
+                lists.append(lst[:kt] + [None] * (kt - len(lst[:kt])))
+        slots = [lst[i] for i in range(kt) for lst in lists]
+        top = []
+        for base in range(0, len(slots), chunk):
+            new = [c for c in slots[base:base + chunk] if c is not None
+                   and (len(top) < k or c[:2] < top[k - 1][:2])]
+            top = sorted(top + new)[:k]
+        for i, (dv, _, slot) in enumerate(top):
+            out_d[b, i] = dv
+            out_i[b, i] = slot
+    return out_d, out_i
+
+
 def route_topk(q, centroids, n_probe: int):
     """Centroid routing: the n_probe nearest centroids per query, nearest
     first, lower centroid id on ties (lax.top_k order) -> [B, n_probe].
