@@ -43,7 +43,12 @@ Phases, any failure exits non-zero (nothing is caught):
    also at forced split counts (`paged_edges`). kmeans_assign runs at the
    three shapes of its paths (the EcoVector build's, the IVF partition's
    and a PQ sub-quantizer's, on the baselines' own data) and its edge
-   cases (`kmeans_edges`). Each kernel's line shows its time over the
+   cases (`kmeans_edges`). pq_adc equals its plain version bit for bit
+   (both sum in numpy's order), through the wrapper and at forced
+   variants, at a real IVFPQ query's shape (its n_probe-16 lists as
+   segments of the index's pack), at a flat shape (16 queries over the
+   whole pack; no path runs it) and at its edge cases (`pq_adc_edges`).
+   Each kernel's line shows its time over the
    library call's and the share of its bound. The launch path: the
    wrappers' current stream equals `torch.cuda.current_stream()` under a
    side stream, and `scr_score`'s cached C entry point is timed alone
@@ -75,8 +80,11 @@ determinism`; a whole CPU build and two card builds with the
 - the baselines path: IVF, IVFPQ, IVF-DISK and IVFPQ-DISK over 100,000
   SIFT-like vectors (128-d, 390 clusters, m_pq 8), 200 queries at k 10
   and n_probe 4 and 16, recall@10 against an exact search on the card;
-  the PQ indexes score each query with one `pq_adc` launch, re-checked
-  against the plain version on the same stacked codes.
+  the PQ indexes score each query with one `pq_adc` launch (IVFPQ: its
+  probed lists as segments of its device pack), and every query's ids
+  and distances equal numpy's own sums on the host bit for bit (F9); each
+  PQ search is also timed along the parent tree's path (codes stacked on
+  the host, `stacked_search`), beside this tree's.
 
 The line before the last is the kernel summary as JSON; the last line is
 `{"ok": true, "device": {...}}`.
@@ -576,47 +584,122 @@ def check_current_stream(w, q):
             "handle_after": default}
 
 
-def _pq_times(label, lut, codes, iters=50):
-    """pq_adc against plain at 1e-5 (sums in another order), with times,
-    the bytes bound and the library yardstick: `embedding_bag` in sum
-    mode over the flattened [M*K] table, one call per query row (the
-    offset codes are made outside the timing)."""
+PQ_FORCED = [(qb, threads, 0) for qb in (1, 2, 4) for threads in (64, 512)]
+
+
+def _pq_held(label, lut, codes, seg=None):
+    """pq_adc bit for bit equal to its plain version (both sum in numpy's
+    order) through the wrapper and at each forced variant of PQ_FORCED
+    (`ops.pq_adc_launch`: queries a lookup, threads a block), and two
+    calls bit-equal. seg: (starts, offsets, rows) on the card."""
+    st, off, rows = seg if seg else (None, None, codes.shape[0])
+    want = (ref.pq_adc(lut, codes) if seg is None
+            else ref.pq_adc_segments(lut, codes, st, off))
+    got = ops.pq_adc(lut, codes, st, off, rows=rows) if seg else \
+        ops.pq_adc(lut, codes)
+    assert torch.equal(got, want), f"pq_adc {label}: not bit-equal"
+    assert torch.equal(got, ops.pq_adc(lut, codes, st, off, rows=rows)
+                       if seg else ops.pq_adc(lut, codes)), \
+        f"pq_adc {label}: two calls differ"
+    for forced in PQ_FORCED:
+        assert torch.equal(ops.pq_adc_launch(lut, codes, st, off, rows,
+                                             forced), want), \
+            f"pq_adc {label} at {forced}: not bit-equal"
+    return want
+
+
+def _pq_times(label, lut, codes, seg=None, iters=50):
+    """pq_adc held bit for bit (`_pq_held`), with times, the bytes bound
+    and the library yardstick: `embedding_bag` in sum mode over the
+    flattened [M*K] table, one call per query row, on the rows the call
+    scores (gathered and offset outside the timing)."""
     B, M, K = lut.shape
-    N = codes.shape[0]
-    err = close(f"pq_adc {label}", ops.pq_adc(lut, codes),
-                ref.pq_adc(lut, codes), 1e-5, 1e-5)
-    b_ms, b_by = bound(N * M + (B * M * K + B * N) * 4, float(B * N * M),
-                       F32_FLOPS_S)
-    flat = codes.long() + K * torch.arange(M, device=DEV)
+    want = _pq_held(label, lut, codes, seg)
+    rows = want.shape[1]
+    if seg is None:
+        def call():
+            return ops.pq_adc(lut, codes)
+
+        def plain():
+            return ref.pq_adc(lut, codes)
+        stacked, seg_bytes = codes, 0
+    else:
+        st, off, _ = seg
+
+        def call():
+            return ops.pq_adc(lut, codes, st, off, rows=rows)
+
+        def plain():
+            return ref.pq_adc_segments(lut, codes, st, off)
+        lens = (off[1:] - off[:-1]).long()
+        stacked = codes[torch.repeat_interleave(
+            st.long() - off[:-1].long(), lens)
+            + torch.arange(rows, device=DEV)]
+        seg_bytes = (st.numel() + off.numel()) * 4
+    b_ms, b_by = bound(rows * M + (B * M * K + B * rows) * 4 + seg_bytes,
+                       float(B * rows * M), F32_FLOPS_S)
+    flat = stacked.long() + K * torch.arange(M, device=DEV)
     tabs = [lut[b].reshape(M * K, 1) for b in range(B)]
 
     def library():
         return [F.embedding_bag(flat, t, mode="sum") for t in tabs]
     return dict(
-        shape=f"{label}: lut {list(lut.shape)}, codes {list(codes.shape)}",
-        err=err, ties=0,
-        ms=time_ms(lambda: ops.pq_adc(lut, codes), iters=iters),
-        plain_ms=time_ms(lambda: ref.pq_adc(lut, codes), iters=iters),
+        shape=f"{label}: lut {list(lut.shape)}, codes {list(codes.shape)}"
+              + (f", {seg[0].numel()} segments, {rows} rows" if seg else ""),
+        err=0.0, ties=0, ms=time_ms(call, iters=iters),
+        plain_ms=time_ms(plain, iters=iters),
         library_ms=time_ms(library, iters=iters),
         bound_ms=b_ms, bound_by=b_by)
 
 
-def check_pq_adc(lut, codes, flat_lut, flat_codes):
-    """pq_adc at a real query's shape (n_probe 16 stacked codes) and at a
-    flat shape (16 queries over every code; not a path shape), plus
-    edges: M 4 and 16, N 1, K 16 < 256, codes 0 and 255."""
+def _segments(pairs):
+    """(starts, offsets, rows) on the card of (start, length) pairs."""
+    lens = [n for _, n in pairs]
+    off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    return (torch.tensor([s_ for s_, _ in pairs], dtype=torch.int32,
+                         device=DEV), torch.tensor(off, device=DEV),
+            int(off[-1]))
+
+
+def pq_adc_edges():
+    """pq_adc edge cases, each held bit for bit through the wrapper and at
+    every forced variant, two calls bit-equal (`_pq_held`): M 4, 5 (byte
+    loads), 8 and 16, K 16 < 256, N 1, codes 0 and K-1 (row 0 all K-1,
+    the last row all 0), B 1-5 (queries past the last group of 4),
+    segments that are empty, one row long or start at an odd row, and a
+    call whose every segment is empty (no launch, [B, 0])."""
     g = torch.Generator(device=DEV).manual_seed(7)
-    for b_, m, k, n in ((2, 4, 256, 300), (3, 16, 256, 64), (1, 8, 256, 1),
-                        (2, 8, 16, 500), (1, 5, 256, 77)):
+    cases = [(2, 4, 256, 300, None), (1, 5, 256, 77, None),
+             (3, 16, 256, 64, None), (2, 8, 16, 500, None),
+             (1, 8, 256, 1, None),
+             (5, 8, 256, 1000, [(0, 0), (17, 1), (33, 250), (999, 1),
+                                (500, 0), (101, 77)]),
+             (1, 16, 256, 600, [(3, 40), (599, 1), (1, 300)]),
+             (4, 5, 16, 400, [(7, 33), (0, 0), (399, 1), (11, 120)]),
+             (1, 4, 256, 90, [(45, 45), (0, 45)])]
+    for b_, m, k, n, pairs in cases:
         le = torch.randn(b_, m, k, generator=g, device=DEV)
         ce = torch.randint(0, k, (n, m), generator=g, device=DEV
                            ).to(torch.uint8)
         ce[0] = k - 1
         ce[-1] = 0
-        close(f"pq_adc edge B{b_} M{m} K{k} N{n}", ops.pq_adc(le, ce),
-              ref.pq_adc(le, ce), 1e-5, 1e-5)
-    path = _pq_times("n_probe 16 query", lut, codes)
-    flat = _pq_times("flat, not a path shape", flat_lut, flat_codes, iters=10)
+        _pq_held(f"edge B{b_} M{m} K{k} N{n} {pairs}", le, ce,
+                 _segments(pairs) if pairs else None)
+    before = ops.pq_adc.launches
+    st, off, rows = _segments([(3, 0), (0, 0)])
+    empty = ops.pq_adc(torch.randn(2, 8, 256, device=DEV),
+                       torch.zeros(5, 8, dtype=torch.uint8, device=DEV), st,
+                       off, rows=rows)
+    assert empty.shape == (2, 0) and ops.pq_adc.launches == before
+    return len(cases) + 1
+
+
+def check_pq_adc(lut, pack, seg, flat_lut):
+    """pq_adc at a real query's shape (its n_probe-16 lists as segments
+    of the IVFPQ index's pack) and at a flat shape (16 queries over every
+    code of the pack; not a path shape)."""
+    path = _pq_times("n_probe 16 query", lut, pack, seg)
+    flat = _pq_times("flat, not a path shape", flat_lut, pack, iters=10)
     return dict(path, shapes=[path, flat])
 
 
@@ -1102,27 +1185,71 @@ def exact_top10(base, queries):
     return torch.topk(d2, 10, largest=False).indices.cpu().numpy()
 
 
-def rescore_pq(idx, queries, runs):
-    """Every query of a PQ index re-scored with the plain `ref.pq_adc` on
-    the same stacked codes: the top-10 ids must equal the kernel path's
-    except at ties within 1e-5. Returns the count of tied swaps."""
-    ties = 0
+def rescore_pq(idx, queries, runs, gt):
+    """Every query of a PQ index re-scored on the host with numpy's own
+    sum, the reference's `tabs[arange(m)[None], codes].sum(axis=1)`, over
+    the probed lists' codes (`probed_codes`): the kernel path's top-10 ids
+    must be equal and its distances bit-equal (F9: no tie allowance).
+    Beside it, the parent tree's order, sums in m order from 0 (what its
+    kernel added): that order's recall@10 / @1 against `gt`, and each
+    query whose top 10 it changes, with the ids that differ."""
+    m = idx.pq.m
+    m_order = {}
     for n_probe in N_PROBES:
-        for q, got in zip(queries, runs[n_probe]["ids"]):
+        r = runs[n_probe]
+        hits10 = hits1 = 0
+        swaps = []
+        for qi, (q, got, got_d) in enumerate(zip(queries, r["ids"],
+                                                 r["dists"])):
             ids, codes = idx.probed_codes(q, n_probe)
-            lut = torch.tensor(idx.pq.adc_table(q)[None], device=DEV)
-            s = ref.pq_adc(lut, torch.tensor(codes, device=DEV))[0]
-            s = s.cpu().numpy()
-            want = ids[np.argsort(s)[:10]]
-            score = dict(zip(ids.tolist(), s.tolist()))
-            diff = got != want
-            if diff.any():
-                vg = np.array([score[i] for i in got[diff]])
-                vw = np.array([score[i] for i in want[diff]])
-                assert (np.abs(vg - vw) <= 1e-5 + 1e-5 * np.abs(vw)).all(), \
-                    f"{idx.name}: pq_adc ids differ beyond a tie"
-                ties += int(diff.sum())
-    return ties
+            v = idx.pq.adc_table(q)[np.arange(m)[None, :],
+                                    codes.astype(np.int64)]
+            s = v.sum(axis=1)
+            order = np.argsort(s)[:10]
+            assert np.array_equal(got, ids[order]), \
+                f"{idx.name}: pq_adc ids differ from numpy's sums"
+            assert np.array_equal(got_d.view(np.int32),
+                                  s[order].view(np.int32)), \
+                f"{idx.name}: pq_adc distances differ from numpy's sums"
+            seq = np.zeros(len(ids), np.float32)
+            for j in range(m):
+                seq += v[:, j]
+            top = ids[np.argsort(seq)[:10]]
+            hits10 += len(set(top.tolist()) & set(gt[qi].tolist()))
+            hits1 += int(top[0] == gt[qi][0])
+            if not np.array_equal(top, got):
+                swaps.append([qi, sorted(set(top.tolist())
+                                         ^ set(got.tolist()))])
+        m_order[f"n_probe {n_probe}"] = {
+            "recall_at_10": hits10 / (10 * len(queries)),
+            "recall_at_1": hits1 / len(queries), "queries_swapped": swaps}
+    return {"queries_equal_to_numpy": len(N_PROBES) * len(queries),
+            "parent_m_order": m_order}
+
+
+def stacked_search(idx, q, n_probe):
+    """The parent tree's PQ search path on this tree's kernel: the probed
+    lists' ids and codes stacked on the host (`probed_codes`: IVFPQ id by
+    id from its codes dict, IVFPQ-DISK its loaded lists), the table and
+    the codes copied from pageable memory, one flat launch, the scores
+    back with `.cpu()` (`adc_scores`). Returns the top-10 ids."""
+    ids, codes = idx.probed_codes(q, n_probe)
+    return ids[np.argsort(idx.pq.adc_scores(q, codes))[:10]]
+
+
+def stacked_search_ms(idx, queries, runs):
+    """`stacked_search` per query at each probe width: its host-clock p50
+    in ms, and its results equal to the pack path's (`runs`)."""
+    out = {}
+    for n_probe in N_PROBES:
+        times = []
+        for q, want in zip(queries, runs[n_probe]["ids"]):
+            t = time.perf_counter()
+            ids = stacked_search(idx, q, n_probe)
+            times.append(time.perf_counter() - t)
+            assert np.array_equal(ids, want), idx.name
+        out[n_probe] = float(np.median(times) * 1e3)
+    return out
 
 
 def _index_add_sums(x, assign, k):
@@ -1448,9 +1575,17 @@ def main() -> int:
                 "disk_loads": r["disk_loads"], "disk_bytes": r["disk_bytes"],
                 "distance_ops": r["distance_ops"]}
         if "PQ" in name:
-            info["pq_adc_tied_swaps"] = rescore_pq(idx, bq, runs)
+            info.update(rescore_pq(idx, bq, runs, gt))
+            for n_probe, ms in stacked_search_ms(idx, bq, runs).items():
+                info[f"n_probe {n_probe}"]["stacked_search_ms_p50"] = ms
         base_info[name] = info
     print("baselines path:", json.dumps(base_info))
+    print("baselines search_ms_p50 (this tree's search; the parent's "
+          "stacked search path re-enacted on this tree's kernel):",
+          json.dumps({f"{name} n_probe {p_}": [
+              info[f"n_probe {p_}"]["search_ms_p50"],
+              info[f"n_probe {p_}"].get("stacked_search_ms_p50")]
+              for name, info in base_info.items() for p_ in N_PROBES}))
     # ---- F8: k-means builds on the card are the same on every run
     doc_emb = embed(corpus.docs)
     eco_f8, eco_cent = kmeans_determinism(
@@ -1461,12 +1596,17 @@ def main() -> int:
     print("k-means determinism (F8):", json.dumps(
         {"EcoVector": eco_f8, "IVF": ivf_f8}))
     ivfpq = indexes["IVFPQ"][0]
-    _, codes_q = ivfpq.probed_codes(bq[0], max(N_PROBES))
+    # pq_adc's inputs on this path: one n_probe-16 query's lists as
+    # segments of the IVFPQ pack, and (not a path shape) 16 queries'
+    # tables over the whole pack
+    probes_q = ivfpq._probe(bq[0], max(N_PROBES))
+    off_q = ivfpq.pack_offsets
+    seg_q = _segments([(int(off_q[c]), int(off_q[c + 1] - off_q[c]))
+                       for c in probes_q])
     lut_q = torch.tensor(ivfpq.pq.adc_table(bq[0])[None], device=dev)
-    codes_q = torch.tensor(codes_q, device=dev)
+    pack = ivfpq.pack
     lut_flat = torch.tensor(np.stack([ivfpq.pq.adc_table(q)
                                       for q in bq[:16]]), device=dev)
-    codes_flat = torch.tensor(ivfpq.pq.encode(base), device=dev)
     # kmeans_assign's inputs on this path: the IVF partition (all of base
     # against the IVF index's centroids) and the first PQ sub-quantizer
     # (its 4,096-row training sample, as IVFPQ.build draws it, against
@@ -1543,6 +1683,7 @@ def main() -> int:
     ]
     n_edges = attention_edges() + paged_edges(H, G, dh)
     n_kmeans_edges = kmeans_edges()
+    n_pq_edges = pq_adc_edges()
     n_retrieval_edges = ecoscan_edges() + scr_select_edges(w_t)
     eco_scale, eco_bm = ecoscan_scale_inputs(g)
     ecoscan_shapes = [
@@ -1574,7 +1715,7 @@ def main() -> int:
         "flash_prefill": dict(flash_shapes[0], shapes=flash_shapes),
         "decode_attention": dict(decode_shapes[0], shapes=decode_shapes),
         "scr_score": check_scr_score(w_leg, q_leg),
-        "pq_adc": check_pq_adc(lut_q, codes_q, lut_flat, codes_flat),
+        "pq_adc": check_pq_adc(lut_q, pack, seg_q, lut_flat),
     }
     calls = {
         "kmeans_assign": lambda: ops.kmeans_assign(x, cent),
@@ -1603,7 +1744,8 @@ def main() -> int:
         "decode_attention h2o ring": lambda: ops.decode_attention(
             q_ring, hck, hcv, len_ring, ring=True),
         "scr_score": lambda: ops.scr_score(w_leg, q_leg),
-        "pq_adc": lambda: ops.pq_adc(lut_q, codes_q),
+        "pq_adc": lambda: ops.pq_adc(lut_q, pack, seg_q[0], seg_q[1],
+                                     rows=seg_q[2]),
     }
     prof = profile_phase(slm, [slm.encode_prompt(a.prompt)
                                for a in answers[:4]], calls)
@@ -1616,6 +1758,9 @@ def main() -> int:
     print(f"attention edge cases: {n_edges} agree with the plain versions")
     print(f"kmeans_assign edge cases: {n_kmeans_edges} agree with the plain "
           "version")
+    print(f"pq_adc edge cases: {n_pq_edges} equal the plain version bit "
+          "for bit (through the wrapper and at forced variants "
+          f"{PQ_FORCED}), each bit-equal across two calls")
     print(f"ecoscan and scr_select edge cases: {n_retrieval_edges} agree "
           "with the plain versions (ecoscan through the wrapper and at "
           f"tiles {list(ops.ECOSCAN_TILES)}), each bit-equal across two "

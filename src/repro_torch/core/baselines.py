@@ -5,11 +5,15 @@ Figures 6-10): IVF, IVFPQ, IVF-DISK and IVFPQ-DISK, the port of
 Common interface: build / search / insert / delete / ram_bytes, plus a
 `stats` counter of distance ops and disk traffic. The k-means partition
 and PQ training run on the port's k-means (`kmeans_assign` kernel); the
-ADC of IVFPQ and IVFPQ-DISK runs as one `pq_adc` launch per query over
-the codes of all probed lists, stacked in probe order. The rest (routing,
-inverted lists, exact IVF distances, top-k) is the reference's host
-numpy. The HNSW-based baselines and EcoVector's host search are not
-ported yet: `make_index` raises for them.
+ADC of IVFPQ and IVFPQ-DISK runs as one `pq_adc` launch per query, its
+sums in the reference's numpy order, so both return the reference's
+distances bit for bit. IVFPQ keeps every list's codes in one pack on
+the device and hands the probed lists to the launch as segments of it;
+IVFPQ-DISK loads the probed lists' files, as the reference does, and
+scores their concatenated codes. The rest (routing, inverted lists,
+exact IVF distances, top-k) is the reference's host numpy. The
+HNSW-based baselines and EcoVector's host search are not ported yet:
+`make_index` raises for them.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import store
@@ -136,12 +141,31 @@ class IVFPQ(IVF):
     def build(self, vectors, ids=None):
         vectors = np.asarray(vectors, np.float32)
         ids = np.arange(len(vectors), dtype=np.int64) if ids is None else ids
-        self._partition(vectors, ids)
+        assign = self._partition(vectors, ids)
         self.pq.train(vectors[np.random.default_rng(0).choice(
             len(vectors), min(len(vectors), 4096), replace=False)])
+        codes = self.pq.encode(vectors)
         self.codes: Dict[int, np.ndarray] = {
-            int(i): c for i, c in zip(ids, self.pq.encode(vectors))}
+            int(i): c for i, c in zip(ids, codes)}
+        self._set_pack(codes[np.argsort(assign, kind="stable")])
         return self
+
+    def _set_pack(self, packed: np.ndarray):
+        """Keep packed [N, m] uint8, every list's codes in list order and
+        each list's id order, on the PQ's device as `pack`, with the list
+        offsets `pack_offsets` [n_lists + 1] on the host: list c is the
+        pack rows pack_offsets[c] .. pack_offsets[c + 1] - 1."""
+        self.pack = torch.tensor(packed, device=self.pq.device)
+        self.pack_offsets = np.concatenate(
+            [[0], np.cumsum([len(l) for l in self.lists])]).astype(np.int64)
+        self._pack_stale = False
+
+    def _fresh_pack(self):
+        """Rebuild the pack from `codes` and `lists` after an update."""
+        if self._pack_stale:
+            ids = [int(i) for l in self.lists for i in l]
+            self._set_pack(np.stack([self.codes[i] for i in ids]) if ids
+                           else np.zeros((0, self.pq.m), np.uint8))
 
     def _list_codes(self, c) -> Tuple[np.ndarray, np.ndarray]:
         ids = self.lists[c]
@@ -166,18 +190,30 @@ class IVFPQ(IVF):
         return np.concatenate(all_ids), np.concatenate(all_codes)
 
     def search(self, q, k=10, n_probe=4, **kw):
+        """Route on the host; one `pq_adc` launch scores the probed lists
+        as segments of the device pack, in probe order."""
         q = np.asarray(q, np.float32)
-        ids, codes = self.probed_codes(q, n_probe)
-        if not len(ids):
+        probes = self._probe(q, n_probe)
+        self._fresh_pack()
+        starts = self.pack_offsets[probes]
+        lens = self.pack_offsets[probes + 1] - starts
+        n = int(lens.sum())
+        self.stats.distance_ops += n
+        if not n:
             return _empty()
-        return _topk(ids, self.pq.adc_scores(q, codes), k)
+        scores = self.pq.adc_segments(self.pq.adc_table(q), self.pack,
+                                      starts, lens)
+        return _topk(np.concatenate([self.lists[c] for c in probes]), scores,
+                     k)
 
     def insert(self, vid, vec):
         c = self._nearest_cluster(vec)
         self.lists[c] = np.append(self.lists[c], vid)
         self.codes[int(vid)] = self.pq.encode(vec[None])[0]
+        self._pack_stale = True
 
     def delete(self, vid):
+        self._pack_stale = True
         super().delete(vid)
         self.codes.pop(int(vid), None)
 
@@ -286,11 +322,22 @@ class IVFPQDisk(IVFPQ, _DiskListMixin):
         super().build(vectors, ids)
         for c in range(self.n_clusters):
             self._store_list(c, super()._list_codes(c))
-        self.codes = {}  # codes live on disk now
+        self.codes = {}  # codes live on disk now, and no pack is resident
+        self.pack = None
         return self
 
     def _list_codes(self, c) -> Tuple[np.ndarray, np.ndarray]:
         return self._load_list(c)
+
+    def search(self, q, k=10, n_probe=4, **kw):
+        """Load the probed lists (disk stats as the reference's); their
+        concatenated codes go to the device in one copy, for one
+        `pq_adc` launch."""
+        q = np.asarray(q, np.float32)
+        ids, codes = self.probed_codes(q, n_probe)
+        if not len(ids):
+            return _empty()
+        return _topk(ids, self.pq.adc_scores(q, codes), k)
 
     def ram_bytes(self):
         n = sum(len(l) for l in self.lists)

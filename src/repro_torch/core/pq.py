@@ -4,8 +4,11 @@ port of `repro.core.pq`).
 Used by the IVFPQ / IVFPQ-DISK baselines. Training runs the port's
 k-means (its assignment step on the `kmeans_assign` kernel); ADC scoring
 runs the `pq_adc` kernel, a gather from the query's table in shared
-memory, where the reference sums a numpy gather. Encoding, decoding and
-the tables stay numpy, as in the reference.
+memory summed in numpy's order, where the reference sums a numpy
+gather. Encoding, decoding and the tables stay numpy, as in the
+reference. A scoring call over segments of a device pack stages the
+table and the segments in one pinned host buffer and copies them to the
+device in one copy; the scores come back with `.cpu()`.
 """
 from __future__ import annotations
 
@@ -15,6 +18,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.kmeans import kmeans
 from repro_torch.kernels import ops
+
+_TORCH_DTYPE = {np.dtype(np.float32): torch.float32,
+                np.dtype(np.int32): torch.int32,
+                np.dtype(np.uint8): torch.uint8}
 
 
 class PQ:
@@ -27,6 +34,8 @@ class PQ:
         self.dsub = dim // m
         self.device = resolve_device(device)
         self.codebooks = np.zeros((m, self.ksub, self.dsub), np.float32)
+        self._host = self._dev = None       # staging of the scoring inputs
+        self._views = {}                    # layout -> its staged views
 
     def train(self, x: np.ndarray, iters: int = 8, seed: int = 0):
         x = np.asarray(x, np.float32)
@@ -64,6 +73,37 @@ class PQ:
             tabs[j] = np.einsum("kd,kd->k", diff, diff)
         return tabs
 
+    def _stage(self, *arrays):
+        """Copy numpy arrays to the PQ's device in one copy, through one
+        host buffer (pinned on a GPU; reused, since each scoring call
+        waits for its scores), each at a 16-byte aligned offset. Returns
+        the device tensors, in the arrays' dtypes and shapes; the views
+        of a layout (one a probe width) are made once."""
+        arrays = [np.ascontiguousarray(a) for a in arrays]
+        key = tuple((a.dtype, a.shape) for a in arrays)
+        views = self._views.get(key)
+        if views is None:
+            at = np.cumsum([0] + [-(-a.nbytes // 16) * 16 for a in arrays])
+            if self._host is None or self._host.numel() < at[-1]:
+                cuda = self.device.type == "cuda"
+                self._host = torch.empty(max(int(at[-1]), 1 << 16),
+                                         dtype=torch.uint8, pin_memory=cuda)
+                self._dev = (torch.empty_like(self._host, device=self.device)
+                             if cuda else self._host)
+                self._views = {}
+            views = (self._host[:at[-1]], self._dev[:at[-1]],
+                     [(o, o + a.nbytes) for a, o in zip(arrays, at)],
+                     [self._dev[o:o + a.nbytes].view(_TORCH_DTYPE[a.dtype])
+                      .view(a.shape) for a, o in zip(arrays, at)])
+            self._views[key] = views
+        host, dev, spans, out = views
+        h = host.numpy()
+        for a, (lo, hi) in zip(arrays, spans):
+            h[lo:hi] = a.reshape(-1).view(np.uint8)
+        if dev is not host:
+            dev.copy_(host, non_blocking=True)
+        return out
+
     def adc_lookup(self, tabs: np.ndarray, codes: np.ndarray) -> np.ndarray:
         """sum_m tabs[m, codes[n, m]] for codes [N, m] uint8: one `pq_adc`
         launch on the PQ's device. Returns [N] f32 as numpy."""
@@ -72,6 +112,19 @@ class PQ:
         c = torch.tensor(np.ascontiguousarray(codes, np.uint8),
                          device=self.device)
         return ops.pq_adc(lut, c)[0].cpu().numpy()
+
+    def adc_segments(self, tabs: np.ndarray, pack: torch.Tensor,
+                     starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
+        """The scores of the pack rows starts[s] .. starts[s] + lens[s] - 1
+        of every segment s, in segment order: [sum(lens)] f32 as numpy.
+        pack [N, m] uint8 lives on the PQ's device; the table and the
+        segments travel in one copy, and one `pq_adc` launch scores
+        them all."""
+        offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+        lut, st, off = self._stage(np.asarray(tabs, np.float32)[None],
+                                   np.asarray(starts, np.int32), offsets)
+        return ops.pq_adc(lut, pack, st, off,
+                          rows=int(offsets[-1]))[0].cpu().numpy()
 
     def adc_scores(self, q: np.ndarray, codes: np.ndarray) -> np.ndarray:
         return self.adc_lookup(self.adc_table(q), codes)

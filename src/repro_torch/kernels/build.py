@@ -60,7 +60,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "scr_score": {
         "scr_score": [_P, _P, _I, _I, _I, _P, _P]},
     "pq_adc": {
-        "pq_adc": [_P, _P, _I, _I, _I, _I, _P, _P]},
+        "pq_adc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+        "pq_adc_forced": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _P, _P]},
 }
 
 _lock = threading.Lock()

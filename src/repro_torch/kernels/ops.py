@@ -419,11 +419,27 @@ def scr_score(windows: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 PQ_ADC_MAX_K = 256
 
 
-def pq_adc(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
-    """lut [B, M, K] f32 (K <= 256) distance tables; codes [N, M] uint8,
-    each < K -> scores [B, N] f32 = sum_m lut[b, m, codes[n, m]]."""
-    dev = _checked((lut, "lut", torch.float32, 3),
-                   (codes, "codes", torch.uint8, 2))
+def pq_adc(lut: torch.Tensor, codes: torch.Tensor,
+           starts: Optional[torch.Tensor] = None,
+           offsets: Optional[torch.Tensor] = None,
+           rows: Optional[int] = None) -> torch.Tensor:
+    """lut [B, M, K] f32 (K <= 256) distance tables; codes [N, M] uint8
+    (a code >= K adds NaN) -> scores [B, N] f32 = sum_m lut[b, m,
+    codes[n, m]], summed in numpy's order (`ref.pq_adc`). With segments,
+    starts [S] i32 and offsets [S + 1] i32 (non-decreasing from 0, and
+    `rows` = offsets[S], the host's count): segment s is the code rows
+    starts[s] .. starts[s] + offsets[s+1] - offsets[s] - 1, scored into
+    out[:, offsets[s]:offsets[s+1]] of scores [B, rows]; a row outside
+    [0, N) scores NaN (`ref.pq_adc_segments`). One launch either way;
+    on the card M <= 128, numpy's pairwise block."""
+    specs = ((lut, "lut", torch.float32, 3), (codes, "codes", torch.uint8, 2))
+    seg = starts is not None or offsets is not None
+    if seg:
+        if starts is None or offsets is None or rows is None:
+            raise ValueError("pq_adc: segments need starts, offsets and rows")
+        specs += ((starts, "starts", torch.int32, 1),
+                  (offsets, "offsets", torch.int32, 1))
+    dev = _checked(*specs)
     B, M, K = lut.shape
     N = codes.shape[0]
     if codes.shape[1] != M:
@@ -431,18 +447,52 @@ def pq_adc(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
                          f"{tuple(lut.shape)}")
     if K > PQ_ADC_MAX_K:
         raise ValueError(f"pq_adc: K {K} > {PQ_ADC_MAX_K} (uint8 codes)")
+    if seg and offsets.shape[0] != starts.shape[0] + 1:
+        raise ValueError(f"pq_adc: {starts.shape[0]} starts, "
+                         f"{offsets.shape[0]} offsets")
     if dev.type == "cpu":
-        return ref.pq_adc(lut, codes)
-    if M * K * 4 > 227 * 1024 or B > 65535:
-        raise ValueError(f"pq_adc: an [M, K] = [{M}, {K}] table beyond 227 KB"
-                         f" of shared memory, or B {B} > 65535")
-    out = lut.new_empty((B, N))             # f32 on lut's device
-    if B == 0 or N == 0:
+        if not seg:
+            return ref.pq_adc(lut, codes)
+        if int(offsets[0]) != 0 or int(offsets[-1]) != rows or bool(
+                (offsets[1:] < offsets[:-1]).any()):
+            raise ValueError("pq_adc: offsets must rise from 0 to rows")
+        return ref.pq_adc_segments(lut, codes, starts, offsets)
+    T = rows if seg else N
+    out = pq_adc_launch(lut, codes, starts, offsets, T)
+    if out.numel():
+        pq_adc.launches += 1
+    return out
+
+
+def pq_adc_launch(lut, codes, starts, offsets, rows: int,
+                  forced: Optional[Tuple[int, int, int]] = None):
+    """Launch the pq_adc kernel on CUDA tensors that pass `pq_adc`'s
+    checks (no launch counted) -> scores [B, rows]: through the C entry
+    `pq_adc` when `forced` is None (the wrapper's call), else through
+    `pq_adc_forced` at forced (queries a lookup 1, 2 or 4, threads a
+    block 32..1024, grid width; 0 sizes the grid as `pq_adc` does), for
+    probes and checks. No launch when B or rows is 0."""
+    B, M, K = lut.shape
+    S = 0 if starts is None else starts.shape[0]
+    if M > ref.PQ_SUM_BLOCK or B > 65535 or (M * 256 + 2 * S + 1) * 4 > \
+            227 * 1024:
+        raise ValueError(f"pq_adc: M {M} > {ref.PQ_SUM_BLOCK} (numpy's "
+                         f"pairwise block), B {B} > 65535, or {S} segments "
+                         "past the shared memory beside the table")
+    out = lut.new_empty((B, rows))          # f32 on lut's device
+    if B == 0 or rows == 0:
         return out
-    _raise_on(build.entry("pq_adc")(
-        lut.data_ptr(), codes.data_ptr(), B, N, M, K, out.data_ptr(),
-        _stream(dev)), "pq_adc")
-    pq_adc.launches += 1
+    args = (lut.data_ptr(), codes.data_ptr(),
+            None if starts is None else starts.data_ptr(),
+            None if offsets is None else offsets.data_ptr(), B, S,
+            codes.shape[0], rows, M, K)
+    if forced is None:
+        _raise_on(build.entry("pq_adc")(*args, out.data_ptr(),
+                                        _stream(lut.device)), "pq_adc")
+    else:
+        _raise_on(build.entry("pq_adc_forced")(
+            *args, *forced, out.data_ptr(), _stream(lut.device)),
+            f"pq_adc forced {forced}")
     return out
 
 

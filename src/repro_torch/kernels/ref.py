@@ -207,11 +207,65 @@ def scr_score(windows, q):
     return torch.einsum("bnd,bd->bn", windows, q)
 
 
+PQ_SUM_BLOCK = 128     # numpy's pairwise block (PW_BLOCKSIZE)
+
+
+def pairwise_sum(v):
+    """numpy's float32 sum of `v` [..., n] along its last dimension,
+    written as explicit adds in numpy's order (`pairwise_sum` of its
+    add.reduce over a contiguous row): n < 8 in order; n <= 128 eight
+    partial sums r[i % 8] over the first n - n % 8 values, the tree
+    ((r0+r1)+(r2+r3))+((r4+r5)+(r6+r7)), then the rest in order; longer
+    rows split at n2 = n // 2 - (n // 2) % 8 and add the halves' sums."""
+    n = v.shape[-1]
+    if n < 8:
+        s = v[..., 0]
+        for i in range(1, n):
+            s = s + v[..., i]
+        return s
+    if n > PQ_SUM_BLOCK:
+        h = n // 2 - (n // 2) % 8
+        return pairwise_sum(v[..., :h]) + pairwise_sum(v[..., h:])
+    r = [v[..., i] for i in range(8)]
+    i = 8
+    while i < n - n % 8:
+        r = [r[j] + v[..., i + j] for j in range(8)]
+        i += 8
+    s = ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5]) + (r[6] + r[7]))
+    for i in range(i, n):
+        s = s + v[..., i]
+    return s
+
+
 def pq_adc(lut, codes):
-    """lut [B, M, K] distance tables; codes [N, M] uint8 (each < K) ->
-    scores [B, N] = sum_m lut[b, m, codes[n, m]], summed in f32."""
-    m = torch.arange(lut.shape[1], device=lut.device)
-    return lut[:, m[None, :], codes.long()].sum(-1)
+    """lut [B, M, K] distance tables; codes [N, M] uint8 -> scores [B, N]
+    = sum_m lut[b, m, codes[n, m]] in f32, in the reference's order:
+    numpy's `tabs[arange(M)[None], codes].sum(axis=1)`, which adds the
+    row's `pairwise_sum` to the reduction's identity 0. A code >= K adds
+    NaN."""
+    B, M, K = lut.shape
+    c = codes.long()
+    m = torch.arange(M, device=lut.device)
+    v = lut[:, m[None, :], c.clamp(max=K - 1)]                  # [B, N, M]
+    v = torch.where((c < K)[None], v, torch.full_like(v, math.nan))
+    return 0.0 + pairwise_sum(v)
+
+
+def pq_adc_segments(lut, codes, starts, offsets):
+    """`pq_adc` over segments of the code rows: starts [S] i32, offsets
+    [S + 1] i32 non-decreasing from 0. Segment s is the rows starts[s] ..
+    starts[s] + offsets[s+1] - offsets[s] - 1 of codes [N, M], scored
+    into out[:, offsets[s]:offsets[s+1]] of scores [B, offsets[S]]; a
+    row outside [0, N) scores NaN."""
+    lens = (offsets[1:] - offsets[:-1]).long()
+    first = torch.repeat_interleave(starts.long() - offsets[:-1].long(), lens)
+    rows = first + torch.arange(first.numel(), device=codes.device)
+    inside = (rows >= 0) & (rows < codes.shape[0])
+    if not codes.shape[0]:                       # nothing to gather from
+        codes = torch.zeros((1, codes.shape[1]), dtype=codes.dtype,
+                            device=codes.device)
+    out = pq_adc(lut, codes[rows.clamp(0, codes.shape[0] - 1)])
+    return torch.where(inside[None], out, torch.full_like(out, math.nan))
 
 
 def flash_prefill(q, k, v, *, causal: bool = True, window=None,

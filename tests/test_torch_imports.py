@@ -40,6 +40,7 @@ from repro_torch.core.baselines import make_index
 import chip_smoke
 sys.path.insert(0, {str(ROOT / "tools")!r})
 import attention_probe, kmeans_probe, launch_probe, retrieval_probe
+import pq_probe
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 print(len(names))
 """
@@ -53,7 +54,7 @@ def test_no_jax_or_repro_import_lines():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "attention_probe.py",
         ROOT / "tools" / "kmeans_probe.py", ROOT / "tools" / "launch_probe.py",
-        ROOT / "tools" / "retrieval_probe.py"]
+        ROOT / "tools" / "pq_probe.py", ROOT / "tools" / "retrieval_probe.py"]
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in _BLOCKED_IMPORT.finditer(f.read_text())]
     assert len(files) > 20 and not bad, bad
