@@ -7,7 +7,9 @@ Phases, any failure exits non-zero (nothing is caught):
    kernels from `src/repro_torch/kernels/csrc/` (timed).
 2. The main path: MobileRAG over a 16,384-document synthetic SQuAD-style
    corpus (HashEmbedder at the gte-small width 384: NC = 256 clusters,
-   a [256, CAP, 384] EcoVector pack and a [16384, 10, 384] window pack)
+   each with its HNSW graph (M 16, efc 100) spilled to disk, a [256,
+   CAP, 384] EcoVector pack made from the graphs and a [16384, 10, 384]
+   window pack)
    with full-width qwen2.5-0.5B in bf16 (24 layers, random weights from a
    seed), `answer_batch(16 questions, generate=True, max_new=16)` through
    4 slots; the chunked prefill runs `flash_prefill`. The port has no
@@ -41,10 +43,12 @@ Phases, any failure exits non-zero (nothing is caught):
    the main path's shape and at a long-cache shape (4 rows at kv_len
    4,096 through 130-entry tables; no path runs it), and its edge cases
    also at forced split counts (`paged_edges`). kmeans_assign runs at the
-   three shapes of its paths (the EcoVector build's, the IVF partition's
-   and a PQ sub-quantizer's, on the baselines' own data) and its edge
-   cases (`kmeans_edges`). pq_adc equals its plain version bit for bit
-   (both sum in numpy's order), through the wrapper and at forced
+   five shapes of its paths (the EcoVector build's, the IVF partition's
+   and a PQ sub-quantizer's, on the baselines' own data; the graph
+   baselines' partition and HNSWPQ's sub-quantizer) and its edge cases
+   (`kmeans_edges`); ecoscan also on the pack the updates grew. pq_adc
+   equals its plain version bit for bit (both sum in numpy's order),
+   through the wrapper and at forced
    variants, at a real IVFPQ query's shape (its n_probe-16 lists as
    segments of the index's pack), at a flat shape (16 queries over the
    whole pack; no path runs it) and at its edge cases (`pq_adc_edges`).
@@ -65,18 +69,47 @@ Phases, any failure exits non-zero (nothing is caught):
    and idle share, the kernels and host ops that take the time) and over
    each kernel wrapper alone (device time per call).
 
-Two more paths run after phase 4, and their kernels join phases 5-7;
-then the F8 phase: the EcoVector partition (the main path's 16,384
+More paths run after phase 4, and their kernels join phases 5-7; then
+the F8 phase: the EcoVector partition (the main path's 16,384
 embeddings into 256 clusters) and the IVF partition (100,000 x 128 into
 390) each k-means'd twice on the card, bit for bit equal, and stepped
 against the CPU's plain versions from the same centroids: assignments
 equal except at ties within 1e-4, cluster sums equal (`kmeans_
 determinism`; a whole CPU build and two card builds with the
 `index_add_` update the port had before are reported beside them):
-- the legacy SCR path: the main path's pipeline with
-  `use_window_index=False`, so each query re-embeds its retrieved
+- the legacy SCR path: the main path's pipeline, on its index
+  (`index=pipe.index`), with `use_window_index=False`, so each query re-embeds its retrieved
   documents' windows and scores them with `scr_score` (one launch per
   query), beside the window-index path's SCR time;
+- the host search (after the legacy path): the main path's index
+  searched on the host (route on the centroid graph, each probed
+  cluster's graph loaded from disk, searched, merged) for the 16
+  questions and 200 corpus queries at k 10: exactly n_probe disk loads a
+  query (asserted: no cache, the partial-loading contract), disk bytes,
+  search ms p50, recall@3 and @10 against exact search over the pack,
+  top-3 sets equal to the device path's, `ram_bytes` beside the device
+  tensors' and `disk_bytes`, the build split (k-means / centroid graph /
+  graphs / pack); `MobileRAG(index=..., device_retrieval=False)` answers
+  the 16 questions (legacy SCR), its doc sets beside the main path's
+  (reported);
+- the graph baselines (after the IVF baselines): HNSW, HNSWPQ, IVF-HNSW
+  and EcoVector through `make_index` over the first N_G (6,000) of the
+  same SIFT-like vectors (M 12, efc 60, 23 clusters, m_pq 8; the cut is
+  printed under `reduced`): build s, search ms p50, recall@10 and @1
+  against exact search, `ram_bytes`, disk bytes and loads, at ef 64 or
+  n_probe 4 and 16; `kmeans_assign` runs in HNSWPQ's PQ training and the
+  two partitions;
+- the updates (after phase 7, the last user of the main path's index):
+  two rounds of 128 inserts (perturbed corpus vectors, new ids) and 128
+  deletes (32 re-inserted); the first stays inside CAP, the second
+  overflows one cluster. After each round's device query: the device
+  tensors equal the host pack bit for bit, without growth only the dirty
+  blocks were copied (counted, nothing uploaded whole), with growth the
+  pack grew and was uploaded once; `search_device_batched` returns the
+  ids of plain `route_topk` + `ecoscan` on the same tensors (ties within
+  2e-5 excepted); inserted vectors are found, deleted ids never
+  returned; then ecoscan is held against its plain version on the grown
+  pack;
 - the baselines path: IVF, IVFPQ, IVF-DISK and IVFPQ-DISK over 100,000
   SIFT-like vectors (128-d, 390 clusters, m_pq 8), 200 queries at k 10
   and n_probe 4 and 16, recall@10 against an exact search on the card;
@@ -92,6 +125,7 @@ The line before the last is the kernel summary as JSON; the last line is
 import ctypes
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -138,6 +172,20 @@ SIFT_NQ = 200
 BASELINES = ("IVF", "IVFPQ", "IVF-DISK", "IVFPQ-DISK")
 N_PROBES = (4, 16)
 M_PQ = 8
+# the graph baselines: the first N_G of the same vectors, M 12 and efc 60
+# (benchmarks/common.py's graph settings). Graph inserts are host numpy,
+# 6-10 ms an insert at 1,000-4,000 nodes on the host CPU of an H100
+# machine (tools/hnsw_probe.py), so N_G keeps the graph phases to a few
+# minutes
+N_G = 6000
+GRAPH_BASELINES = ("HNSW", "HNSWPQ", "IVF-HNSW", "EcoVector")
+GRAPH_KW = dict(M=12, ef_construction=60)
+# the updates phase on the main path's index: inserts (perturbed corpus
+# vectors, ids past the corpus) and deletes, half of each a round
+N_UPDATES = 256
+N_REINSERT = 32
+# corpus queries of the host-search phase, beside the 16 questions
+HOST_NQ = 200
 REPLACES = {
     "kmeans_assign": "src/repro/kernels/kmeans_assign.py:37",
     "ecoscan": "src/repro/kernels/ecoscan.py:163",
@@ -154,9 +202,14 @@ PATH_KERNELS = {
              "decode_attention_paged", "flash_prefill"),
     "wave": ("flash_prefill", "decode_attention"),
     "h2o": ("flash_prefill", "decode_attention"),
-    "legacy": ("kmeans_assign", "ecoscan", "scr_score",
-               "decode_attention_paged", "flash_prefill"),
+    "legacy": ("ecoscan", "scr_score", "decode_attention_paged",
+               "flash_prefill"),
     "baselines": ("kmeans_assign", "pq_adc"),
+    # the host search launches nothing; the legacy SCR of its MobileRAG
+    # does
+    "host_search": ("scr_score",),
+    "graph_baselines": ("kmeans_assign",),
+    "updates": ("ecoscan",),
 }
 
 
@@ -1331,6 +1384,332 @@ def kmeans_determinism(label, x, k, seed=0, iters=10):
     }, c1
 
 
+def corpus_queries(docs, n):
+    """n queries cut from the corpus: one middle sentence of each of n
+    documents spread evenly over it."""
+    step = len(docs) // n
+    return [docs[i].split(". ")[2 + i % 5] for i in range(0, step * n, step)]
+
+
+def exact_pack_ids(index, qvs, k):
+    """Exact top-k ids over every row the index's host pack holds (plain
+    f32 distances on the card)."""
+    data, _, slot_ids, _ = index.device_pack()
+    live = slot_ids >= 0
+    x = torch.tensor(data[live], device=DEV)
+    q = torch.tensor(qvs, device=DEV)
+    d2 = ((q * q).sum(1)[:, None] - 2.0 * q @ x.T
+          + (x * x).sum(1)[None, :])
+    return slot_ids[live][torch.topk(d2, k, largest=False).indices.cpu()
+                          .numpy()]
+
+
+def recall(got, want, k):
+    return float(np.mean([len(set(np.asarray(g)[:k].tolist())
+                              & set(w[:k].tolist())) / k
+                          for g, w in zip(got, want)]))
+
+
+def host_search(index, qvs, n_probe, k=10):
+    """EcoVector's host search (route on the centroid graph, load each
+    probed cluster's graph from disk, search it, merge) a query at a
+    time: ids, host-clock seconds, and disk loads and bytes of each."""
+    s = index.stats
+    ids, times, loads, nbytes = [], [], [], []
+    for q in qvs:
+        l0, b0 = s.disk_loads, s.disk_bytes
+        t = time.perf_counter()
+        i, _ = index.search(q, k=k, n_probe=n_probe)
+        times.append(time.perf_counter() - t)
+        ids.append(i)
+        loads.append(s.disk_loads - l0)
+        nbytes.append(s.disk_bytes - b0)
+    return ids, times, loads, nbytes
+
+
+def host_search_phase(pipe, embed, docs, questions):
+    """The main path's index searched on the host: the 16 questions and
+    200 corpus queries at k 10 and the pipeline's n_probe; each query
+    loads exactly n_probe cluster graphs (no cache: the partial-loading
+    contract). Then `MobileRAG(index=pipe.index, device_retrieval=False)`
+    (legacy SCR, no second window index) answers the 16 questions."""
+    idx = pipe.index
+    assert idx.cache_clusters == 0 and not idx._quarantined
+    qvs = np.asarray(embed(questions + corpus_queries(docs, HOST_NQ)),
+                     np.float32)
+    ids, times, loads, nbytes = host_search(idx, qvs, pipe.n_probe)
+    assert loads == [pipe.n_probe] * len(qvs), \
+        f"host search: disk loads a query {sorted(set(loads))}"
+    hpipe = MobileRAG(docs, embed, top_k=3, index=idx, device_retrieval=False,
+                      use_window_index=False, gen_config=GEN_CONFIG, seed=0,
+                      device=DEV)
+    return qvs, ids, times, nbytes, hpipe.answer_batch(questions)
+
+
+def host_search_info(pipe, qvs, ids, times, nbytes, host_answers, answers):
+    idx = pipe.index
+    exact = exact_pack_ids(idx, qvs, 10)
+    dev_ids, _ = idx.search_device_batched(qvs, k=3, n_probe=pipe.n_probe)
+    data, lens, slot_ids, cap = idx.device_pack()
+    # the host routes on the centroid graph, the device path on exact
+    # centroid distances
+    dense = ref.route_topk(torch.tensor(qvs, device=DEV),
+                           idx.device_arrays()[2], pipe.n_probe).cpu().numpy()
+    route_eq = [set(idx._route(q, pipe.n_probe)) == set(r.tolist())
+                for q, r in zip(qvs, dense)]
+    top3_eq = [set(np.asarray(h)[:3].tolist()) == set(d.tolist())
+               for h, d in zip(ids, dev_ids)]
+    nq = len(host_answers)
+    return {
+        "queries": len(qvs), "n_probe": pipe.n_probe, "k": 10,
+        "search_ms_p50": float(np.median(times) * 1e3),
+        "disk_loads_per_query": pipe.n_probe,
+        "disk_bytes_per_query_mean": float(np.mean(nbytes)),
+        "recall_at_3": recall(ids, exact, 3),
+        "recall_at_10": recall(ids, exact, 10),
+        "top3_equal_device_share": float(np.mean(top3_eq)),
+        "questions_top3_equal_device_share": float(np.mean(top3_eq[:nq])),
+        "route_equal_dense_share": float(np.mean(route_eq)),
+        "questions_route_equal_dense_share": float(np.mean(route_eq[:nq])),
+        "ram_bytes": idx.ram_bytes(),
+        "ram_bytes_without_device": idx.ram_bytes()
+        - idx.device_resident_bytes(),
+        "device_resident_bytes": idx.device_resident_bytes(),
+        "host_pack_bytes": data.nbytes + lens.nbytes + slot_ids.nbytes,
+        "disk_bytes": idx.disk_bytes(),
+        "avg_cluster_bytes": idx.avg_cluster_bytes(),
+        "build_split_s": idx.timings,
+        "rag_host_doc_set_share": float(np.mean([
+            set(a.doc_ids) == set(b.doc_ids)
+            for a, b in zip(host_answers, answers)])),
+        "rag_host_retrieval_s_mean": float(np.mean([
+            a.retrieval_s for a in host_answers])),
+    }
+
+
+def _routes_to(index, vec):
+    """The cluster `EcoVector.insert` would put vec in."""
+    return int(index.centroid_graph.search(vec, 1, ef_search=16)[0][0])
+
+
+def _update_round(index, emb, rng, next_id, grow):
+    """One round of N_UPDATES / 2 inserts and as many deletes. The new
+    vectors are corpus rows perturbed by 0.002 a coordinate; without
+    `grow` each goes where its cluster has room (its route is checked
+    first), so CAP stays; with `grow` they are taken from the largest
+    cluster's members, and the first ones routed there overflow it. The
+    deletes are corpus ids, and N_REINSERT of them come back with their
+    own vectors. Returns {id: vector} inserted, and the ids deleted and
+    not re-inserted."""
+    _, _, _, cap = index.device_pack()
+    room = cap - index.cluster_sizes()
+    if grow:
+        pool = [v for v in index.cluster_members[int(np.argmax(
+            index.cluster_sizes()))] if v < len(emb)]
+    else:
+        pool = [v for v in rng.permutation(len(emb)).tolist()
+                if index.assign.get(v) is not None]
+    added = {}
+    for j in range(4 * N_UPDATES):
+        if len(added) == N_UPDATES // 2:
+            break
+        v = pool[j % len(pool)]
+        vec = (emb[v] + 0.002 * rng.standard_normal(emb.shape[1])).astype(
+            np.float32)
+        c = _routes_to(index, vec)
+        if not grow and room[c] <= 0:
+            continue
+        room[c] -= 1
+        index.insert(next_id + len(added), vec)
+        added[next_id + len(added)] = vec
+    assert len(added) == N_UPDATES // 2, len(added)
+    gone = [v for v in rng.choice(len(emb), 2 * N_UPDATES, replace=False)
+            .tolist() if index.assign.get(v) is not None][:N_UPDATES // 2]
+    for v in gone:
+        index.delete(v)
+    back = []
+    for v in gone:
+        c = _routes_to(index, emb[v])
+        if len(back) < N_REINSERT and (grow or room[c] > 0):
+            room[c] -= 1
+            index.insert(v, emb[v])
+            added[v] = emb[v]
+            back.append(v)
+    return added, set(gone) - set(back)
+
+
+def update_phase(index, emb, qvs, n_probe):
+    """Two update rounds on the main path's index (`_update_round`: the
+    first inside CAP, the second past it), each followed by the device
+    query that repacks the dirty clusters and refreshes the device
+    tensors. After each: the device tensors equal the host pack bit for
+    bit; without growth only the dirty blocks were copied (counted) and
+    nothing was uploaded whole, with growth the pack grew once and was
+    uploaded once; `search_device_batched` over the 216 queries returns
+    the ids of plain `ref.route_topk` + `ref.ecoscan` over the same
+    device tensors (equal except ties within 2e-5); every vector inserted
+    is in the pack and in its own top 3 with every cluster probed, or tied
+    there at distance ~0 (the share at `n_probe` is reported); no deleted
+    id is ever returned."""
+    rng = np.random.default_rng(21)
+    s = index.stats
+    out, deleted, next_id = [], set(), len(emb)
+    for grow in (False, True):
+        cap0 = index.device_pack()[3]
+        before = (s.pack_grows, s.mirror_uploads, s.mirror_blocks,
+                  s.pack_cluster_repacks)
+        t = time.perf_counter()
+        added, gone = _update_round(index, emb, rng, next_id, grow)
+        update_s = time.perf_counter() - t
+        next_id += N_UPDATES
+        deleted = (deleted | gone) - set(added)
+        dirty = len(index._dirty)
+        t = time.perf_counter()
+        data, lens, slot_ids, cap = index.device_pack()
+        repack_s = time.perf_counter() - t
+        t = time.perf_counter()
+        d_t, l_t, c_t = index.device_arrays()
+        torch.cuda.synchronize()
+        refresh_s = time.perf_counter() - t
+        assert torch.equal(d_t.cpu(), torch.from_numpy(data))
+        assert torch.equal(l_t.cpu(), torch.from_numpy(lens))
+        grows = s.pack_grows - before[0]
+        uploads = s.mirror_uploads - before[1]
+        blocks = s.mirror_blocks - before[2]
+        if grow:
+            assert grows == 1 and uploads == 1 and cap > cap0, (grows, cap)
+        else:
+            assert grows == uploads == 0 and cap == cap0, (grows, uploads)
+            assert blocks == dirty > 0, (blocks, dirty)
+        ids, dists = index.search_device_batched(qvs, k=10, n_probe=n_probe)
+        qt = torch.tensor(qvs, device=DEV)
+        pd, ps = ref.ecoscan(qt, d_t, l_t, ref.route_topk(qt, c_t, n_probe),
+                             10)
+        ps = ps.cpu().numpy()
+        close("search after updates", torch.tensor(dists), pd.cpu(), 2e-5,
+              2e-5)
+        pos = {v: i for i, v in enumerate(slot_ids.reshape(-1).tolist())
+               if v >= 0}
+        got = torch.tensor([[pos.get(v, -1) for v in row]
+                            for row in ids.tolist()], device=DEV)
+        ties = same_or_tied("search after updates", got,
+                            torch.tensor(ps, device=DEV), _slot_dist(qt, d_t),
+                            2e-5, 2e-5)
+        # found: its row is in the pack, and with every cluster probed it
+        # is in its own top 3 or ties there at distance ~0 (the corpus
+        # holds groups of identical embeddings: the same words in
+        # another order). Insert routes on the centroid graph, the
+        # device path on exact centroid distances, so a probe width can
+        # miss a vector the graph routed elsewhere: that share is
+        # reported
+        live = {v: vec for v, vec in added.items() if v not in deleted}
+        live_q = np.stack(list(live.values()))
+        rows = data.reshape(-1, data.shape[-1])
+        assert all(v in pos and np.array_equal(rows[pos[v]], vec)
+                   for v, vec in live.items()), "an inserted row is missing"
+        found, found_d = index.search_device_batched(
+            live_q, k=3, n_probe=index.n_clusters)
+        assert all(v in row or d_[-1] <= 2e-5 for v, row, d_ in
+                   zip(live, found.tolist(), found_d)), \
+            "an inserted vector is not in its own top 3"
+        found_p = index.search_device_batched(live_q, k=3, n_probe=n_probe)[0]
+        gone_q = np.stack([emb[v] for v in sorted(deleted)])
+        hit = index.search_device_batched(gone_q, k=10,
+                                          n_probe=index.n_clusters)[0]
+        assert not (set(ids.ravel().tolist()) | set(found.ravel().tolist())
+                    | set(found_p.ravel().tolist())
+                    | set(hit.ravel().tolist())) & deleted, \
+            "a deleted id was returned"
+        q16 = qvs[:16]
+        times = []
+        for _ in range(20):
+            t = time.perf_counter()
+            index.search_device_batched(q16, k=3, n_probe=n_probe)
+            times.append(time.perf_counter() - t)
+        out.append({
+            "round": "past CAP" if grow else "inside CAP",
+            "inserted": N_UPDATES // 2, "deleted": N_UPDATES // 2,
+            "reinserted": len(added) - N_UPDATES // 2, "update_s": update_s,
+            "dirty_clusters": dirty, "repack_ms": repack_s * 1e3,
+            "device_refresh_ms": refresh_s * 1e3, "cap": [cap0, cap],
+            "pack_cluster_repacks": s.pack_cluster_repacks - before[3],
+            "pack_grows": grows, "whole_uploads": uploads,
+            "blocks_copied": blocks, "tied_swaps": ties,
+            "found_at_n_probe_share": float(np.mean([
+                v in row for v, row in zip(live, found_p.tolist())])),
+            "found_all_probes_share": float(np.mean([
+                v in row for v, row in zip(live, found.tolist())])),
+            "search_16_ms_p50": float(np.median(times) * 1e3)})
+    return out, (d_t, l_t, c_t)
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def run_graph_baselines(base, queries):
+    """HNSW, HNSWPQ, IVF-HNSW and EcoVector through `make_index` over
+    `base`: build s and k-means launches, then every query at k 10 (the
+    graphs at ef 64, the clustered indexes at each probe width): host
+    wall times, ids, and the search stats' deltas."""
+    n_clusters = max(16, len(base) // 256)    # benchmarks/common.py's rule
+    out = {}
+    for name in GRAPH_BASELINES:
+        kw = dict(device=DEV)
+        if name != "IVF-HNSW":
+            kw.update(GRAPH_KW)
+        if name in ("IVF-HNSW", "EcoVector"):
+            kw["n_clusters"] = n_clusters
+        if name == "HNSWPQ":
+            kw["m_pq"] = M_PQ
+        t0 = time.perf_counter()
+        k0 = ops.kmeans_assign.launches
+        idx = make_index(name, base.shape[1], **kw).build(base)
+        torch.cuda.synchronize()
+        runs = {"build_s": time.perf_counter() - t0,
+                "kmeans_launches": ops.kmeans_assign.launches - k0}
+        for n_probe in (N_PROBES if "n_clusters" in kw else (None,)):
+            s = idx.stats
+            s0 = (s.disk_loads, s.disk_bytes, s.distance_ops)
+            ids, times = [], []
+            for q in queries:
+                t = time.perf_counter()
+                i, _ = (idx.search(q, k=10, n_probe=n_probe) if n_probe
+                        else idx.search(q, k=10, ef_search=64))
+                times.append(time.perf_counter() - t)
+                ids.append(i)
+            runs[f"n_probe {n_probe}" if n_probe else "ef_search 64"] = dict(
+                ids=ids, times=times, disk_loads=s.disk_loads - s0[0],
+                disk_bytes=s.disk_bytes - s0[1],
+                distance_ops=s.distance_ops - s0[2])
+        out[name] = (idx, runs)
+    return out
+
+
+def graph_baselines_info(indexes, base, queries):
+    gt = exact_top10(base, queries)
+    info = {}
+    for name, (idx, runs) in indexes.items():
+        row = {"build_s": runs["build_s"], "ram_bytes": idx.ram_bytes(),
+               "disk_bytes": (_dir_bytes(idx.storage_dir)
+                              if hasattr(idx, "storage_dir") else 0),
+               "kmeans_launches": runs["kmeans_launches"]}
+        for key, r in runs.items():
+            if not isinstance(r, dict):
+                continue
+            assert all(len(i) == 10 for i in r["ids"]), name
+            row[key] = {
+                "recall_at_10": recall(r["ids"], gt, 10),
+                "recall_at_1": float(np.mean([i[0] == g[0] for i, g in
+                                              zip(r["ids"], gt)])),
+                "search_ms_p50": float(np.median(r["times"]) * 1e3),
+                "disk_loads": r["disk_loads"], "disk_bytes": r["disk_bytes"],
+                "distance_ops": r["distance_ops"]}
+        info[name] = row
+    return info
+
+
 def word_corpus(n_docs, seed):
     """Random-word documents: no two SCR windows share a bag of words,
     so the small-input comparison has no ties decided by rounding."""
@@ -1453,6 +1832,7 @@ def main() -> int:
         "decode_steps": len(steps),
         "tokens": sum(len(a.gen_tokens) for a in answers),
         "prefix_hits": slm.engine.prefix_hits,
+        "index_build_split_s": dict(pipe.index.timings),
     }
     print("main path:", json.dumps(main))
 
@@ -1462,8 +1842,8 @@ def main() -> int:
     def legacy_path():
         t0 = time.perf_counter()
         lpipe = MobileRAG(corpus.docs, embed, top_k=3, use_window_index=False,
-                          gen_config=GEN_CONFIG, seed=0, trace=legacy_sink,
-                          device=DEV)
+                          index=pipe.index, gen_config=GEN_CONFIG, seed=0,
+                          trace=legacy_sink, device=DEV)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         out = lpipe.answer_batch(questions, generate=True, max_new=MAX_NEW)
@@ -1487,9 +1867,8 @@ def main() -> int:
         "post_s_mean": float(np.mean([a.post_s for a in legacy])),
         "window_index_post_s_mean": float(np.mean([a.post_s
                                                    for a in answers])),
-        # reported, not asserted: both pipelines build the same EcoVector
-        # (k-means is the same on every run, the F8 phase), so their doc
-        # sets differ only if retrieval does
+        # reported, not asserted: both pipelines retrieve from the same
+        # index, so their doc sets differ only if the retrieval does
         "same_doc_set_share": float(np.mean([
             set(a.doc_ids) == set(b.doc_ids)
             for a, b in zip(legacy, answers)])),
@@ -1499,6 +1878,14 @@ def main() -> int:
     }
     print("legacy SCR path:", json.dumps(legacy_info))
     w_leg, q_leg = legacy_windows(legacy[0], corpus.docs, embed, questions[0])
+
+    # ---- EcoVector host search on the main path's index
+    (hq_vs, h_ids, h_times, h_bytes, h_answers), host_launches = drive(
+        "host_search",
+        lambda: host_search_phase(pipe, embed, corpus.docs, questions))
+    assert host_launches["ecoscan"] == 0, host_launches
+    print("EcoVector host search:", json.dumps(host_search_info(
+        pipe, hq_vs, h_ids, h_times, h_bytes, h_answers, answers)))
 
     # ---- wave path, same model, the 16 prompts in 32-token buckets
     prompts = [slm.encode_prompt(a.prompt, bucket=True) for a in answers]
@@ -1586,6 +1973,36 @@ def main() -> int:
               info[f"n_probe {p_}"]["search_ms_p50"],
               info[f"n_probe {p_}"].get("stacked_search_ms_p50")]
               for name, info in base_info.items() for p_ in N_PROBES}))
+    # ---- graph baselines: HNSW / HNSWPQ / IVF-HNSW / EcoVector
+    base_g = base[:N_G]
+    g_indexes, graph_launches = drive(
+        "graph_baselines", lambda: run_graph_baselines(base_g, bq))
+    graph_info = graph_baselines_info(g_indexes, base_g, bq)
+    graph_info["reduced"] = {
+        "n": N_G, "of": SIFT_N, "queries": SIFT_NQ,
+        "why": "graph inserts are host numpy (tools/hnsw_probe.py: 6-10 "
+               "ms an insert at 1,000-4,000 nodes on an H100 machine's "
+               "host CPU)"}
+    g_ivfh, g_eco = g_indexes["IVF-HNSW"][0], g_indexes["EcoVector"][0]
+    graph_info["ivf_hnsw_ecovector_same_partition"] = bool(np.array_equal(
+        g_ivfh.centroids, g_eco.centroids))
+    print(f"graph baselines: the first {N_G} of the {SIFT_N} SIFT-like "
+          f"vectors, {SIFT_NQ} queries, M {GRAPH_KW['M']}, efc "
+          f"{GRAPH_KW['ef_construction']}, {max(16, N_G // 256)} clusters, "
+          f"m_pq {M_PQ}, k 10")
+    print("graph baselines path:", json.dumps(graph_info))
+    # kmeans_assign's inputs on this path: the IVF-HNSW (and EcoVector)
+    # partition, and HNSWPQ's first sub-quantizer on its training sample
+    g_x = torch.tensor(base_g, device=dev)
+    g_c = torch.tensor(g_ivfh.centroids, device=dev)
+    g_sample = base_g[np.random.default_rng(0).choice(
+        N_G, min(N_G, 4096), replace=False)]
+    g_dsub = base.shape[1] // M_PQ
+    gpq_x = torch.tensor(np.ascontiguousarray(g_sample[:, :g_dsub]),
+                         device=dev)
+    gpq_c = torch.tensor(g_indexes["HNSWPQ"][0].pq.codebooks[0], device=dev)
+    del g_indexes, g_ivfh, g_eco
+
     # ---- F8: k-means builds on the card are the same on every run
     doc_emb = embed(corpus.docs)
     eco_f8, eco_cent = kmeans_determinism(
@@ -1705,7 +2122,11 @@ def main() -> int:
                                    wl_t, ids10)]
     kmeans_shapes = [check_kmeans("EcoVector build", x, cent),
                      check_kmeans("IVF partition", ivf_x, ivf_c),
-                     check_kmeans("PQ sub-quantizer", pq_x, pq_c)]
+                     check_kmeans("PQ sub-quantizer", pq_x, pq_c),
+                     check_kmeans("IVF-HNSW / EcoVector partition (graph "
+                                  "baselines)", g_x, g_c),
+                     check_kmeans("HNSWPQ sub-quantizer (graph baselines)",
+                                  gpq_x, gpq_c)]
     stream_info = check_current_stream(w_leg, q_leg)
     results = {
         "kmeans_assign": dict(kmeans_shapes[0], shapes=kmeans_shapes),
@@ -1750,6 +2171,15 @@ def main() -> int:
     prof = profile_phase(slm, [slm.encode_prompt(a.prompt)
                                for a in answers[:4]], calls)
     print("profile:", json.dumps(prof))
+    # ---- updates on the main path's index, after every path that uses
+    # it; then ecoscan on the grown pack
+    (upd, (ud_t, ul_t, uc_t)), upd_launches = drive(
+        "updates", lambda: update_phase(pipe.index, doc_emb, hq_vs,
+                                        pipe.n_probe))
+    print("updates:", json.dumps(upd))
+    results["ecoscan"]["shapes"].append(check_ecoscan(
+        "after updates, CAP grown", qv, ud_t, ul_t,
+        ref.route_topk(qv, uc_t, pipe.n_probe), pipe.top_k))
     n_small = small_input_agreement()
     print(f"small input: {n_small} queries agree GPU vs CPU (doc ids, "
           "prompts, greedy tokens; wave tokens, wave = continuous on the "
@@ -1769,10 +2199,12 @@ def main() -> int:
           " shape (kernel nodes of a CUDA graph of one call)")
     print("current stream:", json.dumps(stream_info))
     sc = results["scr_score"]
+    sc_dev = prof["kernel_device_ms"]["scr_score"]
     print(f"scr_score launch path: wrapper {sc['ms']:.4f} ms a call, bare "
           f"cached ctypes call {sc['bare_call_ms']:.4f} ms, bmm "
           f"{sc['library_ms']:.4f} ms, device "
-          f"{prof['kernel_device_ms']['scr_score']:.5f} ms")
+          + ("not measured (the profiler recorded no event)" if sc_dev is None
+             else f"{sc_dev:.5f} ms"))
     print("launch path (call ms, profiled device ms):", json.dumps({
         name: [r["ms"], prof["kernel_device_ms"][name]]
         for name, r in results.items()}))
@@ -1786,7 +2218,9 @@ def main() -> int:
                   f"max abs err {sh['err']:.3g}, ties {sh['ties']}"
                   + (f" [{sh['shape']}]" if "shape" in sh else ""))
     paths = {"main": launches, "wave": wave_launches, "h2o": h2o_launches,
-             "legacy": legacy_launches, "baselines": base_launches}
+             "legacy": legacy_launches, "baselines": base_launches,
+             "host_search": host_launches, "graph_baselines": graph_launches,
+             "updates": upd_launches}
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{name}.cu",

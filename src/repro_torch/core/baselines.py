@@ -1,6 +1,6 @@
-"""The paper's inverted-file retrieval baselines (§3.4, Tables 1-2,
-Figures 6-10): IVF, IVFPQ, IVF-DISK and IVFPQ-DISK, the port of
-`repro.core.baselines`.
+"""The paper's retrieval baselines (§3.4, Tables 1-2, Figures 6-10): IVF,
+IVFPQ, HNSW, HNSWPQ, IVF-DISK, IVFPQ-DISK and IVF-HNSW, and EcoVector
+through `make_index`; the port of `repro.core.baselines`.
 
 Common interface: build / search / insert / delete / ram_bytes, plus a
 `stats` counter of distance ops and disk traffic. The k-means partition
@@ -10,10 +10,10 @@ sums in the reference's numpy order, so both return the reference's
 distances bit for bit. IVFPQ keeps every list's codes in one pack on
 the device and hands the probed lists to the launch as segments of it;
 IVFPQ-DISK loads the probed lists' files, as the reference does, and
-scores their concatenated codes. The rest (routing, inverted lists,
-exact IVF distances, top-k) is the reference's host numpy. The
-HNSW-based baselines and EcoVector's host search are not ported yet:
-`make_index` raises for them.
+scores their concatenated codes. The graph indexes (HNSW, HNSWPQ's graph
+over PQ reconstructions, IVF-HNSW's centroid graph) are the port's numpy
+HNSW on the host, as in the reference; so are routing, inverted lists,
+exact IVF distances and top-k.
 """
 from __future__ import annotations
 
@@ -28,6 +28,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import store
+from repro_torch.core.ecovector import EcoVector
+from repro_torch.core.hnsw import HNSW
 from repro_torch.core.kmeans import kmeans
 from repro_torch.core.pq import PQ
 
@@ -347,20 +349,105 @@ class IVFPQDisk(IVFPQ, _DiskListMixin):
                 + self.pq.ksub * self.dim * 4)
 
 
-INDEXES = {"IVF": IVF, "IVFPQ": IVFPQ, "IVF-DISK": IVFDisk,
-           "IVFPQ-DISK": IVFPQDisk}
-NOT_PORTED = {
-    "HNSW": "ROADMAP.md Queue A 6 (core/hnsw.py)",
-    "HNSWPQ": "ROADMAP.md Queue A 6 (core/hnsw.py)",
-    "IVF-HNSW": "ROADMAP.md Queue A 6 (core/hnsw.py)",
-    "EcoVector": "ROADMAP.md Queue A 6 (EcoVector's host search over "
-                 "per-cluster HNSW)",
-}
+class HNSWIndex:
+    name = "HNSW"
+    on_disk = False
+
+    def __init__(self, dim, M=16, ef_construction=100, seed=0, **kw):
+        self.dim = dim
+        self.g = HNSW(dim, M=M, ef_construction=ef_construction, seed=seed)
+        self.stats = SearchStats()
+
+    def build(self, vectors, ids=None):
+        vectors = np.asarray(vectors, np.float32)
+        ids = np.arange(len(vectors), dtype=np.int64) if ids is None else ids
+        for i, v in zip(ids, vectors):
+            self.g.insert(int(i), v)
+        return self
+
+    def search(self, q, k=10, ef_search=64, **kw):
+        ids, d = self.g.search(np.asarray(q, np.float32), k, ef_search)
+        self.stats.distance_ops += ef_search * self.g.M
+        return ids, d
+
+    def insert(self, vid, vec):
+        self.g.insert(int(vid), np.asarray(vec, np.float32))
+
+    def delete(self, vid):
+        self.g.delete(int(vid))
+
+    def ram_bytes(self):
+        return self.g.memory_bytes()
+
+
+class HNSWPQ(HNSWIndex):
+    """An HNSW over the PQ reconstructions of the vectors: the search
+    walks the graph with exact distances to the reconstructions and
+    needs no ADC table."""
+    name = "HNSWPQ"
+
+    def __init__(self, dim, M=16, ef_construction=100, m_pq=8, nbits=8,
+                 seed=0, device="cuda"):
+        super().__init__(dim, M, ef_construction, seed)
+        self.pq = PQ(dim, m_pq, nbits, device=device)
+        self.codes: Dict[int, np.ndarray] = {}
+
+    def build(self, vectors, ids=None):
+        vectors = np.asarray(vectors, np.float32)
+        ids = np.arange(len(vectors), dtype=np.int64) if ids is None else ids
+        self.pq.train(vectors[np.random.default_rng(0).choice(
+            len(vectors), min(len(vectors), 4096), replace=False)])
+        codes = self.pq.encode(vectors)
+        # graph built over reconstructed (quantised) vectors
+        for i, v, c in zip(ids, self.pq.decode(codes), codes):
+            self.g.insert(int(i), v)
+            self.codes[int(i)] = c
+        return self
+
+    def ram_bytes(self):
+        n = len(self.codes)
+        links = self.g.memory_bytes() - len(self.g) * self.dim * 4
+        return (n * self.pq.m * self.pq.nbits // 8 + links
+                + self.pq.ksub * self.dim * 4)
+
+
+class IVFHNSW(IVFDisk):
+    """Centroid HNSW + flat inverted lists on disk."""
+    name = "IVF-HNSW"
+
+    def __init__(self, dim, n_clusters=64, M_cent=16, seed=0, device="cuda"):
+        super().__init__(dim, n_clusters, seed, device)
+        self.M_cent = M_cent
+
+    def build(self, vectors, ids=None):
+        super().build(vectors, ids)
+        self.centroid_graph = HNSW(self.dim, M=self.M_cent,
+                                   ef_construction=64, seed=self.seed,
+                                   max_elements=self.n_clusters)
+        for c in range(self.n_clusters):
+            self.centroid_graph.insert(c, self.centroids[c])
+        return self
+
+    def _probe(self, q, n_probe):
+        cids, _ = self.centroid_graph.search(q, n_probe,
+                                             ef_search=max(16, 2 * n_probe))
+        self.stats.distance_ops += 16 * self.M_cent
+        return cids
+
+    def ram_bytes(self):
+        avg = int(np.mean([len(l) for l in self.lists])) if self.lists else 0
+        return (self.centroid_graph.memory_bytes() + self.n_total * 8
+                + avg * self.dim * 4)
+
+
+INDEXES = {"IVF": IVF, "IVFPQ": IVFPQ, "HNSW": HNSWIndex, "HNSWPQ": HNSWPQ,
+           "IVF-DISK": IVFDisk, "IVFPQ-DISK": IVFPQDisk,
+           "IVF-HNSW": IVFHNSW, "EcoVector": EcoVector}
+ALL_BASELINES = ["IVF", "IVFPQ", "HNSW", "HNSWPQ", "IVF-DISK", "IVFPQ-DISK",
+                 "IVF-HNSW", "EcoVector"]
 
 
 def make_index(name: str, dim: int, **kw):
-    """The baseline `name` at width `dim` (`device=` defaults to cuda)."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"{name} is not ported yet: "
-                                  f"{NOT_PORTED[name]}")
+    """The index `name` (one of `ALL_BASELINES`) at width `dim`; `device=`
+    defaults to cuda where the index runs a kernel."""
     return INDEXES[name](dim, **kw)

@@ -4,10 +4,12 @@
 A segment is magic + version + JSON meta + per-record CRC32, written with
 the atomic stage -> fsync -> rename protocol, so a crash leaves either
 the previous file or the new one, and `read_segment` refuses anything
-truncated, bit-flipped or foreign with `CorruptSegmentError`. The bytes
-are the reference's format: a file written by either package loads in
-the other. The reference's crash hooks, generation journal and WAL are
-not ported yet.
+truncated, bit-flipped or foreign with `CorruptSegmentError`;
+`quarantine_file` moves such a file aside. The bytes are the
+reference's format: a file written by either package loads in the other
+(a pickled record names its classes, so it unpickles only where those
+classes import). The reference's crash hooks, generation journal and
+WAL are not ported yet.
 """
 from __future__ import annotations
 
@@ -151,3 +153,15 @@ def load_obj(path: str, *, kind: Optional[str] = None) -> Any:
         raise CorruptSegmentError(
             f"{path}: expected 1 record, found {len(records)}")
     return pickle.loads(records[0])
+
+
+def quarantine_file(path: str) -> Optional[str]:
+    """Move a corrupt file aside (``path + ".quarantined"``) so readers
+    stop tripping on it but the bytes stay for forensics or a rebuild.
+    Returns the new path, or None if the move failed."""
+    dst = path + ".quarantined"
+    try:
+        os.replace(path, dst)
+        return dst
+    except OSError:
+        return None

@@ -206,8 +206,8 @@ class DenseLM(nn.Module):
         if self.cfg.sliding_window:
             raise NotImplementedError(
                 "the paged path of a sliding-window config (ring pages) is "
-                "not ported (ROADMAP.md Queue A 2); use the wave Engine "
-                "with continuous=False")
+                "not ported (ROADMAP.md Queue A: SWA ring pages); use the "
+                "wave Engine with continuous=False")
 
     @torch.no_grad()
     def decode_step_paged(self, cache, token, pos, active, table, *,

@@ -447,8 +447,8 @@ class Engine:
             if self.cfg.sliding_window:
                 raise NotImplementedError(
                     "continuous batching of a sliding-window config needs "
-                    "ring pages, not ported (ROADMAP.md Queue A 2); pass "
-                    "continuous=False")
+                    "ring pages, not ported (ROADMAP.md Queue A: SWA ring "
+                    "pages); pass continuous=False")
             return self.continuous().generate(prompts, max_new=max_new)
         buckets: Dict[int, List[int]] = {}
         for i, p in enumerate(prompts):

@@ -1,15 +1,18 @@
 """MobileRAG (EcoVector -> SCR -> sLM), the port of
 `repro.serving.rag.MobileRAG` on its device path.
 
-Retrieval always runs the fused route -> ecoscan search
-(`EcoVector.search_device_batched`); SCR runs the `scr_select` kernel
-over the corpus-resident window index, or, with `use_window_index=False`,
-the legacy per-query `apply_scr` (re-embedded windows scored by the
-`scr_score` kernel); `answer_batch(generate=True)` pipelines chunks of
-queries through a `RagSession` into the continuous engine. The
-reference's host-search mode, Table-6 TTFT/energy model, durable
-retrieval state and degradation ladders are not ported: a fault in
-retrieval or SCR raises.
+Retrieval runs the fused route -> ecoscan search on the device
+(`EcoVector.search_device_batched`) by default; `device_retrieval=False`
+is the reference's host-search mode, one `index.search` a query (the
+EcoVector host search loads each probed cluster's graph from disk).
+`index=` serves from an index built elsewhere instead of building one.
+SCR runs the `scr_select` kernel over the corpus-resident window index,
+or, with `use_window_index=False`, the legacy per-query `apply_scr`
+(re-embedded windows scored by the `scr_score` kernel);
+`answer_batch(generate=True)` pipelines chunks of queries through a
+`RagSession` into the continuous engine. The reference's Table-6
+TTFT/energy model, durable retrieval state and degradation ladders are
+not ported: a fault in retrieval or SCR raises.
 """
 from __future__ import annotations
 
@@ -51,12 +54,17 @@ class MobileRAG:
     (default: random from `seed`). `scr` is the SCR window geometry;
     `use_window_index=False` builds no window index and condenses each
     query with the legacy `apply_scr`. `trace` records the engine's and
-    the session's request lifecycle (serving/trace.py)."""
+    the session's request lifecycle (serving/trace.py). `index` is a
+    built index to retrieve from (default: an EcoVector built over the
+    docs); `device_retrieval=False` searches it on the host, one query
+    at a time. With device retrieval the construction also makes the
+    index's device pack, so the first request does not pay for it."""
 
     def __init__(self, docs: Sequence[str], embed: Callable, *,
                  top_k: int = 3,
                  scr: SCRConfig = SCRConfig(),
                  use_window_index: bool = True,
+                 index=None, device_retrieval: bool = True,
                  gen_config: Optional[ModelConfig] = None,
                  gen_params: Optional[Dict[str, torch.Tensor]] = None,
                  seed: int = 0, trace: Optional[TraceSink] = None,
@@ -69,10 +77,15 @@ class MobileRAG:
         if hasattr(embed, "fit") and not getattr(embed, "fitted", True):
             embed.fit(self.docs)
         t0 = time.perf_counter()
-        doc_vecs = np.asarray(embed(self.docs), np.float32)
-        self.index = EcoVector(doc_vecs.shape[1],
-                               n_clusters=max(4, len(self.docs) // 64),
-                               device=self.device).build(doc_vecs)
+        if index is None:
+            doc_vecs = np.asarray(embed(self.docs), np.float32)
+            index = EcoVector(doc_vecs.shape[1],
+                              n_clusters=max(4, len(self.docs) // 64),
+                              device=self.device).build(doc_vecs)
+        self.index = index
+        self.device_retrieval = device_retrieval
+        if device_retrieval:
+            index.device_arrays()
         self.build_s = time.perf_counter() - t0
         self.scr_cfg = scr
         self.window_index: Optional[WindowIndex] = None
@@ -98,8 +111,12 @@ class MobileRAG:
         return self._slm
 
     def _retrieve_batch(self, qvs: np.ndarray, k: int) -> List[List[int]]:
-        ids_b, _ = self.index.search_device_batched(qvs, k=k,
-                                                    n_probe=self.n_probe)
+        if self.device_retrieval:
+            ids_b, _ = self.index.search_device_batched(qvs, k=k,
+                                                        n_probe=self.n_probe)
+        else:
+            ids_b = [self.index.search(qv, k=k, n_probe=self.n_probe)[0]
+                     for qv in qvs]
         return [[int(i) for i in row if 0 <= int(i) < len(self.docs)]
                 for row in ids_b]
 

@@ -204,9 +204,20 @@ def test_list_files_cross_package(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["HNSW", "HNSWPQ", "IVF-HNSW", "EcoVector"])
-def test_unported_indexes_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_index(name, 24, device="cpu")
+def test_unported_indexes_raise(name, data):
+    """The graph indexes build through `make_index` as the reference's
+    do (same class names) and answer a search with k ids; their parity
+    is in test_torch_graph_baselines.py."""
+    X, Q = data
+    graph = dict(M=8, ef_construction=32)
+    kw = {"HNSW": graph, "HNSWPQ": dict(graph, m_pq=4),
+          "IVF-HNSW": dict(n_clusters=12),
+          "EcoVector": dict(graph, n_clusters=12)}[name]
+    idx = make_index(name, 24, device="cpu", **kw).build(X[:240])
+    jidx = j_make_index(name, 24, **kw)
+    assert type(idx).__name__ == type(jidx).__name__
+    ids, dists = idx.search(Q[0], k=5)
+    assert len(ids) == len(dists) == 5 and ids[0] == 0
 
 
 def test_synthetic_vectors_identical():

@@ -25,36 +25,41 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 # the wave path and the second configuration; the legacy SCR path and
-# the IVF/PQ baselines
+# the baselines; the host index, its graphs and the paper's model
 for name in ("repro_torch.configs.h2o_danube_1_8b",
              "repro_torch.serving.engine", "repro_torch.models.dense",
              "repro_torch.core.scr", "repro_torch.core.pq",
              "repro_torch.core.baselines", "repro_torch.core.store",
-             "repro_torch.data.synthetic"):
+             "repro_torch.data.synthetic", "repro_torch.core.hnsw",
+             "repro_torch.core.ecovector", "repro_torch.core.analytical"):
     assert name in names, name
 from repro_torch.serving.engine import Engine
 from repro_torch.kernels.ops import (decode_attention, flash_prefill,
                                      pq_adc, scr_score)
 from repro_torch.core.scr import apply_scr
-from repro_torch.core.baselines import make_index
+from repro_torch.core.baselines import ALL_BASELINES, make_index
+from repro_torch.core.ecovector import EcoVector
+from repro_torch.core.hnsw import HNSW
+from repro_torch.core.analytical import search_latency_ms
 import chip_smoke
 sys.path.insert(0, {str(ROOT / "tools")!r})
 import attention_probe, kmeans_probe, launch_probe, retrieval_probe
-import pq_probe
+import pq_probe, hnsw_probe
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 print(len(names))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 31
+    assert int(out.stdout.split()[-1]) >= 33
 
 
 def test_no_jax_or_repro_import_lines():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "attention_probe.py",
         ROOT / "tools" / "kmeans_probe.py", ROOT / "tools" / "launch_probe.py",
-        ROOT / "tools" / "pq_probe.py", ROOT / "tools" / "retrieval_probe.py"]
+        ROOT / "tools" / "pq_probe.py", ROOT / "tools" / "retrieval_probe.py",
+        ROOT / "tools" / "hnsw_probe.py"]
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in _BLOCKED_IMPORT.finditer(f.read_text())]
     assert len(files) > 20 and not bad, bad

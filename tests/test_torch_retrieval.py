@@ -3,7 +3,8 @@ embedder and tokenizer (identical ids and vectors), k-means (same
 assignments, centroids within 1e-5), the EcoVector pack (identical data,
 lens and slot ids after a fresh build), the fused device search (same
 ids, dists within 2e-5), the window index pack (identical) and batched
-SCR (identical results and prompts; scores within 2e-5)."""
+SCR (identical results and prompts; scores within 2e-5). The pack stays
+identical after one insert and one delete."""
 import numpy as np
 import pytest
 
@@ -82,8 +83,17 @@ def test_ecovector_pack_identical(indexes):
     np.testing.assert_array_equal(lens, jlens)
     np.testing.assert_array_equal(slot_ids, jslot_ids)
     np.testing.assert_array_equal(data, jdata)
-    with pytest.raises(NotImplementedError):
-        ev.insert(0, data[0, 0])
+    vec = data[0, 0] + np.float32(0.01)
+    for index in (ev, jev):
+        index.insert(10_000, vec)
+        index.delete(int(slot_ids[1, 0]))
+    data, lens, slot_ids, cap = ev.device_pack()
+    jdata, jlens, jslot_ids, jcap = jev.device_pack()
+    assert cap == jcap and ev.stats.pack_cluster_repacks == 2
+    assert 10_000 in slot_ids and jev.stats.pack_cluster_repacks == 2
+    np.testing.assert_array_equal(lens, jlens)
+    np.testing.assert_array_equal(slot_ids, jslot_ids)
+    np.testing.assert_array_equal(data, jdata)
 
 
 @pytest.mark.parametrize("n_probe,k", [(2, 3), (4, 10)])
