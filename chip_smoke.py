@@ -62,14 +62,25 @@ Phases, any failure exits non-zero (nothing is caught):
 6. The same pipeline on a small corpus with the float32 reduced model,
    on the GPU (kernels) and on the CPU (plain versions): the same doc
    ids, prompts and greedy tokens; the same wave tokens on both, equal to
-   the continuous engine's on the GPU; and the float32 reduced h2o on an
-   80-token prompt (its 64-slot ring wraps), the same wave tokens on both.
+   the continuous engine's on the GPU; the float32 reduced h2o on an
+   80-token prompt (its 64-slot ring wraps), the same wave tokens on both;
+   and the four paged families (`small_families_agreement`: sliding
+   window with an 80-token prompt beside a 20-token one, int8 KV,
+   sliding window + int8, MoE), each through `Engine` waves and the
+   continuous engine: GPU tokens equal CPU tokens, wave equal continuous.
 7. torch.profiler windows over steady decode steps of the main path,
    over a wave's prefill and decode steps (qwen2.5 and h2o; device busy
    and idle share, the kernels and host ops that take the time) and over
    each kernel wrapper alone (device time per call).
 
-More paths run after phase 4, and their kernels join phases 5-7; then
+More paths run after phase 4, and their kernels join phases 5-7 (the
+int8 decode kernels at their paths' shapes and their edge cases,
+`q8_edges`, with the library's way: dequantize in torch, then SDPA; the
+float attention kernels also at these paths' shapes: flash_prefill on
+h2o's last ring chunk, its buffer re-materialized from layer 0's pool
+as `prefill_chunk_paged` builds it (`chunk_buffer`), and on a MoE chunk;
+decode_attention_paged over h2o's 128-page ring rows at kv_len 4,096 and
+over the MoE pool; decode_attention on the MoE wave's cache); then
 the F8 phase: the EcoVector partition (the main path's 16,384
 embeddings into 256 clusters) and the IVF partition (100,000 x 128 into
 390) each k-means'd twice on the card, bit for bit equal, and stepped
@@ -77,6 +88,19 @@ against the CPU's plain versions from the same centroids: assignments
 equal except at ties within 1e-4, cluster sums equal (`kmeans_
 determinism`; a whole CPU build and two card builds with the
 `index_add_` update the port had before are reported beside them):
+- the int8 path (after the wave path): the main path's qwen2.5 weights
+  with `kv_quant`, the 16 bucketed prompts on waves and on the
+  continuous engine (`decode_attention_q8`, `decode_attention_paged_q8`):
+  tok/s, TTFT, the pool's bytes a position, kv head and tensor against
+  bf16's, and the share of tokens equal between paths and to bf16's;
+- the MoE path: full-width granite-moe-1b-a400m (32 experts top 8,
+  random weights from a seed), 16 prompts of the wave's bucketed lengths,
+  waves and the continuous engine, and a profiled steady decode step;
+- h2o continuous and h2o int8 (after phase 4): the same h2o model and
+  prompts on the continuous engine (ring pages: a 4,096-position ring
+  over 128 pages a slot), then its weights with `kv_quant` on waves and
+  the continuous engine; ring_len, table width and pool bytes, TTFT,
+  tok/s and the token shares;
 - the legacy SCR path: the main path's pipeline, on its index
   (`index=pipe.index`), with `use_window_index=False`, so each query re-embeds its retrieved
   documents' windows and scores them with `scr_score` (one launch per
@@ -123,6 +147,7 @@ The line before the last is the kernel summary as JSON; the last line is
 `{"ok": true, "device": {...}}`.
 """
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -147,7 +172,10 @@ from repro_torch.core.scr import (SCRConfig, sliding_windows,  # noqa: E402
 from repro_torch.data.synthetic import make_qa_corpus, sift_like  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
-from repro_torch.models.dense import DenseLM, cache_len  # noqa: E402
+from repro_torch.models.dense import (DenseLM, cache_len,  # noqa: E402
+                                      chunk_rows)
+from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.models.moe import MoELM  # noqa: E402
 from repro_torch.serving.embedder import HashEmbedder  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
 from repro_torch.serving.rag import MobileRAG  # noqa: E402
@@ -164,6 +192,8 @@ MAX_NEW = 16
 # the sliding-window model of phase 4: prompts past its 4,096 window
 H2O_CONFIG = get_config("h2o_danube_1_8b")
 H2O_PROMPT = 4608
+# the MoE model of the moe path: granite-moe-1b-a400m at full width
+MOE_CONFIG = get_config("granite_moe_1b_a400m")
 # the baselines path: the paper's SIFT-1M cut to 0.1x (the k-means++
 # seeding, a numpy copy of the reference's so both give the same
 # centroids, is O(N * NC * d) on the host)
@@ -195,7 +225,16 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:188",
     "scr_score": "src/repro/kernels/scr_score.py:33",
     "pq_adc": "src/repro/kernels/pq_adc.py:44",
+    # the int8 decode kernels replace the reference's jnp function (it has
+    # no pallas_call): the port reads the int8 cache in a kernel
+    "decode_attention_q8": "src/repro/models/layers.py:227",
+    "decode_attention_paged_q8": "src/repro/models/layers.py:227",
 }
+# the source of each kernel (the int8 kernels share their siblings')
+SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in
+           ops.KERNELS}
+SOURCES["decode_attention_q8"] = SOURCES["decode_attention"]
+SOURCES["decode_attention_paged_q8"] = SOURCES["decode_attention_paged"]
 # the kernels each path must launch
 PATH_KERNELS = {
     "main": ("kmeans_assign", "ecoscan", "scr_select",
@@ -210,6 +249,12 @@ PATH_KERNELS = {
     "host_search": ("scr_score",),
     "graph_baselines": ("kmeans_assign",),
     "updates": ("ecoscan",),
+    "h2o_continuous": ("flash_prefill", "decode_attention_paged"),
+    "h2o_int8": ("flash_prefill", "decode_attention_q8",
+                 "decode_attention_paged_q8"),
+    "int8": ("flash_prefill", "decode_attention_q8",
+             "decode_attention_paged_q8"),
+    "moe": ("flash_prefill", "decode_attention", "decode_attention_paged"),
 }
 
 
@@ -892,6 +937,19 @@ def _expand(t, rep):
     return t.repeat_interleave(rep, dim=2).transpose(1, 2)
 
 
+def chunk_buffer(kp, vp, row, offset, c, ps, ring_len=0):
+    """The K/V buffers `prefill_chunk_paged` hands flash_prefill for a
+    chunk at `offset` through page-table `row` of one layer's pool (its
+    `chunk_rows`): the slot's history in position order, then the chunk,
+    here the pool rows the chunk writes. Returns (k, v, lo); the chunk's
+    queries sit at q_offset offset - lo."""
+    lo, gather, (pg, off) = chunk_rows(row, offset, c, offset + c, ps,
+                                       ring_len)
+    k, v = (torch.cat([t.reshape((-1,) + t.shape[2:])[gather], t[pg, off]]
+                      )[None] for t in (kp, vp))
+    return k, v, lo
+
+
 def unmasked_pairs(sq, q_offset, kv_len, window, causal):
     """(query, key) pairs that causal / window / kv_len leave unmasked."""
     qpos = q_offset + np.arange(sq)
@@ -1054,6 +1112,192 @@ def attention_edges():
     return n + 1
 
 
+def q8_planes(x, zero_rows=()):
+    """int8 values and f32 scales of x [..., S, G, dh] (`quantize_kv`),
+    with the positions `zero_rows` (indices of the S axis) zeroed first:
+    their scales clamp to 1e-10."""
+    x = x.clone()
+    for r in zero_rows:
+        x[..., r, :, :] = 0
+    return L.quantize_kv(x)
+
+
+def _q8_bound(n_pos, G, H, dh, q):
+    """Bytes bound of an int8 decode call: int8 K and V plus their f32
+    scales once for the n_pos positions the rows attend, q read and the
+    output written once; operations 4*H*dh a position."""
+    esz = q.element_size()
+    return bound(2 * n_pos * G * (dh + 4) + 2 * q.numel() * esz
+                 + 4 * q.shape[0], 4.0 * n_pos * H * dh,
+                 BF16_FLOPS_S if q.dtype == torch.bfloat16 else F32_FLOPS_S)
+
+
+def check_decode_q8(label, q, kq, ks, vq, vs, kv_len, ring):
+    """decode_attention_q8 at one path shape: kernel against plain in q's
+    type (bf16: 2e-2) and in f32 (1e-5); times, the bytes bound, and the
+    library's way (dequantize in torch, then SDPA) timed as one."""
+    B, H, dh = q.shape
+    S, G = kq.shape[1], kq.shape[2]
+    a = (kq, ks, vq, vs, kv_len)
+    err = close(f"decode_attention_q8 {label}",
+                ops.decode_attention_q8(q, *a, ring=ring),
+                ref.decode_attention_q8(q, *a, ring=ring), 2e-2, 2e-2)
+    close(f"decode_attention_q8 {label} f32",
+          ops.decode_attention_q8(q.float(), *a, ring=ring),
+          ref.decode_attention_q8(q.float(), *a, ring=ring), 1e-5, 1e-5)
+    n = kv_len.long().clamp(max=S)
+    n = torch.where(n > 0, n, S)
+    b_ms, b_by = _q8_bound(int(n.sum()), G, H, dh, q)
+    mask = (torch.arange(S, device=q.device)[None, :] < n[:, None]
+            )[:, None, None, :]
+
+    def library():
+        k = L.dequantize_kv(kq, ks, q.dtype)
+        v = L.dequantize_kv(vq, vs, q.dtype)
+        return F.scaled_dot_product_attention(
+            q[:, :, None], _expand(k, H // G), _expand(v, H // G),
+            attn_mask=mask)
+    return dict(
+        shape=f"{label}: q {list(q.shape)}, kq {list(kq.shape)} int8, "
+              f"kv_len {kv_len.tolist()[:4]}, ring {ring}, {q.dtype}",
+        err=err, ties=0,
+        ms=time_ms(lambda: ops.decode_attention_q8(q, *a, ring=ring),
+                   iters=50),
+        plain_ms=time_ms(lambda: ref.decode_attention_q8(q, *a, ring=ring)),
+        library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
+
+
+def paged_q8_forced(q, kq, ks, vq, vs, kv_len, table, splits):
+    """The decode_attention_paged_q8 kernel at a forced split count,
+    through its C entry point; no launch is counted."""
+    B, H, dh = q.shape
+    _, ps, G, _ = kq.shape
+    W = table.shape[1]
+    out = torch.empty_like(q)
+    part = torch.empty(B * G * splits * (H // G) * (dh + 2), device=q.device)
+    err = build.entry("decode_attention_paged_q8_"
+                      + ops._attention_dtype(q))(
+        q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
+        vs.data_ptr(), kv_len.data_ptr(), table.data_ptr(), B, H, G, dh, ps,
+        W, splits, part.data_ptr(), out.data_ptr(), ops._stream(q.device))
+    assert err == 0, f"decode_attention_paged_q8 at {splits} splits: {err}"
+    return out
+
+
+def check_decode_paged_q8(label, q, kq, ks, vq, vs, kv_len, table):
+    """decode_attention_paged_q8 at one path shape: kernel against plain
+    in q's type (bf16: 2e-2) and in f32 (1e-5); times, the bytes bound of
+    this run's kv_len, and the library's way (gather and dequantize the
+    pages in torch, then SDPA) timed as one."""
+    B, H, dh = q.shape
+    P, ps, G, _ = kq.shape
+    W = table.shape[1]
+    a = (kq, ks, vq, vs, kv_len, table)
+    err = close(f"decode_attention_paged_q8 {label}",
+                ops.decode_attention_paged_q8(q, *a),
+                ref.decode_attention_paged_q8(q, *a), 2e-2, 2e-2)
+    close(f"decode_attention_paged_q8 {label} f32",
+          ops.decode_attention_paged_q8(q.float(), *a),
+          ref.decode_attention_paged_q8(q.float(), *a), 1e-5, 1e-5)
+    kv = int(kv_len.clamp(min=0, max=W * ps).sum())
+    b_ms, b_by = _q8_bound(kv, G, H, dh, q)
+    j = torch.arange(W * ps, device=DEV)
+    mask = (j[None, :] < kv_len[:, None])[:, None, None, :]
+
+    def library():
+        idx = table.long()[:, j // ps] * ps + (j % ps)
+        k = L.dequantize_kv(kq.reshape(P * ps, G, dh)[idx],
+                            ks.reshape(P * ps, G)[idx], q.dtype)
+        v = L.dequantize_kv(vq.reshape(P * ps, G, dh)[idx],
+                            vs.reshape(P * ps, G)[idx], q.dtype)
+        return F.scaled_dot_product_attention(
+            q[:, :, None], _expand(k, H // G), _expand(v, H // G),
+            attn_mask=mask)
+    return dict(
+        shape=f"{label}: q {list(q.shape)}, pool {list(kq.shape)} int8, "
+              f"table {list(table.shape)}, kv_len {kv_len.tolist()[:4]}, "
+              f"splits {ops.decode_paged_split_plan(B, G, W, ps)}, "
+              f"{q.dtype}",
+        err=err, ties=0,
+        ms=time_ms(lambda: ops.decode_attention_paged_q8(q, *a), iters=50),
+        plain_ms=time_ms(lambda: ref.decode_attention_paged_q8(q, *a)),
+        library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
+
+
+def q8_edges():
+    """Edge cases of the two int8 decode kernels, each with q in f32
+    (1e-5) and in bf16 (2e-2). decode_attention_q8: a ring that wraps
+    (kv_len past S) beside rows of kv_len 1 and 0, positions whose K and
+    V rows are all zero (their scales clamp to 1e-10), h2o's grouping at
+    dh 80, and a shape the plan splits at least 8 ways.
+    decode_attention_paged_q8, through the wrapper and at forced split
+    counts: kv_len under one page, a 64-position ring over three
+    24-position pages (ring_len not a multiple of ps: kv_len 64 < W*ps),
+    zero rows, and qwen's grouping over tables that repeat, reverse and
+    point tail entries at page 0 at kv_len 0, 1, a page end and past
+    W*ps. Returns the number of (case, dtype, split count) triples."""
+    g = torch.Generator(device=DEV).manual_seed(6)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=DEV)
+
+    def ints(*x):
+        return torch.tensor(x, dtype=torch.int32, device=DEV)
+    n = 0
+    contiguous = [
+        ("ring wraps, kv_len 1 and 0", (4, 8, 96, 2, 64),
+         ints(1, 95, 200, 0), True, ()),
+        ("zero rows", (2, 4, 70, 2, 32), ints(70, 33), False, (0, 5, 32)),
+        ("h2o grouping, dh 80", (3, 32, 300, 8, 80), ints(300, 1, 77), False,
+         ()),
+        ("8+ splits", (1, 8, 8192, 1, 128), ints(8000), False, ()),
+    ]
+    for label, (B, H, S, G, dh), kv, ring, zeros in contiguous:
+        if label == "8+ splits":
+            assert ops.decode_split_plan(B, G, S) >= 8
+        q = rnd(B, H, dh)
+        kq, ks = q8_planes(rnd(B, S, G, dh), zeros)
+        vq, vs = q8_planes(rnd(B, S, G, dh), zeros)
+        a = (kq, ks, vq, vs, kv)
+        for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            close(f"decode_attention_q8 edge {label} {dt}",
+                  ops.decode_attention_q8(q.to(dt), *a, ring=ring),
+                  ref.decode_attention_q8(q.to(dt), *a, ring=ring), tol, tol)
+            n += 1
+    rev = torch.arange(17, -1, -1, dtype=torch.int32, device=DEV)
+    tail = torch.cat([ints(5, 9, 2), torch.zeros(15, dtype=torch.int32,
+                                                  device=DEV)])
+    paged = [
+        ("kv_len under a page", (4, 4, 2, 32, 8, 16), ints(1, 5, 0, 16),
+         ints(3, 1, 0, 0, 2, 5, 7, 1, 4, 4, 6, 0, 7, 6, 5, 4).view(4, 4),
+         (), (1, 2, 4)),
+        ("ring_len 64 over ps 24", (3, 8, 2, 80, 12, 24), ints(64, 64, 40),
+         torch.stack([torch.arange(12, dtype=torch.int32, device=DEV)
+                      .roll(r)[:3] for r in (0, 5, 11)]), (), (1, 2, 3)),
+        ("zero rows", (2, 4, 2, 32, 6, 16), ints(90, 17),
+         torch.stack([torch.arange(6, dtype=torch.int32, device=DEV),
+                      ints(5, 4, 3, 2, 1, 0)]), (0, 3, 15), (1, 6)),
+        ("qwen grouping, W 18", (4, 14, 2, 64, 24, 32), ints(0, 1, 96, 600),
+         torch.stack([rev, tail, rev.flip(0), tail]), (), (1, 7, 18)),
+    ]
+    for label, (B, H, G, dh, P, ps), kv, tb, zeros, splits in paged:
+        q = rnd(B, H, dh)
+        kq, ks = q8_planes(rnd(P, ps, G, dh), zeros)
+        vq, vs = q8_planes(rnd(P, ps, G, dh), zeros)
+        a = (kq, ks, vq, vs, kv, tb)
+        for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            want = ref.decode_attention_paged_q8(q.to(dt), *a)
+            close(f"decode_attention_paged_q8 edge {label} {dt}",
+                  ops.decode_attention_paged_q8(q.to(dt), *a), want, tol,
+                  tol)
+            for sp in splits:
+                close(f"decode_attention_paged_q8 edge {label} {dt} at {sp}"
+                      " splits", paged_q8_forced(q.to(dt), *a, sp), want,
+                      tol, tol)
+            n += 1 + len(splits)
+    return n
+
+
 # ------------------------------------------------------------- profile
 
 
@@ -1094,21 +1338,29 @@ def _profiled(fn, n):
     }
 
 
+def profile_decode_steps(eng, prompts, n=8):
+    """torch.profiler over n steady decode steps of a continuous engine:
+    the prompts are submitted (40 tokens each) and stepped until every
+    one has its first token, then n steps are profiled and the rest
+    drained."""
+    for p in prompts:
+        eng.submit(p, 40)
+    started = set()
+    while len(started) < len(prompts) and eng.pending:
+        started |= {ev.rid for ev in eng.step() if ev.kind == "token"}
+    step = _profiled(eng.step, n)
+    while eng.pending:
+        eng.step()
+    return step
+
+
 def profile_phase(slm, prompts, kernel_calls):
     """torch.profiler over steady decode steps of the main path's engine
     (4 slots decoding) and over each kernel wrapper alone: device busy
     share of a step, the kernels that take its device time, and each
     port kernel's device time per call (without the host launch cost
     that the CUDA-event loop of phase 5 includes)."""
-    eng = slm.engine
-    for p in prompts:
-        eng.submit(p, 40)
-    started = set()
-    while len(started) < len(prompts) and eng.pending:
-        started |= {ev.rid for ev in eng.step() if ev.kind == "token"}
-    step = _profiled(eng.step, 8)
-    while eng.pending:
-        eng.step()
+    step = profile_decode_steps(slm.engine, prompts)
     per_kernel = {}
     for name, call in kernel_calls.items():
         per_kernel[name] = _profiled(call, 20)["device_ms"]
@@ -1163,6 +1415,44 @@ def wave_summary(results):
             "prefill_s_total": sum(r.prefill_s for r in waves.values()),
             "decode_tok_s": sum(len(r.tokens) - 1 for r in results)
             / sum(r.decode_s for r in waves.values()),
+            "tokens": sum(len(r.tokens) for r in results)}
+
+
+def equal_share(a, b):
+    """Share of greedy tokens equal position by position between two runs
+    of the same requests, over the longer run of each request."""
+    same = sum(x == y for r, t in zip(a, b)
+               for x, y in zip(r.tokens, t.tokens))
+    return same / sum(max(len(r.tokens), len(t.tokens)) for r, t in zip(a, b))
+
+
+def traced_continuous(eng, slots):
+    """The engine's shared continuous engine of `slots` slots, with a
+    fresh TraceSink attached (its decode-step spans give decode tok/s)."""
+    ce = eng.continuous(slots)
+    ce.trace = TraceSink()
+    return ce
+
+
+def continuous_summary(ce, results):
+    """Prefill s (the slowest request's TTFT), decode tok/s (slot tokens
+    over the summed decode-step spans), and the pool: ring_len, table
+    width, pages, bytes, and bytes a position, kv head and tensor (K or
+    V, with its scales)."""
+    spans = ce.trace.durations("engine", "decode_step")
+    active = [r.attrs["active"] for r in ce.trace.query(
+        comp="engine", name="decode_step") if r.ph == "B"]
+    pool = sum(t.numel() * t.element_size() for t in ce.cache.values())
+    k = ce.cache["k"]
+    return {"requests": len(results), "ring_len": ce.ring_len,
+            "table_width": ce.table_width, "pages": ce.num_pages,
+            "abs_len": ce.abs_len, "pool_bytes": pool,
+            "pool_bytes_per_position_head_tensor":
+                pool / (2 * k.shape[0] * k.shape[1] * k.shape[2]
+                        * k.shape[3]),
+            "prefill_s_max": max(r.prefill_s for r in results),
+            "decode_tok_s": sum(active) / sum(spans),
+            "decode_steps": len(spans),
             "tokens": sum(len(r.tokens) for r in results)}
 
 
@@ -1771,6 +2061,45 @@ def small_input_agreement():
     return len(queries)
 
 
+def small_families_agreement():
+    """The four paged families of the reference's contract, float32
+    reduced, on the GPU (kernels) and on the CPU (plain versions), each
+    through `Engine` waves and the continuous engine (2 slots, max_len
+    96): sliding window (an 80-token prompt past its 64-position ring
+    beside a 20-token one), int8 KV, sliding window + int8, and MoE. GPU
+    tokens equal CPU tokens, and wave tokens equal continuous tokens.
+    Returns {family: requests}."""
+    rng = np.random.default_rng(17)
+    mixed = [rng.integers(4, 500, n).astype(np.int32)
+             for n in (16, 24, 33, 40, 9)]
+    wrap = [rng.integers(4, 500, n).astype(np.int32) for n in (80, 20)]
+    cases = [("swa", "h2o_danube_1_8b", {}, wrap),
+             ("int8", "qwen25_0_5b", {"kv_quant": True}, mixed),
+             ("swa_int8", "h2o_danube_1_8b", {"kv_quant": True},
+              wrap + mixed[:2]),
+             ("moe", "granite_moe_1b_a400m", {}, mixed)]
+    out = {}
+    for kind, arch, over, prompts in cases:
+        cfg = get_config(arch).reduced(dtype="float32", **over)
+        on_gpu = build_model(cfg, device=DEV, seed=3)
+        on_cpu = build_model(cfg, device="cpu", params={
+            n: p_.detach().cpu() for n, p_ in on_gpu.named_parameters()})
+        runs = []
+        for m in (on_gpu, on_cpu):
+            eng = Engine(m, max_len=96, slots=2)
+            runs.append([eng.generate(prompts, 8, continuous=c)
+                         for c in (False, True)])
+        (gw, gc), (cw, cc) = runs
+        for i in range(len(prompts)):
+            assert gw[i].tokens == cw[i].tokens, (kind, "wave GPU vs CPU", i)
+            assert gc[i].tokens == cc[i].tokens, (kind, "continuous GPU vs "
+                                                  "CPU", i)
+            assert gw[i].tokens == gc[i].tokens, (kind, "wave vs continuous",
+                                                  i)
+        out[kind] = len(prompts)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1905,6 +2234,72 @@ def main() -> int:
                      bucket_lens=sorted({len(p) for p in prompts}))
     print("wave path:", json.dumps(wave_info))
 
+    # ---- int8 KV: the same weights with kv_quant, wave and continuous
+    q8_lm = DenseLM(dataclasses.replace(GEN_CONFIG, kv_quant=True),
+                    device=dev, params=dict(slm.model.named_parameters()))
+    q8_eng = Engine(q8_lm, max_len=slm.MAX_PROMPT + slm.MAX_NEW,
+                    eos_id=slm.tokenizer.eos_id,
+                    prefill_chunk=slm.PREFILL_CHUNK, slots=slm.SLOTS,
+                    page_size=slm.PAGE_SIZE)
+    q8_ce = traced_continuous(q8_eng, slm.SLOTS)
+    (i8_wave, i8_cont), int8_launches = drive("int8", lambda: [
+        q8_eng.generate(prompts, max_new=MAX_NEW, continuous=c)
+        for c in (False, True)])
+    check_tokens(i8_wave + i8_cont, MAX_NEW, vocab)
+    i8_info = {
+        "wave": wave_summary(i8_wave),
+        "continuous": continuous_summary(q8_ce, i8_cont),
+        "bf16_pool_bytes_per_position_head_tensor": sum(
+            t.numel() * t.element_size() for t in slm.engine.cache.values())
+        / (2 * math.prod(slm.engine.cache["k"].shape[:4])),
+        # reported, not asserted: bf16 activations (F3)
+        "greedy_equal_share_wave_continuous": equal_share(i8_wave, i8_cont),
+        "greedy_equal_share_int8_bf16_wave": equal_share(i8_wave, wave),
+        "greedy_equal_share_int8_bf16_continuous": equal_share(i8_cont,
+                                                               cont)}
+    print("int8 KV path (qwen2.5-0.5B):", json.dumps(i8_info))
+    _, wc8 = q8_lm.prefill(torch.tensor(np.stack(big), dtype=torch.long,
+                                        device=dev))
+    wc8 = q8_eng._grow_cache(wc8)
+    i8_wave_in = [wc8[n][0].contiguous() for n in ("k", "k_s", "v", "v_s")]
+    i8_pool = [q8_ce.cache[n][0].clone() for n in ("k", "k_s", "v", "v_s")]
+    del q8_lm, q8_eng, q8_ce, wc8
+
+    # ---- MoE: granite-moe-1b-a400m at full width, wave and continuous
+    moe_lm = MoELM(MOE_CONFIG, device=dev, seed=2)
+    mrng = np.random.default_rng(21)
+    moe_prompts = [mrng.integers(4, MOE_CONFIG.vocab_size, len(p_)
+                                 ).astype(np.int32) for p_ in prompts]
+    moe_eng = Engine(moe_lm, max_len=slm.MAX_PROMPT + slm.MAX_NEW,
+                     eos_id=-1, prefill_chunk=slm.PREFILL_CHUNK,
+                     slots=slm.SLOTS, page_size=slm.PAGE_SIZE)
+    moe_ce = traced_continuous(moe_eng, slm.SLOTS)
+    (m_wave, m_cont), moe_launches = drive("moe", lambda: [
+        moe_eng.generate(moe_prompts, max_new=MAX_NEW, continuous=c)
+        for c in (False, True)])
+    check_tokens(m_wave + m_cont, MAX_NEW, MOE_CONFIG.vocab_padded)
+    moe_info = {
+        "experts": MOE_CONFIG.moe.num_experts, "top_k": MOE_CONFIG.moe.top_k,
+        "param_gb": sum(p_.numel() * p_.element_size()
+                        for p_ in moe_lm.parameters()) / 1e9,
+        "wave": wave_summary(m_wave),
+        "continuous": continuous_summary(moe_ce, m_cont),
+        # reported, not asserted: bf16 (F3)
+        "greedy_equal_share_wave_continuous": equal_share(m_wave, m_cont),
+        "decode_step_profile": profile_decode_steps(moe_ce,
+                                                    moe_prompts[:4])}
+    print("MoE path (granite-moe-1b-a400m):", json.dumps(moe_info))
+    # layer 0 of the MoE pool and of its largest wave's grown cache: the
+    # attention kernels' inputs at the moe path's grouping
+    moe_pool = [moe_ce.cache[n][0].clone() for n in ("k", "v")]
+    moe_big = [p_ for p_ in moe_prompts if len(p_) == len(big[0])]
+    _, mwc = moe_lm.prefill(torch.tensor(np.stack(moe_big), dtype=torch.long,
+                                         device=dev))
+    mwc = moe_eng._grow_cache(mwc)
+    moe_wave_kv = [mwc[n][0].contiguous() for n in ("k", "v")]
+    del moe_lm, moe_eng, moe_ce, mwc
+    torch.cuda.empty_cache()
+
     # ---- h2o-danube-1.8b at full width, 2 prompts past the window
     h2o = DenseLM(H2O_CONFIG, device=dev, seed=1)
     rng = np.random.default_rng(12)
@@ -1928,6 +2323,54 @@ def main() -> int:
     }
     print("h2o-danube-1.8b wave path:", json.dumps(h2o_info))
     print("h2o profile:", json.dumps(profile_wave(h2o_eng, hp)))
+    # ---- the same model and prompts on the continuous engine: ring pages
+    h2o_c_eng = Engine(h2o, max_len=H2O_PROMPT + MAX_NEW, eos_id=-1,
+                       slots=2)
+    h2o_ce = traced_continuous(h2o_c_eng, 2)
+    h2o_cres, h2o_c_launches = drive("h2o_continuous", lambda:
+                                     h2o_c_eng.generate(hp, max_new=MAX_NEW,
+                                                        continuous=True))
+    check_tokens(h2o_cres, MAX_NEW, H2O_CONFIG.vocab_padded)
+    assert h2o_ce.ring_len == H2O_CONFIG.sliding_window
+    assert h2o_ce.table_width == -(-h2o_ce.ring_len // h2o_ce.page_size)
+    h2o_c_info = dict(continuous_summary(h2o_ce, h2o_cres),
+                      # reported, not asserted: bf16 (F3)
+                      greedy_equal_share_wave=equal_share(h2o_cres, h2o_res))
+    print("h2o-danube-1.8b continuous path:", json.dumps(h2o_c_info))
+    h2o_pool = [h2o_ce.cache[n][0].clone() for n in ("k", "v")]
+    h2o_ring_len, h2o_W = h2o_ce.ring_len, h2o_ce.table_width
+    h2o_ps = h2o_ce.page_size
+    del h2o_c_eng, h2o_ce
+    # ---- the same weights with an int8 KV cache, wave and continuous
+    h2o_q8 = DenseLM(dataclasses.replace(H2O_CONFIG, kv_quant=True),
+                     device=dev, params=dict(h2o.named_parameters()))
+    h8_eng = Engine(h2o_q8, max_len=H2O_PROMPT + MAX_NEW, eos_id=-1,
+                    slots=2)
+    h8_ce = traced_continuous(h8_eng, 2)
+    (h8_wave, h8_cont), h2o_q8_launches = drive("h2o_int8", lambda: [
+        h8_eng.generate(hp, max_new=MAX_NEW, continuous=c)
+        for c in (False, True)])
+    check_tokens(h8_wave + h8_cont, MAX_NEW, H2O_CONFIG.vocab_padded)
+    h8_info = {
+        "wave": {"prefill_s": h8_wave[0].prefill_s,
+                 "decode_tok_s": sum(len(r.tokens) - 1 for r in h8_wave)
+                 / h8_wave[0].decode_s},
+        "continuous": continuous_summary(h8_ce, h8_cont),
+        "bf16_pool_bytes_per_position_head_tensor":
+            h2o_c_info["pool_bytes_per_position_head_tensor"],
+        "bf16_pool_bytes": h2o_c_info["pool_bytes"],
+        # reported, not asserted: bf16 activations (F3)
+        "greedy_equal_share_wave_continuous": equal_share(h8_wave, h8_cont),
+        "greedy_equal_share_int8_bf16_wave": equal_share(h8_wave, h2o_res),
+        "greedy_equal_share_int8_bf16_continuous": equal_share(h8_cont,
+                                                               h2o_cres)}
+    print("h2o-danube-1.8b int8 KV path:", json.dumps(h8_info))
+    _, c8 = h2o_q8.prefill(torch.tensor(np.stack(hp[:1]), dtype=torch.long,
+                                        device=dev))
+    h8_in = [c8[n][0].contiguous() for n in ("k", "k_s", "v", "v_s")]
+    h8_pool = [h8_ce.cache[n][0].clone() for n in ("k", "k_s", "v", "v_s")]
+    h8_W = h8_ce.table_width
+    del h2o_q8, h8_eng, h8_ce, c8
     hq, hk, hv, hck, hcv = h2o_inputs(h2o, torch.tensor(
         np.stack(hp[:1]), dtype=torch.long, device=dev))
     del h2o, h2o_eng
@@ -2060,11 +2503,9 @@ def main() -> int:
              for a in answers[:4]]
     kv_len = torch.tensor(plens, dtype=torch.int32, device=dev)
     # the main path's prefill chunk: 32 queries at q_offset 64 over a
-    # slot's gathered W*ps-position buffer
-    j = torch.arange(W * ps, device=dev)
-    gather = table[0].long()[j // ps] * ps + (j % ps)
-    k_slot = pool["k"][0].reshape(P * ps, G, dh)[gather][None]
-    v_slot = pool["v"][0].reshape(P * ps, G, dh)[gather][None]
+    # slot's 64 positions of history and the chunk
+    k_slot, v_slot, _ = chunk_buffer(pool["k"][0], pool["v"][0], table[0],
+                                     64, slm.PREFILL_CHUNK, ps)
     q_chunk = torch.randn(1, slm.PREFILL_CHUNK, H, dh, generator=g,
                           device=dev).to(torch.bfloat16)
     # the qwen2.5 wave decode: the largest bucket's grown cache
@@ -2080,25 +2521,80 @@ def main() -> int:
                          generator=g, device=dev).to(torch.bfloat16)
     len_ring = torch.tensor([H2O_PROMPT + 1], dtype=torch.int32, device=dev)
     window = H2O_CONFIG.sliding_window
+    C = slm.PREFILL_CHUNK
+    # h2o's last prompt chunk on the continuous engine (the ring wrapped):
+    # its buffer from layer 0's pool through a random 128-page row, and
+    # the chunk's own queries
+    Ph = h2o_pool[0].shape[0]
+    table_h2o = torch.stack([torch.randperm(Ph, generator=g, device=dev)[
+        :h2o_W] for _ in range(2)]).to(torch.int32)
+    h_off = (H2O_PROMPT - 1) // C * C
+    k_ring, v_ring, h_lo = chunk_buffer(*h2o_pool, table_h2o[0], h_off, C,
+                                        h2o_ps, h2o_ring_len)
+    # the moe path's grouping (16 heads over 8, dh 64): a chunk at offset
+    # 64 through a random row of its pool, its wave decode over the
+    # largest bucket's grown cache, and its paged decode
+    Hm, dhm = MOE_CONFIG.num_heads, MOE_CONFIG.resolved_head_dim
+    Pm = moe_pool[0].shape[0]
+    table_moe = torch.stack([torch.randperm(Pm, generator=g, device=dev)[:W]
+                             for _ in range(4)]).to(torch.int32)
+    k_moe, v_moe, _ = chunk_buffer(*moe_pool, table_moe[0], 64, C, ps)
+    q_moe_chunk = torch.randn(1, C, Hm, dhm, generator=g, device=dev
+                              ).to(torch.bfloat16)
+    q_moe_wave = torch.randn(len(big), Hm, dhm, generator=g, device=dev
+                             ).to(torch.bfloat16)
+    q_moe_dec = torch.randn(4, Hm, dhm, generator=g, device=dev
+                            ).to(torch.bfloat16)
     flash_shapes = [
         check_flash_prefill("main-path chunk", q_chunk, k_slot, v_slot,
                             q_offset=64, kv_len=64 + slm.PREFILL_CHUNK),
         check_flash_prefill("h2o wave", hq, hk, hv, window=window,
                             plain_iters=3),
+        check_flash_prefill("h2o ring chunk", hq[:, h_off:h_off + C],
+                            k_ring, v_ring, window=window,
+                            q_offset=h_off - h_lo, kv_len=h_off + C - h_lo),
+        check_flash_prefill("moe chunk", q_moe_chunk, k_moe, v_moe,
+                            q_offset=64, kv_len=64 + C),
     ]
     decode_shapes = [
         check_decode_attention("qwen wave", q_wave, k_wave, v_wave,
                                len_wave, False),
         check_decode_attention("h2o ring", q_ring, hck, hcv, len_ring, True),
+        check_decode_attention("moe wave", q_moe_wave, *moe_wave_kv,
+                               len_wave, False),
+    ]
+    q8_shapes = [
+        check_decode_q8("qwen int8 wave", q_wave, *i8_wave_in, len_wave,
+                        False),
+        check_decode_q8("h2o int8 ring", q_ring, *h8_in, len_ring, True),
+    ]
+    P8 = i8_pool[0].shape[0]
+    table8 = torch.stack([torch.randperm(P8, generator=g, device=dev)[:W]
+                          for _ in range(4)]).to(torch.int32)
+    Ph8 = h8_pool[0].shape[0]
+    table_h8 = torch.stack([torch.randperm(Ph8, generator=g, device=dev)[
+        :h8_W] for _ in range(2)]).to(torch.int32)
+    q_ring2 = torch.randn(2, H2O_CONFIG.num_heads, H2O_CONFIG.head_dim,
+                          generator=g, device=dev).to(torch.bfloat16)
+    len_ring2 = torch.full((2,), window, dtype=torch.int32, device=dev)
+    pq8_shapes = [
+        check_decode_paged_q8("qwen int8 continuous", q_dec, *i8_pool,
+                              kv_len, table8),
+        check_decode_paged_q8("h2o int8 ring pages", q_ring2, *h8_pool,
+                              len_ring2, table_h8),
     ]
     assert ops.decode_paged_split_plan(4, G, W, ps) > 1
     long_in = long_cache_inputs(H, G, dh, g)
     paged_shapes = [
         check_decode("main path", q_dec, pool["k"][0], pool["v"][0], kv_len,
                      table),
+        check_decode("h2o ring pages", q_ring2, *h2o_pool, len_ring2,
+                     table_h2o),
+        check_decode("moe continuous", q_moe_dec, *moe_pool, kv_len,
+                     table_moe),
         check_decode("long cache (not a path shape)", *long_in),
     ]
-    n_edges = attention_edges() + paged_edges(H, G, dh)
+    n_edges = attention_edges() + paged_edges(H, G, dh) + q8_edges()
     n_kmeans_edges = kmeans_edges()
     n_pq_edges = pq_adc_edges()
     n_retrieval_edges = ecoscan_edges() + scr_select_edges(w_t)
@@ -2137,6 +2633,8 @@ def main() -> int:
         "decode_attention": dict(decode_shapes[0], shapes=decode_shapes),
         "scr_score": check_scr_score(w_leg, q_leg),
         "pq_adc": check_pq_adc(lut_q, pack, seg_q, lut_flat),
+        "decode_attention_q8": dict(q8_shapes[0], shapes=q8_shapes),
+        "decode_attention_paged_q8": dict(pq8_shapes[0], shapes=pq8_shapes),
     }
     calls = {
         "kmeans_assign": lambda: ops.kmeans_assign(x, cent),
@@ -2167,6 +2665,15 @@ def main() -> int:
         "scr_score": lambda: ops.scr_score(w_leg, q_leg),
         "pq_adc": lambda: ops.pq_adc(lut_q, pack, seg_q[0], seg_q[1],
                                      rows=seg_q[2]),
+        "decode_attention_q8": lambda: ops.decode_attention_q8(
+            q_wave, *i8_wave_in, len_wave),
+        "decode_attention_q8 h2o ring": lambda: ops.decode_attention_q8(
+            q_ring, *h8_in, len_ring, ring=True),
+        "decode_attention_paged_q8": lambda: ops.decode_attention_paged_q8(
+            q_dec, *i8_pool, kv_len, table8),
+        "decode_attention_paged_q8 h2o ring pages":
+            lambda: ops.decode_attention_paged_q8(q_ring2, *h8_pool,
+                                                  len_ring2, table_h8),
     }
     prof = profile_phase(slm, [slm.encode_prompt(a.prompt)
                                for a in answers[:4]], calls)
@@ -2181,10 +2688,13 @@ def main() -> int:
         "after updates, CAP grown", qv, ud_t, ul_t,
         ref.route_topk(qv, uc_t, pipe.n_probe), pipe.top_k))
     n_small = small_input_agreement()
+    n_families = small_families_agreement()
     print(f"small input: {n_small} queries agree GPU vs CPU (doc ids, "
           "prompts, greedy tokens; wave tokens, wave = continuous on the "
           "GPU; the legacy SCR pipeline, whose prompts equal the window "
           "index's); reduced h2o wave tokens agree GPU vs CPU")
+    print("small input, paged families (requests):", json.dumps(n_families),
+          "GPU tokens = CPU tokens and wave = continuous, on each")
     print(f"attention edge cases: {n_edges} agree with the plain versions")
     print(f"kmeans_assign edge cases: {n_kmeans_edges} agree with the plain "
           "version")
@@ -2220,10 +2730,12 @@ def main() -> int:
     paths = {"main": launches, "wave": wave_launches, "h2o": h2o_launches,
              "legacy": legacy_launches, "baselines": base_launches,
              "host_search": host_launches, "graph_baselines": graph_launches,
-             "updates": upd_launches}
+             "updates": upd_launches, "h2o_continuous": h2o_c_launches,
+             "h2o_int8": h2o_q8_launches, "int8": int8_launches,
+             "moe": moe_launches}
     kernels = [{
         "name": name, "route": "cuda",
-        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+        "source": SOURCES[name],
         "replaces": REPLACES[name],
         "launches": sum(c[name] for c in paths.values()),
         "launches_by_path": {p_: c[name] for p_, c in paths.items()},

@@ -1,14 +1,24 @@
 """Model configuration: the part of `repro.config.ModelConfig` that the
-port's dense model needs (causal, RoPE, SwiGLU, optional sliding window;
-same field names and defaults as the reference, and the same `reduced`
-sizes)."""
+port's dense and MoE models need (causal, RoPE, SwiGLU, optional sliding
+window, optional int8 KV cache; same field names and defaults as the
+reference, and the same `reduced` sizes)."""
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Optional
 
 import torch
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Token-choice top-k experts (`repro.config.MoEConfig`'s serving
+    fields). `dense_residual`: a dense FFN runs beside the experts."""
+    num_experts: int = 0
+    top_k: int = 0
+    expert_d_ff: int = 0
+    dense_residual: bool = False
 
 
 @dataclass(frozen=True)
@@ -27,6 +37,10 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
+    family: str = "dense"         # dense | moe
+    moe: MoEConfig = field(default_factory=MoEConfig)
+    # int8 KV cache: int8 values with f32 scales per position and kv head
+    kv_quant: bool = False
 
     @property
     def resolved_head_dim(self) -> int:
@@ -53,6 +67,10 @@ class ModelConfig:
             vocab_size=512,
             head_dim=32,
         )
+        if self.family == "moe":
+            kw["moe"] = MoEConfig(
+                num_experts=4, top_k=min(self.moe.top_k, 2), expert_d_ff=64,
+                dense_residual=self.moe.dense_residual)
         if self.sliding_window:
             kw["sliding_window"] = 64
         kw.update(over)

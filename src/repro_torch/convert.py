@@ -16,10 +16,13 @@ from repro_torch import resolve_device
 
 def params_from_reference(tree: Mapping, device="cuda"
                           ) -> Dict[str, torch.Tensor]:
-    """A `repro.models.model.init_params` tree of the dense family, as
-    numpy arrays ({"layers": {...}, "tok_embed", "final_norm"[,
+    """A `repro.models.model.init_params` tree of the dense or the moe
+    family, as numpy arrays ({"layers": {...}, "tok_embed", "final_norm"[,
     "lm_head"]}), -> the flat name -> tensor dict `DenseLM(params=...)`
-    takes (layer weights keep their stacked [L, ...] layout)."""
+    or `MoELM(params=...)` takes (layer weights keep their stacked
+    [L, ...] layout: a moe tree's "router", "we1", "we2", "we3", its FFN
+    norm "mlp_norm", or "moe_norm" beside "mlp_norm", "w1", "w2", "w3"
+    with `dense_residual`)."""
     dev = resolve_device(device)
     flat = dict(tree["layers"])
     flat.update({k: v for k, v in tree.items() if k != "layers"})

@@ -39,6 +39,19 @@
 // until the merge grows. Next step: read the tiles with TMA from a
 // producer warp, score several tiles between barriers, and fold the merge
 // into the last block of each (b, g).
+//
+// The int8 cache (`decode_attention_q8`, the plain jnp function
+// src/repro/models/layers.py::decode_attention_q8 at :227, which the
+// port runs on the card): the same kernel with int8 K/V rows (16 a
+// 16-byte copy) and f32 scales k_scale, v_scale [B, S, G], one a position
+// and kv head. The scales commute through the products, so the kernel
+// reads int8 bytes and never writes a dequantized copy: a score is
+// (q . kq) * scale * k_scale, and a probability enters the PV product as
+// exp(s - max) * v_scale rounded to q's type (the reference's
+// `p * vs` cast to q's dtype), while the running sum takes the unscaled
+// probability. A tile's scales are loaded beside its rows into
+// [2][kTile] f32 rings (0 past the split's end). Bound: bytes, now
+// dh + 8 a position and kv head for K and V together with their scales.
 #include "decode_split.cuh"
 
 namespace {
@@ -48,26 +61,32 @@ constexpr int kTile = 64;                      // positions per tile
 constexpr int kMaxPair = 4;                    // output pairs a thread: Hg*dh <= 2048
 
 // Shared memory (its size comes from ops.decode_smem_bytes): the K and V
-// rings [2][kTile][dh + kVW] in T, then in f32 the group's queries
-// [Hg, dh], the tile's scores [Hg, kTile] and the running max, sum and
-// correction [Hg] each.
-template <typename T>
+// rings [2][kTile][dh + kVW] in C, then in f32 the group's queries
+// [Hg, dh], the tile's scores [Hg, kTile], the running max, sum and
+// correction [Hg] each, and with an int8 cache the K and V scale rings
+// [2][kTile] each. T: the type of q and out; C: the cache's (T or int8).
+template <typename T, typename C>
 __global__ void __launch_bounds__(kThreads)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ kv_len,
-                    int S, int H, int G, int dh, float scale, int splits,
-                    T* __restrict__ out, float* __restrict__ part) {
-  constexpr int kVW = 16 / sizeof(T);          // elements per 16-byte copy
+decode_split_kernel(const T* __restrict__ q, const C* __restrict__ k,
+                    const C* __restrict__ v, const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
+                    const int* __restrict__ kv_len, int S, int H, int G,
+                    int dh, float scale, int splits, T* __restrict__ out,
+                    float* __restrict__ part) {
+  constexpr bool kQ8 = std::is_same<C, int8_t>::value;
+  constexpr int kVW = 16 / sizeof(C);          // elements per 16-byte copy
   extern __shared__ __align__(16) unsigned char smem[];
   const int Hg = H / G;
   const int kr = dh + kVW;                     // padded cache row
-  T* ks = reinterpret_cast<T*>(smem);          // [2][kTile][kr]
-  T* vs = ks + 2 * kTile * kr;                 // [2][kTile][kr]
+  C* ks = reinterpret_cast<C*>(smem);          // [2][kTile][kr]
+  C* vs = ks + 2 * kTile * kr;                 // [2][kTile][kr]
   float* qs = reinterpret_cast<float*>(vs + 2 * kTile * kr);  // [Hg, dh]
   float* ps = qs + Hg * dh;                    // [Hg, kTile]
   float* m_s = ps + Hg * kTile;                // [Hg] running max
   float* l_s = m_s + Hg;                       // [Hg] running sum
   float* c_s = l_s + Hg;                       // [Hg] this tile's correction
+  float* ksc = c_s + Hg;                       // [2][kTile] K scales (int8)
+  float* vsc = ksc + 2 * kTile;                // [2][kTile] V scales (int8)
   const int sp = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nw = blockDim.x >> 5;
@@ -87,18 +106,26 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int p1 = min(n, (int)((long long)(sp + 1) * tiles / splits) * kTile);
   const int ntl = p1 > p0 ? (p1 - p0 + kTile - 1) / kTile : 0;
   const size_t pos_stride = (size_t)G * dh;
-  const T* kb = k + (size_t)b * S * pos_stride + (size_t)g * dh;
-  const T* vb = v + (size_t)b * S * pos_stride + (size_t)g * dh;
+  const C* kb = k + (size_t)b * S * pos_stride + (size_t)g * dh;
+  const C* vb = v + (size_t)b * S * pos_stride + (size_t)g * dh;
   const int rv = dh / kVW;                     // 16-byte copies per row
   auto load = [&](int stage, int t0) {        // rows past p1 zero-filled
-    T* kd = ks + stage * kTile * kr;
-    T* vd = vs + stage * kTile * kr;
+    C* kd = ks + stage * kTile * kr;
+    C* vd = vs + stage * kTile * kr;
     for (int e = tid; e < kTile * rv; e += blockDim.x) {
       const int t = e / rv, c = (e % rv) * kVW;
       const bool in = t0 + t < p1;
       const size_t off = (in ? (size_t)(t0 + t) * pos_stride : 0) + c;
       cp_async16(smem_u32(kd + t * kr + c), kb + off, in);
       cp_async16(smem_u32(vd + t * kr + c), vb + off, in);
+    }
+    if constexpr (kQ8) {                      // the tile's scales, 0 past p1
+      for (int t = tid; t < kTile; t += blockDim.x) {
+        const bool in = t0 + t < p1;
+        const size_t o = ((size_t)b * S + (in ? t0 + t : 0)) * G + g;
+        ksc[stage * kTile + t] = in ? k_scale[o] : 0.f;
+        vsc[stage * kTile + t] = in ? v_scale[o] : 0.f;
+      }
     }
   };
   if (ntl > 0) {
@@ -113,23 +140,27 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       cp_async_commit();
     }
     const int t0 = p0 + i * kTile, nt = min(kTile, p1 - t0);
-    const T* kt = ks + (i & 1) * kTile * kr;
-    const T* vt = vs + (i & 1) * kTile * kr;
+    const C* kt = ks + (i & 1) * kTile * kr;
+    const C* vt = vs + (i & 1) * kTile * kr;
+    const float* kst = ksc + (i & 1) * kTile;
+    const float* vst = vsc + (i & 1) * kTile;
     for (int e = tid; e < Hg * kTile; e += blockDim.x) {
       const int h = e / kTile, t = e % kTile;
       const float* qh = qs + h * dh;
-      const T* krow = kt + t * kr;
+      const C* krow = kt + t * kr;
       float s0 = 0.f, s1 = 0.f;                // even and odd dims
       for (int c = 0; c < dh; c += kVW) {
         float kf[kVW];
-        unpack<T>(*reinterpret_cast<const uint4*>(krow + c), kf);
+        unpack<C>(*reinterpret_cast<const uint4*>(krow + c), kf);
 #pragma unroll
         for (int j = 0; j < kVW; j += 2) {
           s0 = fmaf(qh[c + j], kf[j], s0);
           s1 = fmaf(qh[c + j + 1], kf[j + 1], s1);
         }
       }
-      ps[e] = t0 + t < len ? (s0 + s1) * scale : kMask;
+      float sc = (s0 + s1) * scale;
+      if constexpr (kQ8) sc *= kst[t];
+      ps[e] = t0 + t < len ? sc : kMask;
     }
     __syncthreads();
     // per head: the tile's max, p = exp(s - max) summed unrounded and
@@ -144,7 +175,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float sum = 0.f;
       for (int t = lane; t < kTile; t += 32) {
         const float p = t < nt ? expf(row[t] - mn) : 0.f;
-        row[t] = as_v<T>(p);
+        if constexpr (kQ8) row[t] = as_v<T>(p * vst[t]);
+        else row[t] = as_v<T>(p);
         sum += p;
       }
       sum = warp_sum(sum);
@@ -162,7 +194,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (u < npair) {
         const int h = 2 * u / dh, dd = 2 * u % dh;
         const float* prow = ps + h * kTile;
-        const T* vcol = vt + dd;
+        const C* vcol = vt + dd;
         float2 a[4];                           // four chains over positions
 #pragma unroll
         for (int j = 0; j < 4; ++j) a[j] = make_float2(0.f, 0.f);
@@ -172,7 +204,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const float pj[4] = {p.x, p.y, p.z, p.w};
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            const float2 vv = load2<T>(vcol + (t + j) * kr);
+            const float2 vv = load2<C>(vcol + (t + j) * kr);
             a[j].x = fmaf(pj[j], vv.x, a[j].x);
             a[j].y = fmaf(pj[j], vv.y, a[j].y);
           }
@@ -209,21 +241,25 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* kv_len,
-           int B, int S, int H, int G, int dh, float scale, int splits,
-           int smem, void* part, void* out, void* stream) {
+// k_scale and v_scale: null for a float cache (C = T)
+template <typename T, typename C>
+int launch(const void* q, const void* k, const void* k_scale, const void* v,
+           const void* v_scale, const void* kv_len, int B, int S, int H, int G,
+           int dh, float scale, int splits, int smem, void* part, void* out,
+           void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        decode_split_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        decode_split_kernel<T, C>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  decode_split_kernel<T><<<dim3(splits, G, B), kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(kv_len), S, H, G, dh,
-      scale, splits, static_cast<T*>(out), static_cast<float*>(part));
+  decode_split_kernel<T, C><<<dim3(splits, G, B), kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const C*>(k),
+      static_cast<const C*>(v), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(kv_len), S,
+      H, G, dh, scale, splits, static_cast<T*>(out),
+      static_cast<float*>(part));
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
   return static_cast<int>(launch_merge<T>(part, B, H, G, dh, splits, out, st));
@@ -236,8 +272,8 @@ extern "C" int decode_attention_f32(const void* q, const void* k, const void* v,
                                     int G, int dh, float scale, int splits,
                                     int smem, void* part, void* out,
                                     void* stream) {
-  return launch<float>(q, k, v, kv_len, B, S, H, G, dh, scale, splits, smem,
-                       part, out, stream);
+  return launch<float, float>(q, k, nullptr, v, nullptr, kv_len, B, S, H, G,
+                              dh, scale, splits, smem, part, out, stream);
 }
 
 extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v,
@@ -245,6 +281,29 @@ extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v
                                      int G, int dh, float scale, int splits,
                                      int smem, void* part, void* out,
                                      void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, kv_len, B, S, H, G, dh, scale, splits,
-                               smem, part, out, stream);
+  return launch<__nv_bfloat16, __nv_bfloat16>(q, k, nullptr, v, nullptr,
+                                              kv_len, B, S, H, G, dh, scale,
+                                              splits, smem, part, out, stream);
+}
+
+// int8 cache: k, v [B, S, G, dh] int8; k_scale, v_scale [B, S, G] f32
+extern "C" int decode_attention_q8_f32(const void* q, const void* k,
+                                       const void* k_scale, const void* v,
+                                       const void* v_scale, const void* kv_len,
+                                       int B, int S, int H, int G, int dh,
+                                       float scale, int splits, int smem,
+                                       void* part, void* out, void* stream) {
+  return launch<float, int8_t>(q, k, k_scale, v, v_scale, kv_len, B, S, H, G,
+                               dh, scale, splits, smem, part, out, stream);
+}
+
+extern "C" int decode_attention_q8_bf16(const void* q, const void* k,
+                                        const void* k_scale, const void* v,
+                                        const void* v_scale, const void* kv_len,
+                                        int B, int S, int H, int G, int dh,
+                                        float scale, int splits, int smem,
+                                        void* part, void* out, void* stream) {
+  return launch<__nv_bfloat16, int8_t>(q, k, k_scale, v, v_scale, kv_len, B,
+                                       S, H, G, dh, scale, splits, smem, part,
+                                       out, stream);
 }

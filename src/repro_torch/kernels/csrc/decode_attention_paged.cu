@@ -40,6 +40,19 @@
 // small launch (`decode_merge_kernel`, decode_split.cuh) merges the
 // partials of each (b, g) in split order: deterministic, no atomics; a
 // split past the row's npg is empty (l = 0) and skipped.
+//
+// The int8 pool (`decode_attention_paged_q8`; the reference gathers the
+// pages with jnp and calls src/repro/models/layers.py::decode_attention_q8
+// at :227): the same kernel over int8 pages (16 values a 16-byte copy)
+// with f32 scale planes k_scale, v_scale [P, ps, G] read through the same
+// table, so decode reads int8 bytes and no dequantized copy of a slot's
+// pages is ever written. A score is (q . kq) * scale * k_scale; a
+// probability enters the PV product as exp(s - max) * v_scale rounded to
+// q's type, the running sum takes it unscaled; a tile's scales arrive
+// beside its rows in [2][kTile] f32 rings. Rows are masked by kv_len, so
+// a ring (sliding window) whose ring_len is not a multiple of ps reads
+// its last page only up to kv_len. Bound: bytes, dh + 8 a position and kv
+// head for K and V with their scales.
 #include "decode_split.cuh"
 
 namespace {
@@ -49,27 +62,33 @@ constexpr int kTile = 64;                      // positions per ring stage
 constexpr int kMaxPair = 4;                    // output pairs a thread: Hg*dh <= 2048
 
 // Shared memory (launch() sizes it; ops.decode_smem_bytes mirrors it): the
-// K and V rings [2][kTile][dh + kVW] in T, then in f32 the group's queries
-// [Hg, dh], a tile's scores [Hg, kTile] and the running max, sum and
-// correction [Hg] each.
-template <typename T>
+// K and V rings [2][kTile][dh + kVW] in C, then in f32 the group's queries
+// [Hg, dh], a tile's scores [Hg, kTile], the running max, sum and
+// correction [Hg] each, and with an int8 pool the K and V scale rings
+// [2][kTile] each. T: the type of q and out; C: the pool's (T or int8).
+template <typename T, typename C>
 __global__ void __launch_bounds__(kThreads)
-decode_paged_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ kv_len,
+decode_paged_kernel(const T* __restrict__ q, const C* __restrict__ k,
+                    const C* __restrict__ v, const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
+                    const int* __restrict__ kv_len,
                     const int* __restrict__ table, int H, int G, int dh,
                     int ps, int W, float scale, int splits,
                     T* __restrict__ out, float* __restrict__ part) {
-  constexpr int kVW = 16 / sizeof(T);          // elements per 16-byte copy
+  constexpr bool kQ8 = std::is_same<C, int8_t>::value;
+  constexpr int kVW = 16 / sizeof(C);          // elements per 16-byte copy
   extern __shared__ __align__(16) unsigned char smem[];
   const int Hg = H / G;
   const int kr = dh + kVW;                     // padded cache row
-  T* ks = reinterpret_cast<T*>(smem);          // [2][kTile][kr]
-  T* vs = ks + 2 * kTile * kr;                 // [2][kTile][kr]
+  C* ks = reinterpret_cast<C*>(smem);          // [2][kTile][kr]
+  C* vs = ks + 2 * kTile * kr;                 // [2][kTile][kr]
   float* qs = reinterpret_cast<float*>(vs + 2 * kTile * kr);  // [Hg, dh]
   float* ss = qs + Hg * dh;                    // [Hg, kTile]
   float* m_s = ss + Hg * kTile;                // [Hg] running max
   float* l_s = m_s + Hg;                       // [Hg] running sum
   float* c_s = l_s + Hg;                       // [Hg] this tile's correction
+  float* ksc = c_s + Hg;                       // [2][kTile] K scales (int8)
+  float* vsc = ksc + 2 * kTile;                // [2][kTile] V scales (int8)
   const int sp = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nw = blockDim.x >> 5;
@@ -80,12 +99,12 @@ decode_paged_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int* tb = table + (size_t)b * W;
   const size_t pos_stride = (size_t)G * dh;
   const size_t page_stride = (size_t)ps * pos_stride;
-  const T* kg = k + (size_t)g * dh;
-  const T* vg = v + (size_t)g * dh;
+  const C* kg = k + (size_t)g * dh;
+  const C* vg = v + (size_t)g * dh;
   const int rv = dh / kVW;                     // 16-byte copies per row
   auto load = [&](int stage, int t0, int hi) { // rows past hi zero-filled
-    T* kd = ks + stage * kTile * kr;
-    T* vd = vs + stage * kTile * kr;
+    C* kd = ks + stage * kTile * kr;
+    C* vd = vs + stage * kTile * kr;
     for (int e = tid; e < kTile * rv; e += blockDim.x) {
       const int t = e / rv, c = (e % rv) * kVW;
       const int pos = t0 + t;
@@ -95,6 +114,17 @@ decode_paged_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             : c;
       cp_async16(smem_u32(kd + t * kr + c), kg + off, in);
       cp_async16(smem_u32(vd + t * kr + c), vg + off, in);
+    }
+    if constexpr (kQ8) {                      // the tile's scales, 0 past hi
+      for (int t = tid; t < kTile; t += blockDim.x) {
+        const int pos = t0 + t;
+        const bool in = pos < hi;
+        const size_t o = in ? ((size_t)__ldg(tb + pos / ps) * ps + pos % ps)
+                                  * G + g
+                            : 0;
+        ksc[stage * kTile + t] = in ? k_scale[o] : 0.f;
+        vsc[stage * kTile + t] = in ? v_scale[o] : 0.f;
+      }
     }
   };
   // the first tile's copies go out before kv_len is read: its rows lie
@@ -121,18 +151,20 @@ decode_paged_kernel(const T* __restrict__ q, const T* __restrict__ k,
       cp_async_commit();
     }
     const int t0 = p0 + i * kTile, nt = min(kTile, p1 - t0);
-    const T* kt = ks + (i & 1) * kTile * kr;
-    const T* vt = vs + (i & 1) * kTile * kr;
+    const C* kt = ks + (i & 1) * kTile * kr;
+    const C* vt = vs + (i & 1) * kTile * kr;
+    const float* kst = ksc + (i & 1) * kTile;
+    const float* vst = vsc + (i & 1) * kTile;
     for (int e = tid; e < Hg * kTile; e += blockDim.x) {
       const int h = e / kTile, t = e % kTile;
       float s = kMask;
       if (t < nt && t0 + t < len) {            // masked rows skip the dot
         const float* qh = qs + h * dh;
-        const T* krow = kt + t * kr;
+        const C* krow = kt + t * kr;
         float s0 = 0.f, s1 = 0.f;              // even and odd dims
         for (int c = 0; c < dh; c += kVW) {
           float kf[kVW];
-          unpack<T>(*reinterpret_cast<const uint4*>(krow + c), kf);
+          unpack<C>(*reinterpret_cast<const uint4*>(krow + c), kf);
 #pragma unroll
           for (int j = 0; j < kVW; j += 4) {   // a warp's q reads broadcast
             const float4 qv = *reinterpret_cast<const float4*>(qh + c + j);
@@ -143,6 +175,7 @@ decode_paged_kernel(const T* __restrict__ q, const T* __restrict__ k,
           }
         }
         s = (s0 + s1) * scale;
+        if constexpr (kQ8) s *= kst[t];
       }
       ss[e] = s;
     }
@@ -159,7 +192,8 @@ decode_paged_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float sum = 0.f;
       for (int t = lane; t < kTile; t += 32) {
         const float p = t < nt ? expf(row[t] - mn) : 0.f;
-        row[t] = as_v<T>(p);
+        if constexpr (kQ8) row[t] = as_v<T>(p * vst[t]);
+        else row[t] = as_v<T>(p);
         sum += p;
       }
       sum = warp_sum(sum);
@@ -179,7 +213,7 @@ decode_paged_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (u < npair) {
         const int h = 2 * u / dh, dd = 2 * u % dh;
         const float* prow = ss + h * kTile;
-        const T* vcol = vt + dd;
+        const C* vcol = vt + dd;
         float2 a[4];                           // four chains over positions
 #pragma unroll
         for (int j = 0; j < 4; ++j) a[j] = make_float2(0.f, 0.f);
@@ -189,7 +223,7 @@ decode_paged_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const float pj[4] = {p.x, p.y, p.z, p.w};
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            const float2 vv = load2<T>(vcol + (t + j) * kr);
+            const float2 vv = load2<C>(vcol + (t + j) * kr);
             a[j].x = fmaf(pj[j], vv.x, a[j].x);
             a[j].y = fmaf(pj[j], vv.y, a[j].y);
           }
@@ -227,25 +261,30 @@ decode_paged_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* kv_len,
-           const void* table, int B, int H, int G, int dh, int ps, int W,
-           int splits, void* part, void* out, void* stream) {
+// k_scale and v_scale: null for a float pool (C = T)
+template <typename T, typename C>
+int launch(const void* q, const void* k, const void* k_scale, const void* v,
+           const void* v_scale, const void* kv_len, const void* table, int B,
+           int H, int G, int dh, int ps, int W, int splits, void* part,
+           void* out, void* stream) {
+  constexpr bool kQ8 = std::is_same<C, int8_t>::value;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int Hg = H / G;
   const int smem = static_cast<int>(
-      4 * kTile * (dh + 16 / sizeof(T)) * sizeof(T) +
-      (Hg * dh + Hg * kTile + 3 * Hg) * sizeof(float));
+      4 * kTile * (dh + 16 / sizeof(C)) * sizeof(C) +
+      (Hg * dh + Hg * kTile + 3 * Hg + (kQ8 ? 4 * kTile : 0)) *
+          sizeof(float));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        decode_paged_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        decode_paged_kernel<T, C>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const float scale = 1.0f / sqrtf(static_cast<float>(dh));
-  decode_paged_kernel<T><<<dim3(splits, G, B), kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(kv_len),
+  decode_paged_kernel<T, C><<<dim3(splits, G, B), kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const C*>(k),
+      static_cast<const C*>(v), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(kv_len),
       static_cast<const int*>(table), H, G, dh, ps, W, scale, splits,
       static_cast<T*>(out), static_cast<float*>(part));
   const cudaError_t e = cudaGetLastError();
@@ -260,8 +299,8 @@ extern "C" int decode_attention_paged_f32(const void* q, const void* k,
                                           const void* table, int B, int H, int G,
                                           int dh, int ps, int W, int splits,
                                           void* part, void* out, void* stream) {
-  return launch<float>(q, k, v, kv_len, table, B, H, G, dh, ps, W, splits,
-                       part, out, stream);
+  return launch<float, float>(q, k, nullptr, v, nullptr, kv_len, table, B, H,
+                              G, dh, ps, W, splits, part, out, stream);
 }
 
 extern "C" int decode_attention_paged_bf16(const void* q, const void* k,
@@ -269,6 +308,27 @@ extern "C" int decode_attention_paged_bf16(const void* q, const void* k,
                                            const void* table, int B, int H, int G,
                                            int dh, int ps, int W, int splits,
                                            void* part, void* out, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, kv_len, table, B, H, G, dh, ps, W,
-                               splits, part, out, stream);
+  return launch<__nv_bfloat16, __nv_bfloat16>(q, k, nullptr, v, nullptr,
+                                              kv_len, table, B, H, G, dh, ps,
+                                              W, splits, part, out, stream);
+}
+
+// int8 pool: k, v [P, ps, G, dh] int8; k_scale, v_scale [P, ps, G] f32
+extern "C" int decode_attention_paged_q8_f32(
+    const void* q, const void* k, const void* k_scale, const void* v,
+    const void* v_scale, const void* kv_len, const void* table, int B, int H,
+    int G, int dh, int ps, int W, int splits, void* part, void* out,
+    void* stream) {
+  return launch<float, int8_t>(q, k, k_scale, v, v_scale, kv_len, table, B, H,
+                               G, dh, ps, W, splits, part, out, stream);
+}
+
+extern "C" int decode_attention_paged_q8_bf16(
+    const void* q, const void* k, const void* k_scale, const void* v,
+    const void* v_scale, const void* kv_len, const void* table, int B, int H,
+    int G, int dh, int ps, int W, int splits, void* part, void* out,
+    void* stream) {
+  return launch<__nv_bfloat16, int8_t>(q, k, k_scale, v, v_scale, kv_len,
+                                       table, B, H, G, dh, ps, W, splits, part,
+                                       out, stream);
 }

@@ -1,13 +1,15 @@
 // Shared by the two split flash-decode kernels (decode_attention.cu over a
-// contiguous cache, decode_attention_paged.cu over a page pool): the loads
-// that read a ring tile's rows as f32, and the merge of the splits'
-// partials.
+// contiguous cache, decode_attention_paged.cu over a page pool), each in a
+// float cache and an int8 one: the loads that read a ring tile's rows as
+// f32, and the merge of the splits' partials.
 //
 // A split writes its partial of (b, g, split) as f32 at
 // part + ((b * G + g) * splits + split) * Hg * (dh + 2): the unnormalised
 // acc [Hg, dh], then the running max m [Hg], then the running sum l [Hg].
 // A split that held no position of its row writes l = 0.
 #pragma once
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -31,6 +33,17 @@ template <> __device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& u
   }
 }
 
+template <> __device__ __forceinline__ void unpack<int8_t>(const uint4& u,
+                                                        float* d) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      d[4 * j + i] = static_cast<float>(static_cast<signed char>(w[j] >> (8 * i)));
+  }
+}
+
 // two neighbouring values as f32
 template <typename T> __device__ __forceinline__ float2 load2(const T* p);
 template <> __device__ __forceinline__ float2 load2<float>(const float* p) {
@@ -39,6 +52,11 @@ template <> __device__ __forceinline__ float2 load2<float>(const float* p) {
 template <> __device__ __forceinline__ float2 load2<__nv_bfloat16>(
     const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+template <> __device__ __forceinline__ float2 load2<int8_t>(const int8_t* p) {
+  const char2 c = *reinterpret_cast<const char2*>(p);
+  return make_float2(static_cast<float>(c.x), static_cast<float>(c.y));
 }
 
 // One block per (g, b): out = sum_s acc_s w_s / max(sum_s l_s w_s, 1e-30)

@@ -23,7 +23,8 @@ import torch
 from repro_torch.kernels import build, ref
 
 KERNELS = ("kmeans_assign", "ecoscan", "scr_select", "decode_attention_paged",
-           "flash_prefill", "decode_attention", "scr_score", "pq_adc")
+           "flash_prefill", "decode_attention", "scr_score", "pq_adc",
+           "decode_attention_q8", "decode_attention_paged_q8")
 
 
 def _checked(*specs) -> torch.device:
@@ -218,6 +219,11 @@ def scr_select(q: torch.Tensor, data: torch.Tensor, lens: torch.Tensor,
 
 
 FLASH_PREFILL_DH = (32, 64, 80, 128)
+# keys per tile of flash_prefill: 64 on the bf16 tensor-core route
+# (csrc/flash_prefill.cu `kBK`), 32 on the f32 route (`kTK`). Keys that
+# start at a multiple of it split into the same tiles, summed in the same
+# order, as keys that start at position 0
+FLASH_KEY_TILE = 64
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -275,15 +281,29 @@ def decode_split_plan(B: int, G: int, S: int) -> int:
     return max(1, min(want, tiles // 2))
 
 
-def decode_smem_bytes(Hg: int, dh: int, esz: int) -> int:
+def decode_smem_bytes(Hg: int, dh: int, esz: int, q8: bool = False) -> int:
     """Shared memory of a `decode_attention` or `decode_attention_paged`
     block (both kernels' kTile is DECODE_TILE): the two-stage K and V
     rings [2, DECODE_TILE, dh + 16/esz] in the cache's type (esz bytes an
     element), then in f32 the group's queries [Hg, dh], a tile's scores
-    [Hg, DECODE_TILE] and the running max, sum and correction [Hg]."""
+    [Hg, DECODE_TILE], the running max, sum and correction [Hg], and for
+    an int8 cache (`q8`) the K and V scale rings [2, DECODE_TILE]."""
     row = dh + 16 // esz
     return (4 * DECODE_TILE * row * esz
-            + (Hg * dh + Hg * DECODE_TILE + 3 * Hg) * 4)
+            + (Hg * dh + Hg * DECODE_TILE + 3 * Hg
+               + (4 * DECODE_TILE if q8 else 0)) * 4)
+
+
+def _decode_limits(name: str, Hg: int, dh: int, esz: int, q8: bool) -> None:
+    """Raise unless a decode kernel takes this grouping: Hg <= 16, Hg*dh
+    <= 2048, dh a multiple of 16 bytes' worth of the cache type, and the
+    block's shared memory within 227 KB."""
+    if (Hg > 16 or Hg * dh > 2048 or dh % (16 // esz) or dh % 8
+            or decode_smem_bytes(Hg, dh, esz, q8) > 227 * 1024):
+        raise ValueError(f"{name}: Hg={Hg}, dh={dh} outside the kernel's "
+                         "limits (Hg <= 16, Hg*dh <= 2048, dh a multiple of "
+                         "8 and of a 16-byte row load, 227 KB of shared "
+                         "memory)")
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -311,11 +331,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dev.type == "cpu":
         return ref.decode_attention(q, k, v, kv_len, ring=ring)
     Hg = H // G
+    _decode_limits("decode_attention", Hg, dh, q.element_size(), False)
     smem = decode_smem_bytes(Hg, dh, q.element_size())
-    if Hg > 16 or Hg * dh > 2048 or dh % 8 or smem > 227 * 1024:
-        raise ValueError(f"decode_attention: Hg={Hg}, dh={dh} outside the "
-                         "kernel's limits (Hg <= 16, Hg*dh <= 2048, dh a "
-                         "multiple of 8, 227 KB of shared memory)")
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("decode_attention: k, v must be 16-byte aligned")
     if not isinstance(kv_len, torch.Tensor):
@@ -371,11 +388,7 @@ def decode_attention_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dev.type == "cpu":
         return ref.decode_attention_paged(q, k, v, kv_len, table)
     Hg = H // G
-    if (Hg > 16 or Hg * dh > 2048 or dh % 8
-            or decode_smem_bytes(Hg, dh, q.element_size()) > 227 * 1024):
-        raise ValueError(f"decode_attention_paged: Hg={Hg}, dh={dh} outside "
-                         "the kernel's limits (Hg <= 16, Hg*dh <= 2048, dh a "
-                         "multiple of 8, 227 KB of shared memory)")
+    _decode_limits("decode_attention_paged", Hg, dh, q.element_size(), False)
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("decode_attention_paged: k, v must be 16-byte "
                          "aligned")
@@ -392,6 +405,101 @@ def decode_attention_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  None if part is None else part.data_ptr(), out.data_ptr(),
                  _stream(dev)), "decode_attention_paged")
     decode_attention_paged.launches += 1
+    return out
+
+
+def decode_attention_q8(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
+                        vq: torch.Tensor, vs: torch.Tensor,
+                        kv_len: Union[int, torch.Tensor], ring: bool = False):
+    """int8-KV decode: q [B, H, dh] (f32 or bf16); kq, vq [B, S, G, dh]
+    int8; ks, vs [B, S, G] f32 scales; kv_len an int or an i32 [B] tensor;
+    `ring` as `decode_attention`. Returns [B, H, dh] in q's dtype
+    (`ref.decode_attention_q8`). On the card the kernel reads the int8
+    cache and the scales directly, split as `decode_attention` is
+    (`decode_split_plan`), one launch counted per call."""
+    suffix = _attention_dtype(q)
+    specs = ((q, "q", q.dtype, 3), (kq, "kq", torch.int8, 4),
+             (ks, "ks", torch.float32, 3), (vq, "vq", torch.int8, 4),
+             (vs, "vs", torch.float32, 3))
+    if isinstance(kv_len, torch.Tensor):
+        specs += ((kv_len, "kv_len", torch.int32, 1),)
+    dev = _checked(*specs)
+    B, H, dh = q.shape
+    Bk, S, G, dhk = kq.shape
+    if (vq.shape != kq.shape or Bk != B or dhk != dh or G == 0 or H % G
+            or ks.shape != kq.shape[:3] or vs.shape != kq.shape[:3]):
+        raise ValueError(f"decode_attention_q8 shapes disagree: q "
+                         f"{tuple(q.shape)}, kq {tuple(kq.shape)}, ks "
+                         f"{tuple(ks.shape)}")
+    if isinstance(kv_len, torch.Tensor) and kv_len.shape[0] != B:
+        raise ValueError(f"kv_len: {kv_len.shape[0]} rows, q has {B}")
+    if dev.type == "cpu":
+        return ref.decode_attention_q8(q, kq, ks, vq, vs, kv_len, ring=ring)
+    _decode_limits("decode_attention_q8", H // G, dh, 1, True)
+    if kq.data_ptr() % 16 or vq.data_ptr() % 16:
+        raise ValueError("decode_attention_q8: kq, vq must be 16-byte "
+                         "aligned")
+    if not isinstance(kv_len, torch.Tensor):
+        kv_len = torch.full((B,), int(kv_len), dtype=torch.int32, device=dev)
+    out = torch.empty_like(q)
+    if B == 0 or S == 0:
+        return out
+    splits = decode_split_plan(B, G, S)
+    part = torch.empty(B * G * splits * (H // G) * (dh + 2),
+                       dtype=torch.float32, device=dev) if splits > 1 else None
+    # over S positions, ring's min(kv_len, S) is the same mask as kv_len
+    fn = build.entry("decode_attention_q8_" + suffix)
+    _raise_on(fn(q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
+                 vs.data_ptr(), kv_len.data_ptr(), B, S, H, G, dh,
+                 1.0 / math.sqrt(dh), splits,
+                 decode_smem_bytes(H // G, dh, 1, True),
+                 None if part is None else part.data_ptr(), out.data_ptr(),
+                 _stream(dev)), "decode_attention_q8")
+    decode_attention_q8.launches += 1
+    return out
+
+
+def decode_attention_paged_q8(q: torch.Tensor, kq: torch.Tensor,
+                              ks: torch.Tensor, vq: torch.Tensor,
+                              vs: torch.Tensor, kv_len: torch.Tensor,
+                              table: torch.Tensor):
+    """int8-KV paged decode: q [B, H, dh] (f32 or bf16); kq, vq [P, ps, G,
+    dh] int8 and ks, vs [P, ps, G] f32, one layer of the int8 page pool;
+    kv_len [B] i32; table [B, W] i32 valid page ids. Returns [B, H, dh]
+    in q's dtype (`ref.decode_attention_paged_q8`). On the card the kernel
+    reads the int8 pages and their scales through the table, split as
+    `decode_attention_paged` is, one launch counted per call."""
+    suffix = _attention_dtype(q)
+    dev = _checked((q, "q", q.dtype, 3), (kq, "kq", torch.int8, 4),
+                   (ks, "ks", torch.float32, 3), (vq, "vq", torch.int8, 4),
+                   (vs, "vs", torch.float32, 3),
+                   (kv_len, "kv_len", torch.int32, 1),
+                   (table, "table", torch.int32, 2))
+    B, H, dh = q.shape
+    P, ps, G, dh2 = kq.shape
+    W = table.shape[1]
+    if (vq.shape != kq.shape or dh2 != dh or G == 0 or H % G
+            or ks.shape != kq.shape[:3] or vs.shape != kq.shape[:3]
+            or kv_len.shape[0] != B or table.shape[0] != B):
+        raise ValueError("decode_attention_paged_q8 shapes disagree")
+    if dev.type == "cpu":
+        return ref.decode_attention_paged_q8(q, kq, ks, vq, vs, kv_len, table)
+    _decode_limits("decode_attention_paged_q8", H // G, dh, 1, True)
+    if kq.data_ptr() % 16 or vq.data_ptr() % 16:
+        raise ValueError("decode_attention_paged_q8: kq, vq must be 16-byte "
+                         "aligned")
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    splits = decode_paged_split_plan(B, G, W, ps)
+    part = torch.empty(B * G * splits * (H // G) * (dh + 2),
+                       dtype=torch.float32, device=dev) if splits > 1 else None
+    fn = build.entry("decode_attention_paged_q8_" + suffix)
+    _raise_on(fn(q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
+                 vs.data_ptr(), kv_len.data_ptr(), table.data_ptr(), B, H, G,
+                 dh, ps, W, splits, None if part is None else part.data_ptr(),
+                 out.data_ptr(), _stream(dev)), "decode_attention_paged_q8")
+    decode_attention_paged_q8.launches += 1
     return out
 
 

@@ -390,13 +390,14 @@ def decode_paged_split_ranges(W: int, splits: int):
 
 
 def _gather_pages(k, table):
-    """k [P, ps, G, dh] through table [B, W] -> each row's logical
-    [B, W*ps, G, dh] (entry w backs positions [w*ps, (w+1)*ps))."""
-    P, ps, G, dh = k.shape
+    """k [P, ps, ...] (values [P, ps, G, dh] or scales [P, ps, G]) through
+    table [B, W] -> each row's logical [B, W*ps, ...] (entry w backs
+    positions [w*ps, (w+1)*ps))."""
+    P, ps = k.shape[:2]
     W = table.shape[1]
     j = torch.arange(W * ps, device=k.device)
     idx = table.long()[:, j // ps] * ps + (j % ps)              # [B, W*ps]
-    return k.reshape(P * ps, G, dh)[idx]
+    return k.reshape((P * ps,) + k.shape[2:])[idx]
 
 
 def decode_attention_paged_split(q, k, v, kv_len, table, splits: int):
@@ -426,3 +427,37 @@ def decode_attention_paged(q, k, v, kv_len, table):
     and attends as `decode_attention` does. Returns [B, H, dh]."""
     return decode_attention(q, _gather_pages(k, table),
                             _gather_pages(v, table), kv_len)
+
+
+def decode_attention_q8(q, kq, ks, vq, vs, kv_len, ring: bool = False):
+    """int8-KV decode attention (`repro.models.layers.decode_attention_q8`).
+    q [B, H, dh]; kq, vq [B, S, G, dh] int8; ks, vs [B, S, G] f32 scales;
+    kv_len an int or a [B] tensor; `ring` as `decode_attention`. The
+    scales commute through the products: scores (q . kq) * 1/sqrt(dh) in
+    f32 times ks; after the softmax the probabilities times vs, rounded
+    to q's type, then the product with vq. Returns [B, H, dh] in q's
+    dtype."""
+    B, H, dh = q.shape
+    S, G = kq.shape[1], kq.shape[2]
+    lens = torch.as_tensor(kv_len, device=q.device).long().reshape(-1)
+    lens = lens.expand(B)
+    if ring:
+        lens = lens.clamp(max=S)
+    qg = q.float().reshape(B, G, H // G, dh)
+    s = torch.einsum("bgnd,bsgd->bgns", qg, kq.float()) * (1.0 / math.sqrt(dh))
+    s = s * ks.float().permute(0, 2, 1)[:, :, None, :]
+    mask = torch.arange(S, device=q.device)[None, :] < lens[:, None]
+    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, MASK))
+    p = torch.softmax(s, dim=-1) * vs.float().permute(0, 2, 1)[:, :, None, :]
+    o = torch.einsum("bgns,bsgd->bgnd", p.to(q.dtype).float(), vq.float())
+    return o.reshape(B, H, dh).to(q.dtype)
+
+
+def decode_attention_paged_q8(q, kq, ks, vq, vs, kv_len, table):
+    """`decode_attention_q8` over an int8 page pool: kq, vq [P, ps, G, dh]
+    int8 and ks, vs [P, ps, G] f32 (one layer), read through table [B, W]
+    (entry w backs positions [w*ps, (w+1)*ps)); kv_len [B]."""
+    return decode_attention_q8(q, _gather_pages(kq, table),
+                               _gather_pages(ks, table),
+                               _gather_pages(vq, table),
+                               _gather_pages(vs, table), kv_len)

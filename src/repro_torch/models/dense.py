@@ -1,5 +1,5 @@
 """Dense decoder LM (the port of `repro.models.dense` for causal RoPE
-SwiGLU configs, optionally with a sliding window; no int8 KV,
+SwiGLU configs, optionally with a sliding window and an int8 KV cache;
 tensor-parallel degree 1).
 
 `DenseLM` keeps the reference's parameter layout: per-layer weights are
@@ -10,13 +10,22 @@ Two serving paths, each attention on a kernel:
   and returns a contiguous cache [L, B, Sc, G, dh]; `decode_step` writes
   one position into it and runs `decode_attention`. A sliding-window
   cache is a ring of Sc = window slots: position p lives in slot p % Sc.
-- the paged path (no sliding window yet): `decode_step_paged` runs one
-  `decode_attention_paged` kernel per layer directly on that layer's page
-  pool (the reference gathers pages with jnp and calls
-  `layers.decode_attention`, the same function); `prefill_chunk_paged`
-  gathers the slot's logical buffer and runs `flash_prefill` with the
-  chunk's query offset and kv length.
+- the paged path: `decode_step_paged` runs one `decode_attention_paged`
+  kernel per layer directly on that layer's page pool (the reference
+  gathers pages with jnp and calls `layers.decode_attention`, the same
+  function); `prefill_chunk_paged` gathers the slot's history in
+  position order, appends the chunk and runs `flash_prefill` with the
+  chunk's query offset and kv length. A sliding-window slot is a ring
+  of `ring_len` positions over its pages: position p at ring cursor
+  p % ring_len (a slot without a window is a ring that never wraps).
 
+With `kv_quant` the caches and pools hold int8 values and f32 scales per
+position and kv head ({"k", "k_s", "v", "v_s"}): prefill and chunks
+attend `dequantize_kv(quantize_kv(k))`, the values decode reads back, and
+decode runs the int8 kernels `decode_attention_q8` and
+`decode_attention_paged_q8` on the int8 bytes and the scales.
+
+`MoELM` (models/moe.py) shares all of this and replaces the FFN.
 Caches and page pools are updated in place.
 """
 from __future__ import annotations
@@ -67,26 +76,68 @@ def cache_len(cfg: ModelConfig, seq_len: int) -> int:
     return seq_len
 
 
-def init_cache(cfg: ModelConfig, b: int, seq_len: int, device="cuda"
-               ) -> Dict[str, torch.Tensor]:
-    """Contiguous wave KV cache in the model's dtype: {"k", "v"} of
-    [L, b, cache_len(cfg, seq_len), G, dh]."""
-    shape = (cfg.num_layers, b, cache_len(cfg, seq_len), cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+def _kv_planes(cfg: ModelConfig, shape, device) -> Dict[str, torch.Tensor]:
+    """Zeroed K/V planes of `shape` [..., G, dh]: in the model's dtype,
+    or with `kv_quant` int8 values plus f32 scales [..., G] ("k_s",
+    "v_s")."""
     dev = resolve_device(device)
+    if cfg.kv_quant:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "k_s": torch.zeros(shape[:-1], device=dev),
+                "v_s": torch.zeros(shape[:-1], device=dev)}
     return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)}
+
+
+def init_cache(cfg: ModelConfig, b: int, seq_len: int, device="cuda"
+               ) -> Dict[str, torch.Tensor]:
+    """Contiguous wave KV cache: {"k", "v"} of [L, b, cache_len(cfg,
+    seq_len), G, dh] (+ "k_s", "v_s" [L, b, Sc, G] with `kv_quant`)."""
+    return _kv_planes(cfg, (cfg.num_layers, b, cache_len(cfg, seq_len),
+                            cfg.num_kv_heads, cfg.resolved_head_dim), device)
 
 
 def init_page_pool(cfg: ModelConfig, num_pages: int, page_size: int,
                    device="cuda") -> Dict[str, torch.Tensor]:
-    """Block-table KV pool in the model's dtype: {"k", "v"} of
-    [L, num_pages, page_size, G, dh]."""
-    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    dev = resolve_device(device)
-    return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)}
+    """Block-table KV pool: {"k", "v"} of [L, num_pages, page_size, G, dh]
+    (+ "k_s", "v_s" [L, num_pages, page_size, G] with `kv_quant`)."""
+    return _kv_planes(cfg, (cfg.num_layers, num_pages, page_size,
+                            cfg.num_kv_heads, cfg.resolved_head_dim), device)
+
+
+def chunk_rows(row, offset: int, c: int, limit: int, page_size: int,
+               ring_len: int = 0):
+    """Where a [C]-token prompt chunk at positions [offset, offset + C)
+    reads and writes the slot whose page-table row is `row` ([W] int32).
+    Position p lives at cursor p % ring_len of a sliding-window ring, at
+    cursor p without one (a ring of W * page_size that never wraps).
+    Returns (lo, gather, (page, offset)): the history is positions
+    [lo, offset), their flat pool rows `gather` (page * page_size +
+    offset) in position order; the chunk's real tokens (p < limit, and
+    p < W * page_size without a ring) are written at (page, offset).
+    lo is max(0, offset - ring) rounded down to flash_prefill's key tile
+    (`ops.FLASH_KEY_TILE`): the history holds every query's window (the
+    positions the rounding adds lie outside it, masked), attention
+    depends on positions only through their differences, and the keys
+    fall into the tiles they fill at absolute positions, as in the wave
+    path's full prefill. The chunk attends [lo, offset + C) at query
+    offset offset - lo."""
+    ps = page_size
+    ring = ring_len or row.shape[0] * ps
+    end = limit if ring_len else min(limit, ring)
+    dev = row.device
+    rowl = row.long()
+    lo = max(0, offset - ring) // ops.FLASH_KEY_TILE * ops.FLASH_KEY_TILE
+    hist = torch.arange(lo, offset, device=dev) % ring
+    lw = torch.arange(offset, max(offset, min(offset + c, end)),
+                      device=dev) % ring
+    return lo, rowl[hist // ps] * ps + hist % ps, (rowl[lw // ps], lw % ps)
+
+
+def _fake_quant(t):
+    """The values an int8 cache hands back for t."""
+    return L.dequantize_kv(*L.quantize_kv(t), t.dtype)
 
 
 class DenseLM(nn.Module):
@@ -94,14 +145,20 @@ class DenseLM(nn.Module):
     `param_shapes` layout) loads given weights; without it the weights
     are random from `seed`, drawn on the device."""
 
+    FAMILY = "dense"
+    shapes = staticmethod(param_shapes)
+
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0,
                  params: Optional[Dict[str, torch.Tensor]] = None):
         super().__init__()
+        if cfg.family != self.FAMILY:
+            raise ValueError(f"{cfg.name}: family {cfg.family!r}, not "
+                             f"{self.FAMILY!r} (models.model.build_model)")
         self.cfg = cfg
         dev = resolve_device(device)
         dtype = cfg.torch_dtype
         gen = torch.Generator(device=dev).manual_seed(seed)
-        for name, (shape, init) in param_shapes(cfg).items():
+        for name, (shape, init) in self.shapes(cfg).items():
             if params is not None:
                 t = params[name]
                 if tuple(t.shape) != shape:
@@ -138,6 +195,7 @@ class DenseLM(nn.Module):
         return q, k, v.reshape(b, s, cfg.num_kv_heads, hd)
 
     def _mlp_residual(self, i: int, x):
+        """x + the layer's FFN (SwiGLU) of rmsnorm(x)."""
         y = L.rmsnorm(x, self.mlp_norm[i], self.cfg.norm_eps)
         return x + L.mlp(y, self.w1[i], self.w2[i], self.w3[i])
 
@@ -153,7 +211,9 @@ class DenseLM(nn.Module):
         int. Returns (last-position logits [B, V], the K/V cache
         `init_cache(cfg, B, S)` filled): position p in slot p, or, when
         S exceeds the sliding window, the last Sc positions rolled by
-        S % Sc so that position p lives in ring slot p % Sc."""
+        S % Sc so that position p lives in ring slot p % Sc. With
+        `kv_quant` attention reads the fake-quantized k/v and the cache
+        holds their int8 values and scales."""
         cfg = self.cfg
         b, S = tokens.shape
         positions = torch.arange(S, device=tokens.device)[None].expand(b, S)
@@ -163,9 +223,11 @@ class DenseLM(nn.Module):
         for i in range(cfg.num_layers):
             y = L.rmsnorm(x, self.attn_norm[i], cfg.norm_eps)
             q, k, v = self._qkv(i, y, positions)
-            for name, t in (("k", k), ("v", v)):
-                cache[name][i] = (t if sc == S else
-                                  torch.roll(t[:, S - sc:], S % sc, dims=1))
+            self._write_kv(cache, i, (), *(
+                t if sc == S else torch.roll(t[:, S - sc:], S % sc, dims=1)
+                for t in (k, v)))
+            if cfg.kv_quant:
+                k, v = _fake_quant(k), _fake_quant(v)
             ctx = ops.flash_prefill(q, k, v, causal=True,
                                     window=cfg.sliding_window)
             x = x + ctx.reshape(b, S, -1) @ self.wo[i]
@@ -178,8 +240,9 @@ class DenseLM(nn.Module):
         """One decode position for every row of a wave. token [B, 1] int;
         pos: the position written (shared by the rows). K/V go into slot
         pos, or pos % Sc of a sliding-window ring, of the [L, B, Sc, G,
-        dh] `cache` (in place); attention covers pos + 1 positions
-        (min(pos + 1, Sc) on a ring). Returns logits [B, V]."""
+        dh] `cache` (in place; int8 values and scales with `kv_quant`,
+        attended by `decode_attention_q8`); attention covers pos + 1
+        positions (min(pos + 1, Sc) on a ring). Returns logits [B, V]."""
         cfg = self.cfg
         b = token.shape[0]
         ring = cfg.sliding_window is not None
@@ -191,10 +254,15 @@ class DenseLM(nn.Module):
         for i in range(cfg.num_layers):
             y = L.rmsnorm(x, self.attn_norm[i], cfg.norm_eps)
             q, k, v = self._qkv(i, y, positions)
+            self._write_kv(cache, i, (slice(None), slot), k[:, 0], v[:, 0])
             ck, cv = cache["k"][i], cache["v"][i]
-            ck[:, slot] = k[:, 0]
-            cv[:, slot] = v[:, 0]
-            ctx = ops.decode_attention(q[:, 0], ck, cv, kv_len, ring=ring)
+            if cfg.kv_quant:
+                ctx = ops.decode_attention_q8(
+                    q[:, 0], ck, cache["k_s"][i], cv, cache["v_s"][i],
+                    kv_len, ring=ring)
+            else:
+                ctx = ops.decode_attention(q[:, 0], ck, cv, kv_len,
+                                           ring=ring)
             x = x + ctx.reshape(b, 1, -1) @ self.wo[i]
             x = self._mlp_residual(i, x)
         x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
@@ -202,80 +270,107 @@ class DenseLM(nn.Module):
 
     # ------------------------------------------------------------ paged
 
-    def _check_paged(self) -> None:
-        if self.cfg.sliding_window:
-            raise NotImplementedError(
-                "the paged path of a sliding-window config (ring pages) is "
-                "not ported (ROADMAP.md Queue A: SWA ring pages); use the "
-                "wave Engine with continuous=False")
-
     @torch.no_grad()
     def decode_step_paged(self, cache, token, pos, active, table, *,
-                          page_size: int):
+                          page_size: int, ring_len: int = 0):
         """One decode step for every slot. token [B, 1] int; pos [B] int
         (each slot's write position == its kv length); active [B] bool
         (only active slots write K/V); table [B, W] int32 page ids (tail
-        entries past kv_len are masked). Returns logits [B, V]; `cache`
-        is updated in place."""
-        self._check_paged()
+        entries past kv_len are masked). `ring_len` > 0 marks
+        sliding-window rings: position p is written at ring cursor
+        p % ring_len and a row attends min(pos + 1, ring_len) positions,
+        every filled cursor (RoPE is in the stored keys, so the order in
+        the ring does not matter). Returns logits [B, V]; `cache` is
+        updated in place."""
         cfg = self.cfg
         ps = page_size
         b = token.shape[0]
         pos = pos.long()
         rows = torch.nonzero(active)[:, 0]
         wpos = pos[rows]
+        if ring_len:
+            wpos = wpos % ring_len
         pg = table[rows, wpos // ps].long()
         off = wpos % ps
-        lens = (pos + 1).to(torch.int32)
+        lens = (pos + 1).clamp(max=ring_len) if ring_len else pos + 1
+        lens = lens.to(torch.int32)
         table = table.to(torch.int32).contiguous()
         x = self._embed(token)
         for i in range(cfg.num_layers):
             y = L.rmsnorm(x, self.attn_norm[i], cfg.norm_eps)
             q, k, v = self._qkv(i, y, pos[:, None])
+            self._write_kv(cache, i, (pg, off), k[rows, 0], v[rows, 0])
             ck, cv = cache["k"][i], cache["v"][i]
-            ck[pg, off] = k[rows, 0].to(ck.dtype)
-            cv[pg, off] = v[rows, 0].to(cv.dtype)
-            ctx = ops.decode_attention_paged(q[:, 0].contiguous(), ck, cv,
-                                             lens, table)
+            qd = q[:, 0].contiguous()
+            if cfg.kv_quant:
+                ctx = ops.decode_attention_paged_q8(
+                    qd, ck, cache["k_s"][i], cv, cache["v_s"][i], lens, table)
+            else:
+                ctx = ops.decode_attention_paged(qd, ck, cv, lens, table)
             x = x + ctx.to(x.dtype).reshape(b, 1, -1) @ self.wo[i]
             x = self._mlp_residual(i, x)
         x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
         return self.logits_from_hidden(x)[:, 0]
 
+    def _gather_slot(self, cache, i: int, gather, dtype):
+        """Layer i's K and V at the pool rows `gather` ([n] flat page *
+        ps + offset), in `dtype` (dequantized from an int8 pool)."""
+        out = []
+        for name in ("k", "v"):
+            c = cache[name][i]
+            flat = c.reshape((-1,) + c.shape[2:])[gather]
+            if self.cfg.kv_quant:
+                s = cache[name + "_s"][i]
+                flat = L.dequantize_kv(flat, s.reshape((-1,) + s.shape[2:])[
+                    gather], dtype)
+            out.append(flat.to(dtype))
+        return out
+
+    def _write_kv(self, cache, i: int, idx, k, v) -> None:
+        """Write k, v [..., G, dh] into layer i of a cache or pool at index
+        `idx` (a tuple over its leading axes; () for all of it): their
+        int8 values and scales with `kv_quant`."""
+        for name, t in (("k", k), ("v", v)):
+            c = cache[name][i]
+            if self.cfg.kv_quant:
+                c[idx], cache[name + "_s"][i][idx] = L.quantize_kv(t)
+            else:
+                c[idx] = t.to(c.dtype)
+
     @torch.no_grad()
-    def prefill_chunk_paged(self, cache, tokens, row, offset: int, *,
-                            page_size: int):
+    def prefill_chunk_paged(self, cache, tokens, row, offset: int,
+                            limit: Optional[int] = None, *, page_size: int,
+                            ring_len: int = 0):
         """One [1, C] prompt chunk at logical positions [offset, offset+C)
-        of the slot whose page-table row is `row` ([W] int32). Its K/V
-        scatter through the row (positions past the mapped width are
-        dropped); its queries attend the gathered logical buffer causally
-        up to offset + C through `flash_prefill`. Returns chunk logits
-        [1, C, V]; `cache` is updated in place."""
-        self._check_paged()
+        of the slot whose page-table row is `row` ([W] int32); `limit`:
+        offset + the chunk's real token count (offset + C when None).
+        The slot's history (`chunk_rows`), read before this chunk's
+        writes, with the chunk appended, goes to `flash_prefill` with the
+        window; its queries attend causally up to offset + C. Only the
+        real tokens (p < limit) are written, at ring cursors
+        p % ring_len, so a ragged last chunk's padding evicts nothing
+        another query's window still needs. With `kv_quant` the history
+        is dequantized and the chunk's own K/V fake-quantized. Returns
+        chunk logits [1, C, V]; `cache` is updated in place."""
         cfg = self.cfg
-        ps = page_size
         c = tokens.shape[1]
-        dev = tokens.device
-        W = row.shape[0]
-        positions = offset + torch.arange(c, device=dev)[None, :]
-        n_keep = max(0, min(c, W * ps - offset))
-        p_keep = offset + torch.arange(n_keep, device=dev)
-        dst_pg = row[p_keep // ps].long()
-        dst_off = p_keep % ps
-        j = torch.arange(W * ps, device=dev)
-        gather = row.long()[j // ps] * ps + (j % ps)           # [W*ps]
+        limit = offset + c if limit is None else limit
+        lo, gather, dst = chunk_rows(row, offset, c, limit, page_size,
+                                     ring_len)
+        n_keep = dst[0].numel()
+        positions = offset + torch.arange(c, device=tokens.device)[None, :]
         x = self._embed(tokens)
         for i in range(cfg.num_layers):
             y = L.rmsnorm(x, self.attn_norm[i], cfg.norm_eps)
             q, k, v = self._qkv(i, y, positions)
-            ck, cv = cache["k"][i], cache["v"][i]
-            ck[dst_pg, dst_off] = k[0, :n_keep].to(ck.dtype)
-            cv[dst_pg, dst_off] = v[0, :n_keep].to(cv.dtype)
-            P = ck.shape[0]
-            kslot = ck.reshape((P * ps,) + ck.shape[2:])[gather][None]
-            vslot = cv.reshape((P * ps,) + cv.shape[2:])[gather][None]
-            ctx = ops.flash_prefill(q, kslot, vslot, causal=True,
-                                    q_offset=offset, kv_len=offset + c)
+            kh, vh = self._gather_slot(cache, i, gather, k.dtype)
+            kc, vc = ((_fake_quant(k[0]), _fake_quant(v[0])) if cfg.kv_quant
+                      else (k[0], v[0]))
+            self._write_kv(cache, i, dst, k[0, :n_keep], v[0, :n_keep])
+            ctx = ops.flash_prefill(
+                q, torch.cat([kh, kc])[None], torch.cat([vh, vc])[None],
+                causal=True, window=cfg.sliding_window, q_offset=offset - lo,
+                kv_len=offset + c - lo)
             x = x + ctx.reshape(1, c, -1) @ self.wo[i]
             x = self._mlp_residual(i, x)
         x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)

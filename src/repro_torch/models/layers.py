@@ -1,8 +1,10 @@
 """Model building blocks in plain PyTorch (the port of the parts of
-`repro.models.layers` that the dense model runs): rmsnorm in the
-`(1 + scale)` form, RoPE and the SwiGLU MLP. Shapes follow the reference:
+`repro.models.layers` that the dense and MoE models run): rmsnorm in the
+`(1 + scale)` form, RoPE, the SwiGLU MLP and the int8 KV quantization.
+Shapes follow the reference:
 activations [B, S, H, dh]. Attention is a kernel (`kernels/ops.py`:
-`flash_prefill`, `decode_attention`, `decode_attention_paged`); its plain
+`flash_prefill`, `decode_attention`, `decode_attention_paged` and the
+int8 `decode_attention_q8`, `decode_attention_paged_q8`); its plain
 version, the port of `layers.attention` with a window, is
 `kernels/ref.py` `flash_prefill`.
 """
@@ -38,3 +40,20 @@ def apply_rope(x, positions, theta=10000.0):
 def mlp(x, w1, w2, w3):
     """SwiGLU: silu(x @ w1) * (x @ w3) @ w2."""
     return (F.silu(x @ w1) * (x @ w3)) @ w2
+
+
+def quantize_kv(x):
+    """[.., S, G, dh] -> (int8 values, f32 scales [.., S, G]): a scale
+    per position and kv head, max|x| / 127 in f32 clamped to 1e-10, and
+    values round(x / s) half to even, bit for bit the reference's."""
+    xf = x.float()
+    s = (xf.abs().amax(-1) / 127.0).clamp(min=1e-10)
+    return torch.round(xf / s[..., None]).to(torch.int8), s
+
+
+def dequantize_kv(q, s, dtype=torch.bfloat16):
+    """Inverse of `quantize_kv`: int8 values [.., S, G, dh] x scales
+    [.., S, G] -> dtype, (q.f32 * s).to(dtype). This is the value every
+    int8-KV path attends: the wave prefill, the chunked paged prefill and
+    the scales of the int8 decode kernels."""
+    return (q.float() * s[..., None].float()).to(dtype)

@@ -1,19 +1,23 @@
 """Generation engines (the port of `repro.serving.engine`, greedy
 decoding): `ContinuousEngine`, continuous batching over a block-table
 paged KV pool, and `Engine`, the length-bucketed wave path that is its
-`continuous=False` parity baseline and the path of sliding-window
-configs.
+`continuous=False` parity baseline.
 
 One global page pool [L, num_pages, page_size, G, dh] holds every slot's
-K/V; each slot maps an ordered list of pages through its [W] page-table
-row. `submit()` queues a request; each `step()` admits queued prompts
-into free slots, advances every admitting slot by one prefill chunk, and
-runs one decode step over all decoding slots. Prompts whose prefix is
-cached map the shared pages read-only and copy-on-write fork at most one
-partially matching page (serving/pager.py). The host-side control flow
-is the reference's, line for line, so the same requests get the same
-slots, pages and chunk boundaries; the device work goes through
-`DenseLM` and its `flash_prefill` and `decode_attention_paged` kernels.
+K/V (int8 values plus [L, num_pages, page_size, G] f32 scale planes for
+`kv_quant` configs); each slot maps an ordered list of pages through its
+[W] page-table row. `submit()` queues a request; each `step()` admits
+queued prompts into free slots, advances every admitting slot by one
+prefill chunk, and runs one decode step over all decoding slots. Prompts
+whose prefix is cached map the shared pages read-only and copy-on-write
+fork at most one partially matching page (serving/pager.py). A
+sliding-window config gives each slot a private ring of
+min(window, abs_len) positions over ceil(ring_len / page_size) pages,
+with no prefix cache. The host-side control flow is the reference's,
+line for line, so the same requests get the same slots, pages and chunk
+boundaries; the device work goes through the model (`DenseLM` or
+`MoELM`) and its `flash_prefill` and `decode_attention_paged` kernels
+(`decode_attention_paged_q8` on an int8 pool).
 
 Sampled decoding is not ported: the reference draws from threefry
 streams that PyTorch cannot reproduce, so `submit(greedy=False)` raises.
@@ -31,6 +35,7 @@ import torch
 
 from repro_torch.kernels.ref import first_argmax
 from repro_torch.models.dense import DenseLM, init_page_pool
+from repro_torch.models.model import supports_paged
 from repro_torch.serving.pager import PagePool, PoolStats, PrefixCache
 from repro_torch.serving.trace import TraceSink
 
@@ -77,7 +82,9 @@ class _Request:
 
 class ContinuousEngine:
     """Slot-level continuous batching over a block-table paged KV pool,
-    with prefix reuse and oversize shedding as in the reference."""
+    with prefix reuse and oversize shedding as in the reference. Raises
+    ValueError for a config the paged path does not cover
+    (`models.model.supports_paged`)."""
 
     # table width beyond ceil(max_len / page_size): a request slightly
     # over budget borrows transiently free pages instead of being shed
@@ -87,6 +94,10 @@ class ContinuousEngine:
                  max_len: int = 512, eos_id: int = 2,
                  prefill_chunk: int = 32, page_size: int = 32,
                  trace: Optional[TraceSink] = None):
+        if not supports_paged(model.cfg):
+            raise ValueError(
+                f"{model.cfg.name}: config without slot-paged KV support "
+                "(use Engine's wave path)")
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
@@ -97,12 +108,25 @@ class ContinuousEngine:
         self.page_size = page_size
         self.trace = trace
         self.trace_src = f"e{next(_ENGINE_SEQ)}"
-        self.table_width = -(-max_len // page_size) + self.OVERSIZE_PAGES
+        # max_len rounded up to whole chunks: the reference's
+        # absolute-position scratch of a ring's chunked prefill; a ring
+        # sheds a longer prompt, as the reference does
+        self.abs_len = -(-max_len // prefill_chunk) * prefill_chunk
+        if self.cfg.sliding_window:
+            # a private ring over the window per slot (the wave path's
+            # modulus); no prefix sharing
+            self.ring_len = min(self.cfg.sliding_window, self.abs_len)
+            self.table_width = -(-self.ring_len // page_size)
+        else:
+            self.ring_len = 0
+            self.table_width = (-(-max_len // page_size)
+                                + self.OVERSIZE_PAGES)
         self.num_pages = slots * self.table_width
         self.cache = init_page_pool(self.cfg, self.num_pages, page_size,
                                     device=self.device)
         self.pool = PagePool(self.num_pages)
-        self.prefix = PrefixCache(self.pool, page_size)
+        self.prefix: Optional[PrefixCache] = (
+            None if self.ring_len else PrefixCache(self.pool, page_size))
         # host page table + lazily refreshed device copy
         self._tbl = np.zeros((slots, self.table_width), np.int32)
         self._tbl_dev: Optional[torch.Tensor] = None
@@ -167,9 +191,9 @@ class ContinuousEngine:
         return len(self._inflight)
 
     def page_stats(self) -> PoolStats:
+        retained = self.prefix.retained_count() if self.prefix else 0
         return PoolStats(self.pool.num_pages, self.pool.free_count,
-                         int(self.pool.refs.sum()),
-                         self.prefix.retained_count())
+                         int(self.pool.refs.sum()), retained)
 
     # ------------------------------------------------------------- stepping
 
@@ -213,18 +237,28 @@ class ContinuousEngine:
         ps = self.page_size
         if plen == 0:
             return "shed"
-        need_total = -(-(plen + req.max_new) // ps)
-        if need_total > self.table_width:
-            return "shed"
-        m = self.prefix.match(req.prompt)
-        full, cow, matched = m.full, m.cow, m.matched
+        if self.ring_len:
+            # a ring wraps, so only the prefill scratch bounds the prompt;
+            # every slot maps a full table width of private pages
+            if plen > self.abs_len:
+                return "shed"
+            full: List[int] = []
+            cow = None
+            matched = 0
+            need_total = self.table_width
+        else:
+            need_total = -(-(plen + req.max_new) // ps)
+            if need_total > self.table_width:
+                return "shed"
+            m = self.prefix.match(req.prompt)
+            full, cow, matched = m.full, m.cow, m.matched
         # hold the matched pages across eviction/alloc
         for pid in full:
             self.pool.incref(pid)
         if cow:
             self.pool.incref(cow[0])
         fresh = self.pool.alloc(need_total - len(full))
-        while fresh is None and self.prefix.evict_one():
+        while fresh is None and self.prefix and self.prefix.evict_one():
             fresh = self.pool.alloc(need_total - len(full))
         if fresh is None:
             for pid in full:
@@ -298,13 +332,15 @@ class ContinuousEngine:
             logits = self.model.prefill_chunk_paged(
                 self.cache,
                 torch.tensor(chunk[None].astype(np.int64), device=self.device),
-                self._table_dev()[s], req.filled, page_size=self.page_size)
+                self._table_dev()[s], req.filled, req.filled + real,
+                page_size=self.page_size, ring_len=self.ring_len)
             req.filled += real
             self._emit("prefill_chunk", req.rid, ph="E")
             if req.filled >= len(req.prompt):
                 plen = len(req.prompt)
-                self.prefix.register(req.prompt,
-                                     req.pages[:-(-plen // self.page_size)])
+                if self.prefix is not None:
+                    self.prefix.register(
+                        req.prompt, req.pages[:-(-plen // self.page_size)])
                 tok = int(first_argmax(logits[0, real - 1].float()))
                 self.pos[s] = plen
                 self.last_tok[s] = tok
@@ -331,7 +367,7 @@ class ContinuousEngine:
             torch.tensor(self.last_tok[:, None].astype(np.int64), device=dev),
             torch.tensor(self.pos.astype(np.int64), device=dev),
             torch.tensor(self.active, device=dev), self._table_dev(),
-            page_size=self.page_size)
+            page_size=self.page_size, ring_len=self.ring_len)
         nxt = first_argmax(logits.float(), -1).cpu().numpy()
         dt = time.perf_counter() - t0
         self._emit("decode_step", ph="E")
@@ -383,13 +419,14 @@ class ContinuousEngine:
 
 
 class Engine:
-    """Serving engine over one `DenseLM`: `generate()` routes through a
-    shared `ContinuousEngine`, or through length-bucketed waves
-    (`generate_wave`) when asked with `continuous=False`. A wave prefills its equal-length prompts in one
-    full-sequence forward (`flash_prefill`) and decodes them together
-    over a contiguous cache (`decode_attention`); a sliding-window cache
-    is a ring of window slots. The paged path of sliding-window configs
-    is not ported, so they run waves only."""
+    """Serving engine over one model (`DenseLM` or `MoELM`): `generate()`
+    routes through a shared `ContinuousEngine` when the config supports
+    the paged path, or through length-bucketed waves (`generate_wave`)
+    when it does not or when asked with `continuous=False`. A wave
+    prefills its equal-length prompts in one full-sequence forward
+    (`flash_prefill`) and decodes them together over a contiguous cache
+    (`decode_attention`, or `decode_attention_q8` on an int8 cache); a
+    sliding-window cache is a ring of window slots."""
 
     def __init__(self, model: DenseLM, *, max_len: int = 512,
                  eos_id: int = 2, prefill_chunk: Optional[int] = None,
@@ -423,7 +460,8 @@ class Engine:
         """Prefill sizes the cache to the prompt; decode needs max_len,
         capped at the sliding window: growing a ring past its window
         would change the `pos % len` cursor modulus that the prefill roll
-        already baked into the layout."""
+        already baked into the layout. Every plane grows, the int8
+        cache's scales too."""
         target = self.max_len
         if self.cfg.sliding_window:
             target = min(target, self.cfg.sliding_window)
@@ -438,17 +476,15 @@ class Engine:
 
     def generate(self, prompts: List[np.ndarray], max_new: int = 32,
                  continuous: Optional[bool] = None) -> List[GenResult]:
-        """Greedy generation. `continuous` (None or True) takes the
-        continuous engine, as the reference does for every dense config;
-        `continuous=False` runs waves of equal-length prompts, shortest
-        first. Both give the same tokens. A sliding-window config raises
-        unless `continuous=False`."""
-        if continuous is None or continuous:
-            if self.cfg.sliding_window:
-                raise NotImplementedError(
-                    "continuous batching of a sliding-window config needs "
-                    "ring pages, not ported (ROADMAP.md Queue A: SWA ring "
-                    "pages); pass continuous=False")
+        """Greedy generation. `continuous=None` takes the continuous
+        engine when the config supports the paged path
+        (`models.model.supports_paged`: every config the port has), as
+        the reference routes; `continuous=False` runs waves of
+        equal-length prompts, shortest first. Both give the same
+        tokens."""
+        if continuous is None:
+            continuous = supports_paged(self.cfg)
+        if continuous:
             return self.continuous().generate(prompts, max_new=max_new)
         buckets: Dict[int, List[int]] = {}
         for i, p in enumerate(prompts):

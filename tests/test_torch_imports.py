@@ -25,17 +25,24 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 # the wave path and the second configuration; the legacy SCR path and
-# the baselines; the host index, its graphs and the paper's model
+# the baselines; the host index, its graphs and the paper's model; the
+# MoE family, the family registry and the MoE configuration
 for name in ("repro_torch.configs.h2o_danube_1_8b",
              "repro_torch.serving.engine", "repro_torch.models.dense",
              "repro_torch.core.scr", "repro_torch.core.pq",
              "repro_torch.core.baselines", "repro_torch.core.store",
              "repro_torch.data.synthetic", "repro_torch.core.hnsw",
-             "repro_torch.core.ecovector", "repro_torch.core.analytical"):
+             "repro_torch.core.ecovector", "repro_torch.core.analytical",
+             "repro_torch.models.moe", "repro_torch.models.model",
+             "repro_torch.configs.granite_moe_1b_a400m"):
     assert name in names, name
 from repro_torch.serving.engine import Engine
 from repro_torch.kernels.ops import (decode_attention, flash_prefill,
-                                     pq_adc, scr_score)
+                                     pq_adc, scr_score, decode_attention_q8,
+                                     decode_attention_paged_q8)
+from repro_torch.models.model import build_model, supports_paged
+from repro_torch.models.moe import MoELM
+from repro_torch.models.layers import quantize_kv, dequantize_kv
 from repro_torch.core.scr import apply_scr
 from repro_torch.core.baselines import ALL_BASELINES, make_index
 from repro_torch.core.ecovector import EcoVector
@@ -51,7 +58,7 @@ print(len(names))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 33
+    assert int(out.stdout.split()[-1]) >= 36
 
 
 def test_no_jax_or_repro_import_lines():

@@ -5,7 +5,8 @@ caches within 1e-5 of the reference's `model.prefill` / `decode_step`
 (for h2o an 80-token prompt, so the ring wraps in prefill and decode);
 greedy tokens of the wave `Engine` identical to the reference's; the
 port's wave tokens equal to its continuous engine's, whose chunked
-prefill runs `flash_prefill`; the routing of sliding-window configs; and
+prefill runs `flash_prefill`; sliding-window configs routed to the
+continuous engine (ring pages) by default; and
 `SLM.encode_prompt(bucket=True)` against `ReducedSLM.encode_prompt`.
 """
 import jax
@@ -120,24 +121,31 @@ def test_wave_equals_continuous_qwen():
         assert w.tokens == c.tokens, f"request {i} diverged"
 
 
-def test_sliding_window_routes_to_waves_only():
-    _, _, cfg, lm = _models("h2o_danube_1_8b", 0)
-    eng = Engine(lm, max_len=96)
-    prompts = _prompts(5, (12,))
-    for continuous in (None, True):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.generate(prompts, max_new=2, continuous=continuous)
-    assert len(eng.generate(prompts, max_new=2, continuous=False)[0].tokens)
-    pool = init_page_pool(cfg, 4, 8, device="cpu")
-    row = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        lm.prefill_chunk_paged(pool, torch.zeros(1, 8, dtype=torch.long), row,
-                               0, page_size=8)
-    with pytest.raises(NotImplementedError):
-        lm.decode_step_paged(pool, torch.zeros(1, 1, dtype=torch.long),
-                             torch.zeros(1, dtype=torch.long),
-                             torch.ones(1, dtype=torch.bool), row[None],
-                             page_size=8)
+def test_sliding_window_routes_to_continuous():
+    """`generate(continuous=None)` on the reduced h2o runs the continuous
+    engine over ring pages (the reference's routing) and gives the
+    reference's tokens; its paged steps take `ring_len` and `limit`."""
+    jcfg, jparams, cfg, lm = _models("h2o_danube_1_8b", 0)
+    prompts = _prompts(5, (12, 70, 33))
+    want = JEngine(jcfg, jparams, max_len=96, slots=2).generate(
+        prompts, max_new=4)
+    eng = Engine(lm, max_len=96, slots=2)
+    got = eng.generate(prompts, max_new=4)
+    ce = eng.continuous()
+    assert ce.steps > 0 and ce.ring_len == cfg.sliding_window
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.tokens == w.tokens, f"request {i} diverged"
+    pool = init_page_pool(cfg, 16, 8, device="cpu")
+    row = torch.arange(8, dtype=torch.int32)
+    logits = lm.prefill_chunk_paged(pool, torch.ones(1, 8, dtype=torch.long),
+                                    row, 0, 5, page_size=8, ring_len=64)
+    assert logits.shape == (1, 8, cfg.vocab_padded)
+    assert pool["k"][:, :, 5:].abs().sum() == 0     # padding never written
+    out = lm.decode_step_paged(pool, torch.ones(1, 1, dtype=torch.long),
+                               torch.tensor([5]), torch.ones(1,
+                                                             dtype=torch.bool),
+                               row[None], page_size=8, ring_len=64)
+    assert out.shape == (1, cfg.vocab_padded) and bool(out.isfinite().all())
 
 
 def test_encode_prompt_buckets_like_reference():

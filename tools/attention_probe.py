@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Tile-shape probe of the port's three attention kernels on one GPU:
-`python3 tools/attention_probe.py [--paged | --decode] [--src DIR]`
+`python3 tools/attention_probe.py [--paged | --decode | --q8] [--src DIR]`
 (`--paged` runs only the decode_attention_paged rows, `--decode` only
-the decode_attention rows; `--src` names the `src` directory whose
+the decode_attention rows, `--q8` only the int8 rows; `--src` names the
+`src` directory whose
 `repro_torch` is imported, so that a parent tree unpacked with git
 archive can be timed in the same call).
 
@@ -24,6 +25,14 @@ and 128 positions a ring stage (1, 2 and 4 pages of 32), held against
 shape (q [4, 14, 64] over a 72-page pool, 18-entry tables, kv_len 150-240)
 and at its long-cache shape (4 rows at kv_len 4,096 through 130-entry
 tables), beside SDPA on the gathered K/V.
+int8 (`--q8`): the wrappers of the two int8 decode kernels and of their
+bf16 siblings, in turns (bf16, int8, int8, bf16), on the same values
+(the int8 planes are `quantize_kv` of the bf16 K/V), at chip_smoke's
+path shapes: the qwen2.5 wave (q [16, 14, 64], K/V [16, 280, 2, 64],
+kv_len 136), h2o's ring (q [1, 32, 80], K/V [1, 4096, 8, 80], kv_len
+4609), the main path's pages (the shape above) and h2o's ring pages
+(q [2, 32, 80] over a 256-page pool through 128-entry tables, kv_len
+4,096); each held against its plain version (2e-2).
 
 Times: CUDA events over back-to-back calls (`call_ms`, host launch
 included) and torch.profiler's device time per call (`device_ms`, the
@@ -275,6 +284,59 @@ def paged_probe(variants, g):
                                   "device_ms": device_ms(call)}))
 
 
+def q8_probe(g):
+    from repro_torch.models import layers as L
+    wave = [("qwen wave", 16, 14, 280, 2, 64, 136, False),
+            ("h2o ring", 1, 32, 4096, 8, 80, 4609, True)]
+    cases = []
+    for label, B, H, S, G, dh, kv, ring in wave:
+        q = torch.randn(B, H, dh, generator=g, device="cuda").bfloat16()
+        k, v = (torch.randn(B, S, G, dh, generator=g, device="cuda"
+                            ).bfloat16() for _ in range(2))
+        lens = torch.full((B,), kv, dtype=torch.int32, device="cuda")
+        a8 = (*L.quantize_kv(k), *L.quantize_kv(v), lens)
+        cases.append((label, (
+            lambda q=q, k=k, v=v, lens=lens, ring=ring:
+                ops.decode_attention(q, k, v, lens, ring=ring),
+            lambda q=q, a8=a8, ring=ring:
+                ops.decode_attention_q8(q, *a8, ring=ring),
+            lambda q=q, a8=a8, ring=ring:
+                ref.decode_attention_q8(q, *a8, ring=ring))))
+    paged = [("main path", paged_inputs(g, 18, 72, [180, 210, 150, 240])),
+             ("h2o ring pages", h2o_ring_pages(g))]
+    for label, (q, kp, vp, lens, table) in paged:
+        a8 = (*L.quantize_kv(kp), *L.quantize_kv(vp), lens, table)
+        cases.append((label, (
+            lambda q=q, kp=kp, vp=vp, lens=lens, table=table:
+                ops.decode_attention_paged(q, kp, vp, lens, table),
+            lambda q=q, a8=a8: ops.decode_attention_paged_q8(q, *a8),
+            lambda q=q, a8=a8: ref.decode_attention_paged_q8(q, *a8))))
+    for label, (bf16, int8, plain) in cases:
+        want = plain().float()
+        err = (int8().float() - want).abs()
+        assert bool((err <= 2e-2 + 2e-2 * want.abs()).all()), label
+        row = {"q8": label, "max_abs_err": err.max().item()}
+        for turn, (name, fn) in enumerate(
+                (("bf16", bf16), ("int8", int8), ("int8", int8),
+                 ("bf16", bf16))):
+            row[f"{name} call_ms {turn}"] = call_ms(fn, 50)
+            row[f"{name} device_ms {turn}"] = device_ms(fn)
+        print(json.dumps(row))
+
+
+def h2o_ring_pages(g):
+    """Two rows of h2o's ring pages: q [2, 32, 80] over a 256-page bf16
+    pool of 32-position pages through 128-entry tables, kv_len 4,096."""
+    B, H, G, dh, ps, W = 2, 32, 8, 80, 32, 128
+    q = torch.randn(B, H, dh, generator=g, device="cuda").bfloat16()
+    kp, vp = (torch.randn(B * W, ps, G, dh, generator=g, device="cuda"
+                          ).bfloat16() for _ in range(2))
+    table = torch.randperm(B * W, generator=g, device="cuda").view(
+        B, W).to(torch.int32)
+    return q, kp, vp, torch.full((B,), W * ps, dtype=torch.int32,
+                                 device="cuda"), table
+
+
 def main() -> int:
     global build, ops, ref
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -282,6 +344,7 @@ def main() -> int:
     only = ap.add_mutually_exclusive_group()
     only.add_argument("--paged", action="store_true")
     only.add_argument("--decode", action="store_true")
+    only.add_argument("--q8", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("attention_probe: no CUDA device", file=sys.stderr)
@@ -294,6 +357,9 @@ def main() -> int:
     print(json.dumps({"src": args.src}))
     build.build_all()
     g = torch.Generator(device="cuda").manual_seed(0)
+    if args.q8:
+        q8_probe(g)
+        return 0
     if not (args.paged or args.decode):
         flash_probe(build_variants("flash_prefill", "flash_prefill_bf16",
                                    KNOBS), g)

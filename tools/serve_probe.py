@@ -1,0 +1,85 @@
+#!/usr/bin/env python3
+"""TTFT probe of the port's continuous engine on one GPU:
+`python3 tools/serve_probe.py [--src DIR] [--rounds N]`.
+
+Full-width qwen2.5-0.5B in bf16 (random weights from seed 0) on
+`ContinuousEngine` at the main path's settings (`serving/slm.py`: 4
+slots, 32-position pages, 32-token prefill chunks, max_len 280), 16
+prompts of random tokens with lengths drawn from a seed in [97, 256]
+(the main path's prompts run 100-256 tokens), max_new 16, greedy. One
+warm-up round, then `--rounds` rounds of the same requests, each
+printing TTFT p50 and max (each request's `prefill_s`), the round's wall
+seconds and the mean ms of one `prefill_chunk_paged` call (synchronized,
+the model's whole chunk: every layer). `--src` names the `src` directory
+whose `repro_torch` is imported (default: this checkout's), so that two
+trees, such as a parent commit unpacked with `git archive`, can be timed
+in turns on one card. Prints the card (`nvidia-smi` name and power
+limit), then one JSON line a round; exits 2 without a GPU.
+"""
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--rounds", type=int, default=3)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("serve_probe: no CUDA device", file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    sys.path.insert(0, args.src)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models.dense import DenseLM
+    from repro_torch.serving.engine import ContinuousEngine
+    build.build_all()
+    cfg = get_config("qwen25_0_5b")
+    lm = DenseLM(cfg, device="cuda", seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(4, cfg.vocab_size, n).astype(np.int32)
+               for n in rng.integers(97, 257, 16)]
+    chunk_s = []
+    chunk = lm.prefill_chunk_paged
+
+    def timed_chunk(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = chunk(*a, **k)
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+        return out
+    lm.prefill_chunk_paged = timed_chunk
+    eng = ContinuousEngine(lm, slots=4, max_len=280, eos_id=-1,
+                           prefill_chunk=32, page_size=32)
+    for r in range(args.rounds + 1):
+        chunk_s.clear()
+        t0 = time.perf_counter()
+        res = eng.generate(prompts, max_new=16)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ttft = sorted(x.prefill_s for x in res)
+        if r:
+            print(json.dumps({
+                "src": args.src, "round": r,
+                "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+                "wall_s": wall, "chunks": len(chunk_s),
+                "chunk_ms_mean": sum(chunk_s) / len(chunk_s) * 1e3,
+                "tokens": sum(len(x.tokens) for x in res)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
