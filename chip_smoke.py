@@ -134,6 +134,31 @@ determinism`; a whole CPU build and two card builds with the
   2e-5 excepted); inserted vectors are found, deleted ids never
   returned; then ecoscan is held against its plain version on the grown
   pack;
+- the sampled path (after phase 7): on the main path's pipeline, the 16
+  questions through `pipe.session(greedy=False, seed=SAMPLE_SEED)`
+  twice, each on a fresh engine (doc ids, prompts and tokens equal);
+  one sampled request (rid 100) alone and beside 1 and 3 co-residents
+  (tokens equal); the 16 bucketed prompts sampled on waves and on the
+  continuous engine (the equal share reported: bf16). Then the draw on
+  the card: `random_bits` of a [4, 151,936] draw equal to the CPU's bit
+  for bit, `gumbel` within 2 ulp of max(|g|, 1); 20,000 draws of one
+  16-way row, each frequency within 5 sigma of softmax; the draw's wall
+  and device ms a call, and a decode step's wall and device ms sampled
+  against greedy (fresh engines, in turns). The small-input phase also
+  holds sampled sessions and sampled waves GPU = CPU, and sampled waves
+  = continuous;
+- the window-updates path (after the sampled path): 64 documents
+  appended to the main path's corpus (`pipe.docs.append`,
+  `pipe.index.insert`), 16 of them asked about through
+  `answer_batch(generate=True)` with every cluster probed, which adds
+  them to the window index (its rows double: one whole upload): each
+  document retrieved and its marker in the prompt (the share found at
+  n_probe 4 is reported: an insert routes on the centroid graph); then
+  32 updates and 16 removes through the window index: only those rows
+  copied, into the same storage; then one long document doubles CAPW
+  (one whole upload) and scr_select at the new CAPW is held to its plain
+  version at 1e-5. The device pack equals the host pack bit for bit
+  after each refresh;
 - the baselines path: IVF, IVFPQ, IVF-DISK and IVFPQ-DISK over 100,000
   SIFT-like vectors (128-d, 390 clusters, m_pq 8), 200 queries at k 10
   and n_probe 4 and 16, recall@10 against an exact search on the card;
@@ -155,6 +180,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -177,8 +203,12 @@ from repro_torch.models.dense import (DenseLM, cache_len,  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.models.moe import MoELM  # noqa: E402
 from repro_torch.serving.embedder import HashEmbedder  # noqa: E402
-from repro_torch.serving.engine import Engine  # noqa: E402
+from repro_torch.serving.engine import (ContinuousEngine,  # noqa: E402
+                                        Engine)
 from repro_torch.serving.rag import MobileRAG  # noqa: E402
+from repro_torch.serving.sampling import (fold_in, gumbel,  # noqa: E402
+                                          prng_key, random_bits,
+                                          sample_rows)
 from repro_torch.serving.trace import TraceSink  # noqa: E402
 
 HBM_BYTES_S = 3.35e12          # H100 SXM HBM3
@@ -216,6 +246,19 @@ N_UPDATES = 256
 N_REINSERT = 32
 # corpus queries of the host-search phase, beside the 16 questions
 HOST_NQ = 200
+# the sampled path: the sessions' seed, the draw checked on the card
+# ([4, vocab]) and the frequency test (draws t = 0 .. FREQ_DRAWS - 1 of
+# one 16-way row, each frequency within FREQ_SIGMAS of softmax)
+SAMPLE_SEED = 7
+FREQ_DRAWS = 20000
+FREQ_SIGMAS = 5.0
+# the window-updates path: documents appended to the main path's corpus
+# (each with its own marker), every fourth asked about; documents updated
+# and removed through the window index; the long document that doubles
+# CAPW
+N_APPEND = 64
+N_WI_UPDATE = 32
+N_WI_REMOVE = 16
 REPLACES = {
     "kmeans_assign": "src/repro/kernels/kmeans_assign.py:37",
     "ecoscan": "src/repro/kernels/ecoscan.py:163",
@@ -255,6 +298,10 @@ PATH_KERNELS = {
     "int8": ("flash_prefill", "decode_attention_q8",
              "decode_attention_paged_q8"),
     "moe": ("flash_prefill", "decode_attention", "decode_attention_paged"),
+    "sampled": ("flash_prefill", "decode_attention_paged", "decode_attention",
+                "ecoscan", "scr_select"),
+    "window_updates": ("ecoscan", "scr_select", "flash_prefill",
+                       "decode_attention_paged"),
 }
 
 
@@ -1338,13 +1385,13 @@ def _profiled(fn, n):
     }
 
 
-def profile_decode_steps(eng, prompts, n=8):
+def profile_decode_steps(eng, prompts, n=8, greedy=True):
     """torch.profiler over n steady decode steps of a continuous engine:
-    the prompts are submitted (40 tokens each) and stepped until every
-    one has its first token, then n steps are profiled and the rest
-    drained."""
+    the prompts are submitted (40 tokens each, sampled from seed
+    SAMPLE_SEED unless `greedy`) and stepped until every one has its
+    first token, then n steps are profiled and the rest drained."""
     for p in prompts:
-        eng.submit(p, 40)
+        eng.submit(p, 40, greedy=greedy, seed=SAMPLE_SEED)
     started = set()
     while len(started) < len(prompts) and eng.pending:
         started |= {ev.rid for ev in eng.step() if ev.kind == "token"}
@@ -1828,7 +1875,7 @@ def _update_round(index, emb, rng, next_id, grow):
     return added, set(gone) - set(back)
 
 
-def update_phase(index, emb, qvs, n_probe):
+def update_phase(index, emb, qvs, n_probe, next_id):
     """Two update rounds on the main path's index (`_update_round`: the
     first inside CAP, the second past it), each followed by the device
     query that repacks the dirty clusters and refreshes the device
@@ -1840,10 +1887,11 @@ def update_phase(index, emb, qvs, n_probe):
     device tensors (equal except ties within 2e-5); every vector inserted
     is in the pack and in its own top 3 with every cluster probed, or tied
     there at distance ~0 (the share at `n_probe` is reported); no deleted
-    id is ever returned."""
+    id is ever returned. The new ids start at `next_id`, past every
+    document of the pipeline."""
     rng = np.random.default_rng(21)
     s = index.stats
-    out, deleted, next_id = [], set(), len(emb)
+    out, deleted = [], set()
     for grow in (False, True):
         cap0 = index.device_pack()[3]
         before = (s.pack_grows, s.mirror_uploads, s.mirror_blocks,
@@ -2011,10 +2059,11 @@ def word_corpus(n_docs, seed):
 
 def small_input_agreement():
     """The pipeline on the GPU against its plain versions on the CPU:
-    float32 reduced models, same random weights. MobileRAG end to end;
-    the qwen2.5 wave path (and, on the GPU, its continuous engine) on the
-    bucketed prompts; the h2o wave path on an 80-token prompt, past its
-    64-slot window."""
+    float32 reduced models, same random weights. MobileRAG end to end,
+    greedy and then sampled sessions; the qwen2.5 wave path (and, on the
+    GPU, its continuous engine) on the bucketed prompts, greedy and
+    sampled; the h2o wave path on an 80-token prompt, past its 64-slot
+    window."""
     docs = word_corpus(200, seed=11)
     queries = [docs[i].split(". ")[2 + i % 5] for i in range(3, 200, 33)]
     cfg = get_config("qwen25_0_5b").reduced(dtype="float32")
@@ -2030,6 +2079,15 @@ def small_input_agreement():
         assert a.doc_ids == b.doc_ids, (a.doc_ids, b.doc_ids)
         assert a.prompt == b.prompt
         assert a.gen_tokens == b.gen_tokens, (a.gen_tokens, b.gen_tokens)
+    # sampled sessions on both (their engines have served the same
+    # requests, so the rids and streams are the same)
+    s_gpu, s_cpu = [p_.session(max_new=8, greedy=False,
+                               seed=SAMPLE_SEED).run(queries)
+                    for p_ in (gpu, cpu)]
+    for a, b in zip(s_gpu, s_cpu):
+        assert a.doc_ids == b.doc_ids and a.prompt == b.prompt
+        assert a.gen_tokens == b.gen_tokens, ("sampled session GPU vs CPU",
+                                              a.gen_tokens, b.gen_tokens)
     # the legacy SCR path, GPU against CPU, and against the window index
     legacy = [MobileRAG(docs, HashEmbedder(dim=64), top_k=3, gen_config=cfg,
                         gen_params=weights, use_window_index=False,
@@ -2048,6 +2106,15 @@ def small_input_agreement():
         assert w.tokens == c.tokens, ("wave GPU vs CPU", w.tokens, c.tokens)
         assert w.tokens == e.tokens, ("wave vs continuous", w.tokens,
                                       e.tokens)
+    sampled = [m.slm.wave.generate(prompts, max_new=8, greedy=False,
+                                   seed=SAMPLE_SEED, continuous=c)
+               for m, c in ((gpu, False), (cpu, False), (gpu, True))]
+    for w, c, e in zip(*sampled):
+        assert w.tokens == c.tokens, ("sampled wave GPU vs CPU", w.tokens,
+                                      c.tokens)
+        assert w.tokens == e.tokens, ("sampled wave vs continuous",
+                                      w.tokens, e.tokens)
+    assert any(w.tokens != g.tokens for w, g in zip(sampled[0], wave_gpu))
     hcfg = H2O_CONFIG.reduced(dtype="float32")
     h_gpu = DenseLM(hcfg, device=DEV, seed=3)
     h_cpu = DenseLM(hcfg, device="cpu", params={
@@ -2098,6 +2165,305 @@ def small_families_agreement():
                                                   i)
         out[kind] = len(prompts)
     return out
+
+
+def gen_results(answers):
+    """RAG answers as results with `tokens` (for `check_tokens` and
+    `equal_share`)."""
+    return [SimpleNamespace(tokens=a.gen_tokens) for a in answers]
+
+
+def fresh_engine(slm):
+    """A new 4-slot continuous engine over the sLM's model, at the main
+    path's settings (its rids start at 0)."""
+    return ContinuousEngine(slm.model, slots=slm.SLOTS,
+                            max_len=slm.MAX_PROMPT + slm.MAX_NEW,
+                            eos_id=slm.tokenizer.eos_id,
+                            prefill_chunk=slm.PREFILL_CHUNK,
+                            page_size=slm.PAGE_SIZE)
+
+
+def sampled_session(pipe, questions):
+    """The questions through `pipe.session(greedy=False)` on a fresh
+    engine (the sLM's cached one is dropped first, so the session's rids
+    start again at the warmup's 0), traced: its answers and trace."""
+    pipe.slm.wave._cont.pop(pipe.slm.SLOTS, None)
+    trace, pipe.trace = pipe.trace, TraceSink()
+    try:
+        sess = pipe.session(max_new=MAX_NEW, slots=pipe.slm.SLOTS,
+                            greedy=False, seed=SAMPLE_SEED)
+        return sess.run(questions), pipe.trace
+    finally:
+        pipe.trace = trace
+
+
+def coresident_runs(slm, target, others):
+    """The target request (rid 100, sampled) alone and beside 1 and 3
+    sampled co-residents (rids 0, 1, 2), each run on a fresh engine: the
+    target's tokens of each run."""
+    runs = []
+    for n in (0, 1, 3):
+        ce = fresh_engine(slm)
+        tid = ce.submit(target, MAX_NEW, rid=100, greedy=False,
+                        seed=SAMPLE_SEED)
+        for i, p_ in enumerate(others[:n]):
+            ce.submit(p_, MAX_NEW, rid=i, greedy=False, seed=SAMPLE_SEED)
+        out = {}
+        while ce.pending:
+            out.update({ev.rid: ev.result.tokens for ev in ce.step()
+                        if ev.kind == "done"})
+        runs.append(out[tid])
+    return runs
+
+
+def draw_checks(vocab):
+    """The draw on the card against the CPU's: `random_bits` of a [4,
+    vocab] draw bit for bit, `gumbel` within 2 ulp of max(|g|, 1) (the
+    card's `log` may round apart from the CPU's); then FREQ_DRAWS draws t
+    = 0 .. FREQ_DRAWS - 1 of one seeded 16-way row, each category's
+    frequency within FREQ_SIGMAS binomial sigmas of its softmax
+    probability."""
+    keys = torch.stack([fold_in(prng_key(SAMPLE_SEED), r) for r in range(4)])
+    bits_cpu = random_bits(keys, (vocab,))
+    bits_dev = random_bits(keys.to(DEV), (vocab,))
+    assert torch.equal(bits_dev.cpu(), bits_cpu), "random_bits card != CPU"
+    g_cpu = gumbel(keys, (vocab,)).numpy()
+    g_dev = gumbel(keys.to(DEV), (vocab,)).cpu().numpy()
+    ulps = np.abs(g_dev - g_cpu) / np.spacing(np.maximum(np.abs(g_cpu),
+                                                         np.float32(1)))
+    assert ulps.max() <= 2.0, f"gumbel card vs CPU: {ulps.max()} ulp"
+    row = torch.tensor(np.random.default_rng(3).normal(0, 1.5, 16),
+                       dtype=torch.float32, device=DEV)
+    n = FREQ_DRAWS
+    root = fold_in(prng_key(SAMPLE_SEED), 0).numpy()
+    toks = sample_rows(row.expand(n, 16), np.repeat(root[None], n, 0),
+                       np.arange(n), np.zeros(n, bool))
+    freq = torch.bincount(toks, minlength=16).cpu().numpy() / n
+    p = np.exp(row.double().cpu().numpy())
+    p /= p.sum()
+    z = np.abs(freq - p) / np.sqrt(p * (1 - p) / n)
+    assert z.max() <= FREQ_SIGMAS, f"frequency test: {z.max():.2f} sigma"
+    return {"bits_equal": True, "gumbel_max_ulp": float(ulps.max()),
+            "gumbel_unequal_share": float(np.mean(ulps > 0)),
+            "freq_draws": n, "freq_max_sigma": float(z.max()),
+            "freq_max_abs": float(np.abs(freq - p).max())}
+
+
+def sampled_path(pipe, questions, greedy_answers, wave_prompts):
+    """The sampled path on the main path's pipeline: the questions
+    through two sampled sessions on fresh engines (equal doc ids,
+    prompts and tokens asserted); one target request alone and beside 1
+    and 3 co-residents (equal tokens asserted); the bucketed prompts
+    sampled on waves and on the continuous engine (the equal share is
+    reported: bf16, F3)."""
+    slm = pipe.slm
+    t0 = time.perf_counter()
+    first, trace = sampled_session(pipe, questions)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    second, _ = sampled_session(pipe, questions)
+    for a, b in zip(first, second):
+        assert a.doc_ids == b.doc_ids and a.prompt == b.prompt
+        assert a.gen_tokens == b.gen_tokens, ("sampled session tokens "
+                                              "differ between two runs")
+    check_tokens(gen_results(first), MAX_NEW,
+                 slm.cfg.vocab_padded)
+    prompts = [slm.encode_prompt(a.prompt) for a in first]
+    rng = np.random.default_rng(9)
+    others = [rng.integers(4, 500, n_).astype(np.int32)
+              for n_ in (40, 90, 130)]
+    runs = coresident_runs(slm, prompts[0], others)
+    assert all(r == runs[0] for r in runs[1:]), \
+        f"sampled tokens depend on co-residents: {runs}"
+    wave = slm.wave.generate(wave_prompts, max_new=MAX_NEW, greedy=False,
+                             seed=SAMPLE_SEED, continuous=False)
+    cont = slm.wave.generate(wave_prompts, max_new=MAX_NEW, greedy=False,
+                             seed=SAMPLE_SEED, continuous=True)
+    check_tokens(wave + cont, MAX_NEW, slm.cfg.vocab_padded)
+    spans = trace.durations("engine", "decode_step")
+    active = [r.attrs["active"] for r in trace.query(
+        comp="engine", name="decode_step") if r.ph == "B"]
+    ttft = sorted(a.ttft_measured_s for a in first)
+    return {
+        "questions": len(questions), "seed": SAMPLE_SEED,
+        "answer_wall_s": wall, "ttft_p50_s": ttft[len(ttft) // 2],
+        "decode_tok_s": sum(active) / sum(spans),
+        "decode_steps": len(spans),
+        "sessions_equal": True, "coresident_runs_equal": True,
+        "coresident_tokens": len(runs[0]),
+        "equal_to_greedy_share": equal_share(
+            gen_results(first),
+            gen_results(greedy_answers)),
+        "wave_vs_continuous_equal_share": equal_share(wave, cont)}
+
+
+def draw_cost(slm, prompts):
+    """The draw's cost: `sample_rows` over [4, vocab] bf16 logits with
+    every row sampled (and every row greedy), wall and device ms a call
+    under the profiler; then steady decode steps of fresh engines, 4
+    slots greedy and 4 sampled in turns (greedy, sampled, sampled,
+    greedy), wall and device ms a step."""
+    V = slm.cfg.vocab_padded
+    g = torch.Generator(device=DEV).manual_seed(6)
+    logits = (4 * torch.randn(4, V, generator=g, device=DEV)).to(
+        torch.bfloat16)
+    keys = np.stack([fold_in(prng_key(SAMPLE_SEED), r).numpy()
+                     for r in range(4)])
+    ts = np.arange(4)
+    sampled = _profiled(lambda: sample_rows(logits, keys, ts,
+                                            np.zeros(4, bool)), 20)
+    greedy = _profiled(lambda: sample_rows(logits, keys, ts,
+                                           np.ones(4, bool)), 20)
+    steps = {"greedy": [], "sampled": []}
+    for mode in ("greedy", "sampled", "sampled", "greedy"):
+        st = profile_decode_steps(fresh_engine(slm), prompts,
+                                  greedy=mode == "greedy")
+        steps[mode].append({k: st[k] for k in ("wall_ms", "device_ms",
+                                               "device_idle_share")})
+
+    def mean(mode, key):
+        vals = [r[key] for r in steps[mode]]
+        return None if None in vals else float(np.mean(vals))
+    out = {
+        "vocab": V, "rows": 4,
+        "draw_wall_ms": sampled["wall_ms"],
+        "draw_device_ms": sampled["device_ms"],
+        "greedy_pick_wall_ms": greedy["wall_ms"],
+        "greedy_pick_device_ms": greedy["device_ms"],
+        "draw_top_device_kernels": sampled["top_device_kernels"][:3],
+        "step_runs": steps,
+        "step_wall_ms_greedy": mean("greedy", "wall_ms"),
+        "step_wall_ms_sampled": mean("sampled", "wall_ms"),
+        "step_device_ms_greedy": mean("greedy", "device_ms"),
+        "step_device_ms_sampled": mean("sampled", "device_ms")}
+    out["draw_share_of_sampled_step_wall"] = (
+        out["draw_wall_ms"] / out["step_wall_ms_sampled"])
+    out["sampled_over_greedy_step_wall"] = (
+        out["step_wall_ms_sampled"] / out["step_wall_ms_greedy"])
+    return out
+
+
+def appended_doc(i):
+    """Appended document i: three sentences naming its own word
+    `zeppelin{i}q`, the last carrying its marker `M{i:03d}X`."""
+    m = f"zeppelin{i}q"
+    place = ("Lisbon", "Osaka", "Quito", "Tallinn")[i % 4]
+    return (f"The {m} was first described in {1700 + i}. "
+            f"The {m} flew over {place} at dawn. "
+            f"Crews of the {m} logged code M{i:03d}X."), m
+
+
+def window_updates_path(pipe):
+    """The window-updates path on the main path's pipeline: N_APPEND
+    documents appended (`pipe.docs.append`, `pipe.index.insert`) and
+    every fourth asked about through `answer_batch(generate=True)`, which
+    adds them to the window index (the rows double: one whole upload);
+    each question's document retrieved and its marker in the prompt.
+    Retrieval probes every cluster for these questions: an insert routes
+    on the centroid graph and a query on exact centroid distances, and at
+    the main path's n_probe the share that still finds its document is
+    reported. Then N_WI_UPDATE updates and N_WI_REMOVE removes through
+    the window index: the refresh copies only those rows into the same
+    storage. Then one long document doubles CAPW: one whole upload. The
+    device pack equals the host pack bit for bit after each refresh.
+    Returns (info, scr_select inputs at the grown CAPW)."""
+    wi, emb = pipe.window_index, pipe.embed
+    st = wi.stats
+    n0 = len(pipe.docs)
+    new = [appended_doc(i) for i in range(N_APPEND)]
+    t0 = time.perf_counter()
+    for text, _ in new:
+        pipe.index.insert(len(pipe.docs), emb([text])[0])
+        pipe.docs.append(text)
+    insert_s = time.perf_counter() - t0
+    asked = list(range(0, N_APPEND, 4))
+    qs = [f"What is known about the {new[i][1]}?" for i in asked]
+    base = (st.grows, st.mirror_uploads, st.mirror_rows, st.block_repacks)
+
+    def held(label):
+        d_t, l_t = wi.device_arrays()
+        data, lens = wi.pack()
+        assert torch.equal(d_t.cpu(), torch.from_numpy(data)), label
+        assert torch.equal(l_t.cpu(), torch.from_numpy(lens)), label
+        return d_t, l_t
+
+    def found(answers):
+        return [n0 + i in a.doc_ids and f"M{i:03d}X" in a.prompt
+                for i, a in zip(asked, answers)]
+    n_probe = pipe.n_probe
+    pipe.n_probe = pipe.index.n_clusters
+    try:
+        t0 = time.perf_counter()
+        answers = pipe.answer_batch(qs, generate=True, max_new=MAX_NEW)
+        torch.cuda.synchronize()
+        answer_s = time.perf_counter() - t0
+    finally:
+        pipe.n_probe = n_probe
+    assert all(found(answers)), f"appended docs not answered: {found(answers)}"
+    at_probe = pipe.answer_batch(qs)
+    check_tokens(gen_results(answers),
+                 MAX_NEW, pipe.slm.cfg.vocab_padded)
+    assert len(wi) == len(pipe.docs)
+    assert (st.grows - base[0], st.mirror_uploads - base[1]) == (1, 1)
+    d0, _ = held("after the appends")
+    rows_after_append = int(d0.shape[0])
+    # updates and removes inside the pack's shape: dirty rows only
+    ptr, rows0, uploads0 = d0.data_ptr(), st.mirror_rows, st.mirror_uploads
+    rng = np.random.default_rng(12)
+    touched = rng.choice(n0, N_WI_UPDATE + N_WI_REMOVE, replace=False)
+    for di in touched[:N_WI_UPDATE]:
+        # its first sentence replaced: as many windows as before
+        sents = split_sentences(pipe.docs[int(di)])
+        wi.update(int(di), " ".join([f"Revised entry {di}."] + sents[1:]))
+    for di in touched[N_WI_UPDATE:]:
+        wi.remove(int(di))
+    t0 = time.perf_counter()
+    wi.pack()
+    repack_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wi.device_arrays()
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t0
+    d1, _ = held("after updates and removes")
+    assert d1.data_ptr() == ptr and st.mirror_uploads == uploads0, \
+        "a refresh inside the pack's shape re-uploaded the pack"
+    copied = st.mirror_rows - rows0
+    assert copied == N_WI_UPDATE + N_WI_REMOVE, copied
+    again = pipe.answer_batch(qs)
+    assert [sorted(a.doc_ids) for a in again] == \
+        [sorted(a.doc_ids) for a in at_probe]
+    # one long document just past CAPW: the pack doubles and is uploaded
+    # whole
+    capw0 = int(d1.shape[1])
+    long_id = n0 + 1
+    wi.update(long_id, " ".join(f"The zeppelin1q passed waypoint {j}."
+                                for j in range(capw0 + 3)))
+    d2, l2 = held("after the CAPW growth")
+    assert int(d2.shape[1]) == 2 * capw0 and \
+        st.mirror_uploads == uploads0 + 1, (d2.shape, st.mirror_uploads)
+    q = torch.tensor(emb(qs + ["The zeppelin1q passed waypoint 17."]),
+                     device=DEV)
+    ids = torch.tensor([a.doc_ids for a in answers] + [[long_id, n0, 0]],
+                       dtype=torch.int32, device=DEV)
+    s, w = ops.scr_select(q, d2, l2, ids)
+    ps_, pw = ref.scr_select(q, d2, l2, ids)
+    err = close("scr_select at the grown CAPW", s, ps_, 1e-5, 1e-5)
+    ties = same_or_tied("scr_select at the grown CAPW", w, pw,
+                        _win_score(q, d2, ids), 1e-5, 1e-5)
+    assert int(l2[long_id]) > capw0
+    return {
+        "appended": N_APPEND, "asked": len(asked), "insert_s": insert_s,
+        "answer_wall_s": answer_s, "answered_all_probes": len(asked),
+        "found_at_n_probe_share": float(np.mean(found(at_probe))),
+        "n_probe": n_probe, "rows": [n0, rows_after_append],
+        "updated": N_WI_UPDATE, "removed": N_WI_REMOVE,
+        "rows_copied": copied, "repack_ms": repack_s * 1e3,
+        "refresh_ms": refresh_s * 1e3,
+        "whole_uploads": st.mirror_uploads - base[1],
+        "grows": st.grows - base[0], "capw": [capw0, int(d2.shape[1])],
+        "block_repacks": st.block_repacks - base[3],
+        "scr_select_grown_err": err, "scr_select_grown_ties": ties,
+        "stats": dataclasses.asdict(st)}, (q, d2, l2, ids)
 
 
 def main() -> int:
@@ -2678,21 +3044,37 @@ def main() -> int:
     prof = profile_phase(slm, [slm.encode_prompt(a.prompt)
                                for a in answers[:4]], calls)
     print("profile:", json.dumps(prof))
+    # ---- sampled decoding on the main path's pipeline, then the draw on
+    # the card and its cost a decode step
+    sampled_info, sampled_launches = drive(
+        "sampled", lambda: sampled_path(pipe, questions, answers, prompts))
+    print("sampled path:", json.dumps(sampled_info))
+    print("sampled draw on the card:", json.dumps(draw_checks(vocab)))
+    print("sampled draw cost:", json.dumps(draw_cost(
+        slm, [slm.encode_prompt(a.prompt) for a in answers[:4]])))
+    # ---- documents appended after the build, window-index updates
+    (wu_info, wu_scr), wu_launches = drive(
+        "window_updates", lambda: window_updates_path(pipe))
+    print("window updates path:", json.dumps(wu_info))
     # ---- updates on the main path's index, after every path that uses
     # it; then ecoscan on the grown pack
     (upd, (ud_t, ul_t, uc_t)), upd_launches = drive(
         "updates", lambda: update_phase(pipe.index, doc_emb, hq_vs,
-                                        pipe.n_probe))
+                                        pipe.n_probe, len(pipe.docs)))
     print("updates:", json.dumps(upd))
     results["ecoscan"]["shapes"].append(check_ecoscan(
         "after updates, CAP grown", qv, ud_t, ul_t,
         ref.route_topk(qv, uc_t, pipe.n_probe), pipe.top_k))
+    results["scr_select"]["shapes"].append(check_scr_select(
+        "after window updates, CAPW grown", *wu_scr))
     n_small = small_input_agreement()
     n_families = small_families_agreement()
     print(f"small input: {n_small} queries agree GPU vs CPU (doc ids, "
           "prompts, greedy tokens; wave tokens, wave = continuous on the "
           "GPU; the legacy SCR pipeline, whose prompts equal the window "
-          "index's); reduced h2o wave tokens agree GPU vs CPU")
+          "index's; sampled sessions, sampled waves, sampled wave = "
+          "continuous on the GPU); reduced h2o wave tokens agree GPU vs "
+          "CPU")
     print("small input, paged families (requests):", json.dumps(n_families),
           "GPU tokens = CPU tokens and wave = continuous, on each")
     print(f"attention edge cases: {n_edges} agree with the plain versions")
@@ -2732,7 +3114,8 @@ def main() -> int:
              "host_search": host_launches, "graph_baselines": graph_launches,
              "updates": upd_launches, "h2o_continuous": h2o_c_launches,
              "h2o_int8": h2o_q8_launches, "int8": int8_launches,
-             "moe": moe_launches}
+             "moe": moe_launches, "sampled": sampled_launches,
+             "window_updates": wu_launches}
     kernels = [{
         "name": name, "route": "cuda",
         "source": SOURCES[name],

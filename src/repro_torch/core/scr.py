@@ -155,10 +155,11 @@ def apply_scr_batch(queries: Sequence[str],
     ids_m = np.full((B, K), -1, np.int32)
     for b, row in enumerate(doc_ids_per_query):
         ids_m[b, :len(row)] = row
-    if ids_m.max() >= len(lens):
-        raise IndexError(f"doc id {ids_m.max()} outside the {len(lens)}-doc "
+    if ids_m.max() >= len(index):
+        raise IndexError(f"doc id {ids_m.max()} outside the {len(index)}-doc "
                          "window index")
     data_t, lens_t = index.device_arrays()
+    index.record_select(ids_m)
     dev = data_t.device
     scores, wins = ops.scr_select(
         torch.tensor(np.asarray(qvs, np.float32), device=dev), data_t,

@@ -1,6 +1,6 @@
-"""Generation engines (the port of `repro.serving.engine`, greedy
-decoding): `ContinuousEngine`, continuous batching over a block-table
-paged KV pool, and `Engine`, the length-bucketed wave path that is its
+"""Generation engines (the port of `repro.serving.engine`):
+`ContinuousEngine`, continuous batching over a block-table paged KV pool,
+and `Engine`, the length-bucketed wave path that is its
 `continuous=False` parity baseline.
 
 One global page pool [L, num_pages, page_size, G, dh] holds every slot's
@@ -19,8 +19,14 @@ boundaries; the device work goes through the model (`DenseLM` or
 `MoELM`) and its `flash_prefill` and `decode_attention_paged` kernels
 (`decode_attention_paged_q8` on an int8 pool).
 
-Sampled decoding is not ported: the reference draws from threefry
-streams that PyTorch cannot reproduce, so `submit(greedy=False)` raises.
+Both greedy and sampled requests run on either engine. A sampled request
+draws from its own stream `fold_in(PRNGKey(seed), rid)`, draw t under
+`fold_in(stream, t)` with t the tokens it has already emitted (the
+wave's step), through `serving/sampling.py`, the port's bit-equal copy of
+the reference's threefry draws. So a request's sampled tokens depend
+only on (seed, rid, its logits): they are the same whatever else is
+co-resident, and the same on waves and on the continuous engine.
+Greedy rows take the first maximum of their logits.
 """
 from __future__ import annotations
 
@@ -33,10 +39,10 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels.ref import first_argmax
 from repro_torch.models.dense import DenseLM, init_page_pool
 from repro_torch.models.model import supports_paged
 from repro_torch.serving.pager import PagePool, PoolStats, PrefixCache
+from repro_torch.serving.sampling import fold_in, prng_key, sample_rows
 from repro_torch.serving.trace import TraceSink
 
 # engine-instance counter: the `src` tag on trace records
@@ -78,6 +84,15 @@ class _Request:
     pages: List[int] = field(default_factory=list)
     prefill_s: float = 0.0
     decode_s: float = 0.0
+    greedy: bool = True
+    # sampled requests only: the stream root fold_in(PRNGKey(seed), rid),
+    # int64 [2] on the host; draw t folds in t = len(tokens)
+    key: Optional[np.ndarray] = None
+
+
+def stream_key(seed: int, rid: int) -> np.ndarray:
+    """A request's stream root `fold_in(PRNGKey(seed), rid)` (host)."""
+    return fold_in(prng_key(seed), rid).numpy()
 
 
 class ContinuousEngine:
@@ -168,22 +183,32 @@ class ContinuousEngine:
     # ------------------------------------------------------------- intake
 
     def submit(self, prompt: np.ndarray, max_new: int = 32,
-               rid: Optional[int] = None, *, greedy: bool = True) -> int:
-        """Queue one greedy request; returns its rid."""
-        if not greedy:
-            raise NotImplementedError(
-                "sampled decoding is not ported (ROADMAP.md: sampled "
-                "decoding); submit greedy requests")
+               rid: Optional[int] = None, *, greedy: bool = True,
+               seed: int = 0) -> int:
+        """Queue one request; returns its rid. `greedy=False` samples
+        from the request's own stream `fold_in(PRNGKey(seed), rid)`: pass
+        an explicit `rid` to draw the same tokens across engines and
+        runs, whatever else is co-resident."""
         if rid is None:
             rid = self._next_rid
         self._next_rid = max(self._next_rid, rid) + 1
         p = np.asarray(prompt, np.int32).reshape(-1)
-        req = _Request(rid, p, max_new, time.perf_counter())
+        req = _Request(rid, p, max_new, time.perf_counter(), greedy=greedy)
+        if not greedy:
+            req.key = stream_key(seed, rid)
         self.queue.append(req)
         self._inflight[rid] = req
         self._emit("queued", rid, prompt_len=len(p), max_new=max_new,
-                   greedy=True)
+                   greedy=greedy)
         return rid
+
+    def _draw(self, req: _Request, row: torch.Tensor) -> int:
+        """Next token for `req` from its logits row [V], drawn on the
+        row's device: the first maximum, or draw t = len(req.tokens) of
+        its stream."""
+        key = np.zeros((1, 2), np.int64) if req.key is None else req.key[None]
+        return int(sample_rows(row[None], key, [len(req.tokens)],
+                               [req.greedy])[0])
 
     @property
     def pending(self) -> int:
@@ -341,7 +366,7 @@ class ContinuousEngine:
                 if self.prefix is not None:
                     self.prefix.register(
                         req.prompt, req.pages[:-(-plen // self.page_size)])
-                tok = int(first_argmax(logits[0, real - 1].float()))
+                tok = self._draw(req, logits[0, real - 1])
                 self.pos[s] = plen
                 self.last_tok[s] = tok
                 self.active[s] = True
@@ -354,9 +379,9 @@ class ContinuousEngine:
                 req.prefill_s += time.perf_counter() - t0
 
     def _decode_step(self, events: List[EngineEvent]) -> None:
-        """One paged decode step over every active slot; greedy tokens
-        (first maximum of each logits row) are the only data that reach
-        the host."""
+        """One paged decode step over every active slot, then one
+        `sample_rows` draw over every slot (greedy rows and sampled rows
+        together); only the [slots] tokens reach the host."""
         if not self.active.any():
             return
         t0 = time.perf_counter()
@@ -368,7 +393,16 @@ class ContinuousEngine:
             torch.tensor(self.pos.astype(np.int64), device=dev),
             torch.tensor(self.active, device=dev), self._table_dev(),
             page_size=self.page_size, ring_len=self.ring_len)
-        nxt = first_argmax(logits.float(), -1).cpu().numpy()
+        keys = np.zeros((self.slots, 2), np.int64)
+        ts = np.zeros(self.slots, np.int64)
+        gr = np.ones(self.slots, bool)
+        for s in range(self.slots):
+            req = self._occupant[s]
+            if self.active[s] and not req.greedy:
+                keys[s] = req.key
+                ts[s] = len(req.tokens)
+                gr[s] = False
+        nxt = sample_rows(logits, keys, ts, gr).cpu().numpy()
         dt = time.perf_counter() - t0
         self._emit("decode_step", ph="E")
         self.steps += 1
@@ -399,13 +433,16 @@ class ContinuousEngine:
         self.generate([np.arange(2, dtype=np.int32)], max_new=2)
         self.steps = 0
 
-    def generate(self, prompts: List[np.ndarray],
-                 max_new: int = 32) -> List[GenResult]:
+    def generate(self, prompts: List[np.ndarray], max_new: int = 32,
+                 greedy: bool = True, seed: int = 0) -> List[GenResult]:
         """Submit everything, step until drained; rids are the batch
-        indices. Raises RuntimeError if a request is shed (oversize)."""
+        indices, so the same (prompts, seed) draws the same sampled
+        tokens whatever the engine served before. Raises RuntimeError if
+        a request is shed (oversize)."""
         if self._inflight:
             raise RuntimeError("generate() on a busy engine")
-        rids = [self.submit(p, max_new, rid=i) for i, p in enumerate(prompts)]
+        rids = [self.submit(p, max_new, rid=i, greedy=greedy, seed=seed)
+                for i, p in enumerate(prompts)]
         results: Dict[int, GenResult] = {}
         while self._inflight:
             for ev in self.step():
@@ -475,32 +512,40 @@ class Engine:
         return grown
 
     def generate(self, prompts: List[np.ndarray], max_new: int = 32,
+                 greedy: bool = True, seed: int = 0,
                  continuous: Optional[bool] = None) -> List[GenResult]:
-        """Greedy generation. `continuous=None` takes the continuous
-        engine when the config supports the paged path
-        (`models.model.supports_paged`: every config the port has), as
-        the reference routes; `continuous=False` runs waves of
-        equal-length prompts, shortest first. Both give the same
-        tokens."""
+        """`continuous=None` takes the continuous engine when the config
+        supports the paged path (`models.model.supports_paged`: every
+        config the port has), as the reference routes; `continuous=False`
+        runs waves of equal-length prompts, shortest first. Both draw a
+        sampled request from fold_in(PRNGKey(seed), rid) with rid the
+        prompt index, so greedy and sampled tokens are the same on
+        both."""
         if continuous is None:
             continuous = supports_paged(self.cfg)
         if continuous:
-            return self.continuous().generate(prompts, max_new=max_new)
+            return self.continuous().generate(prompts, max_new=max_new,
+                                              greedy=greedy, seed=seed)
         buckets: Dict[int, List[int]] = {}
         for i, p in enumerate(prompts):
             buckets.setdefault(len(p), []).append(i)
         results: List[Optional[GenResult]] = [None] * len(prompts)
         for _, idxs in sorted(buckets.items()):
             wave = [prompts[i] for i in idxs]
-            for i, r in zip(idxs, self.generate_wave(wave, max_new)):
+            for i, r in zip(idxs, self.generate_wave(
+                    wave, max_new, greedy, seed, rids=idxs)):
                 results[i] = r
         return results
 
-    def generate_wave(self, prompts: List[np.ndarray],
-                      max_new: int = 32) -> List[GenResult]:
+    def generate_wave(self, prompts: List[np.ndarray], max_new: int = 32,
+                      greedy: bool = True, seed: int = 0,
+                      rids: Optional[List[int]] = None) -> List[GenResult]:
         """One wave: prompts are 1-D int token arrays of EQUAL length.
-        Every result carries the wave's prefill time (through the first
-        token's logits) and its decode time."""
+        A sampled request draws step t under fold_in(fold_in(
+        PRNGKey(seed), rid), t), as the continuous engine does; `rids`
+        defaults to the batch indices. Every result carries the wave's
+        prefill time (through the first token's logits) and its decode
+        time."""
         b = len(prompts)
         plen = max(len(p) for p in prompts)
         if any(len(p) != plen for p in prompts):
@@ -517,9 +562,14 @@ class Engine:
         cache = self._grow_cache(cache)
         outs: List[List[int]] = [[] for _ in range(b)]
         done = np.zeros(b, bool)
+        gflags = np.full(b, greedy)
+        keys = np.zeros((b, 2), np.int64)
+        if not greedy:
+            keys = np.stack([stream_key(seed, r)
+                             for r in (range(b) if rids is None else rids)])
         t1 = time.perf_counter()
         for step in range(max_new):
-            tok = first_argmax(logits.float(), -1)
+            tok = sample_rows(logits, keys, np.full(b, step), gflags)
             tok_np = tok.cpu().numpy()
             for i in range(b):
                 if not done[i]:

@@ -8,11 +8,17 @@ EcoVector host search loads each probed cluster's graph from disk).
 `index=` serves from an index built elsewhere instead of building one.
 SCR runs the `scr_select` kernel over the corpus-resident window index,
 or, with `use_window_index=False`, the legacy per-query `apply_scr`
-(re-embedded windows scored by the `scr_score` kernel);
-`answer_batch(generate=True)` pipelines chunks of queries through a
-`RagSession` into the continuous engine. The reference's Table-6
-TTFT/energy model, durable retrieval state and degradation ladders are
-not ported: a fault in retrieval or SCR raises.
+(re-embedded windows scored by the `scr_score` kernel). Documents
+appended to `docs` after construction (and inserted into the index) are
+added to the window index before the next SCR (`_sync_window_index`), as
+the reference does. `answer_batch(generate=True)` pipelines chunks of
+queries through a `RagSession` into the continuous engine; `session()`
+and `stream()` take the reference's `slots`, `retrieve_chunk`, `greedy`
+and `seed`. Not ported: the reference's other pipelines and their
+Table-6 TTFT/energy model, durable retrieval state (`retrieval_state`,
+`save_retrieval`) and the degradation ladders (retrieval and SCR
+fallbacks, deadlines, SLO admission): a fault in retrieval or SCR
+raises.
 """
 from __future__ import annotations
 
@@ -94,6 +100,7 @@ class MobileRAG:
             self.window_index = WindowIndex(embed, scr,
                                             device=self.device).build(
                 self.docs)
+            self.window_index.device_arrays()
         self.scr_build_s = time.perf_counter() - t0
         self.gen_config = gen_config or get_config("qwen25_0_5b")
         self._gen_params = gen_params
@@ -140,6 +147,7 @@ class MobileRAG:
         if self.window_index is None:
             return [self._finish_legacy(q, ids, t_ret)
                     for q, ids in zip(queries, ids_b)]
+        self._sync_window_index()
         t1 = time.perf_counter()
         results = apply_scr_batch(queries, ids_b, self.window_index,
                                   self.embed, qvs=qvs)
@@ -162,6 +170,27 @@ class MobileRAG:
         return RAGAnswer(prompt, [ids[i] for i in res.order], t_ret, t_post,
                          len(prompt.split()), scr=res)
 
-    def session(self, *, max_new: int = 16) -> RagSession:
-        """A RagSession over this pipeline (continuous-batching decode)."""
-        return RagSession(self, max_new=max_new, trace=self.trace)
+    def _sync_window_index(self) -> None:
+        """Add the documents appended to `self.docs` since the window
+        index was built: one `add` each, so only their blocks are
+        embedded and packed (at the next `pack()`)."""
+        w = self.window_index
+        while len(w) < len(self.docs):
+            w.add(self.docs[len(w)])
+
+    def session(self, *, max_new: int = 16, slots: int = 4,
+                retrieve_chunk: int = 4, greedy: bool = True,
+                seed: int = 0) -> RagSession:
+        """A RagSession over this pipeline: continuous-batching decode on
+        the sLM's engine of `slots` slots. `greedy=False` samples each
+        request from its own stream fold_in(PRNGKey(seed), rid)."""
+        return RagSession(self, max_new=max_new, slots=slots,
+                          retrieve_chunk=retrieve_chunk, greedy=greedy,
+                          seed=seed, trace=self.trace)
+
+    def stream(self, queries: Sequence[str] = (), *, max_new: int = 16,
+               slots: int = 4, retrieve_chunk: int = 4):
+        """Events (submitted / retrieved / condensed / token / done) of
+        `queries` through a fresh RagSession."""
+        return self.session(max_new=max_new, slots=slots,
+                            retrieve_chunk=retrieve_chunk).stream(queries)

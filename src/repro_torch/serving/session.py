@@ -4,10 +4,14 @@
     submitted -> retrieved -> condensed -> token ... token -> done
 
 `submit(query)` queues a request; every `step()` (1) retrieves and
-SCR-condenses up to `RETRIEVE_CHUNK` queued queries in one fused batch
+SCR-condenses up to `retrieve_chunk` queued queries in one fused batch
 through the pipeline's `answer_batch`, hands the condensed prompts to the
 engine, and (2) advances the engine one continuous-batching step, so
 retrieval for the next chunk runs while earlier requests decode.
+`greedy=False` samples every request from its own stream
+`fold_in(PRNGKey(seed), engine rid)`; the engine rids follow the
+reference's numbering (the warmup request first), so a session draws the
+reference's tokens.
 
 The reference's deadlines, admission bound, SLO planning and per-query
 retrieval retry are not ported: a retrieval or kernel fault raises
@@ -19,7 +23,7 @@ import itertools
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Deque, Dict, Iterable, List, Optional
+from typing import Deque, Dict, Iterable, Iterator, List, Optional
 
 from repro_torch.serving.engine import ContinuousEngine
 from repro_torch.serving.trace import TraceSink
@@ -59,17 +63,25 @@ class SessionCounters:
 class RagSession:
     """Streaming session over one RAG pipeline + one ContinuousEngine."""
 
-    RETRIEVE_CHUNK = 4        # queries retrieved + condensed per step
-
-    def __init__(self, pipe, *, max_new: int = 16,
-                 trace: Optional[TraceSink] = None):
+    def __init__(self, pipe, *, max_new: int = 16, slots: int = 4,
+                 retrieve_chunk: int = 4, greedy: bool = True,
+                 seed: int = 0, trace: Optional[TraceSink] = None):
+        """`pipe`: a pipeline with `slm` and `answer_batch`. `slots`
+        picks the sLM's shared continuous engine of that many slots;
+        `retrieve_chunk` queries are retrieved and condensed a step;
+        `greedy=False` samples each request from its own stream, so its
+        draws do not depend on co-resident requests. `trace` attaches a
+        TraceSink to the session and its engine."""
         self.pipe = pipe
         self.max_new = max_new
+        self.retrieve_chunk = retrieve_chunk
+        self.greedy = greedy
+        self.seed = seed
         self.counters = SessionCounters()
         self.trace = trace
         self.trace_src = f"s{next(_SESSION_SEQ)}"
         self._slm = pipe.slm
-        self.engine: ContinuousEngine = self._slm.engine
+        self.engine: ContinuousEngine = self._slm.continuous(slots)
         if trace is not None:
             self.engine.trace = trace
         self.requests: Dict[int, RagRequest] = {}
@@ -102,7 +114,7 @@ class RagSession:
 
     def _retrieve_step(self, events: List[RagEvent]) -> None:
         take = [self._queued.popleft()
-                for _ in range(min(self.RETRIEVE_CHUNK, len(self._queued)))]
+                for _ in range(min(self.retrieve_chunk, len(self._queued)))]
         if not take:
             return
         reqs = [self.requests[r] for r in take]
@@ -123,7 +135,8 @@ class RagSession:
             self._emit("condensed", req.req_id,
                        prompt_tokens=ans.prompt_tokens)
             erid = self.engine.submit(self._slm.encode_prompt(ans.prompt),
-                                      req.max_new)
+                                      req.max_new, greedy=self.greedy,
+                                      seed=self.seed)
             self._decoding[erid] = req
             req.state = "decoding"
 
@@ -162,6 +175,14 @@ class RagSession:
         self._retrieve_step(events)
         self._engine_step(events)
         return events
+
+    def stream(self, queries: Iterable[str] = ()) -> Iterator[RagEvent]:
+        """Submit `queries`, then yield events until the session drains;
+        more queries may be submitted from the consuming loop."""
+        for q in queries:
+            yield RagEvent(self.submit(q), "submitted")
+        while self.pending:
+            yield from self.step()
 
     def run(self, queries: Iterable[str]) -> List[object]:
         """Drain `queries` to completed RAGAnswers, in submit order (None

@@ -59,11 +59,15 @@ class SLM:
         return np.asarray([tok.pad_id] * (bucket_len - len(ids)) + ids,
                           np.int32)
 
+    def continuous(self, slots: int = SLOTS) -> ContinuousEngine:
+        """The shared continuous engine of `slots` slots over this model
+        (a session's decode backend), built on first use."""
+        return self.wave.continuous(slots)
+
     @property
     def engine(self) -> ContinuousEngine:
-        """The continuous engine over this model (the session's decode
-        backend), built on first use."""
-        return self.wave.continuous(self.SLOTS)
+        """The continuous engine of SLOTS slots."""
+        return self.continuous(self.SLOTS)
 
     def measure_ttft(self, prompt: str, *, warm: bool = True) -> float:
         """Wall time of one wave of the bucketed prompt through its first

@@ -26,8 +26,9 @@ for name in names:
     importlib.import_module(name)
 # the wave path and the second configuration; the legacy SCR path and
 # the baselines; the host index, its graphs and the paper's model; the
-# MoE family, the family registry and the MoE configuration
-for name in ("repro_torch.configs.h2o_danube_1_8b",
+# MoE family, the family registry and the MoE configuration; the
+# threefry draws of sampled decoding
+for name in ("repro_torch.serving.sampling", "repro_torch.configs.h2o_danube_1_8b",
              "repro_torch.serving.engine", "repro_torch.models.dense",
              "repro_torch.core.scr", "repro_torch.core.pq",
              "repro_torch.core.baselines", "repro_torch.core.store",
@@ -37,6 +38,7 @@ for name in ("repro_torch.configs.h2o_danube_1_8b",
              "repro_torch.configs.granite_moe_1b_a400m"):
     assert name in names, name
 from repro_torch.serving.engine import Engine
+from repro_torch.serving.sampling import fold_in, prng_key, sample_rows
 from repro_torch.kernels.ops import (decode_attention, flash_prefill,
                                      pq_adc, scr_score, decode_attention_q8,
                                      decode_attention_paged_q8)
@@ -58,7 +60,7 @@ print(len(names))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 36
+    assert int(out.stdout.split()[-1]) >= 37
 
 
 def test_no_jax_or_repro_import_lines():

@@ -1,8 +1,8 @@
 """The port's DenseLM and ContinuousEngine against the JAX package on the
 CPU, on the float32 reduced qwen2.5-0.5B with the same converted params:
 chunked paged prefill and paged decode logits within 1e-4 on the same
-page tables, and identical greedy tokens, prefix hits, COW forks and
-trace records from the two engines."""
+page tables, and identical greedy and sampled tokens, prefix hits, COW
+forks and trace records from the two engines."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -100,5 +100,12 @@ def test_engine_greedy_prefix_cow_matches_reference(models):
     assert teng.prefix_tokens_reused == jeng.prefix_tokens_reused
     assert any(r[1] == "cow_fork" for r in _records(tsink))
     assert _records(tsink) == _records(jsink)
-    with pytest.raises(NotImplementedError):
-        teng.submit(base, 4, greedy=False)
+    # sampled requests on the same two engines: the reference's tokens
+    # (streams fold_in(PRNGKey(seed), rid)), records and `greedy` flags
+    jres = jeng.generate(prompts, max_new=6, greedy=False, seed=4)
+    tres = teng.generate(prompts, max_new=6, greedy=False, seed=4)
+    assert [r.tokens for r in tres] == [r.tokens for r in jres]
+    assert _records(tsink) == _records(jsink)
+    flags = [[r.attrs["greedy"] for r in sink.records() if r.name == "queued"]
+             for sink in (tsink, jsink)]
+    assert flags[0] == flags[1] == [True] * 5 + [False] * 5

@@ -5,8 +5,9 @@ continuous greedy tokens equal to the reference `Engine`'s for
 sliding-window (ring pages), int8-KV, MoE and sliding-window + int8
 configs; the ring wraparound with one slot past the window beside one
 inside it, with the reference's `ring_len` and `table_width`;
-`supports_paged` equal to the reference's; routing by `continuous=None`
-and the refusal of unsupported configs and of sampled requests."""
+`supports_paged` equal to the reference's; routing by `continuous=None`,
+the refusal of unsupported configs, and sampled MoE tokens equal to the
+reference's."""
 import dataclasses
 import re
 from pathlib import Path
@@ -182,7 +183,8 @@ def test_supports_paged_matches_reference():
 def test_unsupported_combos_raise():
     """MoELM refuses a window or int8 KV (the reference's MoE wave path
     defines neither); the continuous engine refuses any config
-    `supports_paged` excludes; a sampled request still raises."""
+    `supports_paged` excludes; a sampled MoE request draws the
+    reference's tokens."""
     moe = get_config("granite_moe_1b_a400m").reduced(dtype="float32")
     for over in ({"kv_quant": True}, {"sliding_window": 64}):
         bad = dataclasses.replace(moe, **over)
@@ -193,10 +195,14 @@ def test_unsupported_combos_raise():
                                              device=torch.device("cpu")))
     with pytest.raises(ValueError):
         build_model(dataclasses.replace(moe, family="mamba2"), device="cpu")
-    lm = build_model(moe, device="cpu")
-    with pytest.raises(NotImplementedError, match="sampled"):
-        Engine(lm, max_len=64).continuous().submit(
-            np.arange(4, dtype=np.int32), greedy=False)
+    # a sampled MoE request runs, and draws the reference's tokens
+    jcfg, jparams, _, lm = _models("moe", 0)
+    prompts = _prompts(5, (14, 14, 22))
+    want = JEngine(jcfg, jparams, max_len=64).continuous().generate(
+        prompts, max_new=6, greedy=False, seed=3)
+    got = Engine(lm, max_len=64).continuous().generate(
+        prompts, max_new=6, greedy=False, seed=3)
+    _same(got, want, "moe sampled")
 
 
 def test_moe_tokens_independent_of_coresidents():
