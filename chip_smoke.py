@@ -12,9 +12,11 @@ Phases, any failure exits non-zero (nothing is caught):
    window pack)
    with full-width qwen2.5-0.5B in bf16 (24 layers, random weights from a
    seed), `answer_batch(16 questions, generate=True, max_new=16)` through
-   4 slots; the chunked prefill runs `flash_prefill`. The port has no
-   retrieval or SCR fallback: a fault raises, so zero fallbacks is the run
-   reaching its end.
+   4 slots; the chunked prefill runs `flash_prefill`. The retrieval and
+   SCR fallbacks count what they absorb: at the end of the run every
+   clean path's pipeline (main, legacy, host search, sampled, window
+   updates) has counted zero, and no session of a clean path has counted
+   a failure or a retry (every RagSession of the run is recorded).
 3. The wave path of the same model: the 16 prompts, left-padded to
    32-token buckets, through `Engine.generate(continuous=False,
    max_new=16)` (`flash_prefill` prefill, `decode_attention` decode),
@@ -166,13 +168,40 @@ determinism`; a whole CPU build and two card builds with the
   probed lists as segments of its device pack), and every query's ids
   and distances equal numpy's own sums on the host bit for bit (F9); each
   PQ search is also timed along the parent tree's path (codes stacked on
-  the host, `stacked_search`), beside this tree's.
+  the host, `stacked_search`), beside this tree's;
+- the fire path (after the window-updates path, on the main path's
+  pipeline): serving under fire. (1) A traced session of admission bound
+  8 under a ChaosPipeline (retrieval errors at calls 0, 2, 5, 9, 10) is
+  fed the 16 questions and a poisoned query (its embedder raises), one a
+  step: each request ends in one terminal state, the counters add up, the
+  poisoned query fails, the trace passes `tools/trace_check.py`, and each
+  done request with its max_new unclamped has the doc ids and prompt of a
+  clean `answer_batch` of its question (its tokens' share equal to the
+  main path's is reported). (2) A request's deadline passes after its
+  first token: shed ("deadline"), cancelled in the engine, its slot
+  serves the next request. (3) SLO admission: the card's p95 stage costs
+  from a warm trace window, then the questions at an SLO of half that
+  run's p50 latency (degrades and sheds reported). (4) The reference's
+  chaos soak (tests/test_faults.py) with `SlotScheduler` over 3 clones of
+  the continuous engine, 32 requests of the main path's prompts: the
+  partition, a drain, a recovery in the calm tail, no page held, all
+  pages free after the prefix caches drop, a clean trace; then the
+  legacy wave `Scheduler` over two callables of the wave Engine, 8
+  prompts. (5) An index fault and an SCR fault each add one to their
+  fallback count and serve the reference's fallback (the last good ids;
+  the full documents); a `KernelError` from `ops.ecoscan` propagates out
+  of `answer_batch` and `RagSession.step`, and from
+  `ops.decode_attention_paged` out of `SlotScheduler.run`, moving no
+  counter.
 
 The line before the last is the kernel summary as JSON; the last line is
 `{"ok": true, "device": {...}}`.
 """
+import collections
+import contextlib
 import ctypes
 import dataclasses
+import importlib.util
 import json
 import math
 import os
@@ -202,14 +231,20 @@ from repro_torch.models.dense import (DenseLM, cache_len,  # noqa: E402
                                       chunk_rows)
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.models.moe import MoELM  # noqa: E402
+from repro_torch.serving import rag as rag_mod  # noqa: E402
 from repro_torch.serving.embedder import HashEmbedder  # noqa: E402
 from repro_torch.serving.engine import (ContinuousEngine,  # noqa: E402
                                         Engine)
+from repro_torch.serving.faults import (ChaosPipeline,  # noqa: E402
+                                        FaultPlan, wrap_replicas)
 from repro_torch.serving.rag import MobileRAG  # noqa: E402
 from repro_torch.serving.sampling import (fold_in, gumbel,  # noqa: E402
                                           prng_key, random_bits,
                                           sample_rows)
-from repro_torch.serving.trace import TraceSink  # noqa: E402
+from repro_torch.serving.scheduler import (Scheduler,  # noqa: E402
+                                           SlotScheduler)
+from repro_torch.serving.session import RagSession  # noqa: E402
+from repro_torch.serving.trace import SLOController, TraceSink  # noqa: E402
 
 HBM_BYTES_S = 3.35e12          # H100 SXM HBM3
 F32_FLOPS_S = 67e12            # f32 outside the tensor cores
@@ -259,6 +294,21 @@ FREQ_SIGMAS = 5.0
 N_APPEND = 64
 N_WI_UPDATE = 32
 N_WI_REMOVE = 16
+# the fire path: the chaos pipeline of the session under fire (retrieval
+# errors at calls 0, 2, 5, 9 and 10; tests/test_faults.py), its poisoned
+# query, the deadline of part 2, and the reference's chaos soak
+# (tests/test_faults.py: 32 requests over 3 replicas)
+FIRE_PLAN = dict(seed=3, horizon=12, rates={"retrieval_error": 0.5})
+POISON = "POISON: a query its embedder cannot embed"
+FIRE_DEADLINE_S = 1.0
+SOAK_PLAN = dict(seed=0, horizon=80,
+                 rates={"replica_crash": 0.06, "slot_stall": 0.03,
+                        "slow_step": 0.05},
+                 stall_steps=30, slow_s=0.002)
+SOAK_REQUESTS = 32
+# every RagSession the run makes, with the path it ran on (CURRENT)
+SESSIONS = []
+CURRENT = [None]
 REPLACES = {
     "kmeans_assign": "src/repro/kernels/kmeans_assign.py:37",
     "ecoscan": "src/repro/kernels/ecoscan.py:163",
@@ -302,6 +352,10 @@ PATH_KERNELS = {
                 "ecoscan", "scr_select"),
     "window_updates": ("ecoscan", "scr_select", "flash_prefill",
                        "decode_attention_paged"),
+    # the session and scheduler ladders; the wave Scheduler's replicas
+    # run the wave Engine
+    "fire": ("ecoscan", "scr_select", "flash_prefill",
+             "decode_attention_paged", "decode_attention"),
 }
 
 
@@ -1435,8 +1489,10 @@ def drive(path, fn):
     """Run one path with every launch count zeroed just before and read
     just after; each kernel of the path must have launched."""
     ops.reset_launch_counts()
+    CURRENT[0] = path
     out = fn()
     torch.cuda.synchronize()
+    CURRENT[0] = None
     counts = ops.launch_counts()
     missing = [n for n in PATH_KERNELS[path] if counts[n] == 0]
     assert not missing, f"kernels not launched on the {path} path: {missing}"
@@ -1769,7 +1825,8 @@ def host_search_phase(pipe, embed, docs, questions):
     200 corpus queries at k 10 and the pipeline's n_probe; each query
     loads exactly n_probe cluster graphs (no cache: the partial-loading
     contract). Then `MobileRAG(index=pipe.index, device_retrieval=False)`
-    (legacy SCR, no second window index) answers the 16 questions."""
+    (legacy SCR, no second window index) answers the 16 questions; that
+    pipeline is returned last."""
     idx = pipe.index
     assert idx.cache_clusters == 0 and not idx._quarantined
     qvs = np.asarray(embed(questions + corpus_queries(docs, HOST_NQ)),
@@ -1780,7 +1837,7 @@ def host_search_phase(pipe, embed, docs, questions):
     hpipe = MobileRAG(docs, embed, top_k=3, index=idx, device_retrieval=False,
                       use_window_index=False, gen_config=GEN_CONFIG, seed=0,
                       device=DEV)
-    return qvs, ids, times, nbytes, hpipe.answer_batch(questions)
+    return qvs, ids, times, nbytes, hpipe.answer_batch(questions), hpipe
 
 
 def host_search_info(pipe, qvs, ids, times, nbytes, host_answers, answers):
@@ -2466,6 +2523,413 @@ def window_updates_path(pipe):
         "stats": dataclasses.asdict(st)}, (q, d2, l2, ids)
 
 
+# ----------------------------------------------------------- fire path
+
+
+class RecordedSession(RagSession):
+    """RagSession that records itself, with the path it ran on, in
+    SESSIONS: the end of the run checks that no session of a clean path
+    counted a failure or a retry. (`MobileRAG.session` builds this class
+    once `main` installs it in the rag module.)"""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        SESSIONS.append((CURRENT[0], self))
+
+
+class PoisonEmbedder:
+    """Raises on any text holding the POISON marker (a scripted embedder
+    failure that hits exactly one query), else embeds as `inner`."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def __call__(self, texts):
+        if any(POISON in t for t in texts):
+            raise RuntimeError("embedder down for this query")
+        return self.inner(texts)
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    """`obj.name = value` inside the block; the old binding is restored
+    after it (an attribute `obj` did not hold itself, a method of its
+    class, is deleted again)."""
+    had = name in vars(obj)
+    old = vars(obj).get(name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        if had:
+            setattr(obj, name, old)
+        else:
+            delattr(obj, name)
+
+
+def _raise_runtime(*a, **kw):
+    raise RuntimeError("injected stage fault")
+
+
+def _raise_kernel(*a, **kw):
+    raise ops.KernelError("injected kernel fault")
+
+
+def expect_kernel_error(fn):
+    """Call `fn`, which must raise `ops.KernelError`: a kernel fault
+    that a ladder absorbed fails the run (any other exception propagates
+    as it is)."""
+    try:
+        fn()
+    except ops.KernelError:
+        return
+    raise AssertionError("a kernel fault was absorbed")
+
+
+def load_trace_check():
+    """tools/trace_check.py (stdlib only, not a package), loaded by path."""
+    path = Path(__file__).resolve().parent / "tools" / "trace_check.py"
+    spec = importlib.util.spec_from_file_location("trace_check", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_trace(sink, label):
+    """Export `sink` as JSONL under build/traces/ (gitignored) and hold
+    the export to tools/trace_check.py as a complete trace. Returns the
+    loaded records."""
+    tc = load_trace_check()
+    out = Path(__file__).resolve().parent / "build" / "traces"
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"{label}.jsonl"
+    assert sink.export_jsonl(path) == len(sink)
+    recs = tc.load_jsonl(path)
+    viol = tc.check_records(recs, complete=True)
+    assert not viol, f"{label} trace: {len(viol)} violations: {viol[:5]}"
+    return recs
+
+
+def drain_session(sess, max_steps=5000):
+    """Step `sess` until it drains (at most `max_steps` steps); every
+    event it produced."""
+    events = []
+    for _ in range(max_steps):
+        if not (sess.pending or sess._events_out):
+            return events
+        events += sess.step()
+    raise AssertionError(f"session not drained in {max_steps} steps")
+
+
+def terminal_partition(sess, events, rids):
+    """Every request ends in exactly one terminal state (one terminal
+    event each, the state it holds) and the counters add up: completed +
+    shed_* + failed = submitted. Returns the count of each state."""
+    term = collections.Counter(e.req_id for e in events
+                               if e.kind in ("done", "shed", "failed"))
+    assert all(term[r] == 1 for r in rids), term
+    states = collections.Counter(sess.requests[r].state for r in rids)
+    assert set(states) <= {"done", "shed", "failed"}, states
+    c = sess.counters
+    assert c.submitted == len(rids)
+    assert (c.completed + c.shed_deadline + c.shed_overload + c.shed_oversize
+            + c.shed_slo + c.failed) == c.submitted, c
+    assert states["done"] == c.completed and states["failed"] == c.failed
+    return dict(states)
+
+
+def session_under_fire(pipe, questions, clean, main_answers):
+    """Part 1: a traced session of admission bound 8 over the pipeline
+    wrapped in a ChaosPipeline (FIRE_PLAN: retrieval errors at calls 0,
+    2, 5, 9 and 10), fed the questions with the poisoned query second,
+    one submission a step. Every request ends in one terminal state, the
+    counters add up, the poisoned query fails, the trace is clean; a done
+    request whose max_new was not clamped has the doc ids and prompt of
+    the clean answer of its question (`clean`), and the share of its
+    tokens equal to the main path's is reported (bf16, F3)."""
+    sink = TraceSink()
+    cp = ChaosPipeline(pipe, FaultPlan(**FIRE_PLAN), trace=sink)
+    queries = questions[:1] + [POISON] + questions[1:]
+    with patched(pipe, "embed", PoisonEmbedder(pipe.embed)):
+        sess = RecordedSession(cp, max_new=MAX_NEW, slots=pipe.slm.SLOTS,
+                               retrieve_chunk=4, max_pending=8, trace=sink)
+        rids, events = [], []
+        t0 = time.perf_counter()
+        for q in queries:
+            rids.append(sess.submit(q))
+            events += sess.step()
+        events += drain_session(sess)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    states = terminal_partition(sess, events, rids)
+    assert sess.requests[rids[1]].state == "failed", "poison not failed"
+    assert sess.counters.failed >= 1 and sess.counters.retrieval_retries >= 1
+    check_trace(sink, "fire_session")
+    by_q = {q: (c, m) for q, c, m in zip(questions, clean, main_answers)}
+    compared = same = positions = 0
+    for r, q in zip(rids, queries):
+        req = sess.requests[r]
+        if req.state != "done" or req.max_new != MAX_NEW:
+            continue
+        c, m = by_q[q]
+        assert req.answer.doc_ids == c.doc_ids and \
+            req.answer.prompt == c.prompt, f"request {r} differs from clean"
+        if req.answer.prompt == m.prompt:
+            compared += 1
+            same += sum(x == y for x, y in zip(req.answer.gen_tokens,
+                                               m.gen_tokens))
+            positions += max(len(req.answer.gen_tokens), len(m.gen_tokens))
+    return {"requests": len(rids), "states": states,
+            "counters": dataclasses.asdict(sess.counters),
+            "injected": cp.injected, "answer_wall_s": wall,
+            "unclamped_done_equal_clean": sum(
+                sess.requests[r].state == "done"
+                and sess.requests[r].max_new == MAX_NEW for r in rids),
+            "tokens_compared_requests": compared,
+            "equal_token_share_main_path": same / positions if positions
+            else None}
+
+
+def deadline_part(pipe, questions):
+    """Part 2: a request with a FIRE_DEADLINE_S deadline, stepped to its
+    first token, then left until the deadline passes: the next step
+    sheds it ("deadline") and cancels it in the engine (pending 0), and
+    the freed slot serves the next request."""
+    sink = TraceSink()
+    sess = pipe.session(max_new=MAX_NEW, slots=pipe.slm.SLOTS, trace=sink)
+    cancelled = sess.engine.cancelled
+    rid = sess.submit(questions[0], deadline_s=FIRE_DEADLINE_S)
+    t0 = time.perf_counter()
+    events, tokens = [], 0
+    while tokens == 0:
+        assert time.perf_counter() - t0 < 10 * FIRE_DEADLINE_S
+        evs = sess.step()
+        assert not any(e.kind == "shed" for e in evs), \
+            "the deadline passed before the first token"
+        events += evs
+        tokens = sum(e.kind == "token" and e.req_id == rid for e in evs)
+    first_token_s = time.perf_counter() - t0
+    time.sleep(max(0.0, sess.requests[rid].expires_s
+                   - time.perf_counter()) + 0.01)
+    evs = sess.step()
+    events += evs
+    assert [(e.req_id, e.payload) for e in evs if e.kind == "shed"] == \
+        [(rid, "deadline")], evs
+    assert sess.counters.shed_deadline == 1
+    assert sess.engine.pending == 0
+    assert sess.engine.cancelled == cancelled + 1
+    nxt = sess.run([questions[1]])[0]
+    assert nxt is not None and 1 <= len(nxt.gen_tokens) <= MAX_NEW
+    check_trace(sink, "fire_deadline")
+    return {"deadline_s": FIRE_DEADLINE_S, "first_token_s": first_token_s,
+            "tokens_before_shed": tokens,
+            "next_request_tokens": len(nxt.gen_tokens)}
+
+
+def slo_part(pipe, questions):
+    """Part 3: a traced session runs the questions (all submitted at
+    once) to warm the trace window; `SLOController.stage_costs()` reads
+    the card's p95 stage costs from it; then a second session on the same
+    sink runs the questions at an SLO of half the first run's p50
+    latency. Its degrades and sheds are reported; the terminal partition
+    and a clean trace are asserted."""
+    sink = TraceSink()
+    warm = pipe.session(max_new=MAX_NEW, slots=pipe.slm.SLOTS, trace=sink)
+    rids = [warm.submit(q) for q in questions]
+    events = drain_session(warm)
+    terminal_partition(warm, events, rids)
+    assert warm.counters.completed == len(questions)
+    lat = sorted(warm.requests[r].latency_s for r in rids)
+    p50 = lat[len(lat) // 2]
+    costs = {k[:-2] + "_ms": v * 1e3
+             for k, v in SLOController(sink).stage_costs().items()}
+    print("SLO stage costs (p95 ms: retrieve a query, prefill chunk, decode "
+          "step):", json.dumps(costs))
+    slo = pipe.session(max_new=MAX_NEW, slots=pipe.slm.SLOTS, trace=sink,
+                       slo_s=p50 / 2)
+    rids = [slo.submit(q) for q in questions]
+    events = drain_session(slo)
+    states = terminal_partition(slo, events, rids)
+    check_trace(sink, "fire_slo")
+    return {"clean_latency_p50_s": p50, "slo_s": p50 / 2,
+            "stage_costs_ms": costs,
+            "states": states, "degraded_slo": slo.counters.degraded_slo,
+            "shed_slo": slo.counters.shed_slo,
+            "counters": dataclasses.asdict(slo.counters)}
+
+
+def chaos_soak(slm, prompts):
+    """Part 4: `SlotScheduler` over 3 clones of the main path's continuous
+    engine (full width, bf16), under the reference's soak plan
+    (SOAK_PLAN, tests/test_faults.py): 32 requests of the main path's
+    condensed prompts, cycled, max_new 2-5, every eighth with a 2 ms
+    deadline; then the calm tail until a drained replica recovers. The
+    partition, a drain and a recovery, no page held by a drained engine,
+    every page free after the prefix caches drop, and a clean trace."""
+    sink = TraceSink()
+    engines = [slm.engine.clone() for _ in range(3)]
+    for e in engines:
+        e.warmup()
+        e.trace = sink
+    wrapped = wrap_replicas(engines, FaultPlan(**SOAK_PLAN))
+    sched = SlotScheduler(wrapped, stall_s=0.5, probe_cooldown_s=0.05,
+                          max_strikes=2, max_hedges=3, max_probes=None,
+                          deadline_s=30.0, trace=sink)
+    rng = np.random.default_rng(1)
+    rids = [sched.submit(prompts[i % len(prompts)], int(rng.integers(2, 6)),
+                         deadline_s=0.002 if i % 8 == 7 else 30.0)
+            for i in range(SOAK_REQUESTS)]
+    t0 = time.perf_counter()
+    done = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    done_rids = [c.rid for c in done]
+    shed_rids = [sh.rid for sh in sched.shed]
+    assert len(set(done_rids)) == len(done_rids)
+    assert len(set(shed_rids)) == len(shed_rids)
+    assert set(done_rids).isdisjoint(shed_rids)
+    assert set(done_rids) | set(shed_rids) == set(rids)
+    c = sched.counters
+    assert c.completed + c.shed_deadline + c.shed_queue + c.shed_engine == \
+        len(rids), c
+    assert c.drains >= 1, c
+    for w in wrapped:
+        st = w.inner.page_stats()
+        assert w.inner.pending == 0 and st.mapped_refs == st.retained, st
+    counters_run = dataclasses.asdict(c)
+    t1 = time.perf_counter()
+    tail = 0
+    while sched.counters.recoveries < 1:
+        assert tail < 40, "no drained replica recovered in the calm tail"
+        batch = [sched.submit(rng.integers(4, 500, size=12).astype(np.int32),
+                              3) for _ in range(4)]
+        assert {x.rid for x in sched.run()} == set(batch)
+        tail += 1
+        time.sleep(0.05)
+    tail_wall = time.perf_counter() - t1
+    for w in wrapped:
+        w.inner.drop_prefix_cache()
+        st = w.inner.page_stats()
+        assert st.free == st.total and st.mapped_refs == 0, st
+    recs = check_trace(sink, "fire_soak")
+    assert sum(r["comp"] == "chaos" for r in recs) == \
+        sum(sum(w.injected.values()) for w in wrapped)
+    return {"requests": len(rids), "replicas": len(engines),
+            "wall_s": wall, "tail_batches": tail, "tail_wall_s": tail_wall,
+            "completed": len(done), "shed": collections.Counter(
+                sh.reason for sh in sched.shed),
+            "counters_run": counters_run,
+            "counters": dataclasses.asdict(sched.counters),
+            "injected": [w.injected for w in wrapped],
+            "hedged_completions": sum(x.hedged for x in done),
+            "utilisation": [w.inner.utilisation() for w in wrapped],
+            "latency_p50_s": float(np.median([x.latency_s for x in done])),
+            "trace_records": len(recs)}
+
+
+def wave_scheduler_part(slm, bucket_prompts):
+    """Part 4, end: the legacy wave `Scheduler` over two callables of the
+    main path's wave Engine, 8 bucketed prompts."""
+    def replica(ps, max_new):
+        return [r.tokens for r in slm.wave.generate(ps, max_new=max_new,
+                                                    continuous=False)]
+    ws = Scheduler([replica, replica], max_wave=8)
+    rids = [ws.submit(p, MAX_NEW) for p in bucket_prompts[:8]]
+    t0 = time.perf_counter()
+    done = ws.run()
+    wall = time.perf_counter() - t0
+    assert sorted(x.rid for x in done) == rids
+    check_tokens(done, MAX_NEW, slm.cfg.vocab_padded)
+    return {"requests": len(rids), "wall_s": wall,
+            "served": [s.served for s in ws.state],
+            "strikes": [s.strikes for s in ws.state]}
+
+
+def full_docs_prompt(docs, query, ids):
+    """The reference's fallback prompt (`RAGBase._make_prompt`): the full
+    retrieved documents, in retrieval order."""
+    ctx = "\n\n".join(f"[Doc {i + 1}] {docs[i]}" for i in ids)
+    return f"Context:\n{ctx}\n\nQuestion: {query}\nAnswer:"
+
+
+def fallback_part(pipe, questions, prompts):
+    """Part 5: each fallback counts exactly what was injected. An index
+    fault (`search_device_batched` raising a RuntimeError) adds one
+    `retrieval_fallbacks` and serves the last good batch's ids; an SCR
+    fault (`apply_scr_batch` raising) adds one `scr_fallbacks` and
+    serves the full documents. A `KernelError` from a kernel wrapper
+    (`ops.ecoscan`; `ops.decode_attention_paged` under a
+    `SlotScheduler`) propagates out of `answer_batch`, `RagSession.step`
+    and `SlotScheduler.run` and moves no counter."""
+    qs = questions[:4]
+    r0, s0 = pipe.retrieval_fallbacks, pipe.scr_fallbacks
+    last = [list(r) for r in pipe._last_good_ids]
+    with patched(pipe.index, "search_device_batched", _raise_runtime):
+        stale = pipe.answer_batch(qs)
+    assert (pipe.retrieval_fallbacks, pipe.scr_fallbacks) == (r0 + 1, s0)
+    for i, a in enumerate(stale):
+        assert sorted(a.doc_ids) == sorted(last[i % len(last)])
+    with patched(rag_mod, "apply_scr_batch", _raise_runtime):
+        full = pipe.answer_batch(qs)
+    assert (pipe.retrieval_fallbacks, pipe.scr_fallbacks) == (r0 + 1, s0 + 1)
+    for q, a, ids in zip(qs, full, pipe._last_good_ids):
+        assert a.scr is None and a.doc_ids == ids
+        assert a.prompt == full_docs_prompt(pipe.docs, q, ids)
+    counts = (pipe.retrieval_fallbacks, pipe.scr_fallbacks)
+    with patched(ops, "ecoscan", _raise_kernel):
+        expect_kernel_error(lambda: pipe.answer_batch(qs))
+        sess = pipe.session(max_new=MAX_NEW, slots=pipe.slm.SLOTS,
+                            trace=TraceSink())
+        for q in qs:
+            sess.submit(q)
+        before = dataclasses.asdict(sess.counters)
+        expect_kernel_error(sess.step)
+        assert dataclasses.asdict(sess.counters) == before
+    assert (pipe.retrieval_fallbacks, pipe.scr_fallbacks) == counts
+    sched = SlotScheduler([pipe.slm.engine.clone() for _ in range(2)])
+    for p_ in prompts[:4]:
+        sched.submit(p_, 4)
+    before = dataclasses.asdict(sched.counters)
+    with patched(ops, "decode_attention_paged", _raise_kernel):
+        expect_kernel_error(sched.run)
+    assert dataclasses.asdict(sched.counters) == before
+    assert all(h.healthy and h.strikes == 0 for h in sched.state)
+    return {"retrieval_fallbacks": pipe.retrieval_fallbacks - r0,
+            "scr_fallbacks": pipe.scr_fallbacks - s0,
+            "kernel_faults_propagated": ["answer_batch (ecoscan)",
+                                         "RagSession.step (ecoscan)",
+                                         "SlotScheduler.run "
+                                         "(decode_attention_paged)"]}
+
+
+def fire_path(pipe, questions, main_answers, bucket_prompts):
+    """The fire path on the main path's pipeline: the session under fire,
+    a deadline, SLO admission, the chaos soak and the wave scheduler,
+    then the fallbacks and the kernel-fault rule. The shared engine's
+    trace sink is restored after."""
+    slm = pipe.slm
+    engine_trace = slm.engine.trace
+    try:
+        clean = pipe.answer_batch(questions)
+        prompts = [slm.encode_prompt(a.prompt) for a in main_answers]
+        t0 = time.perf_counter()
+        info = {"session": session_under_fire(pipe, questions, clean,
+                                              main_answers),
+                "clean_equal_main_path": sum(
+                    c.prompt == m.prompt and c.doc_ids == m.doc_ids
+                    for c, m in zip(clean, main_answers))}
+        info["deadline"] = deadline_part(pipe, questions)
+        info["slo"] = slo_part(pipe, questions)
+        info["soak"] = chaos_soak(slm, prompts)
+        info["wave_scheduler"] = wave_scheduler_part(slm, bucket_prompts)
+        info["fallbacks"] = fallback_part(pipe, questions, prompts)
+        torch.cuda.synchronize()
+        info["wall_s"] = time.perf_counter() - t0
+    finally:
+        slm.engine.trace = engine_trace
+    return info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2473,6 +2937,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    rag_mod.RagSession = RecordedSession
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -2543,8 +3008,9 @@ def main() -> int:
         t1 = time.perf_counter()
         out = lpipe.answer_batch(questions, generate=True, max_new=MAX_NEW)
         torch.cuda.synchronize()
-        return out, t1 - t0, time.perf_counter() - t1
-    (legacy, l_build, l_wall), legacy_launches = drive("legacy", legacy_path)
+        return out, t1 - t0, time.perf_counter() - t1, lpipe
+    (legacy, l_build, l_wall, lpipe), legacy_launches = drive("legacy",
+                                                              legacy_path)
     assert legacy_launches["scr_score"] >= len(questions), legacy_launches
     for a in legacy:
         assert 1 <= len(a.gen_tokens) <= MAX_NEW
@@ -2575,9 +3041,9 @@ def main() -> int:
     w_leg, q_leg = legacy_windows(legacy[0], corpus.docs, embed, questions[0])
 
     # ---- EcoVector host search on the main path's index
-    (hq_vs, h_ids, h_times, h_bytes, h_answers), host_launches = drive(
-        "host_search",
-        lambda: host_search_phase(pipe, embed, corpus.docs, questions))
+    (hq_vs, h_ids, h_times, h_bytes, h_answers, hpipe), host_launches = \
+        drive("host_search", lambda: host_search_phase(pipe, embed,
+                                                       corpus.docs, questions))
     assert host_launches["ecoscan"] == 0, host_launches
     print("EcoVector host search:", json.dumps(host_search_info(
         pipe, hq_vs, h_ids, h_times, h_bytes, h_answers, answers)))
@@ -3056,6 +3522,15 @@ def main() -> int:
     (wu_info, wu_scr), wu_launches = drive(
         "window_updates", lambda: window_updates_path(pipe))
     print("window updates path:", json.dumps(wu_info))
+    # ---- serving under fire on the main path's pipeline; the pipeline's
+    # fallback counts of the clean paths before it (main, sampled, window
+    # updates)
+    clean_fallbacks = {"main": (pipe.retrieval_fallbacks, pipe.scr_fallbacks)}
+    fire_info, fire_launches = drive("fire", lambda: fire_path(
+        pipe, questions, answers, prompts))
+    print("fire path:", json.dumps(fire_info))
+    assert (pipe.retrieval_fallbacks, pipe.scr_fallbacks) == (1, 1), \
+        "the fire path's fallbacks counted other than what it injected"
     # ---- updates on the main path's index, after every path that uses
     # it; then ecoscan on the grown pack
     (upd, (ud_t, ul_t, uc_t)), upd_launches = drive(
@@ -3109,13 +3584,29 @@ def main() -> int:
                   f"{sh['bound_ms'] / sh['ms']:.3%} of the bound, "
                   f"max abs err {sh['err']:.3g}, ties {sh['ties']}"
                   + (f" [{sh['shape']}]" if "shape" in sh else ""))
+    # no clean path's pipeline fell back, no clean session failed or
+    # retried
+    clean_fallbacks.update({
+        "legacy": (lpipe.retrieval_fallbacks, lpipe.scr_fallbacks),
+        "host_search": (hpipe.retrieval_fallbacks, hpipe.scr_fallbacks)})
+    assert all(v == (0, 0) for v in clean_fallbacks.values()), clean_fallbacks
+    clean_sessions = [(p_, s_) for p_, s_ in SESSIONS if p_ != "fire"]
+    assert clean_sessions and all(
+        s_.counters.failed == s_.counters.retrieval_retries == 0
+        for _, s_ in clean_sessions), [(p_, s_.counters)
+                                       for p_, s_ in clean_sessions]
+    print("clean paths: retrieval and SCR fallbacks (main / sampled / window "
+          "updates share the main pipeline):", json.dumps(clean_fallbacks),
+          f"; {len(clean_sessions)} sessions without a failure or a retry "
+          "(paths:", json.dumps(collections.Counter(
+              str(p_) for p_, _ in clean_sessions)), ")")
     paths = {"main": launches, "wave": wave_launches, "h2o": h2o_launches,
              "legacy": legacy_launches, "baselines": base_launches,
              "host_search": host_launches, "graph_baselines": graph_launches,
              "updates": upd_launches, "h2o_continuous": h2o_c_launches,
              "h2o_int8": h2o_q8_launches, "int8": int8_launches,
              "moe": moe_launches, "sampled": sampled_launches,
-             "window_updates": wu_launches}
+             "window_updates": wu_launches, "fire": fire_launches}
     kernels = [{
         "name": name, "route": "cuda",
         "source": SOURCES[name],

@@ -11,6 +11,10 @@ with `-Xptxas -v` register and shared-memory use, is kept beside each
 library as `<kernel>.log`. Every C entry point is looked up once, when
 its library loads, into `ENTRY` (name -> ctypes function), so a launch
 costs one dict lookup and the ctypes call.
+
+Every failure here (no nvcc, a failed compile, a library that does not
+load) raises `KernelError`: a kernel fault, which the serving ladders
+never absorb (`ops.is_kernel_fault`).
 """
 from __future__ import annotations
 
@@ -73,6 +77,13 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                           _P, _P]},
 }
 
+
+class KernelError(RuntimeError):
+    """A kernel fault: a kernel that does not build, load or launch.
+    Serving's fallbacks re-raise it instead of degrading around it
+    (`ops.is_kernel_fault`)."""
+
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 ENTRY: Dict[str, Callable[..., int]] = {}
@@ -81,8 +92,8 @@ ENTRY: Dict[str, Callable[..., int]] = {}
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
-                           "machine with the CUDA toolkit")
+        raise KernelError("nvcc not found: the CUDA kernels build only on a "
+                          "machine with the CUDA toolkit")
     return path
 
 
@@ -121,12 +132,15 @@ def build_all() -> float:
                 else:
                     os.replace(tmp, out)
             if failed:
-                raise RuntimeError("nvcc failed for " + "\n".join(failed))
+                raise KernelError("nvcc failed for " + "\n".join(failed))
         seconds = time.perf_counter() - t0
         for name, fns in SIGNATURES.items():
             if name in _libs:
                 continue
-            lib = ctypes.CDLL(str(_target(name)))
+            try:
+                lib = ctypes.CDLL(str(_target(name)))
+            except OSError as e:
+                raise KernelError(f"{name}: library did not load: {e}") from e
             for fn, argtypes in fns.items():
                 f = getattr(lib, fn)
                 f.argtypes = argtypes

@@ -12,6 +12,12 @@ The launch path is kept short, since most calls of the port take a few
 microseconds of device time: one pass of checks per wrapper (`_checked`),
 the C entry point from `build.ENTRY`, and the current stream's raw handle
 without building a `torch.cuda.Stream` (`_stream`).
+
+A launch that fails raises `KernelError` (as does a kernel that does not
+build or load). `is_kernel_fault` tells such a fault, or a CUDA error
+that PyTorch raised, from any other exception: the serving ladders
+(retrieval and SCR fallbacks, the session's retry, the schedulers'
+strikes) degrade around the others and re-raise kernel faults.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.build import KernelError
 
 KERNELS = ("kmeans_assign", "ecoscan", "scr_select", "decode_attention_paged",
            "flash_prefill", "decode_attention", "scr_score", "pq_adc",
@@ -63,7 +70,24 @@ def _stream(dev: torch.device) -> int:
 
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+        raise KernelError(f"{name} kernel launch failed: cudaError {err}")
+
+
+# PyTorch's exception for an error the device reported (where the
+# installed torch has it)
+_ACCELERATOR_ERROR = getattr(torch, "AcceleratorError", None)
+
+
+def is_kernel_fault(e: BaseException) -> bool:
+    """Whether `e` is a fault of a kernel or of the device: a
+    `KernelError`, PyTorch's `AcceleratorError`, or a RuntimeError whose
+    message starts "CUDA error". A fallback that catches exceptions
+    re-raises these."""
+    if isinstance(e, KernelError):
+        return True
+    if _ACCELERATOR_ERROR is not None and isinstance(e, _ACCELERATOR_ERROR):
+        return True
+    return isinstance(e, RuntimeError) and str(e).startswith("CUDA error")
 
 
 _DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}

@@ -27,6 +27,18 @@ the reference's threefry draws. So a request's sampled tokens depend
 only on (seed, rid, its logits): they are the same whatever else is
 co-resident, and the same on waves and on the continuous engine.
 Greedy rows take the first maximum of their logits.
+
+`cancel` abandons an in-flight request wherever it is (queued, admitted,
+mid-prefill or decoding): its slot and page references are freed at once
+and no further events come for it. `clone` makes a replica (the
+`SlotScheduler`'s unit of failover) over the same model weights with its
+own page pool.
+
+A prompt chunk's trace span ("prefill_chunk", B to E) ends after the
+chunk's work on the device: after the synchronize of a non-final chunk,
+after the first token's draw of the final one. (The reference closes it
+when the chunk is dispatched.) `SLOController` reads these spans as the
+cost of a chunk.
 """
 from __future__ import annotations
 
@@ -152,9 +164,21 @@ class ContinuousEngine:
         self.queue: Deque[_Request] = deque()
         self._inflight: Dict[int, _Request] = {}
         self._next_rid = 0
+        # utilisation and pager counters (decode steps only)
         self.steps = 0
+        self.active_slot_steps = 0
+        self.cancelled = 0
+        self.shed = 0
         self.prefix_hits = 0
         self.prefix_tokens_reused = 0
+
+    def clone(self, *, slots: Optional[int] = None) -> "ContinuousEngine":
+        """An independent replica: the same model (its weights are shared,
+        not copied) and settings, its own page pool and slot state."""
+        return ContinuousEngine(
+            self.model, slots=slots or self.slots, max_len=self.max_len,
+            eos_id=self.eos_id, prefill_chunk=self.prefill_chunk,
+            page_size=self.page_size, trace=self.trace)
 
     def _table_dev(self) -> torch.Tensor:
         if self._tbl_dev is None:
@@ -215,10 +239,49 @@ class ContinuousEngine:
         """Requests still in flight (queued, prefilling or decoding)."""
         return len(self._inflight)
 
+    def free_slots(self) -> int:
+        """Slots with no occupant (neither decoding nor admitting)."""
+        return sum(1 for r in self._occupant if r is None)
+
+    def available_slots(self) -> int:
+        """Admission capacity: free slots less the queued requests (what
+        a scheduler looks at)."""
+        return self.free_slots() - len(self.queue)
+
     def page_stats(self) -> PoolStats:
+        """Pool occupancy: total and free pages, the live references
+        (slot mappings and prefix-cache retentions) and the retentions."""
         retained = self.prefix.retained_count() if self.prefix else 0
         return PoolStats(self.pool.num_pages, self.pool.free_count,
                          int(self.pool.refs.sum()), retained)
+
+    def drop_prefix_cache(self) -> int:
+        """Release every prefix-cache retention (pages a live slot maps
+        survive until the slot frees them); returns the entries dropped."""
+        return self.prefix.drop() if self.prefix else 0
+
+    def cancel(self, rid: int) -> bool:
+        """Abandon one in-flight request (a deadline, a superseded hedge,
+        a scheduler failover): its slot and page references are freed at
+        once, so the next `step()` can admit into them, and no further
+        events come for the rid. False when the rid is unknown or
+        finished."""
+        req = self._inflight.pop(rid, None)
+        if req is None:
+            return False
+        try:
+            self.queue.remove(req)
+        except ValueError:
+            pass
+        self._release_pages(req)
+        s = req.slot
+        if s >= 0 and self._occupant[s] is req:
+            self._occupant[s] = None
+            self.active[s] = False
+        self.cancelled += 1
+        self._emit("cancelled", rid, slot=s, n_tokens=len(req.tokens))
+        self._trace_page_stats()
+        return True
 
     # ------------------------------------------------------------- stepping
 
@@ -324,6 +387,7 @@ class ContinuousEngine:
                     return
                 if st == "shed":
                     self._inflight.pop(req.rid, None)
+                    self.shed += 1
                     events.append(EngineEvent(req.rid, "shed",
                                               reason="oversize"))
                     self._emit("shed", req.rid, reason="oversize",
@@ -360,13 +424,13 @@ class ContinuousEngine:
                 self._table_dev()[s], req.filled, req.filled + real,
                 page_size=self.page_size, ring_len=self.ring_len)
             req.filled += real
-            self._emit("prefill_chunk", req.rid, ph="E")
             if req.filled >= len(req.prompt):
                 plen = len(req.prompt)
                 if self.prefix is not None:
                     self.prefix.register(
                         req.prompt, req.pages[:-(-plen // self.page_size)])
                 tok = self._draw(req, logits[0, real - 1])
+                self._emit("prefill_chunk", req.rid, ph="E")
                 self.pos[s] = plen
                 self.last_tok[s] = tok
                 self.active[s] = True
@@ -376,6 +440,7 @@ class ContinuousEngine:
                 # the chunk's work ends inside this step's timing window
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
+                self._emit("prefill_chunk", req.rid, ph="E")
                 req.prefill_s += time.perf_counter() - t0
 
     def _decode_step(self, events: List[EngineEvent]) -> None:
@@ -406,6 +471,7 @@ class ContinuousEngine:
         dt = time.perf_counter() - t0
         self._emit("decode_step", ph="E")
         self.steps += 1
+        self.active_slot_steps += int(self.active.sum())
         for s in range(self.slots):
             if not self.active[s]:
                 continue
@@ -425,13 +491,17 @@ class ContinuousEngine:
         self._decode_step(events)
         return events
 
+    def utilisation(self) -> float:
+        """Mean share of slots decoding a step."""
+        return self.active_slot_steps / max(self.steps * self.slots, 1)
+
     # ----------------------------------------------------------- draining
 
     def warmup(self) -> None:
         """One tiny request, as the reference's warmup runs (it registers
         the same prefix-cache entry, so later page allocation matches)."""
         self.generate([np.arange(2, dtype=np.int32)], max_new=2)
-        self.steps = 0
+        self.steps = self.active_slot_steps = 0
 
     def generate(self, prompts: List[np.ndarray], max_new: int = 32,
                  greedy: bool = True, seed: int = 0) -> List[GenResult]:

@@ -251,6 +251,14 @@ class PrefixCache:
                 self.pool.decref(tail.pid)
         return True
 
+    def drop(self) -> int:
+        """Release every retained page (engine reset, tests); returns the
+        number of references dropped."""
+        n = 0
+        while self.evict_one():
+            n += 1
+        return n
+
     def retained_count(self) -> int:
         n = 0
         stack = [self.root]

@@ -14,11 +14,20 @@ added to the window index before the next SCR (`_sync_window_index`), as
 the reference does. `answer_batch(generate=True)` pipelines chunks of
 queries through a `RagSession` into the continuous engine; `session()`
 and `stream()` take the reference's `slots`, `retrieve_chunk`, `greedy`
-and `seed`. Not ported: the reference's other pipelines and their
-Table-6 TTFT/energy model, durable retrieval state (`retrieval_state`,
-`save_retrieval`) and the degradation ladders (retrieval and SCR
-fallbacks, deadlines, SLO admission): a fault in retrieval or SCR
-raises.
+and `seed`, and its serving-under-fire arguments: `max_pending`
+(admission bound), `deadline_s`, `trace` and `slo_s` (SLO admission).
+
+The reference's two degradation ladders are ported: an index fault
+serves the last good retrieval's ids (or the corpus head) and counts
+`retrieval_fallbacks`; an SCR fault serves the full retrieved documents
+(`_make_prompt`) and counts `scr_fallbacks`. One deliberate difference:
+a kernel fault (a kernel that does not build or launch, a CUDA error;
+`ops.is_kernel_fault`) is never absorbed by either ladder. It
+propagates, so a broken device cannot pass for a served answer.
+
+Not ported: the reference's other pipelines and their Table-6
+TTFT/energy model, and durable retrieval state (`retrieval_state`,
+`save_retrieval`).
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ from repro_torch.core.ecovector import EcoVector
 from repro_torch.core.scr import (SCRConfig, SCRResult, apply_scr,
                                   apply_scr_batch, build_prompt)
 from repro_torch.core.window_index import WindowIndex
+from repro_torch.kernels.ops import is_kernel_fault
 from repro_torch.serving.session import RagSession
 from repro_torch.serving.slm import SLM
 from repro_torch.serving.trace import TraceSink
@@ -79,7 +89,16 @@ class MobileRAG:
         self.docs = list(docs)
         self.embed = embed
         self.top_k = top_k
+        # IVF probe width of every retrieval; the session's SLO ladder
+        # lowers it under deadline pressure and restores it after the
+        # chunk
         self.n_probe = 4
+        # degradation ladders: an index fault serves the last good
+        # retrieval (or the corpus head), an SCR fault the full documents;
+        # each decision counted
+        self.retrieval_fallbacks = 0
+        self.scr_fallbacks = 0
+        self._last_good_ids: Optional[List[List[int]]] = None
         if hasattr(embed, "fit") and not getattr(embed, "fitted", True):
             embed.fit(self.docs)
         t0 = time.perf_counter()
@@ -118,14 +137,46 @@ class MobileRAG:
         return self._slm
 
     def _retrieve_batch(self, qvs: np.ndarray, k: int) -> List[List[int]]:
-        if self.device_retrieval:
-            ids_b, _ = self.index.search_device_batched(qvs, k=k,
-                                                        n_probe=self.n_probe)
-        else:
-            ids_b = [self.index.search(qv, k=k, n_probe=self.n_probe)[0]
-                     for qv in qvs]
-        return [[int(i) for i in row if 0 <= int(i) < len(self.docs)]
-                for row in ids_b]
+        """Ids of each query of a [B, d] batch: one device call, or a
+        host search a query. An index fault degrades to `_fallback_ids`
+        (counted in `retrieval_fallbacks`); a kernel fault propagates."""
+        qvs = np.atleast_2d(np.asarray(qvs, np.float32))
+        try:
+            if self.device_retrieval:
+                ids_b, _ = self.index.search_device_batched(
+                    qvs, k=k, n_probe=self.n_probe)
+            else:
+                ids_b = [self.index.search(qv, k=k, n_probe=self.n_probe)[0]
+                         for qv in qvs]
+        except Exception as e:
+            if is_kernel_fault(e):
+                raise
+            self.retrieval_fallbacks += 1
+            return self._fallback_ids(len(qvs), k)
+        clean = [[int(i) for i in row if 0 <= int(i) < len(self.docs)]
+                 for row in ids_b]
+        self._last_good_ids = clean
+        return clean
+
+    def _fallback_ids(self, n: int, k: int) -> List[List[int]]:
+        """Stale but serviceable ids while the index is down: the last
+        good batch's rows, cycled, else the first k documents."""
+        if self._last_good_ids:
+            rows = self._last_good_ids
+            return [list(rows[i % len(rows)]) for i in range(n)]
+        return [list(range(min(k, len(self.docs)))) for _ in range(n)]
+
+    def _make_prompt(self, query: str, ids: List[int]) -> str:
+        """The full retrieved documents as context (the prompt of an SCR
+        fallback)."""
+        ctx = "\n\n".join(f"[Doc {i + 1}] {self.docs[i]}" for i in ids)
+        return f"Context:\n{ctx}\n\nQuestion: {query}\nAnswer:"
+
+    def _full_docs(self, query: str, ids: List[int], t_ret: float,
+                   t_post: float) -> RAGAnswer:
+        prompt = self._make_prompt(query, ids)
+        return RAGAnswer(prompt, list(ids), t_ret, t_post,
+                         len(prompt.split()))
 
     def answer_batch(self, queries: Sequence[str], *,
                      generate: bool = False,
@@ -133,8 +184,10 @@ class MobileRAG:
         """One embed feeds the fused retrieval and the fused SCR select;
         the rest is host string assembly. Without a window index, each
         query is condensed by its own `apply_scr` call after the batched
-        retrieval. `generate=True` routes through a RagSession, whose
-        retrieval chunks re-enter this path."""
+        retrieval. An SCR fault serves every query of the batch its full
+        documents (one `scr_fallbacks`); a kernel fault propagates.
+        `generate=True` routes through a RagSession, whose retrieval
+        chunks re-enter this path."""
         queries = list(queries)
         if not queries:
             return []
@@ -149,8 +202,16 @@ class MobileRAG:
                     for q, ids in zip(queries, ids_b)]
         self._sync_window_index()
         t1 = time.perf_counter()
-        results = apply_scr_batch(queries, ids_b, self.window_index,
-                                  self.embed, qvs=qvs)
+        try:
+            results = apply_scr_batch(queries, ids_b, self.window_index,
+                                      self.embed, qvs=qvs)
+        except Exception as e:
+            if is_kernel_fault(e):
+                raise
+            self.scr_fallbacks += 1
+            t_post = (time.perf_counter() - t1) / len(queries)
+            return [self._full_docs(q, ids, t_ret, t_post)
+                    for q, ids in zip(queries, ids_b)]
         t_post = (time.perf_counter() - t1) / len(queries)
         out = []
         for q, ids, res in zip(queries, ids_b, results):
@@ -161,10 +222,19 @@ class MobileRAG:
 
     def _finish_legacy(self, query: str, ids: List[int],
                        t_ret: float) -> RAGAnswer:
-        """Per-query SCR over the retrieved docs (`apply_scr`)."""
+        """Per-query SCR over the retrieved docs (`apply_scr`); an SCR
+        fault serves the full documents (one `scr_fallbacks`), a kernel
+        fault propagates."""
         t1 = time.perf_counter()
-        res = apply_scr(query, [self.docs[i] for i in ids], self.embed,
-                        self.scr_cfg, device=self.device)
+        try:
+            res = apply_scr(query, [self.docs[i] for i in ids], self.embed,
+                            self.scr_cfg, device=self.device)
+        except Exception as e:
+            if is_kernel_fault(e):
+                raise
+            self.scr_fallbacks += 1
+            return self._full_docs(query, ids, t_ret,
+                                   time.perf_counter() - t1)
         t_post = time.perf_counter() - t1
         prompt = build_prompt(query, res)
         return RAGAnswer(prompt, [ids[i] for i in res.order], t_ret, t_post,
@@ -180,13 +250,23 @@ class MobileRAG:
 
     def session(self, *, max_new: int = 16, slots: int = 4,
                 retrieve_chunk: int = 4, greedy: bool = True,
-                seed: int = 0) -> RagSession:
+                seed: int = 0, max_pending: Optional[int] = None,
+                deadline_s: Optional[float] = None,
+                trace: Optional[TraceSink] = None,
+                slo_s: Optional[float] = None) -> RagSession:
         """A RagSession over this pipeline: continuous-batching decode on
         the sLM's engine of `slots` slots. `greedy=False` samples each
-        request from its own stream fold_in(PRNGKey(seed), rid)."""
+        request from its own stream fold_in(PRNGKey(seed), rid).
+        `max_pending` bounds admission (degrade past half, shed at the
+        bound); `deadline_s` is the default deadline of a request;
+        `trace` is a shared TraceSink (default: the pipeline's); `slo_s`
+        turns on SLO admission planned from the live trace window."""
         return RagSession(self, max_new=max_new, slots=slots,
                           retrieve_chunk=retrieve_chunk, greedy=greedy,
-                          seed=seed, trace=self.trace)
+                          seed=seed, max_pending=max_pending,
+                          deadline_s=deadline_s,
+                          trace=self.trace if trace is None else trace,
+                          slo_s=slo_s)
 
     def stream(self, queries: Sequence[str] = (), *, max_new: int = 16,
                slots: int = 4, retrieve_chunk: int = 4):

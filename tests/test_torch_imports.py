@@ -27,8 +27,11 @@ for name in names:
 # the wave path and the second configuration; the legacy SCR path and
 # the baselines; the host index, its graphs and the paper's model; the
 # MoE family, the family registry and the MoE configuration; the
-# threefry draws of sampled decoding
-for name in ("repro_torch.serving.sampling", "repro_torch.configs.h2o_danube_1_8b",
+# threefry draws of sampled decoding; serving under fire (the fault
+# harness, the replica schedulers and their health tracker)
+for name in ("repro_torch.serving.faults", "repro_torch.serving.scheduler",
+             "repro_torch.dist.fault",
+             "repro_torch.serving.sampling", "repro_torch.configs.h2o_danube_1_8b",
              "repro_torch.serving.engine", "repro_torch.models.dense",
              "repro_torch.core.scr", "repro_torch.core.pq",
              "repro_torch.core.baselines", "repro_torch.core.store",
@@ -50,6 +53,11 @@ from repro_torch.core.baselines import ALL_BASELINES, make_index
 from repro_torch.core.ecovector import EcoVector
 from repro_torch.core.hnsw import HNSW
 from repro_torch.core.analytical import search_latency_ms
+from repro_torch.kernels.ops import KernelError, is_kernel_fault
+from repro_torch.serving.trace import SLOController, load_jsonl
+from repro_torch.serving.scheduler import Scheduler, SlotScheduler
+from repro_torch.serving.faults import ChaosEngine, ChaosPipeline, FaultPlan
+from repro_torch.dist.fault import HealthTracker
 import chip_smoke
 sys.path.insert(0, {str(ROOT / "tools")!r})
 import attention_probe, kmeans_probe, launch_probe, retrieval_probe
@@ -60,7 +68,7 @@ print(len(names))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 37
+    assert int(out.stdout.split()[-1]) >= 41
 
 
 def test_no_jax_or_repro_import_lines():
