@@ -192,7 +192,29 @@ determinism`; a whole CPU build and two card builds with the
   the full documents); a `KernelError` from `ops.ecoscan` propagates out
   of `answer_batch` and `RagSession.step`, and from
   `ops.decode_attention_paged` out of `SlotScheduler.run`, moving no
-  counter.
+  counter;
+- the durable path (after the fire path, on the main path's pipeline,
+  in a temp directory removed after it): `save_retrieval` (seconds and
+  bytes of the EcoVector and window-index generations); 64 inserts and
+  32 deletes on the index and 16 adds, 8 updates and 4 removes on the
+  window index, each through the fsync'd WAL (append ms p50 / p95);
+  both parts loaded into fresh objects: every op replayed, device
+  search of the 216 host-search queries bit-equal to the live index's,
+  the window tensors bit-equal; `TieredEcoVector.load` at budgets None,
+  0.5, 0.25 of the all-resident pack and half the centroids' bytes
+  (all cold, warned): the device bytes within the budget (or the
+  centroid floor), equal to the tensors held and to the
+  `memory_allocated` delta of the activation (up to the allocator's
+  rounding, under 2 MiB a tensor);
+  8 rounds of the 16 questions each bit-equal to the all-resident
+  index's (hot-hit share by round, promotions, demotions, search and
+  cold-gather ms); the compaction (`save_retrieval` again); then
+  `MobileRAG(retrieval_state=..., device_budget_bytes=0.25)` with the
+  main path's weights is built without a kmeans_assign launch or a
+  document embedded, and answers the 16 questions with the live
+  pipeline's doc ids and prompts (the equal token share reported: bf16).
+  ecoscan is then held to its plain version at the tier shape (hot rows
+  and a cold scratch under a block map), with its device ms.
 
 The line before the last is the kernel summary as JSON; the last line is
 `{"ok": true, "device": {...}}`.
@@ -205,9 +227,12 @@ import importlib.util
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -220,10 +245,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import kmeans as kmeans_mod  # noqa: E402
 from repro_torch.core.baselines import make_index  # noqa: E402
+from repro_torch.core.ecovector import EcoVector  # noqa: E402
 from repro_torch.core.kmeans import (cluster_sums,  # noqa: E402
                                      kmeans_pp_init, lloyd)
 from repro_torch.core.scr import (SCRConfig, sliding_windows,  # noqa: E402
                                   split_sentences)
+from repro_torch.core.tiered import TieredEcoVector  # noqa: E402
+from repro_torch.core.window_index import WindowIndex  # noqa: E402
 from repro_torch.data.synthetic import make_qa_corpus, sift_like  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
@@ -306,6 +334,19 @@ SOAK_PLAN = dict(seed=0, horizon=80,
                         "slow_step": 0.05},
                  stall_steps=30, slow_s=0.002)
 SOAK_REQUESTS = 32
+# the durable path: the journaled ops on the main path's index (inserts
+# of perturbed corpus vectors under new ids, deletes of corpus ids) and
+# window index, the tiered loads' budgets (a share of the all-resident
+# pack; "below": half the routing centroids' bytes) and their rounds of
+# the 16 questions
+N_DUR_INSERT = 64
+N_DUR_DELETE = 32
+N_DUR_ADD = 16
+N_DUR_UPDATE = 8
+N_DUR_REMOVE = 4
+DUR_ID0 = 10 ** 7
+TIER_BUDGETS = (None, 0.5, 0.25, "below")
+TIER_ROUNDS = 8
 # every RagSession the run makes, with the path it ran on (CURRENT)
 SESSIONS = []
 CURRENT = [None]
@@ -356,6 +397,9 @@ PATH_KERNELS = {
     # run the wave Engine
     "fire": ("ecoscan", "scr_select", "flash_prefill",
              "decode_attention_paged", "decode_attention"),
+    # save, journal, tiered loads and a restored pipeline answering
+    "durable": ("ecoscan", "scr_select", "flash_prefill",
+                "decode_attention_paged"),
 }
 
 
@@ -524,7 +568,8 @@ def _ecoscan_case(label, q, data, lens, probes, k, block_map=None):
     return err, ties, ids
 
 
-def check_ecoscan(label, q, data, lens, probes, k, block_map=None):
+def check_ecoscan(label, q, data, lens, probes, k, block_map=None,
+                  map_kind="masked"):
     """ecoscan at one shape: `_ecoscan_case`, times (library: `cdist` +
     `topk` over the gathered lists) and the bound of the work."""
     B, d = q.shape
@@ -542,7 +587,7 @@ def check_ecoscan(label, q, data, lens, probes, k, block_map=None):
     return dict(
         shape=f"{label}: q {list(q.shape)}, data {list(data.shape)}, probes "
               f"{list(probes.shape)}, k {k}, block_map "
-              f"{'identity' if block_map is None else 'masked'}",
+              f"{'identity' if block_map is None else map_kind}",
         err=err, ties=ties, ms=time_ms(call),
         plain_ms=time_ms(lambda: ref.ecoscan(q, data, lens, probes, k,
                                              block_map=block_map)),
@@ -2930,6 +2975,304 @@ def fire_path(pipe, questions, main_answers, bucket_prompts):
     return info
 
 
+# --------------------------------------------------------- durable path
+
+
+class CountingEmbedder:
+    """Embeds as `inner` and counts the texts it was given."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.texts = 0
+
+    def __call__(self, texts):
+        self.texts += len(texts)
+        return self.inner(texts)
+
+
+@contextlib.contextmanager
+def timed_calls(obj, name, out):
+    """Append the host ms of each `obj.name(...)` call inside the block
+    to `out` (the call's own result passes through)."""
+    fn = getattr(obj, name)
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            out.append((time.perf_counter() - t) * 1e3)
+    with patched(obj, name, timed):
+        yield
+
+
+def _tree_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _pct(xs, q):
+    return float(np.percentile(xs, q)) if xs else None
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def durable_journal(pipe, root, hq_vs, keep):
+    """Part 2 of the durable path: the journaled ops on the live index
+    (N_DUR_INSERT inserts of perturbed corpus vectors under new ids,
+    N_DUR_DELETE deletes of corpus ids outside `keep`) and window index
+    (N_DUR_ADD adds, N_DUR_UPDATE updates, N_DUR_REMOVE removes), each
+    append fsync'd (its ms recorded); then both parts loaded into fresh
+    objects: WAL replayed op for op, device search of `hq_vs` bit-equal
+    to the live index's, the window tensors bit-equal."""
+    idx, wi = pipe.index, pipe.window_index
+    rng = np.random.default_rng(23)
+    n = len(pipe.docs)
+    src = rng.choice(n, N_DUR_INSERT, replace=False)
+    vecs = (pipe.embed([pipe.docs[i] for i in src])
+            + 0.002 * rng.standard_normal((N_DUR_INSERT, idx.dim))
+            ).astype(np.float32)
+    gone = [int(v) for v in rng.permutation(n)
+            if int(v) not in keep and int(v) in idx.assign][:N_DUR_DELETE]
+    touched = [int(v) for v in rng.permutation(n)
+               if int(v) not in keep][:N_DUR_UPDATE + N_DUR_REMOVE]
+    wal_ms = []
+    t0 = time.perf_counter()
+    with timed_calls(idx._journal, "append", wal_ms), \
+            timed_calls(wi._journal, "append", wal_ms):
+        for j, v in enumerate(vecs):
+            idx.insert(DUR_ID0 + j, v)
+        for v in gone:
+            idx.delete(v)
+        for i in range(N_DUR_ADD):
+            wi.add(appended_doc(1000 + i)[0])
+        for di in touched[:N_DUR_UPDATE]:
+            sents = split_sentences(wi.texts[di])
+            wi.update(di, " ".join([f"Durable revision {di}."] + sents[1:]))
+        for di in touched[N_DUR_UPDATE:]:
+            wi.remove(di)
+    ops_s = time.perf_counter() - t0
+    n_eco, n_win = N_DUR_INSERT + len(gone), N_DUR_ADD + len(touched)
+    assert len(wal_ms) == n_eco + n_win, len(wal_ms)
+    t0 = time.perf_counter()
+    ev = EcoVector.load(os.path.join(root, "ecovector"),
+                        storage_dir=os.path.join(root, "replay_spill"),
+                        device=DEV)
+    eco_load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wi2 = WindowIndex.load(pipe.embed, os.path.join(root, "windows"),
+                           device=DEV)
+    win_load_s = time.perf_counter() - t0
+    assert (ev.stats.wal_replayed, wi2.stats.wal_replayed) == (n_eco, n_win)
+    assert ev.assign == idx.assign and wi2.texts == wi.texts
+    ids, d = idx.search_device_batched(hq_vs, k=10, n_probe=pipe.n_probe)
+    ids2, d2 = ev.search_device_batched(hq_vs, k=10, n_probe=pipe.n_probe)
+    assert np.array_equal(ids, ids2) and _same_bits(d, d2), \
+        "the replayed index searches other than the live one"
+    wd, wl = wi.device_arrays()
+    wd2, wl2 = wi2.device_arrays()
+    assert torch.equal(wd, wd2) and torch.equal(wl, wl2), \
+        "the replayed window pack differs from the live one"
+    info = {"index_ops": n_eco, "window_ops": n_win, "ops_s": ops_s,
+            "wal_append_ms_p50": _pct(wal_ms, 50),
+            "wal_append_ms_p95": _pct(wal_ms, 95),
+            "wal_bytes": os.path.getsize(idx._journal.wal_path(0))
+            + os.path.getsize(wi._journal.wal_path(0)),
+            "ecovector_load_s": eco_load_s, "window_load_s": win_load_s,
+            "window_reembedded_windows": wi2.stats.windows_embedded,
+            "queries_bit_equal": len(hq_vs)}
+    del ev, wi2, wd2, wl2
+    torch.cuda.empty_cache()
+    return info
+
+
+def tier_budget(pipe, root, q16, budget, live, tier_inputs):
+    """Part 3 of the durable path at one budget: `TieredEcoVector.load` of
+    the saved index (its WAL replayed), the budget set and the tiers
+    activated (device bytes within the budget or the centroid floor,
+    equal to the tensors held and to the `memory_allocated` delta up to
+    the caching allocator's rounding: 512-byte blocks, and the unsplit
+    tail of a large segment, under 2 MiB a tensor), then TIER_ROUNDS rounds of the 16
+    questions: ids and distances bit-equal to the live all-resident
+    index's every round. At budget 0.25 the first round's ecoscan inputs
+    (hot rows + cold scratch, the block map) go to `tier_inputs`."""
+    tv = TieredEcoVector.load(os.path.join(root, "ecovector"),
+                              storage_dir=os.path.join(root, f"tier_{budget}"),
+                              device=DEV)
+    full = tv.all_resident_bytes()
+    b = (None if budget is None else tv._fixed_device_bytes() // 2
+         if budget == "below" else int(budget * full))
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        tv.set_device_budget(b)
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        tv.activate()
+        torch.cuda.synchronize()
+        activate_s = time.perf_counter() - t0
+        m1 = torch.cuda.memory_allocated()
+        all_cold = any("serving all-cold" in str(w.message) for w in warned)
+    assert all_cold == (budget == "below"), (budget, all_cold)
+    held_t = tv.device_tensors()
+    held = sum(t.numel() * t.element_size() for t in held_t)
+    assert tv.device_resident_bytes() == held, (tv.device_resident_bytes(),
+                                                held)
+    # the caching allocator rounds a block up to 512 bytes, and leaves a
+    # large segment's tail (< 2 MiB, never split off) in its block
+    assert 0 <= (m1 - m0) - held < len(held_t) * 2 ** 21, (m1 - m0, held)
+    if b is not None:
+        assert held <= max(b, tv._fixed_device_bytes()), (held, b)
+    live_ids, live_d = live
+    gather_ms, search_ms, hot_share = [], [], []
+    real = ops.ecoscan_launch
+
+    def record(q, data, lens, probes, k, block_map=None, tile=None):
+        # the first launch at 0.25 whose scan holds cold scratch rows
+        if budget == 0.25 and not tier_inputs and \
+                data.shape[0] > len(tv._row_cluster):
+            tier_inputs.extend([q, data, lens, probes, k, block_map])
+        return real(q, data, lens, probes, k, block_map, tile=tile)
+    s = tv.stats
+    with timed_calls(tv, "_gather_cold", gather_ms), \
+            patched(ops, "ecoscan_launch", record):
+        for _ in range(TIER_ROUNDS):
+            h0, c0 = s.tier_hot_hits, s.tier_cold_hits
+            t0 = time.perf_counter()
+            ids, d = tv.search_device_batched(q16, k=10,
+                                              n_probe=pipe.n_probe)
+            search_ms.append((time.perf_counter() - t0) * 1e3)
+            assert np.array_equal(ids, live_ids) and _same_bits(d, live_d), \
+                f"tiered search at budget {budget} differs from all-resident"
+            hits = s.tier_hot_hits - h0 + s.tier_cold_hits - c0
+            hot_share.append((s.tier_hot_hits - h0) / hits)
+            if b is not None:
+                assert tv.device_resident_bytes() <= max(
+                    b, tv._fixed_device_bytes())
+    info = {"budget": budget, "budget_bytes": b, "all_resident_bytes": full,
+            "device_resident_bytes": tv.device_resident_bytes(),
+            "memory_allocated_delta": m1 - m0, "hot_rows":
+            len(tv._row_cluster), "hot": len(tv.hot_clusters()),
+            "cold": len(tv.cold_clusters()), "cap": tv._cap,
+            "wal_replayed": s.wal_replayed, "activate_s": activate_s,
+            "hot_hit_share_by_round": hot_share,
+            "promotions": s.promotions, "demotions": s.demotions,
+            "search_ms_first": search_ms[0], "search_ms_last": search_ms[-1],
+            "search_ms_p50": _pct(search_ms, 50),
+            "cold_gather_ms_p50": _pct(gather_ms, 50),
+            "cold_gathers": len(gather_ms),
+            "cold_pack_bytes": tv._cold.file_bytes()}
+    return info
+
+
+def durable_path(pipe, questions, hq_vs, main_answers, main_build_s):
+    """The durable path on the main path's pipeline, after the fire path
+    (the window-updates path's documents included), in a temp directory
+    removed at the end: (1) `save_retrieval` (seconds and bytes of each
+    part); (2) `durable_journal`; (3) `tier_budget` at each of
+    TIER_BUDGETS, beside the all-resident search's ms; (4) the compaction
+    (`save_retrieval` again: generation 1, empty WALs), then
+    `MobileRAG(retrieval_state=, device_budget_bytes=0.25)` with the main
+    path's weights: no kmeans_assign launch and no document embedded
+    while it is built; its `answer_batch(generate=True)` of the 16
+    questions gives the live pipeline's doc ids and prompts (the equal
+    token share reported: bf16), without a fallback. Returns (info, the
+    ecoscan inputs at the tier shape)."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_durable_")
+    idx, wi = pipe.index, pipe.window_index
+    info = {}
+    rpipe = None
+    try:
+        t_path = time.perf_counter()
+        part_s = {}
+        with timed_calls(idx, "save", part_s.setdefault("ecovector", [])), \
+                timed_calls(wi, "save", part_s.setdefault("windows", [])):
+            t0 = time.perf_counter()
+            pipe.save_retrieval(root)
+            save_s = time.perf_counter() - t0
+        info["save"] = {
+            "s": save_s, "part_s": {k: v[0] / 1e3 for k, v in part_s.items()},
+            "part_bytes": {k: _tree_bytes(os.path.join(root, k))
+                           for k in part_s},
+            "window_pack": list(wi.pack()[0].shape)}
+        keep = {i for a in main_answers for i in a.doc_ids}
+        info["journal"] = durable_journal(pipe, root, hq_vs, keep)
+        q16 = np.asarray(hq_vs[:len(questions)], np.float32)
+        live = idx.search_device_batched(q16, k=10, n_probe=pipe.n_probe)
+        live_ms = []
+        for _ in range(TIER_ROUNDS):
+            t0 = time.perf_counter()
+            idx.search_device_batched(q16, k=10, n_probe=pipe.n_probe)
+            live_ms.append((time.perf_counter() - t0) * 1e3)
+        tier_inputs = []
+        info["tiers"] = [tier_budget(pipe, root, q16, b, live, tier_inputs)
+                         for b in TIER_BUDGETS]
+        info["all_resident_search_ms_p50"] = _pct(live_ms, 50)
+        assert len(tier_inputs) == 6, "no tiered scan over cold scratch"
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        pipe.save_retrieval()
+        info["compaction_s"] = time.perf_counter() - t0
+        for part, obj in (("ecovector", idx), ("windows", wi)):
+            assert obj._journal.generation == 1 and \
+                obj._journal.wal_records() == 0, part
+        counted = CountingEmbedder(pipe.embed)
+        params = dict(pipe.slm.model.named_parameters())
+        rsink = TraceSink()
+        k0 = ops.launch_counts()["kmeans_assign"]
+        t0 = time.perf_counter()
+        rpipe = MobileRAG(pipe.docs, counted, top_k=3, retrieval_state=root,
+                          device_budget_bytes=0.25, gen_config=GEN_CONFIG,
+                          gen_params=params, seed=0, trace=rsink, device=DEV)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        assert counted.texts == 0, counted.texts
+        assert ops.launch_counts()["kmeans_assign"] == k0
+        assert isinstance(rpipe.index, TieredEcoVector)
+        live_ans = pipe.answer_batch(questions, generate=True,
+                                     max_new=MAX_NEW)
+        t0 = time.perf_counter()
+        got = rpipe.answer_batch(questions, generate=True, max_new=MAX_NEW)
+        torch.cuda.synchronize()
+        answer_s = time.perf_counter() - t0
+        assert [a.doc_ids for a in got] == [a.doc_ids for a in live_ans]
+        assert [a.prompt for a in got] == [a.prompt for a in live_ans]
+        check_tokens(gen_results(got), MAX_NEW, rpipe.slm.cfg.vocab_padded)
+        assert (rpipe.retrieval_fallbacks, rpipe.scr_fallbacks) == (0, 0)
+        steps = rsink.durations("engine", "decode_step")
+        active = [r.attrs["active"] for r in rsink.query(
+            comp="engine", name="decode_step") if r.ph == "B"]
+        ttft = sorted(a.ttft_measured_s for a in got)
+        info["restore"] = {
+            "construction_s": restore_s, "main_build_s": main_build_s,
+            "kmeans_assign_launches": 0, "documents_embedded": 0,
+            "budget_bytes": rpipe.index.device_budget_bytes,
+            "device_resident_bytes": rpipe.index.device_resident_bytes(),
+            "hot": len(rpipe.index.hot_clusters()),
+            "cold": len(rpipe.index.cold_clusters()),
+            "answer_wall_s": answer_s,
+            "doc_ids_equal": len(got), "prompts_equal": len(got),
+            "equal_token_share": equal_share(gen_results(got),
+                                             gen_results(live_ans)),
+            "ttft_p50_s": ttft[len(ttft) // 2],
+            "decode_tok_s": sum(active) / sum(steps),
+            "query_texts_embedded": counted.texts}
+        info["wall_s"] = time.perf_counter() - t_path
+        return info, tier_inputs
+    finally:
+        # the live index and window index stop journaling into `root`
+        for obj in (idx, wi):
+            if obj._journal is not None:
+                obj._journal.close()
+            obj._journal = obj._persist_root = None
+        pipe.retrieval_state = None
+        if rpipe is not None:
+            shutil.rmtree(rpipe.index.storage_dir, ignore_errors=True)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3531,6 +3874,22 @@ def main() -> int:
     print("fire path:", json.dumps(fire_info))
     assert (pipe.retrieval_fallbacks, pipe.scr_fallbacks) == (1, 1), \
         "the fire path's fallbacks counted other than what it injected"
+    # ---- durability and tiers on the main path's pipeline: save, the
+    # journal and its replay, tiered loads under budgets, a restored
+    # pipeline answering
+    (dur_info, tier_in), dur_launches = drive("durable", lambda: durable_path(
+        pipe, questions, hq_vs, answers, main["build_s"]))
+    assert dur_launches["kmeans_assign"] == 0, dur_launches
+    assert (pipe.retrieval_fallbacks, pipe.scr_fallbacks) == (1, 1)
+    print("durable path:", json.dumps(dur_info))
+    tier_shape = check_ecoscan("tiered at 0.25: hot rows + cold scratch",
+                               *tier_in[:5], block_map=tier_in[5],
+                               map_kind="hot rows, cold clusters to scratch")
+    tier_shape["device_ms"] = _profiled(lambda: ops.ecoscan(
+        *tier_in[:5], block_map=tier_in[5]), 20)["device_ms"]
+    results["ecoscan"]["shapes"].append(tier_shape)
+    print("ecoscan at the tier shape:", json.dumps(tier_shape))
+    del tier_in
     # ---- updates on the main path's index, after every path that uses
     # it; then ecoscan on the grown pack
     (upd, (ud_t, ul_t, uc_t)), upd_launches = drive(
@@ -3606,7 +3965,8 @@ def main() -> int:
              "updates": upd_launches, "h2o_continuous": h2o_c_launches,
              "h2o_int8": h2o_q8_launches, "int8": int8_launches,
              "moe": moe_launches, "sampled": sampled_launches,
-             "window_updates": wu_launches, "fire": fire_launches}
+             "window_updates": wu_launches, "fire": fire_launches,
+             "durable": dur_launches}
     kernels = [{
         "name": name, "route": "cuda",
         "source": SOURCES[name],

@@ -24,9 +24,18 @@ Spill files are checksummed segments written atomically
 (`core/store.py`). One that fails its checksum at query time is
 quarantined: search skips it and widens the probe set, and
 `rebuild_cluster` restores it from the rows the pack still held or from
-caller-supplied vectors. The spill files pickle this package's HNSW, so
-they are not the reference's files (each names another class path).
-Snapshots, the write-ahead log and tiering are not ported yet.
+caller-supplied vectors.
+
+Durability, as the reference's: `save()` commits the whole index
+(centroids, centroid graph, id maps, every healthy spill file, each
+verified on the way) as the next generation of a `store.Journal`; after
+it, `insert` / `delete` append their op to the fsync'd write-ahead log
+before they apply, and `load()` = the latest generation + WAL replay.
+The files are the reference's format, and `load` reads a generation
+either package committed (`store.loads` maps the pickled class paths);
+the port writes its own HNSW class path, so its spill files and state
+record differ from the reference's by that string only.
+`core/tiered.py` splits the device pack hot/cold under a budget.
 """
 from __future__ import annotations
 
@@ -48,6 +57,7 @@ from repro_torch.core.kmeans import kmeans
 from repro_torch.kernels import ops, ref
 
 _CLUSTER_KIND = "ecovector.cluster"
+_STATE_KIND = "ecovector.state"
 
 
 @dataclass
@@ -66,11 +76,11 @@ class EcoVectorStats:
     quarantined: int = 0            # clusters currently quarantined
     rebuilt: int = 0                # clusters restored (rebuild/auto-heal)
     wal_replayed: int = 0           # mutations replayed by load()
-    # tiering (stays zero: not ported)
-    tier_hot_hits: int = 0
-    tier_cold_hits: int = 0
-    promotions: int = 0
-    demotions: int = 0
+    # tiering (core/tiered.py; zero on an index that is not tiered)
+    tier_hot_hits: int = 0          # probes served from the device pack
+    tier_cold_hits: int = 0         # probes served from the cold host pack
+    promotions: int = 0             # clusters moved cold -> hot
+    demotions: int = 0              # clusters moved hot -> cold
     # the device tensors (the port's own counters)
     mirror_uploads: int = 0         # whole-pack uploads
     mirror_blocks: int = 0          # cluster blocks copied in place
@@ -106,6 +116,9 @@ class EcoVector:
         self._cache: Dict[int, HNSW] = {}         # insertion order == LRU
         self._quarantined: Set[int] = set()       # clusters failing checksums
         self._salvage: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        self._journal: Optional[store.Journal] = None
+        self._persist_root: Optional[str] = None
+        self._replaying = False                   # WAL replay: don't re-log
         self._reset_pack_state()
 
     def _reset_pack_state(self):
@@ -522,8 +535,14 @@ class EcoVector:
 
     # ----------------------------------------------------------- update
 
+    def _pack_live(self) -> bool:
+        """Is there a device layout that insert/delete must keep in step
+        (by dirty marks)? The tiered index, whose layout is its own,
+        overrides this."""
+        return self._device_pack is not None
+
     def _mark_dirty(self, c: int, g: Optional[HNSW] = None):
-        if self._device_pack is not None:
+        if self._pack_live():
             self._dirty.add(c)
             if g is not None:
                 self._pending_graphs.pop(c, None)
@@ -531,12 +550,22 @@ class EcoVector:
                 while len(self._pending_graphs) > self.PENDING_GRAPHS_MAX:
                     self._pending_graphs.pop(next(iter(self._pending_graphs)))
 
+    def _wal_append(self, op: tuple):
+        """Journal a mutation before it applies: when this returns the op
+        is fsync'd and survives kill -9 (load replays it). No-op until
+        the index has a persistence root (the first `save()`)."""
+        if self._journal is not None and not self._replaying:
+            self._journal.append(
+                pickle.dumps(op, protocol=pickle.HIGHEST_PROTOCOL))
+
     def insert(self, vid: int, vec: np.ndarray):
         """§3.3.1: route to the nearest centroid, Algorithm-1 insert into
         that cluster's graph only. The pack is not invalidated: the
         owning cluster is marked dirty and rewritten in place on the next
-        device query."""
+        device query. With a persistence root the op reaches the WAL
+        (fsync'd) before it applies."""
         vec = np.asarray(vec, np.float32)
+        self._wal_append(("insert", int(vid), vec.tobytes()))
         cids, _ = self.centroid_graph.search(vec, 1, ef_search=16)
         c = int(cids[0])
         if c in self._quarantined:
@@ -561,7 +590,9 @@ class EcoVector:
         self._mark_dirty(c, g)
 
     def delete(self, vid: int):
-        """§3.3.2: Algorithm-2 delete inside the owning cluster's graph."""
+        """§3.3.2: Algorithm-2 delete inside the owning cluster's graph
+        (WAL'd first, like insert)."""
+        self._wal_append(("delete", int(vid)))
         c = self.assign.pop(int(vid), None)
         if c is None or c in self._quarantined:
             return                       # unknown, or its data already lost
@@ -571,6 +602,134 @@ class EcoVector:
             self.cluster_members[c].remove(int(vid))
         self._release_cluster(c, g, dirty=True)
         self._mark_dirty(c, g)
+
+    # ------------------------------------------------------ persistence
+
+    def save(self, root: Optional[str] = None) -> int:
+        """Commit the whole index (centroids, centroid graph, id maps,
+        every healthy spill file) as the next generation under `root`,
+        then rotate the WAL: the compaction step, the journaled
+        mutations folded into the snapshot. Later `insert` / `delete`
+        are journaled against the new generation. Returns its number."""
+        root = root or self._persist_root
+        if root is None:
+            raise ValueError("save() needs a root directory (none given "
+                             "and no previous save to reuse)")
+        if self.centroids is None or self.centroid_graph is None:
+            raise store.StoreError("save() before build(): nothing to "
+                                   "persist yet")
+        if self._journal is None or self._journal.root != root:
+            self._journal = store.Journal(root)
+        tmp = self._journal.begin()
+        self._write_state(tmp)
+        g = self._journal.commit()
+        self._persist_root = root
+        return g
+
+    def _write_state(self, d: str):
+        # spill files first: verify-on-copy may quarantine a rotten
+        # cluster, and state.seg records the quarantine set after it
+        for c in range(self.n_clusters):
+            if c in self._quarantined:
+                continue
+            try:
+                # bit-rot in a spill file must not reach a snapshot
+                blob = store.verify_segment(self._path(c),
+                                            kind=_CLUSTER_KIND)
+            except (store.StoreError, OSError) as e:
+                self.stats.corrupt_reads += 1
+                warnings.warn(f"cluster {c} failed validation during "
+                              f"save ({e}); quarantined and left out of "
+                              f"the snapshot", stacklevel=3)
+                self._quarantine(c)
+                continue
+            with open(os.path.join(d, f"cluster_{c:05d}.bin"), "wb") as f:
+                f.write(blob)
+                f.flush()
+                os.fsync(f.fileno())
+        cent_bytes, cent_spec = store.array_record(
+            np.asarray(self.centroids, np.float32))
+        state = {
+            "dim": self.dim, "n_clusters": self.n_clusters, "M": self.M,
+            "ef_construction": self.efc, "seed": self.seed,
+            "cache_clusters": self.cache_clusters,
+            "assign": {int(k): int(v) for k, v in self.assign.items()},
+            "cluster_members": [list(map(int, m))
+                                for m in self.cluster_members],
+            "quarantined": sorted(self._quarantined),
+        }
+        store.write_segment(
+            os.path.join(d, "state.seg"),
+            [pickle.dumps(state, protocol=pickle.HIGHEST_PROTOCOL),
+             cent_bytes,
+             pickle.dumps(self.centroid_graph,
+                          protocol=pickle.HIGHEST_PROTOCOL)],
+            {"centroids": cent_spec}, kind=_STATE_KIND)
+
+    @classmethod
+    def load(cls, root: str, storage_dir: Optional[str] = None,
+             device="cuda") -> "EcoVector":
+        """Restore the latest committed generation (of either package)
+        and replay its WAL. The spill files are copied into a fresh
+        working `storage_dir` (the generation stays immutable)."""
+        j = store.Journal(root)
+        g = j.latest()
+        if g is None:
+            raise FileNotFoundError(f"no committed generation under "
+                                    f"{root}")
+        meta, recs = j.read_segment(g, "state.seg", _STATE_KIND, 3)
+        state = store.loads(recs[0])
+        self = cls(state["dim"], n_clusters=state["n_clusters"],
+                   M=state["M"], ef_construction=state["ef_construction"],
+                   storage_dir=storage_dir, seed=state["seed"],
+                   cache_clusters=state["cache_clusters"], device=device)
+        self.centroids = store.record_array(recs[1], meta["centroids"])
+        self.centroid_graph = store.loads(recs[2])
+        if not isinstance(self.centroid_graph, HNSW):
+            raise store.CorruptSegmentError(
+                f"{root}: generation {g} centroid graph is "
+                f"{type(self.centroid_graph).__name__}, not HNSW")
+        self.assign = {int(k): int(v) for k, v in state["assign"].items()}
+        self.cluster_members = [list(m) for m in state["cluster_members"]]
+        self._quarantined = set(state["quarantined"])
+        self.stats.quarantined = len(self._quarantined)
+        for name in j.manifest(g)["files"]:
+            if name.startswith("cluster_"):
+                with open(os.path.join(self.storage_dir, name), "wb") as f:
+                    f.write(j.read_file(g, name))
+        self._journal = j
+        self._persist_root = root
+        self._restore_extra(j, g)
+        self._replay_journal()
+        return self
+
+    def _restore_extra(self, j: store.Journal, g: int) -> None:
+        """Subclass hook: restore more generation files (the tiered
+        index's tier assignment and cold pack) after the core state and
+        before the WAL replays, so replayed ops land on that layout."""
+
+    def _replay_journal(self) -> None:
+        """Re-apply every acknowledged mutation journaled since the
+        loaded generation (a torn tail was never acknowledged)."""
+        ops_raw, _torn = self._journal.replay()
+        self._replaying = True
+        try:
+            for raw in ops_raw:
+                self._apply_wal(store.loads(raw))
+        finally:
+            self._replaying = False
+        self.stats.wal_replayed = len(ops_raw)
+
+    def _apply_wal(self, op: tuple):
+        kind = op[0]
+        if kind == "insert":
+            _, vid, vec_bytes = op
+            self.insert(int(vid), np.frombuffer(vec_bytes, np.float32))
+        elif kind == "delete":
+            self.delete(int(op[1]))
+        else:
+            raise store.CorruptSegmentError(
+                f"unknown WAL op {kind!r} (journal from a newer version?)")
 
     # ------------------------------------------------------- accounting
 

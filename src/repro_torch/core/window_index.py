@@ -1,5 +1,5 @@
-"""Corpus-resident SCR window index (the port of
-`repro.core.window_index`, without its save/load and WAL).
+"""Corpus-resident SCR window index, the port of
+`repro.core.window_index`.
 
 Every document is split into sentences, windowed (`SCRConfig` geometry)
 and embedded once at build time; the window embeddings are packed into a
@@ -12,12 +12,19 @@ the next `pack()` embeds just the dirty documents (one batched embed
 call) and rewrites their blocks in place, growing the rows and CAPW by
 doubling on overflow. `device_arrays()` then copies only the rewritten
 rows into the existing device tensors and uploads `lens`; it uploads the
-whole pack only on first use and after a growth. Durability (`save`,
-`load`, the journal) waits for the port of `core/store.py`'s journal, so
-`stats.wal_replayed` stays 0.
+whole pack only on first use and after a growth.
+
+Durability, as the reference's: `save()` commits the texts and the
+embedded pack (`windows.seg`) as the next generation of a
+`store.Journal`, so a restart embeds nothing; after it, `add` / `update`
+/ `remove` reach the fsync'd WAL before they apply, and `load()` replays
+it (a replayed op only marks its block dirty). `load` reads a generation
+either package committed.
 """
 from __future__ import annotations
 
+import os
+import pickle
 from dataclasses import dataclass
 from typing import Callable, Iterable, List, Optional, Sequence, Set, Tuple
 
@@ -25,7 +32,10 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import store
 from repro_torch.core.scr import SCRConfig, sliding_windows, split_sentences
+
+_STATE_KIND = "window_index.state"
 
 
 @dataclass
@@ -37,7 +47,7 @@ class WindowIndexStats:
     grows: int = 0               # doubling growths of rows / CAPW
     embed_calls: int = 0         # batched embed invocations
     windows_embedded: int = 0    # total window texts embedded
-    wal_replayed: int = 0        # mutations replayed by a load (none yet)
+    wal_replayed: int = 0        # mutations replayed by load()
     resident_bytes: int = 0      # host pack + device copy, last reading
     select_calls: int = 0        # scr_select batch invocations
     select_queries: int = 0      # query rows across those batches
@@ -68,6 +78,9 @@ class WindowIndex:
         # the rows rewritten on the host since it was last refreshed
         self._dev: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._dev_dirty: Set[int] = set()
+        self._journal: Optional[store.Journal] = None
+        self._persist_root: Optional[str] = None
+        self._replaying = False
 
     # ------------------------------------------------------------- build
 
@@ -144,9 +157,17 @@ class WindowIndex:
 
     # ----------------------------------------------------------- updates
 
+    def _wal_append(self, op: tuple) -> None:
+        """Journal a mutation before it applies (fsync'd: it survives
+        kill -9). No-op until the index has been `save()`d once."""
+        if self._journal is not None and not self._replaying:
+            self._journal.append(
+                pickle.dumps(op, protocol=pickle.HIGHEST_PROTOCOL))
+
     def add(self, text: str) -> int:
         """Append a document; only its block is embedded and packed (at
         the next `pack()`). Returns the new doc id."""
+        self._wal_append(("add", text))
         di = len(self.texts)
         self.texts.append("")
         self.sents.append([])
@@ -158,12 +179,14 @@ class WindowIndex:
 
     def update(self, di: int, text: str) -> None:
         """Replace a document's text; marks only its block dirty."""
+        self._wal_append(("update", di, text))
         self._set_doc(di, text)
         self._mark_dirty(di)
 
     def remove(self, di: int) -> None:
         """Drop a document's windows: its block empties and the id stays,
         as retrieval indexes tombstone ids."""
+        self._wal_append(("remove", di))
         self._set_doc(di, "")
         self._mark_dirty(di)
 
@@ -234,6 +257,89 @@ class WindowIndex:
             self._dev_dirty.clear()
             self.stats.mirror_rows += len(rows)
         return self._dev
+
+    # ------------------------------------------------------- persistence
+
+    def save(self, root: Optional[str] = None) -> int:
+        """Commit the texts and the embedded pack (dirty blocks flushed
+        first, so a load never embeds) as the next generation under
+        `root`, then rotate the WAL: the compaction step. Returns the
+        generation number."""
+        root = root or self._persist_root
+        if root is None:
+            raise ValueError("save() needs a root directory (none given "
+                             "and no previous save to reuse)")
+        data, lens = self.pack()
+        if self._journal is None or self._journal.root != root:
+            self._journal = store.Journal(root)
+        tmp = self._journal.begin()
+        data_bytes, data_spec = store.array_record(data)
+        lens_bytes, lens_spec = store.array_record(lens)
+        state = {"texts": list(self.texts), "cfg": self.cfg,
+                 "dim": self._dim}
+        store.write_segment(
+            os.path.join(tmp, "windows.seg"),
+            [pickle.dumps(state, protocol=pickle.HIGHEST_PROTOCOL),
+             data_bytes, lens_bytes],
+            {"data": data_spec, "lens": lens_spec}, kind=_STATE_KIND)
+        g = self._journal.commit()
+        self._persist_root = root
+        return g
+
+    @classmethod
+    def load(cls, embed: Callable, root: str,
+             device="cuda") -> "WindowIndex":
+        """Restore the latest generation (of either package) and replay
+        its WAL. Sentences and spans are recomputed from the saved texts;
+        the embedded pack is restored bit for bit, so nothing is embedded
+        unless the WAL replays a mutation (which marks its block dirty
+        for the next `pack()`)."""
+        j = store.Journal(root)
+        g = j.latest()
+        if g is None:
+            raise FileNotFoundError(f"no committed generation under "
+                                    f"{root}")
+        meta, recs = j.read_segment(g, "windows.seg", _STATE_KIND, 3)
+        state = store.loads(recs[0])
+        self = cls(embed, cfg=state["cfg"], dim=state["dim"], device=device)
+        texts = state["texts"]
+        n = len(texts)
+        self.texts = [""] * n
+        self.sents = [[] for _ in range(n)]
+        self.spans = [[] for _ in range(n)]
+        self.ntok = [0] * n
+        for di, text in enumerate(texts):
+            self._set_doc(di, text)
+        self._data = store.record_array(recs[1], meta["data"])
+        self._lens = store.record_array(recs[2], meta["lens"])
+        for di in range(n):
+            # a span count that disagrees with the saved pack (another
+            # window geometry) re-embeds just that block at the next pack
+            if int(self._lens[di]) != len(self.spans[di]):
+                self._dirty.add(di)
+        self._journal = j
+        self._persist_root = root
+        ops_raw, _torn = j.replay()
+        self._replaying = True
+        try:
+            for raw in ops_raw:
+                self._apply_wal(store.loads(raw))
+        finally:
+            self._replaying = False
+        self.stats.wal_replayed = len(ops_raw)
+        return self
+
+    def _apply_wal(self, op: tuple) -> None:
+        kind = op[0]
+        if kind == "add":
+            self.add(op[1])
+        elif kind == "update":
+            self.update(int(op[1]), op[2])
+        elif kind == "remove":
+            self.remove(int(op[1]))
+        else:
+            raise store.CorruptSegmentError(
+                f"unknown WAL op {kind!r} (journal from a newer version?)")
 
     # -------------------------------------------------------- accounting
 

@@ -25,13 +25,26 @@ a kernel fault (a kernel that does not build or launch, a CUDA error;
 `ops.is_kernel_fault`) is never absorbed by either ladder. It
 propagates, so a broken device cannot pass for a served answer.
 
+Durable retrieval state, as the reference's: `retrieval_state=` names
+a directory; when it holds committed generations (of either package)
+the EcoVector and the window index are restored from them, their WALs
+replayed, and nothing of the corpus is embedded; otherwise the pipeline
+builds and commits its first generations there. `save_retrieval()`
+folds the journaled mutations into new generations.
+`device_budget_bytes` holds the index under a device budget (None: all
+resident; an int: bytes; a float in (0, 1]: a share of the all-resident
+pack) with a `TieredEcoVector`; construction activates its tiers where
+an all-resident index makes its device pack. A corrupt snapshot warns
+and rebuilds; a kernel fault propagates.
+
 Not ported: the reference's other pipelines and their Table-6
-TTFT/energy model, and durable retrieval state (`retrieval_state`,
-`save_retrieval`).
+TTFT/energy model.
 """
 from __future__ import annotations
 
+import os
 import time
+import warnings
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -41,9 +54,11 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.configs import get_config
+from repro_torch.core import store
 from repro_torch.core.ecovector import EcoVector
 from repro_torch.core.scr import (SCRConfig, SCRResult, apply_scr,
                                   apply_scr_batch, build_prompt)
+from repro_torch.core.tiered import TieredEcoVector
 from repro_torch.core.window_index import WindowIndex
 from repro_torch.kernels.ops import is_kernel_fault
 from repro_torch.serving.session import RagSession
@@ -74,7 +89,9 @@ class MobileRAG:
     built index to retrieve from (default: an EcoVector built over the
     docs); `device_retrieval=False` searches it on the host, one query
     at a time. With device retrieval the construction also makes the
-    index's device pack, so the first request does not pay for it."""
+    index's device pack (or a tiered index's tiers), so the first
+    request does not pay for it. `retrieval_state` and
+    `device_budget_bytes` are the reference's (module docstring)."""
 
     def __init__(self, docs: Sequence[str], embed: Callable, *,
                  top_k: int = 3,
@@ -84,8 +101,12 @@ class MobileRAG:
                  gen_config: Optional[ModelConfig] = None,
                  gen_params: Optional[Dict[str, torch.Tensor]] = None,
                  seed: int = 0, trace: Optional[TraceSink] = None,
+                 retrieval_state: Optional[str] = None,
+                 device_budget_bytes: Optional[float] = None,
                  device="cuda"):
         self.device = resolve_device(device)
+        self.retrieval_state = retrieval_state
+        self.device_budget_bytes = device_budget_bytes
         self.docs = list(docs)
         self.embed = embed
         self.top_k = top_k
@@ -102,30 +123,94 @@ class MobileRAG:
         if hasattr(embed, "fit") and not getattr(embed, "fitted", True):
             embed.fit(self.docs)
         t0 = time.perf_counter()
+        loaded_index = loaded_wi = None
+        if retrieval_state is not None:
+            loader = (EcoVector.load if device_budget_bytes is None
+                      else TieredEcoVector.load)
+            loaded_index = self._load_state_part(
+                lambda root: loader(root, device=self.device),
+                os.path.join(retrieval_state, "ecovector"))
+            if use_window_index:
+                loaded_wi = self._load_state_part(
+                    lambda root: WindowIndex.load(embed, root,
+                                                  device=self.device),
+                    os.path.join(retrieval_state, "windows"))
+        if loaded_index is not None:
+            index = loaded_index
         if index is None:
-            doc_vecs = np.asarray(embed(self.docs), np.float32)
-            index = EcoVector(doc_vecs.shape[1],
-                              n_clusters=max(4, len(self.docs) // 64),
-                              device=self.device).build(doc_vecs)
+            index = self._build_index(
+                np.asarray(embed(self.docs), np.float32))
+        if device_budget_bytes is not None and isinstance(
+                index, TieredEcoVector):
+            index.set_device_budget(self._resolve_device_budget(index))
         self.index = index
         self.device_retrieval = device_retrieval
         if device_retrieval:
-            index.device_arrays()
+            if isinstance(index, TieredEcoVector):
+                index.activate()
+            else:
+                index.device_arrays()
         self.build_s = time.perf_counter() - t0
         self.scr_cfg = scr
-        self.window_index: Optional[WindowIndex] = None
+        self.window_index: Optional[WindowIndex] = loaded_wi
         t0 = time.perf_counter()
         if use_window_index:
-            self.window_index = WindowIndex(embed, scr,
-                                            device=self.device).build(
-                self.docs)
+            if loaded_wi is None:
+                self.window_index = WindowIndex(
+                    embed, scr, device=self.device).build(self.docs)
+            self._sync_window_index()      # docs beyond the snapshot
             self.window_index.device_arrays()
         self.scr_build_s = time.perf_counter() - t0
+        if retrieval_state is not None and (loaded_index is None
+                                            or loaded_wi is None):
+            self.save_retrieval()          # establish / complete it
         self.gen_config = gen_config or get_config("qwen25_0_5b")
         self._gen_params = gen_params
         self._seed = seed
         self.trace = trace
         self._slm: Optional[SLM] = None
+
+    def _build_index(self, doc_vecs: np.ndarray) -> EcoVector:
+        n_clusters = max(4, len(self.docs) // 64)
+        cls = EcoVector if self.device_budget_bytes is None \
+            else TieredEcoVector
+        return cls(doc_vecs.shape[1], n_clusters=n_clusters,
+                   device=self.device).build(doc_vecs)
+
+    def _resolve_device_budget(self, index: TieredEcoVector) -> int:
+        b = self.device_budget_bytes
+        if 0 < b <= 1.0:             # a share of the all-resident pack
+            return int(b * index.all_resident_bytes())
+        return int(b)
+
+    @staticmethod
+    def _load_state_part(loader, root: str):
+        """One part's restore: no state means a build (the first run);
+        corrupt state warns, then rebuilds. A kernel fault propagates."""
+        try:
+            return loader(root)
+        except FileNotFoundError:
+            return None
+        except (store.StoreError, OSError) as e:
+            if is_kernel_fault(e):
+                raise
+            warnings.warn(f"retrieval state under {root} failed "
+                          f"validation ({e}); rebuilding from source",
+                          stacklevel=3)
+            return None
+
+    def save_retrieval(self, root: Optional[str] = None) -> None:
+        """Commit the retrieval state (an EcoVector generation and a
+        window-index generation) under `root` / `retrieval_state`,
+        folding the journaled mutations into the new snapshots."""
+        root = root or self.retrieval_state
+        if root is None:
+            raise ValueError("no retrieval_state directory configured")
+        self.retrieval_state = root
+        if hasattr(self.index, "save"):
+            self.index.save(os.path.join(root, "ecovector"))
+        if self.window_index is not None:
+            self.window_index.save(os.path.join(root, "windows"))
 
     @property
     def slm(self) -> SLM:

@@ -28,8 +28,10 @@ for name in names:
 # the baselines; the host index, its graphs and the paper's model; the
 # MoE family, the family registry and the MoE configuration; the
 # threefry draws of sampled decoding; serving under fire (the fault
-# harness, the replica schedulers and their health tracker)
-for name in ("repro_torch.serving.faults", "repro_torch.serving.scheduler",
+# harness, the replica schedulers and their health tracker); tiering and
+# durability (the tiered index, the store's crash and corruption faults)
+for name in ("repro_torch.core.tiered", "repro_torch.core.store_faults",
+             "repro_torch.serving.faults", "repro_torch.serving.scheduler",
              "repro_torch.dist.fault",
              "repro_torch.serving.sampling", "repro_torch.configs.h2o_danube_1_8b",
              "repro_torch.serving.engine", "repro_torch.models.dense",
@@ -51,6 +53,9 @@ from repro_torch.models.layers import quantize_kv, dequantize_kv
 from repro_torch.core.scr import apply_scr
 from repro_torch.core.baselines import ALL_BASELINES, make_index
 from repro_torch.core.ecovector import EcoVector
+from repro_torch.core.tiered import ColdPack, TieredEcoVector, TierManager
+from repro_torch.core.store import Journal, WriteAheadLog, loads
+from repro_torch.core.store_faults import CrashPlan, count_fs_ops
 from repro_torch.core.hnsw import HNSW
 from repro_torch.core.analytical import search_latency_ms
 from repro_torch.kernels.ops import KernelError, is_kernel_fault
