@@ -214,7 +214,33 @@ determinism`; a whole CPU build and two card builds with the
   document embedded, and answers the 16 questions with the live
   pipeline's doc ids and prompts (the equal token share reported: bf16).
   ecoscan is then held to its plain version at the tier shape (hot rows
-  and a cold scratch under a block map), with its device ms.
+  and a cold scratch under a block map), with its device ms. Last,
+  `launch.scrub_index` scrubs the state's two journal roots (exit 0,
+  nothing corrupt) and a copy of the EcoVector root with one byte of a
+  committed segment flipped (exit 1);
+- the pipelines path (after the durable path): the paper's Table 5,
+  the four `PIPELINES` (Naive-RAG, Advanced-RAG, EdgeRAG, MobileRAG)
+  over a 4,096-document synthetic SQuAD-style corpus (HashEmbedder at
+  384, full-width bf16 qwen2.5-0.5B, top_k 3; Naive and Advanced share
+  one EcoVector, the three baselines search on the host): each runs
+  `answer_batch(16 questions, generate=True, max_new=16)`, `accuracy`
+  and one `answer(q, generate=True)` (`SLM.generate`); per pipeline the
+  prompt tokens, accuracy, measured TTFT p50, the Table-6 model's TTFT
+  and energy, build s, and EdgeRAG's query-cache hits and misses after
+  its repeated query. Asserted: every answer has tokens, MobileRAG's
+  prompts have fewer tokens than NaiveRAG's, no ladder counted. Then
+  `launch.serve.main(--stream --slo-s 0.5 --trace-export)` in this
+  process, its trace held to tools/trace_check.py. kmeans_assign joins
+  phase 5 at MobileRAG's build ([4096, 384] x 64);
+- the embedder path: full-width gte-small (`ModelEmbedder`, bf16,
+  random weights of seed 0, max_len 64) embeds the same corpus and its
+  SCR windows while a MobileRAG is built on it, in batches of 256 texts
+  (the build's flash_prefill launches must be the encoder's, one a layer
+  a forward pass); the pipeline answers the 16 questions with
+  generate=True (embed rate, build s, TTFT p50; accuracy printed, not
+  asserted: random weights). flash_prefill joins phase 5 at the
+  encoder's non-causal shape (layer 0's q, k, v of 256 right-padded
+  windows, [256, 64, 6, 64]).
 
 The line before the last is the kernel summary as JSON; the last line is
 `{"ok": true, "device": {...}}`.
@@ -224,6 +250,7 @@ import contextlib
 import ctypes
 import dataclasses
 import importlib.util
+import io
 import json
 import math
 import os
@@ -244,6 +271,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import kmeans as kmeans_mod  # noqa: E402
+from repro_torch.core import store_faults  # noqa: E402
 from repro_torch.core.baselines import make_index  # noqa: E402
 from repro_torch.core.ecovector import EcoVector  # noqa: E402
 from repro_torch.core.kmeans import (cluster_sums,  # noqa: E402
@@ -254,18 +282,21 @@ from repro_torch.core.tiered import TieredEcoVector  # noqa: E402
 from repro_torch.core.window_index import WindowIndex  # noqa: E402
 from repro_torch.data.synthetic import make_qa_corpus, sift_like  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.launch import scrub_index, serve  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.dense import (DenseLM, cache_len,  # noqa: E402
                                       chunk_rows)
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.models.moe import MoELM  # noqa: E402
 from repro_torch.serving import rag as rag_mod  # noqa: E402
-from repro_torch.serving.embedder import HashEmbedder  # noqa: E402
+from repro_torch.serving.embedder import (HashEmbedder,  # noqa: E402
+                                          ModelEmbedder)
 from repro_torch.serving.engine import (ContinuousEngine,  # noqa: E402
                                         Engine)
 from repro_torch.serving.faults import (ChaosPipeline,  # noqa: E402
                                         FaultPlan, wrap_replicas)
-from repro_torch.serving.rag import MobileRAG  # noqa: E402
+from repro_torch.serving.rag import (PIPELINES, MobileRAG,  # noqa: E402
+                                     accuracy)
 from repro_torch.serving.sampling import (fold_in, gumbel,  # noqa: E402
                                           prng_key, random_bits,
                                           sample_rows)
@@ -347,6 +378,12 @@ N_DUR_REMOVE = 4
 DUR_ID0 = 10 ** 7
 TIER_BUDGETS = (None, 0.5, 0.25, "below")
 TIER_ROUNDS = 8
+# the Table-5 pipelines and the paper's embedding model: a 4,096-document
+# corpus (its own seed), gte-small at full width with max_len 64
+PIPE_DOCS = 4096
+PIPE_SEED = 1
+GTE_CONFIG = get_config("gte_small")
+GTE_MAX_LEN = 64
 # every RagSession the run makes, with the path it ran on (CURRENT)
 SESSIONS = []
 CURRENT = [None]
@@ -400,6 +437,14 @@ PATH_KERNELS = {
     # save, journal, tiered loads and a restored pipeline answering
     "durable": ("ecoscan", "scr_select", "flash_prefill",
                 "decode_attention_paged"),
+    # the four Table-5 pipelines (the baselines search on the host) and
+    # launch.serve's stream
+    "pipelines": ("kmeans_assign", "ecoscan", "scr_select", "flash_prefill",
+                  "decode_attention_paged"),
+    # gte-small embeds the corpus and the windows (non-causal
+    # flash_prefill), then MobileRAG answers on it
+    "embedder": ("kmeans_assign", "ecoscan", "scr_select", "flash_prefill",
+                 "decode_attention_paged"),
 }
 
 
@@ -2321,7 +2366,8 @@ def coresident_runs(slm, target, others):
 def draw_checks(vocab):
     """The draw on the card against the CPU's: `random_bits` of a [4,
     vocab] draw bit for bit, `gumbel` within 2 ulp of max(|g|, 1) (the
-    card's `log` may round apart from the CPU's); then FREQ_DRAWS draws t
+    card's `log` may round apart from the CPU's; the CPU's in one
+    thread); then FREQ_DRAWS draws t
     = 0 .. FREQ_DRAWS - 1 of one seeded 16-way row, each category's
     frequency within FREQ_SIGMAS binomial sigmas of its softmax
     probability."""
@@ -2329,7 +2375,15 @@ def draw_checks(vocab):
     bits_cpu = random_bits(keys, (vocab,))
     bits_dev = random_bits(keys.to(DEV), (vocab,))
     assert torch.equal(bits_dev.cpu(), bits_cpu), "random_bits card != CPU"
-    g_cpu = gumbel(keys, (vocab,)).numpy()
+    # the CPU's draw in one thread: an OpenMP worker thread's float32 log
+    # was seen ~1e-4 off now and then on the hosts the port runs on
+    # (ROADMAP Queue C), the main thread's never
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        g_cpu = gumbel(keys, (vocab,)).numpy()
+    finally:
+        torch.set_num_threads(threads)
     g_dev = gumbel(keys.to(DEV), (vocab,)).cpu().numpy()
     ulps = np.abs(g_dev - g_cpu) / np.spacing(np.maximum(np.abs(g_cpu),
                                                          np.float32(1)))
@@ -3259,6 +3313,7 @@ def durable_path(pipe, questions, hq_vs, main_answers, main_build_s):
             "ttft_p50_s": ttft[len(ttft) // 2],
             "decode_tok_s": sum(active) / sum(steps),
             "query_texts_embedded": counted.texts}
+        info["scrub"] = scrub_state(root)
         info["wall_s"] = time.perf_counter() - t_path
         return info, tier_inputs
     finally:
@@ -3271,6 +3326,215 @@ def durable_path(pipe, questions, hq_vs, main_answers, main_build_s):
         if rpipe is not None:
             shutil.rmtree(rpipe.index.storage_dir, ignore_errors=True)
         shutil.rmtree(root, ignore_errors=True)
+
+
+def run_scrub(paths):
+    """`launch.scrub_index` over `paths` with --json: (exit code, report)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = scrub_index.main(list(paths) + ["--json"])
+    return rc, json.loads(buf.getvalue())
+
+
+def scrub_state(root):
+    """The port's scrub_index over the durable state's two journal roots
+    (exit 0, nothing corrupt), then over a copy of the EcoVector root with
+    one byte of a committed generation's segment flipped (exit 1)."""
+    parts = [os.path.join(root, p) for p in ("ecovector", "windows")]
+    t0 = time.perf_counter()
+    rc, rep = run_scrub(parts)
+    clean_s = time.perf_counter() - t0
+    assert rc == 0 and rep["corrupt"] == 0 and rep["checked"] > 0, rep
+    bad = root + "_flipped"
+    shutil.copytree(parts[0], bad)
+    try:
+        gen = os.path.join(bad, sorted(d for d in os.listdir(bad)
+                                       if d.startswith("gen_"))[-1])
+        seg = sorted(f for f in os.listdir(gen) if f.endswith(".seg"))[0]
+        store_faults.flip_byte(os.path.join(gen, seg), 100)
+        rc_bad, rep_bad = run_scrub([bad])
+        assert rc_bad == 1 and rep_bad["corrupt"] >= 1, rep_bad
+    finally:
+        shutil.rmtree(bad, ignore_errors=True)
+    return {"items": rep["checked"], "s": clean_s,
+            "bytes": _tree_bytes(root), "flipped": seg,
+            "flipped_items_corrupt": rep_bad["corrupt"]}
+
+
+def pipeline_summary(answers, acc, build_s, wall_s):
+    ttft = sorted(a.ttft_measured_s for a in answers)
+    return {"build_s": build_s, "answer_wall_s": wall_s,
+            "prompt_tokens_mean": float(np.mean([a.prompt_tokens
+                                                 for a in answers])),
+            "accuracy": acc, "ttft_measured_p50_s": ttft[len(ttft) // 2],
+            "ttft_model_s_mean": float(np.mean([a.ttft_model_s
+                                                for a in answers])),
+            "energy_model_j_mean": float(np.mean([a.energy_model_j
+                                                  for a in answers])),
+            "retrieval_s_mean": float(np.mean([a.retrieval_s
+                                               for a in answers])),
+            "post_s_mean": float(np.mean([a.post_s for a in answers])),
+            "tokens": sum(len(a.gen_tokens) for a in answers)}
+
+
+def serve_stream():
+    """`launch.serve.main` in this process on the card: `--stream --slo-s
+    0.5 --trace-export`; its export must pass tools/trace_check.py."""
+    out = Path(__file__).resolve().parent / "build" / "traces"
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / "serve_stream.jsonl"
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(["--stream", "--slo-s", "0.5", "--trace-export",
+                         str(path), "--device", str(DEV)])
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print("  serve |", line)
+    assert rc == 0
+    assert any(line.startswith("[serve --stream]") for line in lines)
+    tc = load_trace_check()
+    recs = tc.load_jsonl(path)
+    viol = tc.check_records(recs, complete=True)
+    assert recs and not viol, f"serve trace: {viol[:5]}"
+    return {"wall_s": wall, "trace_records": len(recs)}
+
+
+def pipelines_path(corpus):
+    """The four PIPELINES over the 4,096-document corpus (HashEmbedder at
+    384, full-width qwen2.5-0.5B of seed 0, top_k 3); Naive and Advanced
+    share one EcoVector (`index=`), so its host graphs are built once.
+    Each runs `answer_batch(generate=True)` of the 16 questions,
+    `accuracy` and one `answer(q, generate=True)` (`SLM.generate`).
+    Asserted: every answer has tokens, MobileRAG's prompts have fewer
+    tokens than NaiveRAG's, EdgeRAG's repeated query hits its cache, no
+    ladder counted. Then `launch.serve --stream` (`serve_stream`).
+    Returns (info, kmeans_assign's inputs of MobileRAG's build)."""
+    questions = [e.question for e in corpus.examples]
+    embed = HashEmbedder(dim=384)
+    pipes, info = {}, {}
+    for name, cls in PIPELINES.items():
+        kw = {"index": pipes["naive"].index} if name == "advanced" else {}
+        t0 = time.perf_counter()
+        p = cls(corpus.docs, embed, top_k=3, gen_config=GEN_CONFIG, seed=0,
+                device=DEV, **kw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        answers = p.answer_batch(questions, generate=True, max_new=MAX_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        vocab = p.slm.cfg.vocab_padded
+        check_tokens(gen_results(answers), MAX_NEW, vocab)
+        acc = accuracy(p, corpus.examples)
+        one = p.answer(questions[0], generate=True, max_new=MAX_NEW)
+        check_tokens(gen_results([one]), MAX_NEW, vocab)
+        info[name] = dict(pipeline_summary(answers, acc, build_s, wall),
+                          name=p.name, device_retrieval=p.device_retrieval,
+                          generate_one={
+                              "ttft_s": one.ttft_measured_s,
+                              "tokens": len(one.gen_tokens),
+                              "same_prompt_as_batch":
+                                  one.prompt == answers[0].prompt})
+        ladders = (p.retrieval_fallbacks, getattr(p, "scr_fallbacks", 0))
+        assert ladders == (0, 0), (name, ladders)
+        if name == "edge":
+            info[name]["qcache"] = {"hits": p.qcache_hits,
+                                    "misses": p.qcache_misses,
+                                    "entries": len(p._qcache)}
+            assert p.qcache_hits >= 1 and p.qcache_misses == len(
+                set(questions)), info[name]["qcache"]
+        pipes[name] = p
+    assert info["mobile"]["prompt_tokens_mean"] < \
+        info["naive"]["prompt_tokens_mean"], info
+    mobile = pipes["mobile"]
+    kx = (torch.tensor(embed(corpus.docs), device=DEV),
+          torch.tensor(mobile.index.centroids, device=DEV))
+    del pipes, mobile
+    torch.cuda.empty_cache()
+    info["serve_stream"] = serve_stream()
+    return info, kx
+
+
+class TimedEmbedder(CountingEmbedder):
+    """Embeds as `inner`; counts texts, calls, forward passes (batches of
+    inner.BATCH) and the host seconds spent embedding."""
+
+    def __init__(self, inner):
+        super().__init__(inner)
+        self.dim = inner.dim
+        self.s = 0.0
+        self.passes = 0
+
+    def __call__(self, texts):
+        t = time.perf_counter()
+        try:
+            return super().__call__(texts)
+        finally:
+            self.s += time.perf_counter() - t
+            self.passes += -(-len(texts) // self.inner.BATCH)
+
+
+def encoder_qkv(emb, texts):
+    """Layer 0's q, k, v of the encoder over `texts` (tokenized and
+    right-padded as `ModelEmbedder` does): the non-causal flash_prefill's
+    inputs at the embedder path's shape."""
+    m = emb.model
+    toks = torch.from_numpy(emb.tok.encode_batch(texts, emb.max_len)).to(
+        m.device).long()
+    b, S = toks.shape
+    positions = torch.arange(S, device=m.device)[None].expand(b, S)
+    y = L.rmsnorm(m._embed(toks), m.attn_norm[0], m.cfg.norm_eps)
+    q, k, v = m._qkv(0, y, positions)
+    return q, k, v, float((toks == emb.tok.pad_id).any(1).float().mean())
+
+
+def embedder_path(corpus):
+    """Full-width gte-small (`ModelEmbedder`, bf16, random weights of
+    seed 0, max_len 64) embeds the pipelines' corpus and its SCR windows
+    while a MobileRAG is built on it; the pipeline then answers the 16
+    questions with generate=True. The build's flash_prefill launches are
+    the encoder's: one a layer of each forward pass. Accuracy is printed,
+    not asserted (random weights). Returns (info, layer 0's q, k, v over
+    the first BATCH windows)."""
+    questions = [e.question for e in corpus.examples]
+    gte = ModelEmbedder(GTE_CONFIG, max_len=GTE_MAX_LEN, seed=0, device=DEV)
+    emb = TimedEmbedder(gte)
+    fp0 = ops.launch_counts()["flash_prefill"]
+    t0 = time.perf_counter()
+    pipe = MobileRAG(corpus.docs, emb, top_k=3, gen_config=GEN_CONFIG,
+                     seed=0, device=DEV)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_fp = ops.launch_counts()["flash_prefill"] - fp0
+    assert build_fp == GTE_CONFIG.num_layers * emb.passes, (build_fp,
+                                                            emb.passes)
+    build = {"texts": emb.texts, "passes": emb.passes, "embed_s": emb.s,
+             "flash_prefill_launches": build_fp}
+    t0 = time.perf_counter()
+    answers = pipe.answer_batch(questions, generate=True, max_new=MAX_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_tokens(gen_results(answers), MAX_NEW, pipe.slm.cfg.vocab_padded)
+    acc = accuracy(pipe, corpus.examples)
+    assert (pipe.retrieval_fallbacks, pipe.scr_fallbacks) == (0, 0)
+    windows = [" ".join(sents[a:b]) for d in corpus.docs[:64]
+               for sents in [split_sentences(d)]
+               for a, b in _windows(sents)][:gte.BATCH]
+    q, k, v, padded = encoder_qkv(gte, windows)
+    info = dict(pipeline_summary(answers, acc, build_s, wall),
+                build_embedding=build,
+                embed_texts_per_s=build["texts"] / build["embed_s"],
+                index_build_s=pipe.build_s, window_build_s=pipe.scr_build_s,
+                window_pack=list(pipe.window_index.pack()[0].shape),
+                encoder_shape=list(q.shape), padded_row_share=padded,
+                param_mb=sum(t.numel() * t.element_size()
+                             for t in gte.model.parameters()) / 2**20,
+                accuracy_note="random weights: printed, not asserted")
+    del pipe
+    torch.cuda.empty_cache()
+    return info, (q, k, v)
 
 
 def main() -> int:
@@ -3890,6 +4154,29 @@ def main() -> int:
     results["ecoscan"]["shapes"].append(tier_shape)
     print("ecoscan at the tier shape:", json.dumps(tier_shape))
     del tier_in
+    # ---- the paper's Table-5 pipelines, then its embedding model, over
+    # one 4,096-document corpus
+    pcorpus = make_qa_corpus(n_docs=PIPE_DOCS, n_questions=16,
+                             sentences_per_doc=12, seed=PIPE_SEED)
+    (pipe_info, pipe_kx), pipelines_launches = drive(
+        "pipelines", lambda: pipelines_path(pcorpus))
+    print("pipelines path:", json.dumps(pipe_info))
+    (emb_info, enc_qkv), embedder_launches = drive(
+        "embedder", lambda: embedder_path(pcorpus))
+    print("embedder path (gte-small):", json.dumps(emb_info))
+    km_pipe = check_kmeans("Table-5 pipelines' EcoVector build", *pipe_kx)
+    km_pipe["device_ms"] = _profiled(lambda: ops.kmeans_assign(*pipe_kx),
+                                     20)["device_ms"]
+    fp_gte = check_flash_prefill("gte encoder, non-causal, right-padded "
+                                 "rows", *enc_qkv, causal=False)
+    fp_gte["device_ms"] = _profiled(lambda: ops.flash_prefill(
+        *enc_qkv, causal=False), 20)["device_ms"]
+    results["kmeans_assign"]["shapes"].append(km_pipe)
+    results["flash_prefill"]["shapes"].append(fp_gte)
+    print("the two new shapes (profiled device ms):", json.dumps(
+        {"kmeans_assign": km_pipe, "flash_prefill": fp_gte}))
+    del pipe_kx, enc_qkv
+    torch.cuda.empty_cache()
     # ---- updates on the main path's index, after every path that uses
     # it; then ecoscan on the grown pack
     (upd, (ud_t, ul_t, uc_t)), upd_launches = drive(
@@ -3966,7 +4253,8 @@ def main() -> int:
              "h2o_int8": h2o_q8_launches, "int8": int8_launches,
              "moe": moe_launches, "sampled": sampled_launches,
              "window_updates": wu_launches, "fire": fire_launches,
-             "durable": dur_launches}
+             "durable": dur_launches, "pipelines": pipelines_launches,
+             "embedder": embedder_launches}
     kernels = [{
         "name": name, "route": "cuda",
         "source": SOURCES[name],

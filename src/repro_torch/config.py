@@ -1,7 +1,8 @@
 """Model configuration: the part of `repro.config.ModelConfig` that the
-port's dense and MoE models need (causal, RoPE, SwiGLU, optional sliding
-window, optional int8 KV cache; same field names and defaults as the
-reference, and the same `reduced` sizes)."""
+port's dense and MoE models need (RoPE; SwiGLU or GELU; causal, or
+bidirectional for the gte-small encoder; optional sliding window,
+optional int8 KV cache; same field names and defaults as the reference,
+and the same `reduced` sizes)."""
 from __future__ import annotations
 
 import dataclasses
@@ -32,9 +33,11 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0             # 0 -> d_model // num_heads
     qkv_bias: bool = False
+    act: str = "swiglu"           # swiglu | gelu
     sliding_window: Optional[int] = None
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
+    causal: bool = True           # False -> bidirectional encoder (gte)
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
     family: str = "dense"         # dense | moe

@@ -5,7 +5,8 @@ import importlib
 
 from repro_torch.config import ModelConfig
 
-ARCH_IDS = ["qwen25_0_5b", "h2o_danube_1_8b", "granite_moe_1b_a400m"]
+ARCH_IDS = ["qwen25_0_5b", "h2o_danube_1_8b", "granite_moe_1b_a400m",
+            "gte_small"]
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -22,7 +22,8 @@ def params_from_reference(tree: Mapping, device="cuda"
     or `MoELM(params=...)` takes (layer weights keep their stacked
     [L, ...] layout: a moe tree's "router", "we1", "we2", "we3", its FFN
     norm "mlp_norm", or "moe_norm" beside "mlp_norm", "w1", "w2", "w3"
-    with `dense_residual`)."""
+    with `dense_residual`; gte-small's tree has tied embeddings, so no
+    "lm_head", and a GELU FFN without "w3")."""
     dev = resolve_device(device)
     flat = dict(tree["layers"])
     flat.update({k: v for k, v in tree.items() if k != "layers"})

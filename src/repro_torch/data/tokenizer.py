@@ -7,6 +7,8 @@ import hashlib
 import re
 from typing import Dict, Iterable, List
 
+import numpy as np
+
 _WORD_RE = re.compile(r"\w+|[^\w\s]")
 
 
@@ -44,3 +46,15 @@ class HashTokenizer:
                 continue
             out.append(self.id_to_word.get(i, f"<{i}>"))
         return " ".join(out)
+
+    def encode_batch(self, texts: List[str], max_len: int,
+                     pad: bool = True) -> np.ndarray:
+        """int32 ids [len(texts), max_len]: each text's first max_len ids,
+        right-padded with pad_id (`pad=False`: unpadded rows)."""
+        rows = []
+        for t in texts:
+            ids = self.encode(t)[:max_len]
+            if pad:
+                ids = ids + [self.pad_id] * (max_len - len(ids))
+            rows.append(ids)
+        return np.asarray(rows, np.int32)

@@ -1,6 +1,7 @@
-"""Dense decoder LM (the port of `repro.models.dense` for causal RoPE
-SwiGLU configs, optionally with a sliding window and an int8 KV cache;
-tensor-parallel degree 1).
+"""Dense LM (the port of `repro.models.dense` for RoPE configs with a
+SwiGLU or GELU FFN, optionally with a sliding window and an int8 KV
+cache; tensor-parallel degree 1), and the bidirectional encoder of
+gte-small (`encode`: mean-pooled, unit-norm sentence embeddings).
 
 `DenseLM` keeps the reference's parameter layout: per-layer weights are
 stacked on a leading layer axis ([L, d, out]) and applied as `x @ w`.
@@ -55,10 +56,11 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
         "mlp_norm": ((Ln, d), "zeros"),
         "w1": ((Ln, d, cfg.d_ff), "normal"),
         "w2": ((Ln, cfg.d_ff, d), "normal"),
-        "w3": ((Ln, d, cfg.d_ff), "normal"),
         "tok_embed": ((cfg.vocab_padded, d), "normal"),
         "final_norm": ((d,), "zeros"),
     }
+    if cfg.act == "swiglu":
+        defs["w3"] = ((Ln, d, cfg.d_ff), "normal")
     if cfg.qkv_bias:
         defs["bq"] = ((Ln, h * hd), "zeros")
         defs["bk"] = ((Ln, kv * hd), "zeros")
@@ -195,9 +197,12 @@ class DenseLM(nn.Module):
         return q, k, v.reshape(b, s, cfg.num_kv_heads, hd)
 
     def _mlp_residual(self, i: int, x):
-        """x + the layer's FFN (SwiGLU) of rmsnorm(x)."""
-        y = L.rmsnorm(x, self.mlp_norm[i], self.cfg.norm_eps)
-        return x + L.mlp(y, self.w1[i], self.w2[i], self.w3[i])
+        """x + the layer's FFN (SwiGLU, or GELU without w3) of
+        rmsnorm(x)."""
+        cfg = self.cfg
+        y = L.rmsnorm(x, self.mlp_norm[i], cfg.norm_eps)
+        w3 = self.w3[i] if cfg.act == "swiglu" else None
+        return x + L.mlp(y, self.w1[i], self.w2[i], w3, cfg.act)
 
     def logits_from_hidden(self, x):
         head = self.tok_embed.T if self.cfg.tie_embeddings else self.lm_head
@@ -219,21 +224,61 @@ class DenseLM(nn.Module):
         positions = torch.arange(S, device=tokens.device)[None].expand(b, S)
         cache = init_cache(cfg, b, S, device=tokens.device)
         sc = cache["k"].shape[2]
-        x = self._embed(tokens)
-        for i in range(cfg.num_layers):
-            y = L.rmsnorm(x, self.attn_norm[i], cfg.norm_eps)
-            q, k, v = self._qkv(i, y, positions)
+
+        def write(i, k, v):
             self._write_kv(cache, i, (), *(
                 t if sc == S else torch.roll(t[:, S - sc:], S % sc, dims=1)
                 for t in (k, v)))
             if cfg.kv_quant:
-                k, v = _fake_quant(k), _fake_quant(v)
-            ctx = ops.flash_prefill(q, k, v, causal=True,
-                                    window=cfg.sliding_window)
-            x = x + ctx.reshape(b, S, -1) @ self.wo[i]
-            x = self._mlp_residual(i, x)
+                return _fake_quant(k), _fake_quant(v)
+            return k, v
+        x = self._embed(tokens)
+        for i in range(cfg.num_layers):
+            x = self._full_block(i, x, positions, write)
         x = L.rmsnorm(x[:, -1:], self.final_norm, cfg.norm_eps)
         return self.logits_from_hidden(x)[:, 0], cache
+
+    def _full_block(self, i: int, x, positions, kv=None):
+        """Layer i over whole sequences x [B, S, d]: attention through
+        `flash_prefill` (`causal=cfg.causal`, the window), then the FFN.
+        `kv(i, k, v)`, when given, sees k and v first and returns the
+        pair attended (the wave prefill writes its cache there)."""
+        cfg = self.cfg
+        b, S, _ = x.shape
+        y = L.rmsnorm(x, self.attn_norm[i], cfg.norm_eps)
+        q, k, v = self._qkv(i, y, positions)
+        if kv is not None:
+            k, v = kv(i, k, v)
+        ctx = ops.flash_prefill(q, k, v, causal=cfg.causal,
+                                window=cfg.sliding_window)
+        return self._mlp_residual(i, x + ctx.reshape(b, S, -1) @ self.wo[i])
+
+    @torch.no_grad()
+    def hidden_states(self, tokens):
+        """Full-sequence forward without a cache, tokens [B, S] int: the
+        final-normed hidden states [B, S, d] (the reference's
+        `hidden_states`). Attention is `flash_prefill` with
+        `causal=cfg.causal` over every position, padding included."""
+        b, S = tokens.shape
+        positions = torch.arange(S, device=tokens.device)[None].expand(b, S)
+        x = self._embed(tokens)
+        for i in range(self.cfg.num_layers):
+            x = self._full_block(i, x, positions)
+        return L.rmsnorm(x, self.final_norm, self.cfg.norm_eps)
+
+    @torch.no_grad()
+    def encode(self, tokens, mask=None):
+        """Sentence embeddings [B, d] f32 (the reference's `encode`, the
+        gte-small path): hidden states mean-pooled over `mask` ([B, S], 1
+        for a real token; all ones when None) in the model's dtype, cast
+        to f32 and L2-normalised with a 1e-9 floor. The mask weights only
+        the pooling: padding keys are attended, as in the reference."""
+        x = self.hidden_states(tokens)
+        if mask is None:
+            mask = torch.ones(tokens.shape, device=x.device)
+        m = mask.to(x.dtype)[..., None]
+        pooled = ((x * m).sum(1) / m.sum(1).clamp(min=1)).float()
+        return pooled / pooled.norm(dim=-1, keepdim=True).clamp(min=1e-9)
 
     @torch.no_grad()
     def decode_step(self, cache, token, pos: int):

@@ -1,6 +1,7 @@
 """Model building blocks in plain PyTorch (the port of the parts of
 `repro.models.layers` that the dense and MoE models run): rmsnorm in the
-`(1 + scale)` form, RoPE, the SwiGLU MLP and the int8 KV quantization.
+`(1 + scale)` form, RoPE, the SwiGLU or GELU MLP and the int8 KV
+quantization.
 Shapes follow the reference:
 activations [B, S, H, dh]. Attention is a kernel (`kernels/ops.py`:
 `flash_prefill`, `decode_attention`, `decode_attention_paged` and the
@@ -37,9 +38,18 @@ def apply_rope(x, positions, theta=10000.0):
     return out.to(x.dtype)
 
 
-def mlp(x, w1, w2, w3):
-    """SwiGLU: silu(x @ w1) * (x @ w3) @ w2."""
-    return (F.silu(x @ w1) * (x @ w3)) @ w2
+def mlp(x, w1, w2, w3, act: str = "swiglu"):
+    """w1, w3: [d, ff]; w2: [ff, d]. swiglu: silu(x @ w1) * (x @ w3) @ w2;
+    gelu: gelu(x @ w1) @ w2 with jax.nn.gelu's default, the tanh
+    approximation (w3 unused, may be None)."""
+    h = x @ w1
+    if act == "swiglu":
+        h = F.silu(h) * (x @ w3)
+    elif act == "gelu":
+        h = F.gelu(h, approximate="tanh")
+    else:
+        raise ValueError(act)
+    return h @ w2
 
 
 def quantize_kv(x):

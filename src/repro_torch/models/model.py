@@ -16,8 +16,10 @@ def supports_paged(cfg: ModelConfig) -> bool:
     dense config, sliding-window (ring pages) and int8-KV included, and
     MoE without either, since the reference's MoE wave path (the parity
     baseline and `continuous=False`) implements neither ring rolls nor
-    KV quantization. The port's configs are all causal RoPE text
-    decoders, the reference's other exclusions."""
+    KV quantization. A non-causal encoder (gte-small) is excluded, as
+    in the reference."""
+    if not cfg.causal:
+        return False
     if cfg.family == "dense":
         return True
     return (cfg.family == "moe" and not cfg.kv_quant

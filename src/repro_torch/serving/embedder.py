@@ -1,13 +1,22 @@
-"""HashEmbedder: deterministic hashed bag-of-words + fixed random
-projection, unit-norm (the port's copy of `repro.serving.embedder`'s;
-same vectors from the same seed and texts)."""
+"""Embedding backends of the RAG pipelines (the port of
+`repro.serving.embedder`).
+
+HashEmbedder: deterministic hashed bag-of-words + fixed random projection,
+unit-norm (same vectors as the reference's from the same seed and texts).
+ModelEmbedder: the gte-small bidirectional encoder (mean-pooled,
+unit-norm), the paper's embedding model, on `DenseLM.encode`: its
+attention is `flash_prefill` with `causal=False`.
+"""
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
+from repro_torch.config import ModelConfig
 from repro_torch.data.tokenizer import HashTokenizer
+from repro_torch.models.dense import DenseLM
 
 
 class HashEmbedder:
@@ -42,4 +51,39 @@ class HashEmbedder:
                 v = (self.proj[ids] * self.idf[ids][:, None]).sum(0)
                 n = np.linalg.norm(v)
                 out[i] = v / n if n > 0 else v
+        return out
+
+
+class ModelEmbedder:
+    """Texts -> the encoder's unit-norm embeddings, np.float32 [n, d].
+    Each text is tokenized to its first `max_len` ids, right-padded
+    (`HashTokenizer.encode_batch`; the mask marks real tokens), and the
+    texts go through the model BATCH at a time. `params` (the
+    `DenseLM` layout, e.g. `convert.params_from_reference` of a gte
+    tree) loads given weights; without it they are random from
+    `seed`."""
+
+    BATCH = 256
+
+    def __init__(self, cfg: ModelConfig,
+                 params: Optional[Dict[str, torch.Tensor]] = None,
+                 tokenizer: Optional[HashTokenizer] = None,
+                 max_len: int = 64, seed: int = 0, device="cuda"):
+        self.cfg = cfg
+        self.model = DenseLM(cfg, device=device, seed=seed, params=params)
+        self.tok = tokenizer or HashTokenizer(cfg.vocab_size)
+        self.max_len = max_len
+
+    @property
+    def dim(self) -> int:
+        return self.cfg.d_model
+
+    def __call__(self, texts: List[str]) -> np.ndarray:
+        out = np.zeros((len(texts), self.dim), np.float32)
+        dev = self.model.device
+        for s in range(0, len(texts), self.BATCH):
+            toks = torch.from_numpy(self.tok.encode_batch(
+                texts[s:s + self.BATCH], self.max_len)).to(dev)
+            vecs = self.model.encode(toks.long(), toks != self.tok.pad_id)
+            out[s:s + len(toks)] = vecs.cpu().numpy()
         return out

@@ -12,7 +12,8 @@ tensor-core route's knobs (kMT 16-row m-tiles per warp, kBK keys per
 tile, kStages ring depth) into `build/attention_probe/`, holds each
 build against `ref.flash_prefill` (bf16, 2e-2) and times it at the
 h2o-danube-1.8b wave shape (q [B, 4608, 32, 80], k/v [B, 4608, 8, 80],
-window 4096; B 1 and 2) and at the main path's prefill chunk, beside
+window 4096; B 1 and 2), at the main path's prefill chunk and at the
+gte-small encoder's non-causal shape (q, k, v [256, 64, 6, 64]), beside
 SDPA on the same inputs. decode_attention: the built kernel at h2o's
 ring (q [B, 32, 80], k/v [B, 4096, 8, 80], kv_len 4609) and at the qwen2.5
 wave's decode (q [16, 14, 64], k/v [16, 280, 2, 64], kv_len 136) for
@@ -133,18 +134,21 @@ def stream():
 
 
 def flash_probe(variants, g):
-    shapes = [("h2o wave B1", 1, 4608, 32, 4608, 8, 80, 4096, 0, 4608),
-              ("h2o wave B2", 2, 4608, 32, 4608, 8, 80, 4096, 0, 4608),
-              ("main-path chunk", 1, 32, 14, 352, 2, 64, 0, 64, 96)]
-    for label, B, Sq, H, Sk, G, dh, win, q_off, kv in shapes:
+    shapes = [("h2o wave B1", 1, 4608, 32, 4608, 8, 80, 4096, 0, 4608, 1),
+              ("h2o wave B2", 2, 4608, 32, 4608, 8, 80, 4096, 0, 4608, 1),
+              ("main-path chunk", 1, 32, 14, 352, 2, 64, 0, 64, 96, 1),
+              ("gte encoder, non-causal", 256, 64, 6, 64, 6, 64, 0, 0, 64,
+               0)]
+    for label, B, Sq, H, Sk, G, dh, win, q_off, kv, causal in shapes:
         q = torch.randn(B, Sq, H, dh, generator=g, device="cuda").bfloat16()
         k, v = (torch.randn(B, Sk, G, dh, generator=g, device="cuda"
                             ).bfloat16() for _ in range(2))
-        want = ref.flash_prefill(q, k, v, window=win or None,
-                                 q_offset=q_off, kv_len=kv)
+        want = ref.flash_prefill(q, k, v, causal=bool(causal),
+                                 window=win or None, q_offset=q_off,
+                                 kv_len=kv)
         qp = q_off + torch.arange(Sq, device="cuda")[:, None]
         kp = torch.arange(Sk, device="cuda")[None, :]
-        mask = (kp <= qp) & (kp < kv)
+        mask = ((kp <= qp) | (not causal)) & (kp < kv)
         if win:
             mask &= qp - kp < win
         qq = q.transpose(1, 2)
@@ -159,8 +163,8 @@ def flash_probe(variants, g):
 
             def call():
                 err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), B, Sq, Sk,
-                         H, G, dh, 1, win, q_off, kv, 1.0 / math.sqrt(dh),
-                         out.data_ptr(), stream())
+                         H, G, dh, causal, win, q_off, kv,
+                         1.0 / math.sqrt(dh), out.data_ptr(), stream())
                 if err:
                     raise RuntimeError(f"launch failed: cudaError {err}")
             call()

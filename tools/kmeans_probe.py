@@ -8,8 +8,8 @@ kBN/16; kBK features per staged chunk; kMinBlocks blocks per SM that the
 register budget must allow; the first setting is the committed one)
 into `build/kmeans_probe/` and prints nvcc's `-Xptxas -v` registers,
 shared memory and spills of every instantiation (16-byte or 4-byte
-copies). Then, at the three shapes the port runs the kernel at and at
-two edge shapes, it holds each build against `ref.kmeans_assign` (ids
+copies). Then, at four shapes the port runs the kernel at and at two
+edge shapes, it holds each build against `ref.kmeans_assign` (ids
 equal except ties within 1e-4, sqdist 1e-4) and times it beside
 `ops.kmeans_assign` (the committed kernel through its wrapper),
 `torch.cdist(x, c).argmin(1)` and, as the card's f32 GEMM yardstick,
@@ -17,6 +17,8 @@ equal except ties within 1e-4, sqdist 1e-4) and times it beside
 - main: the EcoVector build, x [16384, 384] against 256 centroids;
 - ivf: the IVF baselines' partition, 100,000 SIFT-like vectors [., 128]
   against 390 centroids;
+- Table-5 pipelines: their EcoVector build, [4096, 384] against 64
+  centroids;
 - pq: a PQ sub-quantizer, [4096, 16] against 256 centroids;
 - edges: d 50 (4-byte copies, a ragged feature chunk) and NC 390 with a
   centroid equal to centroid 0 in the next tile, and an x whose base is
@@ -170,6 +172,9 @@ def shapes(g):
         ("main", torch.randn(16384, 384, generator=g, device="cuda"),
          torch.randn(256, 384, generator=g, device="cuda")),
         ("ivf", ivf_x, ivf_c),
+        ("Table-5 pipelines", torch.randn(4096, 384, generator=g,
+                                          device="cuda"),
+         torch.randn(64, 384, generator=g, device="cuda")),
         ("pq", pq_x, pq_c),
         ("edge d 50, NC 390, tie across a tile", edge_x, edge_c),
         ("edge x 4 bytes off alignment", buf[1:].view(3000, 64),
