@@ -240,7 +240,32 @@ determinism`; a whole CPU build and two card builds with the
   generate=True (embed rate, build s, TTFT p50; accuracy printed, not
   asserted: random weights). flash_prefill joins phase 5 at the
   encoder's non-causal shape (layer 0's q, k, v of 256 right-padded
-  windows, [256, 64, 6, 64]).
+  windows, [256, 64, 6, 64]);
+- the families path (after the embedder path): the rest of the model
+  zoo at full width and full depth, bf16, random weights from a seed,
+  one model resident at a time. recurrentgemma-9b (RG-LRU and local
+  attention, 16 heads over one kv head at dh 256) and mamba2-780m (SSD,
+  no kernel) serve 2 prompts of 512 tokens through `Engine.generate`
+  (waves: the state families are not paged), max_new 16; whisper-small
+  encodes 2 x 1,500 random frames and prefills 32 decoder tokens,
+  qwen2-vl-2b prefills 2 x 256 random patches and 64 text tokens (M-RoPE),
+  each then 16 greedy `decode_step`s. Per model: TTFT, decode tok/s,
+  parameter bytes and its launches; finite logits and tokens within the
+  vocab asserted;
+- the zoo path: nemotron-4-15b at full width and depth (31 GB in bf16),
+  then qwen2-72b, mistral-large-123b (8 layers each) and arctic-480b (2
+  layers) at full width with their depth cut to fit one card (the cut is
+  printed under `zoo reduced`), each on the continuous engine: 4 prompts
+  of 256 tokens, max_new 16, the chunked flash_prefill and the paged
+  decode at Hg 6, 8, 12 and 7 (dh 128); no request shed or cancelled.
+  Phase 5 takes flash_prefill at recurrentgemma's local window ([1, 512,
+  16, 256] over one kv head, window 2,048), whisper's encoder ([2, 1500,
+  12, 64], not causal) and cross-attention ([2, 32, 12, 64] over 1,500
+  frames), qwen2-vl's prefill ([2, 320, 12, 128] over 2 kv heads) and a
+  nemotron chunk; decode_attention at recurrentgemma's ring ([2, 16, 256]
+  over [2, 512, 1, 256]) and whisper's cross-attention ([2, 12, 64] over
+  1,500); decode_attention_paged over nemotron's pool (their device ms:
+  `tools/attention_probe.py --zoo`).
 
 The line before the last is the kernel summary as JSON; the last line is
 `{"ok": true, "device": {...}}`.
@@ -286,13 +311,15 @@ from repro_torch.launch import scrub_index, serve  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.dense import (DenseLM, cache_len,  # noqa: E402
                                       chunk_rows)
+from repro_torch.models import rglru  # noqa: E402
+from repro_torch.models.dense import N_IMG  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.models.moe import MoELM  # noqa: E402
 from repro_torch.serving import rag as rag_mod  # noqa: E402
 from repro_torch.serving.embedder import (HashEmbedder,  # noqa: E402
                                           ModelEmbedder)
 from repro_torch.serving.engine import (ContinuousEngine,  # noqa: E402
-                                        Engine)
+                                        Engine, grow_cache)
 from repro_torch.serving.faults import (ChaosPipeline,  # noqa: E402
                                         FaultPlan, wrap_replicas)
 from repro_torch.serving.rag import (PIPELINES, MobileRAG,  # noqa: E402
@@ -384,6 +411,23 @@ PIPE_DOCS = 4096
 PIPE_SEED = 1
 GTE_CONFIG = get_config("gte_small")
 GTE_MAX_LEN = 64
+# the families path: recurrentgemma-9b and mamba2-780m on waves (2
+# prompts of FAMILY_PROMPT tokens), whisper-small (2 x 1,500 frames and
+# WHISPER_DEC decoder tokens) and qwen2-vl-2b (2 x 256 patches and VL_TEXT
+# text tokens) through their models' prefill and decode_step
+RG_CONFIG = get_config("recurrentgemma_9b")
+MAMBA_CONFIG = get_config("mamba2_780m")
+WHISPER_CONFIG = get_config("whisper_small")
+VL_CONFIG = get_config("qwen2_vl_2b")
+FAMILY_PROMPT = 512
+WHISPER_DEC = 32
+VL_TEXT = 64
+# the zoo path: nemotron-4-15b at full depth, then the three configs that
+# do not fit one card at full width with their depth cut to ZOO_CUTS
+# layers, each on the continuous engine (4 prompts of ZOO_PROMPT tokens)
+ZOO = (("nemotron_4_15b", None), ("qwen2_72b", 8),
+       ("mistral_large_123b", 8), ("arctic_480b", 2))
+ZOO_PROMPT = 256
 # every RagSession the run makes, with the path it ran on (CURRENT)
 SESSIONS = []
 CURRENT = [None]
@@ -445,6 +489,12 @@ PATH_KERNELS = {
     # flash_prefill), then MobileRAG answers on it
     "embedder": ("kmeans_assign", "ecoscan", "scr_select", "flash_prefill",
                  "decode_attention_paged"),
+    # recurrentgemma's local attention and ring, whisper's encoder, cross
+    # and self attention, qwen2-vl's prefill and decode (mamba2 runs no
+    # kernel)
+    "families": ("flash_prefill", "decode_attention"),
+    # nemotron and the cut large configs on the continuous engine
+    "zoo": ("flash_prefill", "decode_attention_paged"),
 }
 
 
@@ -1231,15 +1281,18 @@ def check_decode_attention(label, q, k, v, kv_len, ring):
 def attention_edges():
     """Edge cases of the two attention kernels, each in f32 (1e-5, the
     CUDA-core route of flash_prefill) and in bf16 (2e-2, its tensor-core
-    route). flash_prefill: dh 32, 64, 80 and 128; Hg 7 (14 heads over 2);
+    route). flash_prefill: dh 32, 64, 80, 128 and 256 (Hg 16 over one kv
+    head, recurrentgemma's grouping); Hg 7 (14 heads over 2);
     Sq 1 and Sq 77 (ragged query tiles); window 5 (less than a tile);
     the chunk whose keys past kv_len hold 1e4 (they must get weight
     exactly zero); rows whose every key is masked (kv_len 0, and a window
     past kv_len: the uniform average). decode_attention: kv_len 1, a ring
     with kv_len > S, rows of mixed kv_len (1, 63, 4609 on a 4096-slot
     ring, 0) in one launch, S not a multiple of 64, a shape the plan
-    splits at least 8 ways, and a scalar kv_len equal to the same [B]
-    one. Returns the number of (case, dtype) pairs checked."""
+    splits at least 8 ways, Hg 16 at dh 256 (the wide pairs; one ring
+    stage in f32) on a 300-slot ring and split 32 ways, and a scalar
+    kv_len equal to the same [B] one. Returns the number of (case,
+    dtype) pairs checked."""
     g = torch.Generator(device=DEV).manual_seed(5)
 
     def rnd(*shape):
@@ -1265,6 +1318,10 @@ def attention_edges():
         ("kv_len 0", qkv(70, 4, 90, 2, 64), dict(kv_len=0)),
         ("every key masked", qkv(40, 4, 100, 2, 64),
          dict(q_offset=60, window=8, kv_len=20)),
+        ("dh 256, Hg 16 over 1, Sq 77, window 40", qkv(77, 16, 77, 1, 256),
+         dict(window=40)),
+        ("dh 256, not causal, Sq 33 over 100", qkv(33, 4, 100, 2, 256),
+         dict(causal=False)),
     ]
     n = 0
     for label, (q, k, v), kw in flash:
@@ -1284,6 +1341,10 @@ def attention_edges():
          lens(1, 63, 4609, 0), True),
         ("S 1000", (3, 14, 1000, 2, 64), lens(1000, 999, 70), False),
         ("64 splits", (1, 8, 8192, 1, 128), lens(8000), False),
+        ("Hg 16, dh 256 ring, S 300", (2, 16, 300, 1, 256), lens(1, 290),
+         True),
+        ("Hg 16, dh 256, 32 splits", (1, 16, 4096, 1, 256), lens(4000),
+         False),
     ]
     for label, (B, H, S, G, dh), kv, ring in decode:
         q, k, v = rnd(B, H, dh), rnd(B, S, G, dh), rnd(B, S, G, dh)
@@ -3537,6 +3598,191 @@ def embedder_path(corpus):
     return info, (q, k, v)
 
 
+def param_bytes(lm):
+    return sum(t.numel() * t.element_size() for t in lm.parameters())
+
+
+def launches_since(before):
+    """Each kernel's launches since the counts `before`."""
+    now = ops.launch_counts()
+    return {n: now[n] - before[n] for n in now if now[n] != before[n]}
+
+
+def rg_attention_inputs(lm, toks):
+    """q, k, v of recurrentgemma's first local-attention layer over toks
+    [B, S] (after the two recurrent blocks before it)."""
+    b, S = toks.shape
+    pos = torch.arange(S, device=toks.device)[None].expand(b, S)
+    with torch.no_grad():
+        x = lm._embed(toks)
+        for prefix, c, i in rglru.layer_plan(lm.cfg):
+            if c == "a":
+                y = L.rmsnorm(x, lm._p(prefix, "attn_norm", i),
+                              lm.cfg.norm_eps)
+                return lm._qkv(i, y, pos, prefix)
+            x, _ = lm.rec_block(prefix, i, x)
+
+
+def greedy_decode(lm, cache, logits, pos0, steps):
+    """`steps` greedy decode steps from a prefill's logits; returns the
+    tokens [B, steps] and the decode seconds (after the first token)."""
+    toks = [ref.first_argmax(logits.float(), -1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for j in range(steps - 1):
+        logits = lm.decode_step(cache, toks[-1][:, None], pos0 + j)
+        assert bool(torch.isfinite(logits.float()).all())
+        toks.append(ref.first_argmax(logits.float(), -1))
+    torch.cuda.synchronize()
+    return torch.stack(toks, 1), time.perf_counter() - t0
+
+
+def families_path():
+    """The rest of the families at full width and full depth, bf16,
+    random weights from a seed, one model resident at a time:
+    recurrentgemma-9b and mamba2-780m serve 2 prompts of FAMILY_PROMPT
+    tokens through `Engine.generate` (continuous=None routes both to
+    waves; recurrentgemma's rings hold the prompt's 512 positions, F10),
+    max_new MAX_NEW; whisper-small encodes 2 x 1,500 random frames and
+    prefills WHISPER_DEC decoder tokens, qwen2-vl-2b prefills 256 random
+    patches and VL_TEXT text tokens, then each takes MAX_NEW greedy
+    decode steps. TTFT, decode tok/s, parameter bytes and each kernel's
+    launches per model; finite logits and tokens within the vocab are
+    asserted. Returns (info, kernel inputs at the paths' shapes)."""
+    info, kin = {}, {}
+    rng = np.random.default_rng(31)
+    for cfg, seed in ((RG_CONFIG, 3), (MAMBA_CONFIG, 4)):
+        before = ops.launch_counts()
+        lm = build_model(cfg, device=DEV, seed=seed)
+        prompts = [rng.integers(4, cfg.vocab_size, FAMILY_PROMPT).astype(
+            np.int32) for _ in range(2)]
+        eng = Engine(lm, max_len=FAMILY_PROMPT + MAX_NEW, eos_id=-1)
+        res = eng.generate(prompts, max_new=MAX_NEW)
+        torch.cuda.synchronize()
+        assert not eng._cont, "a state family took the continuous engine"
+        check_tokens(res, MAX_NEW, cfg.vocab_padded)
+        assert all(len(r.tokens) == MAX_NEW for r in res)
+        toks = torch.tensor(np.stack(prompts), dtype=torch.long, device=DEV)
+        logits, cache = lm.prefill(toks)
+        assert bool(torch.isfinite(logits.float()).all())
+        info[cfg.name] = dict(wave_summary(res), param_bytes=param_bytes(lm),
+                              launches=launches_since(before))
+        if cfg.family == "rglru":
+            kin["rg_flash"] = [t.contiguous()
+                               for t in rg_attention_inputs(lm, toks[:1])]
+            kin["rg_ring"] = (cache["s2_k"][0].contiguous(),
+                              cache["s2_v"][0].contiguous())
+            info[cfg.name]["ring_slots"] = int(cache["s2_k"].shape[2])
+        del lm, eng, cache, logits
+        torch.cuda.empty_cache()
+    # whisper-small: frames -> encoder -> decoder prompt -> greedy steps
+    before = ops.launch_counts()
+    lm = build_model(WHISPER_CONFIG, device=DEV, seed=6)
+    F_ = WHISPER_CONFIG.encdec.cross_kv_len
+    g = torch.Generator(device=DEV).manual_seed(7)
+    frames = torch.randn(2, F_, WHISPER_CONFIG.d_model, generator=g,
+                         device=DEV)
+    dec = torch.tensor(rng.integers(4, WHISPER_CONFIG.vocab_size,
+                                    (2, WHISPER_DEC)), device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(frames, dec)
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    assert bool(torch.isfinite(logits.float()).all())
+    cache = grow_cache(WHISPER_CONFIG, cache, WHISPER_DEC + MAX_NEW)
+    assert cache["cross_k"].shape[2] == F_
+    toks, dec_s = greedy_decode(lm, cache, logits, WHISPER_DEC, MAX_NEW)
+    assert int(toks.min()) >= 0 and int(toks.max()) < \
+        WHISPER_CONFIG.vocab_padded
+    with torch.no_grad():
+        x = frames.to(lm.cfg.torch_dtype) @ lm.frame_proj
+        x = x + lm._positions(F_, 0, DEV)[None]
+        y = L.rmsnorm(x, lm.enc_attn_norm[0], lm.cfg.norm_eps)
+        kin["whisper_enc"] = [t.contiguous() for t in
+                              lm._qkv(0, y, None, "enc_")]
+    kin["whisper_cross"] = (cache["cross_k"][0].contiguous(),
+                            cache["cross_v"][0].contiguous())
+    info[WHISPER_CONFIG.name] = {
+        "frames": F_, "decoder_prompt": WHISPER_DEC, "ttft_s": ttft,
+        "decode_tok_s": 2 * (MAX_NEW - 1) / dec_s,
+        "param_bytes": param_bytes(lm), "launches": launches_since(before)}
+    del lm, cache, logits, frames
+    torch.cuda.empty_cache()
+    # qwen2-vl-2b: 256 patches + text, M-RoPE, prefill and decode
+    before = ops.launch_counts()
+    lm = build_model(VL_CONFIG, device=DEV, seed=8)
+    S = N_IMG + VL_TEXT
+    patches = torch.randn(2, N_IMG, VL_CONFIG.d_model, generator=g,
+                          device=DEV)
+    vt = torch.tensor(rng.integers(4, VL_CONFIG.vocab_size, (2, S)),
+                      device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(vt, patches)
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    assert bool(torch.isfinite(logits.float()).all())
+    cache = grow_cache(VL_CONFIG, cache, S + MAX_NEW)
+    toks, dec_s = greedy_decode(lm, cache, logits, S, MAX_NEW)
+    assert int(toks.min()) >= 0 and int(toks.max()) < VL_CONFIG.vocab_padded
+    with torch.no_grad():
+        x, pos = lm._embed_inputs(vt, patches)
+        y = L.rmsnorm(x, lm.attn_norm[0], lm.cfg.norm_eps)
+        kin["vl_flash"] = [t.contiguous() for t in lm._qkv(0, y, pos)]
+    info[VL_CONFIG.name] = {
+        "patches": N_IMG, "text": VL_TEXT, "ttft_s": ttft,
+        "decode_tok_s": 2 * (MAX_NEW - 1) / dec_s,
+        "param_bytes": param_bytes(lm), "launches": launches_since(before)}
+    del lm, cache, logits, patches
+    torch.cuda.empty_cache()
+    return info, kin
+
+
+def zoo_path():
+    """nemotron-4-15b at full width and depth, then qwen2-72b,
+    mistral-large-123b and arctic-480b at full width with their depth cut
+    (ZOO), bf16, random weights from a seed, one resident at a time, each
+    on the continuous engine (4 slots, 4 prompts of ZOO_PROMPT tokens,
+    max_new MAX_NEW): the chunked flash_prefill and the paged decode at
+    each head grouping. TTFT, decode tok/s, parameter bytes, launches;
+    tokens within the vocab, no request shed or cancelled. Returns (info,
+    nemotron's layer-0 pool and the rows' lengths)."""
+    info, kin = {}, {}
+    rng = np.random.default_rng(41)
+    for arch, layers in ZOO:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        lm = build_model(cfg, device=DEV, seed=5)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        prompts = [rng.integers(4, cfg.vocab_size, ZOO_PROMPT).astype(
+            np.int32) for _ in range(4)]
+        eng = Engine(lm, max_len=ZOO_PROMPT + MAX_NEW, eos_id=-1, slots=4)
+        ce = traced_continuous(eng, 4)
+        res = eng.generate(prompts, max_new=MAX_NEW)
+        torch.cuda.synchronize()
+        check_tokens(res, MAX_NEW, cfg.vocab_padded)
+        assert ce.shed == ce.cancelled == 0, (ce.shed, ce.cancelled)
+        info[cfg.name] = dict(
+            continuous_summary(ce, res), layers=cfg.num_layers,
+            hg=cfg.num_heads // cfg.num_kv_heads,
+            param_bytes=param_bytes(lm), init_s=init_s,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches=launches_since(before))
+        if arch == "nemotron_4_15b":
+            kin["pool"] = [ce.cache[n][0].clone() for n in ("k", "v")]
+            kin["hg"] = (cfg.num_heads, cfg.resolved_head_dim)
+            kin["W"], kin["ps"] = ce.table_width, ce.page_size
+        del lm, eng, ce
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    return info, kin
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4177,6 +4423,66 @@ def main() -> int:
         {"kmeans_assign": km_pipe, "flash_prefill": fp_gte}))
     del pipe_kx, enc_qkv
     torch.cuda.empty_cache()
+    # ---- the rest of the model zoo: the families at full width and depth,
+    # then nemotron-4-15b at full depth and the large configs cut to fit
+    (fam_info, fam_in), families_launches = drive("families", families_path)
+    print("families path:", json.dumps(fam_info))
+    print("zoo reduced:", json.dumps({
+        get_config(a).name: {"layers": n, "of": get_config(a).num_layers,
+                             "why": "full depth does not fit one 80 GB card"
+                             " in bf16"} for a, n in ZOO if n}))
+    (zoo_info, zoo_in), zoo_launches = drive("zoo", zoo_path)
+    print("zoo path:", json.dumps(zoo_info))
+    g9 = torch.Generator(device=dev).manual_seed(9)
+
+    def rbf(*shape):
+        return torch.randn(*shape, generator=g9, device=dev).to(torch.bfloat16)
+    F_ = WHISPER_CONFIG.encdec.cross_kv_len
+    Hw, dhw = WHISPER_CONFIG.num_heads, WHISPER_CONFIG.resolved_head_dim
+    nH, ndh = zoo_in["hg"]
+    nkp, nvp = zoo_in["pool"]
+    nP = nkp.shape[0]
+    table_nem = torch.stack([torch.randperm(nP, generator=g9, device=dev)[
+        :zoo_in["W"]] for _ in range(4)]).to(torch.int32)
+    len_nem = torch.full((4,), ZOO_PROMPT + MAX_NEW // 2, dtype=torch.int32,
+                         device=dev)
+    k_nem, v_nem, _ = chunk_buffer(nkp, nvp, table_nem[0], 64, C,
+                                   zoo_in["ps"])
+    zoo_shapes = {
+        "flash_prefill": [
+            check_flash_prefill("recurrentgemma local window, dh 256, Hg 16",
+                                *fam_in["rg_flash"],
+                                window=RG_CONFIG.rglru.local_window,
+                                plain_iters=3),
+            check_flash_prefill("whisper encoder, non-causal",
+                                *fam_in["whisper_enc"], causal=False,
+                                plain_iters=3),
+            check_flash_prefill("whisper cross-attention over the frames",
+                                rbf(2, WHISPER_DEC, Hw, dhw),
+                                *fam_in["whisper_cross"], causal=False),
+            check_flash_prefill("qwen2-vl prefill (M-RoPE)",
+                                *fam_in["vl_flash"], plain_iters=3),
+            check_flash_prefill("nemotron chunk", rbf(1, C, nH, ndh), k_nem,
+                                v_nem, q_offset=64, kv_len=64 + C)],
+        "decode_attention": [
+            check_decode_attention(
+                "recurrentgemma ring, Hg 16, dh 256",
+                rbf(2, RG_CONFIG.num_heads, RG_CONFIG.head_dim),
+                *fam_in["rg_ring"], torch.full(
+                    (2,), FAMILY_PROMPT + MAX_NEW // 2, dtype=torch.int32,
+                    device=dev), True),
+            check_decode_attention(
+                "whisper cross-attention", rbf(2, Hw, dhw),
+                *fam_in["whisper_cross"], torch.full(
+                    (2,), F_, dtype=torch.int32, device=dev), False)],
+        "decode_attention_paged": [
+            check_decode("nemotron continuous", rbf(4, nH, ndh), nkp, nvp,
+                         len_nem, table_nem)]}
+    for name, shapes in zoo_shapes.items():
+        results[name]["shapes"].extend(shapes)
+    print("the model zoo's shapes:", json.dumps(zoo_shapes))
+    del fam_in, zoo_in, nkp, nvp, k_nem, v_nem
+    torch.cuda.empty_cache()
     # ---- updates on the main path's index, after every path that uses
     # it; then ecoscan on the grown pack
     (upd, (ud_t, ul_t, uc_t)), upd_launches = drive(
@@ -4254,7 +4560,8 @@ def main() -> int:
              "moe": moe_launches, "sampled": sampled_launches,
              "window_updates": wu_launches, "fire": fire_launches,
              "durable": dur_launches, "pipelines": pipelines_launches,
-             "embedder": embedder_launches}
+             "embedder": embedder_launches, "families": families_launches,
+             "zoo": zoo_launches}
     kernels = [{
         "name": name, "route": "cuda",
         "source": SOURCES[name],

@@ -1,13 +1,15 @@
 """Model configuration: the part of `repro.config.ModelConfig` that the
-port's dense and MoE models need (RoPE; SwiGLU or GELU; causal, or
+port's five families need (dense and MoE decoders with RoPE, M-RoPE or
+no rotary embedding; SwiGLU, squared-ReLU or GELU FFNs; causal, or
 bidirectional for the gte-small encoder; optional sliding window,
-optional int8 KV cache; same field names and defaults as the reference,
-and the same `reduced` sizes)."""
+optional int8 KV cache; the Mamba2, RG-LRU and encoder-decoder
+sub-configs), with the reference's field names and defaults and the
+same `reduced` sizes."""
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -22,6 +24,62 @@ class MoEConfig:
     dense_residual: bool = False
 
 
+class _FieldsEqual:
+    """A sub-config equal to any dataclass of the same class name and the
+    same field values, so that the port's sub-configs compare equal to
+    the reference's (they have exactly its fields)."""
+
+    def _values(self):
+        return {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self)}
+
+    def __eq__(self, other):
+        if (not dataclasses.is_dataclass(other)
+                or type(other).__name__ != type(self).__name__):
+            return NotImplemented
+        return self._values() == _FieldsEqual._values(other)
+
+    def __hash__(self):
+        return hash(tuple(sorted(self._values().items())))
+
+
+@dataclass(frozen=True, eq=False)
+class MambaConfig(_FieldsEqual):
+    """Mamba2 (SSD) mixer: state size N, head width P, d_inner =
+    expand * d_model, the depthwise conv's width and the chunk of the
+    chunked SSD scan."""
+    ssm_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    conv_width: int = 4
+    chunk_size: int = 256
+
+
+@dataclass(frozen=True, eq=False)
+class RGLRUConfig(_FieldsEqual):
+    """RecurrentGemma: the RG-LRU width (0: d_model), the local
+    attention's window, the repeating block pattern ("r" recurrent, "a"
+    local attention) and the recurrent block's conv width."""
+    lru_width: int = 0
+    local_window: int = 2048
+    pattern: str = "rra"
+    conv_width: int = 4
+
+
+@dataclass(frozen=True, eq=False)
+class EncDecConfig(_FieldsEqual):
+    """Whisper-style encoder-decoder: layer counts and the encoder's
+    frame count (the cross-attention's keys)."""
+    encoder_layers: int = 12
+    decoder_layers: int = 12
+    cross_kv_len: int = 1500
+
+
+def enc_len_for_tests() -> int:
+    """The reduced encoder-decoder's frame count."""
+    return 24
+
+
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
@@ -33,15 +91,21 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0             # 0 -> d_model // num_heads
     qkv_bias: bool = False
-    act: str = "swiglu"           # swiglu | gelu
+    act: str = "swiglu"           # swiglu | sq_relu | gelu
     sliding_window: Optional[int] = None
+    rope_type: str = "rope"       # rope | mrope | none
     rope_theta: float = 10000.0
+    mrope_sections: Tuple[int, ...] = (16, 24, 24)
     norm_eps: float = 1e-5
     causal: bool = True           # False -> bidirectional encoder (gte)
     tie_embeddings: bool = False
+    modality: str = "text"        # text | audio | vision
     dtype: str = "bfloat16"
-    family: str = "dense"         # dense | moe
+    family: str = "dense"         # dense | moe | encdec | rglru | mamba2
     moe: MoEConfig = field(default_factory=MoEConfig)
+    mamba: MambaConfig = field(default_factory=MambaConfig)
+    rglru: RGLRUConfig = field(default_factory=RGLRUConfig)
+    encdec: EncDecConfig = field(default_factory=EncDecConfig)
     # int8 KV cache: int8 values with f32 scales per position and kv head
     kv_quant: bool = False
 
@@ -74,6 +138,16 @@ class ModelConfig:
             kw["moe"] = MoEConfig(
                 num_experts=4, top_k=min(self.moe.top_k, 2), expert_d_ff=64,
                 dense_residual=self.moe.dense_residual)
+        if self.family == "mamba2":
+            kw["mamba"] = MambaConfig(ssm_state=16, head_dim=32, expand=2,
+                                      chunk_size=32)
+            kw["num_heads"] = 8  # d_inner / head_dim = 256 / 32
+        if self.family == "rglru":
+            kw["rglru"] = RGLRUConfig(lru_width=128, local_window=64,
+                                      pattern=self.rglru.pattern)
+        if self.family == "encdec":
+            kw["encdec"] = EncDecConfig(encoder_layers=2, decoder_layers=2,
+                                        cross_kv_len=enc_len_for_tests())
         if self.sliding_window:
             kw["sliding_window"] = 64
         kw.update(over)

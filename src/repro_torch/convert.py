@@ -14,17 +14,39 @@ import torch
 from repro_torch import resolve_device
 
 
+def flat_names(tree: Mapping) -> Dict[str, object]:
+    """The reference's parameter tree flattened to the port's names:
+    "layers" entries keep their names; the encoder-decoder's
+    "enc_layers" and "dec_layers" entries take the prefixes "enc_" and
+    "dec_"; any other sub-tree (the rglru's "tail{j}" layers) prefixes
+    its name and "_"; top-level arrays ("tok_embed", "final_norm",
+    "lm_head", "patch_proj", "frame_proj") keep their names."""
+    flat: Dict[str, object] = {}
+    for key, val in tree.items():
+        if not isinstance(val, Mapping):
+            flat[key] = val
+            continue
+        if key == "layers":
+            prefix = ""
+        elif key.endswith("_layers"):
+            prefix = key[:-len("layers")]
+        else:
+            prefix = key + "_"
+        flat.update({prefix + k: v for k, v in val.items()})
+    return flat
+
+
 def params_from_reference(tree: Mapping, device="cuda"
                           ) -> Dict[str, torch.Tensor]:
-    """A `repro.models.model.init_params` tree of the dense or the moe
-    family, as numpy arrays ({"layers": {...}, "tok_embed", "final_norm"[,
-    "lm_head"]}), -> the flat name -> tensor dict `DenseLM(params=...)`
-    or `MoELM(params=...)` takes (layer weights keep their stacked
-    [L, ...] layout: a moe tree's "router", "we1", "we2", "we3", its FFN
-    norm "mlp_norm", or "moe_norm" beside "mlp_norm", "w1", "w2", "w3"
-    with `dense_residual`; gte-small's tree has tied embeddings, so no
-    "lm_head", and a GELU FFN without "w3")."""
+    """A `repro.models.model.init_params` tree of any family, as numpy
+    arrays, -> the flat name -> tensor dict the family's model takes
+    (`models.model.build_model(cfg, params=...)`; `flat_names` gives the
+    names). Layer weights keep their stacked [L, ...] layout: a dense or
+    moe tree's "layers" (the moe's "router", "we1", "we2", "we3", its
+    FFN norm "mlp_norm", or "moe_norm" beside "mlp_norm", "w1", "w2",
+    "w3" with `dense_residual`), the mamba2 "layers", the rglru's
+    "s{i}_" sub-layers [NB, ...] and "tail{j}" layers [1, ...], the
+    encoder-decoder's "enc_layers" and "dec_layers"."""
     dev = resolve_device(device)
-    flat = dict(tree["layers"])
-    flat.update({k: v for k, v in tree.items() if k != "layers"})
-    return {k: torch.tensor(np.array(v), device=dev) for k, v in flat.items()}
+    return {k: torch.tensor(np.array(v), device=dev)
+            for k, v in flat_names(tree).items()}

@@ -40,6 +40,15 @@
 // producer warp, score several tiles between barriers, and fold the merge
 // into the last block of each (b, g).
 //
+// Wide groups (recurrentgemma: one kv head under 16 query heads at dh
+// 256, Hg*dh 4096): each thread holds kWidePair (8) output pairs instead
+// of kMaxPair (4), the block still 256 threads, so a block's 16 x 64
+// scores and its 2,048 output pairs both fit one pass. In f32 at dh 256
+// two stages of K and V rows (266,240 bytes) pass the 227 KB a block may
+// take, so that shape runs one stage: the next tile loads after the
+// current one's PV product, behind one more barrier (ops.decode_stages
+// picks the stages from the shared memory they need).
+//
 // The int8 cache (`decode_attention_q8`, the plain jnp function
 // src/repro/models/layers.py::decode_attention_q8 at :227, which the
 // port runs on the card): the same kernel with int8 K/V rows (16 a
@@ -59,13 +68,18 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTile = 64;                      // positions per tile
 constexpr int kMaxPair = 4;                    // output pairs a thread: Hg*dh <= 2048
+constexpr int kWidePair = 8;                   // Hg*dh <= 4096 (recurrentgemma)
 
 // Shared memory (its size comes from ops.decode_smem_bytes): the K and V
-// rings [2][kTile][dh + kVW] in C, then in f32 the group's queries
+// rings [kStages][kTile][dh + kVW] in C, then in f32 the group's queries
 // [Hg, dh], the tile's scores [Hg, kTile], the running max, sum and
 // correction [Hg] each, and with an int8 cache the K and V scale rings
 // [2][kTile] each. T: the type of q and out; C: the cache's (T or int8).
-template <typename T, typename C>
+// kPairs: output pairs a thread (kMaxPair, or kWidePair past Hg*dh
+// 2048). kStages: 2 (tile j + 1 loads while tile j computes), or 1 where
+// two stages do not fit 227 KB (f32 at dh 256: the tile loads after the
+// previous one is consumed, one more barrier a tile).
+template <typename T, typename C, int kPairs, int kStages>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const T* __restrict__ q, const C* __restrict__ k,
                     const C* __restrict__ v, const float* __restrict__ k_scale,
@@ -78,9 +92,9 @@ decode_split_kernel(const T* __restrict__ q, const C* __restrict__ k,
   extern __shared__ __align__(16) unsigned char smem[];
   const int Hg = H / G;
   const int kr = dh + kVW;                     // padded cache row
-  C* ks = reinterpret_cast<C*>(smem);          // [2][kTile][kr]
-  C* vs = ks + 2 * kTile * kr;                 // [2][kTile][kr]
-  float* qs = reinterpret_cast<float*>(vs + 2 * kTile * kr);  // [Hg, dh]
+  C* ks = reinterpret_cast<C*>(smem);          // [kStages][kTile][kr]
+  C* vs = ks + kStages * kTile * kr;           // [kStages][kTile][kr]
+  float* qs = reinterpret_cast<float*>(vs + kStages * kTile * kr);  // [Hg, dh]
   float* ps = qs + Hg * dh;                    // [Hg, kTile]
   float* m_s = ps + Hg * kTile;                // [Hg] running max
   float* l_s = m_s + Hg;                       // [Hg] running sum
@@ -93,9 +107,9 @@ decode_split_kernel(const T* __restrict__ q, const C* __restrict__ k,
   const size_t qbase = ((size_t)b * H + (size_t)g * Hg) * dh;
   for (int e = tid; e < Hg * dh; e += blockDim.x) qs[e] = to_f<T>(q[qbase + e]);
   if (tid < Hg) { m_s[tid] = kMask; l_s[tid] = 0.f; }
-  float2 acc[kMaxPair];                        // (head, dim pair) outputs
+  float2 acc[kPairs];                          // (head, dim pair) outputs
 #pragma unroll
-  for (int o = 0; o < kMaxPair; ++o) acc[o] = make_float2(0.f, 0.f);
+  for (int o = 0; o < kPairs; ++o) acc[o] = make_float2(0.f, 0.f);
   const int npair = Hg * dh / 2;
   // this split's positions [p0, p1): tiles [sp*T/splits, (sp+1)*T/splits)
   // of the T tiles of S (ops.decode_split_ranges), cut at the row's n
@@ -110,6 +124,7 @@ decode_split_kernel(const T* __restrict__ q, const C* __restrict__ k,
   const C* vb = v + (size_t)b * S * pos_stride + (size_t)g * dh;
   const int rv = dh / kVW;                     // 16-byte copies per row
   auto load = [&](int stage, int t0) {        // rows past p1 zero-filled
+    stage %= kStages;
     C* kd = ks + stage * kTile * kr;
     C* vd = vs + stage * kTile * kr;
     for (int e = tid; e < kTile * rv; e += blockDim.x) {
@@ -135,15 +150,15 @@ decode_split_kernel(const T* __restrict__ q, const C* __restrict__ k,
   for (int i = 0; i < ntl; ++i) {
     cp_async_wait<0>();                        // tile i has landed
     __syncthreads();                           // and tile i - 1 is consumed
-    if (i + 1 < ntl) {
+    if (kStages > 1 && i + 1 < ntl) {
       load((i + 1) & 1, p0 + (i + 1) * kTile);
       cp_async_commit();
     }
     const int t0 = p0 + i * kTile, nt = min(kTile, p1 - t0);
-    const C* kt = ks + (i & 1) * kTile * kr;
-    const C* vt = vs + (i & 1) * kTile * kr;
-    const float* kst = ksc + (i & 1) * kTile;
-    const float* vst = vsc + (i & 1) * kTile;
+    const C* kt = ks + (i % kStages) * kTile * kr;
+    const C* vt = vs + (i % kStages) * kTile * kr;
+    const float* kst = ksc + (i % kStages) * kTile;
+    const float* vst = vsc + (i % kStages) * kTile;
     for (int e = tid; e < Hg * kTile; e += blockDim.x) {
       const int h = e / kTile, t = e % kTile;
       const float* qh = qs + h * dh;
@@ -189,7 +204,7 @@ decode_split_kernel(const T* __restrict__ q, const C* __restrict__ k,
     }
     __syncthreads();
 #pragma unroll
-    for (int o = 0; o < kMaxPair; ++o) {
+    for (int o = 0; o < kPairs; ++o) {
       const int u = tid + o * blockDim.x;
       if (u < npair) {
         const int h = 2 * u / dh, dd = 2 * u % dh;
@@ -214,11 +229,16 @@ decode_split_kernel(const T* __restrict__ q, const C* __restrict__ k,
         acc[o].y = acc[o].y * c + ((a[0].y + a[1].y) + (a[2].y + a[3].y));
       }
     }
+    if (kStages == 1 && i + 1 < ntl) {
+      __syncthreads();                         // tile i is consumed
+      load(0, p0 + (i + 1) * kTile);
+      cp_async_commit();
+    }
   }
   __syncthreads();                             // m_s, l_s final
   if (splits == 1) {
 #pragma unroll
-    for (int o = 0; o < kMaxPair; ++o) {
+    for (int o = 0; o < kPairs; ++o) {
       const int u = tid + o * blockDim.x;
       if (u < npair) {
         const float den = fmaxf(l_s[2 * u / dh], 1e-30f);
@@ -231,7 +251,7 @@ decode_split_kernel(const T* __restrict__ q, const C* __restrict__ k,
   // partial of (b, g, sp): acc [Hg, dh], then m [Hg], then l [Hg]
   float* pb = part + (((size_t)b * G + g) * splits + sp) * Hg * (dh + 2);
 #pragma unroll
-  for (int o = 0; o < kMaxPair; ++o) {
+  for (int o = 0; o < kPairs; ++o) {
     const int u = tid + o * blockDim.x;
     if (u < npair) *reinterpret_cast<float2*>(pb + 2 * u) = acc[o];
   }
@@ -241,26 +261,55 @@ decode_split_kernel(const T* __restrict__ q, const C* __restrict__ k,
   }
 }
 
-// k_scale and v_scale: null for a float cache (C = T)
-template <typename T, typename C>
-int launch(const void* q, const void* k, const void* k_scale, const void* v,
-           const void* v_scale, const void* kv_len, int B, int S, int H, int G,
-           int dh, float scale, int splits, int smem, void* part, void* out,
-           void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <typename T, typename C, int kPairs, int kStages>
+cudaError_t launch_split(const void* q, const void* k, const void* k_scale,
+                         const void* v, const void* v_scale,
+                         const void* kv_len, int B, int S, int H, int G,
+                         int dh, float scale, int splits, int smem,
+                         void* part, void* out, cudaStream_t st) {
+  auto kernel = decode_split_kernel<T, C, kPairs, kStages>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        decode_split_kernel<T, C>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
   }
-  decode_split_kernel<T, C><<<dim3(splits, G, B), kThreads, smem, st>>>(
+  kernel<<<dim3(splits, G, B), kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const C*>(k),
       static_cast<const C*>(v), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<const int*>(kv_len), S,
       H, G, dh, scale, splits, static_cast<T*>(out),
       static_cast<float*>(part));
-  const cudaError_t e = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+// k_scale and v_scale: null for a float cache (C = T). `stages` (1 or 2)
+// comes with `smem` from ops.decode_smem_bytes; wide groups (Hg*dh past
+// 2 * kMaxPair * kThreads) take kWidePair pairs a thread
+template <typename T, typename C>
+int launch(const void* q, const void* k, const void* k_scale, const void* v,
+           const void* v_scale, const void* kv_len, int B, int S, int H, int G,
+           int dh, float scale, int splits, int stages, int smem, void* part,
+           void* out, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int npair = H / G * dh / 2;
+  if (npair > kWidePair * kThreads || stages < 1 || stages > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool wide = npair > kMaxPair * kThreads;
+  cudaError_t e;
+  if (stages == 2)
+    e = wide ? launch_split<T, C, kWidePair, 2>(q, k, k_scale, v, v_scale,
+                                                kv_len, B, S, H, G, dh, scale,
+                                                splits, smem, part, out, st)
+             : launch_split<T, C, kMaxPair, 2>(q, k, k_scale, v, v_scale,
+                                               kv_len, B, S, H, G, dh, scale,
+                                               splits, smem, part, out, st);
+  else
+    e = wide ? launch_split<T, C, kWidePair, 1>(q, k, k_scale, v, v_scale,
+                                                kv_len, B, S, H, G, dh, scale,
+                                                splits, smem, part, out, st)
+             : launch_split<T, C, kMaxPair, 1>(q, k, k_scale, v, v_scale,
+                                               kv_len, B, S, H, G, dh, scale,
+                                               splits, smem, part, out, st);
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
   return static_cast<int>(launch_merge<T>(part, B, H, G, dh, splits, out, st));
 }
@@ -270,20 +319,22 @@ int launch(const void* q, const void* k, const void* k_scale, const void* v,
 extern "C" int decode_attention_f32(const void* q, const void* k, const void* v,
                                     const void* kv_len, int B, int S, int H,
                                     int G, int dh, float scale, int splits,
-                                    int smem, void* part, void* out,
-                                    void* stream) {
+                                    int stages, int smem, void* part,
+                                    void* out, void* stream) {
   return launch<float, float>(q, k, nullptr, v, nullptr, kv_len, B, S, H, G,
-                              dh, scale, splits, smem, part, out, stream);
+                              dh, scale, splits, stages, smem, part, out,
+                              stream);
 }
 
 extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v,
                                      const void* kv_len, int B, int S, int H,
                                      int G, int dh, float scale, int splits,
-                                     int smem, void* part, void* out,
-                                     void* stream) {
+                                     int stages, int smem, void* part,
+                                     void* out, void* stream) {
   return launch<__nv_bfloat16, __nv_bfloat16>(q, k, nullptr, v, nullptr,
                                               kv_len, B, S, H, G, dh, scale,
-                                              splits, smem, part, out, stream);
+                                              splits, stages, smem, part, out,
+                                              stream);
 }
 
 // int8 cache: k, v [B, S, G, dh] int8; k_scale, v_scale [B, S, G] f32
@@ -291,19 +342,22 @@ extern "C" int decode_attention_q8_f32(const void* q, const void* k,
                                        const void* k_scale, const void* v,
                                        const void* v_scale, const void* kv_len,
                                        int B, int S, int H, int G, int dh,
-                                       float scale, int splits, int smem,
-                                       void* part, void* out, void* stream) {
+                                       float scale, int splits, int stages,
+                                       int smem, void* part, void* out,
+                                       void* stream) {
   return launch<float, int8_t>(q, k, k_scale, v, v_scale, kv_len, B, S, H, G,
-                               dh, scale, splits, smem, part, out, stream);
+                               dh, scale, splits, stages, smem, part, out,
+                               stream);
 }
 
 extern "C" int decode_attention_q8_bf16(const void* q, const void* k,
                                         const void* k_scale, const void* v,
                                         const void* v_scale, const void* kv_len,
                                         int B, int S, int H, int G, int dh,
-                                        float scale, int splits, int smem,
-                                        void* part, void* out, void* stream) {
+                                        float scale, int splits, int stages,
+                                        int smem, void* part, void* out,
+                                        void* stream) {
   return launch<__nv_bfloat16, int8_t>(q, k, k_scale, v, v_scale, kv_len, B,
-                                       S, H, G, dh, scale, splits, smem, part,
-                                       out, stream);
+                                       S, H, G, dh, scale, splits, stages,
+                                       smem, part, out, stream);
 }

@@ -38,8 +38,10 @@
 // the whole walk, and S's f32 accumulator fragments become P's bf16
 // A-fragments in registers, so P never touches shared memory. Masks are
 // applied only on tiles that hold a masked pair; the exponentials are
-// `ex2.approx`. dh is a template parameter (32, 64, 80 or 128); kMT (16-row
-// m-tiles per warp), kBK and kStages are the tile shape's knobs. At h2o's
+// `ex2.approx`. dh is a template parameter (32, 64, 80, 128 or 256); kMT
+// (16-row m-tiles per warp), kBK and kStages are the tile shape's knobs
+// (dh 256, recurrentgemma's local attention: key tiles of 32 and Q's
+// fragments re-read from shared memory, `TcTile`). At h2o's
 // shape (dh 80) it lands near a fifth of its bound, and 128-row query
 // tiles, 128-key tiles, a third stage or two m-tiles per warp each moved
 // it by less than a tenth (PERF.md): neither the K/V traffic nor the
@@ -56,7 +58,8 @@
 // row is held by 4 threads, each owning dh/4 of its columns of q and of
 // the f32 accumulator in registers, a score being their partial dot
 // products summed with two shuffles; key and value tiles are staged in
-// shared memory as f32.
+// shared memory as f32. At dh 256 a row is held by 8 threads and a key
+// tile is 16 keys (`F32Tile`).
 #include "common.cuh"
 
 namespace {
@@ -81,21 +84,32 @@ __device__ __forceinline__ void key_range(int qlo, int qhi, int Sk, int causal,
 constexpr int kBQ = 32;                        // query rows per block
 constexpr int kTPR = 4;                        // threads per query row
 constexpr int kTK = 32;                        // keys per tile
-constexpr int kThreads = kBQ * kTPR;
+
+// the tile at a head dim: dh 256 holds a row over 8 threads (q and the
+// accumulator in 64 registers a thread) and takes key tiles of 16, so
+// that the K and V tiles (32 KB) stay within 48 KB of static shared
+// memory
+template <int DH> struct F32Tile {
+  static constexpr int TPR = DH > 128 ? 2 * kTPR : kTPR;
+  static constexpr int TK = DH > 128 ? kTK / 2 : kTK;
+  static constexpr int THREADS = kBQ * TPR;
+};
 
 template <int DH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(F32Tile<DH>::THREADS)
 flash_prefill_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, int Sq, int Sk, int H,
                          int G, int causal, int window, int q_offset,
                          int kv_len, float scale, float* __restrict__ out) {
+  constexpr int TPR = F32Tile<DH>::TPR, TK = F32Tile<DH>::TK;
+  constexpr int THREADS = F32Tile<DH>::THREADS;
   constexpr int RW = DH / 4;                   // float4 per key row
-  constexpr int NV = RW / kTPR;                // float4 per thread
-  static_assert(RW % kTPR == 0, "dh must be a multiple of 16");
-  __shared__ float4 ks[kTK * RW];
-  __shared__ float4 vs[kTK * RW];
-  const int tid = threadIdx.x, r = tid / kTPR, t = tid % kTPR;
+  constexpr int NV = RW / TPR;                 // float4 per thread
+  static_assert(RW % TPR == 0, "dh must be a multiple of 4 * TPR");
+  __shared__ float4 ks[TK * RW];
+  __shared__ float4 vs[TK * RW];
+  const int tid = threadIdx.x, r = tid / TPR, t = tid % TPR;
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int g = h / (H / G);
   const int row = q0 + r;
@@ -105,20 +119,20 @@ flash_prefill_f32_kernel(const float* __restrict__ q,
   float4 qr[NV], acc[NV];
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    qr[i] = *reinterpret_cast<const float4*>(q + qoff + (i * kTPR + t) * 4);
+    qr[i] = *reinterpret_cast<const float4*>(q + qoff + (i * TPR + t) * 4);
     acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   float m = kMask, l = 0.f;
   int kbeg, kend;
   key_range(q_offset + q0, q_offset + min(q0 + kBQ, Sq) - 1, Sk, causal,
-            window, kv_len, kTK, kbeg, kend);
+            window, kv_len, TK, kbeg, kend);
   const size_t krow = (size_t)G * DH;
   const float* kbase = k + (size_t)b * Sk * krow + (size_t)g * DH;
   const float* vbase = v + (size_t)b * Sk * krow + (size_t)g * DH;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int k0 = kbeg; k0 < kend; k0 += kTK) {
+  for (int k0 = kbeg; k0 < kend; k0 += TK) {
     __syncthreads();                           // the previous tile is consumed
-    for (int e = tid; e < kTK * RW; e += kThreads) {
+    for (int e = tid; e < TK * RW; e += THREADS) {
       const int j = e / RW, c = (e % RW) * 4;
       const bool in = k0 + j < kend;
       const size_t off = (size_t)(k0 + j) * krow + c;
@@ -126,22 +140,23 @@ flash_prefill_f32_kernel(const float* __restrict__ q,
       vs[e] = in ? *reinterpret_cast<const float4*>(vbase + off) : zero;
     }
     __syncthreads();
-    float s[kTK];
+    float s[TK];
     float mt = kMask;
 #pragma unroll
-    for (int j = 0; j < kTK; ++j) {
+    for (int j = 0; j < TK; ++j) {
       float part = 0.f;
 #pragma unroll
       for (int i = 0; i < NV; ++i) {
-        const float4 kk = ks[j * RW + i * kTPR + t];
+        const float4 kk = ks[j * RW + i * TPR + t];
         part = fmaf(qr[i].x, kk.x, part);
         part = fmaf(qr[i].y, kk.y, part);
         part = fmaf(qr[i].z, kk.z, part);
         part = fmaf(qr[i].w, kk.w, part);
       }
-      // the 4 threads of a row end with bit-identical sums
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      // the TPR threads of a row end with bit-identical sums
+#pragma unroll
+      for (int w = 1; w < TPR; w *= 2)
+        part += __shfl_xor_sync(0xffffffffu, part, w);
       const int kp = k0 + j;
       const bool ok = kp < kv_len && (!causal || kp <= qpos) &&
                       (window <= 0 || qpos - kp < window);
@@ -159,12 +174,12 @@ flash_prefill_f32_kernel(const float* __restrict__ q,
       acc[i].w *= corr;
     }
 #pragma unroll
-    for (int j = 0; j < kTK; ++j) {
+    for (int j = 0; j < TK; ++j) {
       const float p = k0 + j < Sk ? expf(s[j] - mn) : 0.f;
       l += p;
 #pragma unroll
       for (int i = 0; i < NV; ++i) {
-        const float4 vv = vs[j * RW + i * kTPR + t];
+        const float4 vv = vs[j * RW + i * TPR + t];
         acc[i].x = fmaf(p, vv.x, acc[i].x);
         acc[i].y = fmaf(p, vv.y, acc[i].y);
         acc[i].z = fmaf(p, vv.z, acc[i].z);
@@ -177,7 +192,7 @@ flash_prefill_f32_kernel(const float* __restrict__ q,
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < NV; ++i)
-      *reinterpret_cast<float4*>(out + qoff + (i * kTPR + t) * 4) =
+      *reinterpret_cast<float4*>(out + qoff + (i * TPR + t) * 4) =
           make_float4(acc[i].x / den, acc[i].y / den, acc[i].z / den,
                       acc[i].w / den);
   }
@@ -194,12 +209,22 @@ constexpr int kThreads = 128;                  // 4 warps
 constexpr int kBQ = 4 * 16 * kMT;              // query rows per block
 constexpr int kBK = 64;                        // keys per tile
 constexpr int kStages = 2;                     // K/V ring depth
-constexpr int kNT = kBK / 8;                   // 8-key tiles of S
 constexpr float kLog2e = 1.4426950408889634f;
+
+// the tile at a head dim: at dh 256 the O accumulator alone takes 128
+// registers a thread, so the block takes key tiles of 32 (S and P in 24
+// registers) and re-reads Q's fragments from shared memory at each
+// k-step instead of holding its 64 registers for the whole walk
+template <int DH> struct TcTile {
+  static constexpr int BK = DH > 128 ? kBK / 2 : kBK;  // keys per tile
+  static constexpr int NT = BK / 8;                    // 8-key tiles of S
+  static constexpr bool QREG = DH <= 128;              // Q in registers
+};
 
 // shared memory of a block: Q and the K/V ring, rows padded to dh + 8
 template <int DH> constexpr int smem_bytes() {
-  return (kBQ + 2 * kStages * kBK) * (DH + 8) * static_cast<int>(sizeof(bf16));
+  return (kBQ + 2 * kStages * TcTile<DH>::BK) * (DH + 8) *
+         static_cast<int>(sizeof(bf16));
 }
 
 // 2^x on the MUFU (2 ulp; x = -1e30 or so gives 0)
@@ -250,16 +275,18 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, int Sq, int Sk, int H,
                         int G, int causal, int window, int q_offset,
                         int kv_len, float scale, bf16* __restrict__ out) {
+  constexpr int BK = TcTile<DH>::BK, kNT = TcTile<DH>::NT;
+  constexpr bool QREG = TcTile<DH>::QREG;
   constexpr int R = DH + 8;                    // padded shared row
   constexpr int CPR = DH / 8;                  // 16-byte chunks per row
   constexpr int KS = DH / 16;                  // k-steps of Q K^T
   constexpr int NT = DH / 8;                   // 8-column tiles of O
-  constexpr int TILE = kBK * R;
+  constexpr int TILE = BK * R;
   static_assert(DH % 16 == 0, "dh must be a multiple of 16");
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);    // [kBQ][R]
-  bf16* ks = qs + kBQ * R;                     // [kStages][kBK][R]
-  bf16* vs = ks + kStages * TILE;              // [kStages][kBK][R]
+  bf16* ks = qs + kBQ * R;                     // [kStages][BK][R]
+  bf16* vs = ks + kStages * TILE;              // [kStages][BK][R]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gr = lane >> 2, tg = lane & 3;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // heavy tiles first
@@ -270,8 +297,8 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + (size_t)b * Sk * kstride + (size_t)g * DH;
   const int qlo = q_offset + q0, qhi = q_offset + min(q0 + kBQ, Sq) - 1;
   int kbeg, kend;
-  key_range(qlo, qhi, Sk, causal, window, kv_len, kBK, kbeg, kend);
-  const int ntiles = kend > kbeg ? (kend - kbeg + kBK - 1) / kBK : 0;
+  key_range(qlo, qhi, Sk, causal, window, kv_len, BK, kbeg, kend);
+  const int ntiles = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
 
   for (int c = tid; c < kBQ * CPR; c += kThreads) {
     const int r = c / CPR, col = (c % CPR) * 8;
@@ -282,7 +309,7 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto load_kv = [&](int stage, int k0) {
     bf16* kd = ks + stage * TILE;
     bf16* vd = vs + stage * TILE;
-    for (int c = tid; c < kBK * CPR; c += kThreads) {
+    for (int c = tid; c < BK * CPR; c += kThreads) {
       const int r = c / CPR, col = (c % CPR) * 8;
       const bool in = k0 + r < kend;
       const size_t off = (in ? (size_t)(k0 + r) * kstride : 0) + col;
@@ -294,19 +321,23 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // has landed when at most kStages - 2 groups are in flight
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) {
-    if (t < ntiles) load_kv(t, kbeg + t * kBK);
+    if (t < ntiles) load_kv(t, kbeg + t * BK);
     cp_async_commit();
   }
   cp_async_wait<kStages - 2>();
   __syncthreads();
-  uint32_t qf[kMT][KS][4];                     // this warp's rows of Q
+  // this warp's A-fragment of Q at k-step kk
+  auto q_frag = [&](uint32_t (&r)[4], int mt, int kk) {
+    ldmatrix_x4(r, smem_u32(qs + ((warp * kMT + mt) * 16 + (lane & 15)) * R +
+                            kk * 16 + (lane >> 4) * 8));
+  };
+  uint32_t qf[kMT][QREG ? KS : 1][4];          // this warp's rows of Q
+  if constexpr (QREG) {
 #pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
+    for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
-      ldmatrix_x4(qf[mt][kk],
-                  smem_u32(qs + ((warp * kMT + mt) * 16 + (lane & 15)) * R +
-                           kk * 16 + (lane >> 4) * 8));
+      for (int kk = 0; kk < KS; ++kk) q_frag(qf[mt][kk], mt, kk);
+  }
   float o[kMT][NT][4];
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
@@ -328,9 +359,9 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       __syncthreads();                         // and tile t - 1 is consumed
     }
     const int tn = t + kStages - 1;            // into tile t - 1's stage
-    if (tn < ntiles) load_kv(tn % kStages, kbeg + tn * kBK);
+    if (tn < ntiles) load_kv(tn % kStages, kbeg + tn * BK);
     cp_async_commit();
-    const int k0 = kbeg + t * kBK;
+    const int k0 = kbeg + t * BK;
     const bf16* kt = ks + (t % kStages) * TILE;
     const bf16* vt = vs + (t % kStages) * TILE;
 
@@ -342,6 +373,16 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[kMT][4];                     // Q's fragment at kk
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        if constexpr (QREG) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qa[mt][e] = qf[mt][kk][e];
+        } else {
+          q_frag(qa[mt], mt, kk);
+        }
+      }
 #pragma unroll
       for (int np = 0; np < kNT / 2; ++np) {
         uint32_t r[4];                         // keys 16np.., dims 16kk..
@@ -350,14 +391,14 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                 kk * 16 + ((lane >> 3) & 1) * 8));
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt) {
-          mma_bf16(s[mt][2 * np], qf[mt][kk], r[0], r[1]);
-          mma_bf16(s[mt][2 * np + 1], qf[mt][kk], r[2], r[3]);
+          mma_bf16(s[mt][2 * np], qa[mt], r[0], r[1]);
+          mma_bf16(s[mt][2 * np + 1], qa[mt], r[2], r[3]);
         }
       }
     }
     // does this tile hold a masked (query, key) pair of the block?
-    const bool masked = k0 + kBK > kv_len ||
-                        (causal && k0 + kBK - 1 > qlo) ||
+    const bool masked = k0 + BK > kv_len ||
+                        (causal && k0 + BK - 1 > qlo) ||
                         (window > 0 && k0 <= qhi - window);
     uint32_t pa[kMT][kNT / 2][4];              // P as A-fragments, bf16
 #pragma unroll
@@ -453,7 +494,7 @@ int launch_f32(const void* q, const void* k, const void* v, int B, int Sq,
                int Sk, int H, int G, int causal, int window, int q_offset,
                int kv_len, float scale, void* out, cudaStream_t stream) {
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_prefill_f32_kernel<DH><<<grid, kThreads, 0, stream>>>(
+  flash_prefill_f32_kernel<DH><<<grid, F32Tile<DH>::THREADS, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), Sq, Sk, H, G, causal, window, q_offset,
       kv_len, scale, static_cast<float*>(out));
@@ -490,6 +531,8 @@ int launch_bf16(const void* q, const void* k, const void* v, int B, int Sq,
     case 80: return Launch<80>(q, k, v, B, Sq, Sk, H, G, causal, window,     \
                                q_offset, kv_len, scale, out, st);            \
     case 128: return Launch<128>(q, k, v, B, Sq, Sk, H, G, causal, window,   \
+                                 q_offset, kv_len, scale, out, st);          \
+    case 256: return Launch<256>(q, k, v, B, Sq, Sk, H, G, causal, window,   \
                                  q_offset, kv_len, scale, out, st);          \
     default: return static_cast<int>(cudaErrorInvalidValue);                 \
   }

@@ -242,7 +242,7 @@ def scr_select(q: torch.Tensor, data: torch.Tensor, lens: torch.Tensor,
     return scores, wins
 
 
-FLASH_PREFILL_DH = (32, 64, 80, 128)
+FLASH_PREFILL_DH = (32, 64, 80, 128, 256)
 # keys per tile of flash_prefill: 64 on the bf16 tensor-core route
 # (csrc/flash_prefill.cu `kBK`), 32 on the f32 route (`kTK`). Keys that
 # start at a multiple of it split into the same tiles, summed in the same
@@ -257,7 +257,8 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     H % G == 0). Query i at absolute position q_offset + i attends the
     keys at positions < kv_len (Sk when None) that `causal` and `window`
     leave unmasked. Returns [B, Sq, H, dh] in q's dtype. On the card bf16
-    runs on the tensor cores, f32 on the CUDA cores (in full f32)."""
+    runs on the tensor cores, f32 on the CUDA cores (in full f32); dh is
+    one of FLASH_PREFILL_DH."""
     suffix = _attention_dtype(q)
     dev = _checked((q, "q", q.dtype, 4), (k, "k", q.dtype, 4),
                    (v, "v", q.dtype, 4))
@@ -305,29 +306,44 @@ def decode_split_plan(B: int, G: int, S: int) -> int:
     return max(1, min(want, tiles // 2))
 
 
-def decode_smem_bytes(Hg: int, dh: int, esz: int, q8: bool = False) -> int:
+SMEM_LIMIT = 227 * 1024     # dynamic shared memory a block may take
+DECODE_MAX_GROUP = 2048     # Hg * dh of the paged and int8 decode kernels
+DECODE_WIDE_GROUP = 4096    # Hg * dh of decode_attention on a float cache
+
+
+def decode_smem_bytes(Hg: int, dh: int, esz: int, q8: bool = False,
+                      stages: int = 2) -> int:
     """Shared memory of a `decode_attention` or `decode_attention_paged`
-    block (both kernels' kTile is DECODE_TILE): the two-stage K and V
-    rings [2, DECODE_TILE, dh + 16/esz] in the cache's type (esz bytes an
+    block (both kernels' kTile is DECODE_TILE): the K and V rings
+    [stages, DECODE_TILE, dh + 16/esz] in the cache's type (esz bytes an
     element), then in f32 the group's queries [Hg, dh], a tile's scores
     [Hg, DECODE_TILE], the running max, sum and correction [Hg], and for
     an int8 cache (`q8`) the K and V scale rings [2, DECODE_TILE]."""
     row = dh + 16 // esz
-    return (4 * DECODE_TILE * row * esz
+    return (2 * stages * DECODE_TILE * row * esz
             + (Hg * dh + Hg * DECODE_TILE + 3 * Hg
                + (4 * DECODE_TILE if q8 else 0)) * 4)
 
 
-def _decode_limits(name: str, Hg: int, dh: int, esz: int, q8: bool) -> None:
+def decode_stages(Hg: int, dh: int, esz: int, q8: bool = False) -> int:
+    """K/V ring stages of a `decode_attention` block: 2 (the next tile
+    loads while one computes), or 1 when two do not fit SMEM_LIMIT (f32
+    at dh 256: recurrentgemma's ring in the 1e-5 check)."""
+    return 2 if decode_smem_bytes(Hg, dh, esz, q8) <= SMEM_LIMIT else 1
+
+
+def _decode_limits(name: str, Hg: int, dh: int, esz: int, q8: bool,
+                   max_group: int = DECODE_MAX_GROUP,
+                   stages: int = 2) -> None:
     """Raise unless a decode kernel takes this grouping: Hg <= 16, Hg*dh
-    <= 2048, dh a multiple of 16 bytes' worth of the cache type, and the
-    block's shared memory within 227 KB."""
-    if (Hg > 16 or Hg * dh > 2048 or dh % (16 // esz) or dh % 8
-            or decode_smem_bytes(Hg, dh, esz, q8) > 227 * 1024):
+    <= max_group, dh a multiple of 16 bytes' worth of the cache type, and
+    the block's shared memory at `stages` within SMEM_LIMIT."""
+    if (Hg > 16 or Hg * dh > max_group or dh % (16 // esz) or dh % 8
+            or decode_smem_bytes(Hg, dh, esz, q8, stages) > SMEM_LIMIT):
         raise ValueError(f"{name}: Hg={Hg}, dh={dh} outside the kernel's "
-                         "limits (Hg <= 16, Hg*dh <= 2048, dh a multiple of "
-                         "8 and of a 16-byte row load, 227 KB of shared "
-                         "memory)")
+                         f"limits (Hg <= 16, Hg*dh <= {max_group}, dh a "
+                         "multiple of 8 and of a 16-byte row load, 227 KB of "
+                         "shared memory)")
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -335,7 +351,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [B, H, dh]; k, v [B, S, G, dh] (f32 or bf16, same as q); kv_len
     an int or an i32 [B] tensor of each row's length. `ring`: the cache is
     a sliding-window ring (mask length min(kv_len, S)). Returns
-    [B, H, dh] in q's dtype. On the card the cache is split across
+    [B, H, dh] in q's dtype. The kernel takes Hg = H/G <= 16 heads a kv
+    head with Hg*dh <= DECODE_WIDE_GROUP. On the card the cache is split
+    across
     `decode_split_plan(B, G, S)` blocks per (row, kv head); with more than
     one split a second, small kernel merges the partials. The call counts
     one launch either way."""
@@ -354,9 +372,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"kv_len: {kv_len.shape[0]} rows, q has {B}")
     if dev.type == "cpu":
         return ref.decode_attention(q, k, v, kv_len, ring=ring)
-    Hg = H // G
-    _decode_limits("decode_attention", Hg, dh, q.element_size(), False)
-    smem = decode_smem_bytes(Hg, dh, q.element_size())
+    Hg, esz = H // G, q.element_size()
+    stages = decode_stages(Hg, dh, esz)
+    _decode_limits("decode_attention", Hg, dh, esz, False, DECODE_WIDE_GROUP,
+                   stages)
+    smem = decode_smem_bytes(Hg, dh, esz, stages=stages)
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("decode_attention: k, v must be 16-byte aligned")
     if not isinstance(kv_len, torch.Tensor):
@@ -371,7 +391,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # over S positions, ring's min(kv_len, S) is the same mask as kv_len
     fn = build.entry("decode_attention_" + suffix)
     _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-                 B, S, H, G, dh, 1.0 / math.sqrt(dh), splits, smem,
+                 B, S, H, G, dh, 1.0 / math.sqrt(dh), splits, stages, smem,
                  None if part is None else part.data_ptr(), out.data_ptr(),
                  _stream(dev)), "decode_attention")
     decode_attention.launches += 1
@@ -475,7 +495,7 @@ def decode_attention_q8(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     fn = build.entry("decode_attention_q8_" + suffix)
     _raise_on(fn(q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
                  vs.data_ptr(), kv_len.data_ptr(), B, S, H, G, dh,
-                 1.0 / math.sqrt(dh), splits,
+                 1.0 / math.sqrt(dh), splits, 2,
                  decode_smem_bytes(H // G, dh, 1, True),
                  None if part is None else part.data_ptr(), out.data_ptr(),
                  _stream(dev)), "decode_attention_q8")

@@ -1,7 +1,11 @@
-"""Dense LM (the port of `repro.models.dense` for RoPE configs with a
-SwiGLU or GELU FFN, optionally with a sliding window and an int8 KV
-cache; tensor-parallel degree 1), and the bidirectional encoder of
-gte-small (`encode`: mean-pooled, unit-norm sentence embeddings).
+"""Dense LM (the port of `repro.models.dense`, tensor-parallel degree 1:
+RoPE, M-RoPE or no rotary embedding; a SwiGLU, squared-ReLU or GELU
+FFN; optionally a sliding window and an int8 KV cache), the
+bidirectional encoder of gte-small (`encode`: mean-pooled, unit-norm
+sentence embeddings) and the vision branch of qwen2-vl-2b: the first
+N_IMG positions of a sequence are stub patch embeddings projected by
+`patch_proj`, and M-RoPE ids place them on an IMG_GRID x IMG_GRID grid
+(`mrope_positions`).
 
 `DenseLM` keeps the reference's parameter layout: per-layer weights are
 stacked on a leading layer axis ([L, d, out]) and applied as `x @ w`.
@@ -27,10 +31,13 @@ decode runs the int8 kernels `decode_attention_q8` and
 `decode_attention_paged_q8` on the int8 bytes and the scales.
 
 `MoELM` (models/moe.py) shares all of this and replaces the FFN.
-Caches and page pools are updated in place.
+Caches and page pools are updated in place. `LM` is the part every
+family shares: the parameters (the reference's init kinds and its f32
+recurrence parameters), the embedding and the output head.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
@@ -42,32 +49,84 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
 
+N_IMG = 256          # stub visual tokens at the head of a vision sequence
+IMG_GRID = 16        # their 16 x 16 patch grid (M-RoPE spatial ids)
+
+
+def embed_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The reference's `embed_defs`: the token embedding, the final norm,
+    the untied output head, and the stub frontends' projections
+    (`patch_proj` for vision, `frame_proj` for audio)."""
+    d = cfg.d_model
+    defs = {"tok_embed": ((cfg.vocab_padded, d), "normal"),
+            "final_norm": ((d,), "zeros")}
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = ((d, cfg.vocab_padded), "normal")
+    if cfg.modality == "vision":
+        defs["patch_proj"] = ((d, d), "normal")
+    if cfg.modality == "audio":
+        defs["frame_proj"] = ((d, d), "normal")
+    return defs
+
+
+def attn_shapes(cfg: ModelConfig, n: int, prefix: str = ""
+                ) -> Dict[str, tuple]:
+    """The reference's `attn_defs`: n stacked attention layers."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kv = cfg.num_heads, max(cfg.num_kv_heads, 1)
+    defs = {
+        f"{prefix}attn_norm": ((n, d), "zeros"),
+        f"{prefix}wq": ((n, d, h * hd), "normal"),
+        f"{prefix}wk": ((n, d, kv * hd), "normal"),
+        f"{prefix}wv": ((n, d, kv * hd), "normal"),
+        f"{prefix}wo": ((n, h * hd, d), "normal"),
+    }
+    if cfg.qkv_bias:
+        defs[f"{prefix}bq"] = ((n, h * hd), "zeros")
+        defs[f"{prefix}bk"] = ((n, kv * hd), "zeros")
+        defs[f"{prefix}bv"] = ((n, kv * hd), "zeros")
+    return defs
+
+
+def mlp_shapes(cfg: ModelConfig, n: int, d_ff: int, prefix: str = ""
+               ) -> Dict[str, tuple]:
+    """The reference's `mlp_defs`: n stacked FFNs (w3 only for SwiGLU)."""
+    d = cfg.d_model
+    defs = {
+        f"{prefix}mlp_norm": ((n, d), "zeros"),
+        f"{prefix}w1": ((n, d, d_ff), "normal"),
+        f"{prefix}w2": ((n, d_ff, d), "normal"),
+    }
+    if cfg.act == "swiglu":
+        defs[f"{prefix}w3"] = ((n, d, d_ff), "normal")
+    return defs
+
+
 def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     """name -> (shape, init) with init "normal" (N(0, 0.02)) or "zeros",
     the reference's `dense.defs` flattened (layer weights stacked)."""
-    Ln, d, hd = cfg.num_layers, cfg.d_model, cfg.resolved_head_dim
-    h, kv = cfg.num_heads, cfg.num_kv_heads
-    defs = {
-        "attn_norm": ((Ln, d), "zeros"),
-        "wq": ((Ln, d, h * hd), "normal"),
-        "wk": ((Ln, d, kv * hd), "normal"),
-        "wv": ((Ln, d, kv * hd), "normal"),
-        "wo": ((Ln, h * hd, d), "normal"),
-        "mlp_norm": ((Ln, d), "zeros"),
-        "w1": ((Ln, d, cfg.d_ff), "normal"),
-        "w2": ((Ln, cfg.d_ff, d), "normal"),
-        "tok_embed": ((cfg.vocab_padded, d), "normal"),
-        "final_norm": ((d,), "zeros"),
-    }
-    if cfg.act == "swiglu":
-        defs["w3"] = ((Ln, d, cfg.d_ff), "normal")
-    if cfg.qkv_bias:
-        defs["bq"] = ((Ln, h * hd), "zeros")
-        defs["bk"] = ((Ln, kv * hd), "zeros")
-        defs["bv"] = ((Ln, kv * hd), "zeros")
-    if not cfg.tie_embeddings:
-        defs["lm_head"] = ((d, cfg.vocab_padded), "normal")
+    defs = {**attn_shapes(cfg, cfg.num_layers),
+            **mlp_shapes(cfg, cfg.num_layers, cfg.d_ff)}
+    defs.update(embed_shapes(cfg))
     return defs
+
+
+def mrope_positions(S: int, device=None) -> torch.Tensor:
+    """Qwen2-VL M-RoPE ids [S, 3]: the first N_IMG positions (patches)
+    get (0, row, col) on the IMG_GRID grid; text position j after them
+    gets IMG_GRID + j - N_IMG on all three streams."""
+    idx = torch.arange(S, device=device)
+    img = idx < N_IMG
+    txt = IMG_GRID + idx - N_IMG
+    t = torch.where(img, torch.zeros_like(idx), txt)
+    h = torch.where(img, idx // IMG_GRID, txt)
+    w = torch.where(img, idx % IMG_GRID, txt)
+    return torch.stack([t, h, w], dim=-1)
+
+
+def mrope_positions_decode(pos: int, b: int, device=None) -> torch.Tensor:
+    """The M-RoPE ids [b, 1, 3] of the text position `pos`."""
+    return torch.full((b, 1, 3), IMG_GRID + pos - N_IMG, device=device)
 
 
 def cache_len(cfg: ModelConfig, seq_len: int) -> int:
@@ -142,13 +201,64 @@ def _fake_quant(t):
     return L.dequantize_kv(*L.quantize_kv(t), t.dtype)
 
 
-class DenseLM(nn.Module):
-    """Dense decoder over a paged KV pool. `params` (name -> tensor, the
-    `param_shapes` layout) loads given weights; without it the weights
-    are random from `seed`, drawn on the device."""
+# parameters the reference keeps in f32 whatever the compute dtype
+# (`repro.models.common.F32_KEEP`: the recurrences' decay and skip terms)
+F32_KEEP = ("lam", "A_log", "dt_bias", "D")
+# a random tensor of more elements than DRAW_WHOLE is drawn in runs of
+# DRAW_SLICE elements (its flat order), so that its f32 draw never holds
+# more than a run beside the tensor itself
+DRAW_WHOLE = 2 ** 31
+DRAW_SLICE = 2 ** 27
 
-    FAMILY = "dense"
-    shapes = staticmethod(param_shapes)
+
+def keeps_f32(name: str) -> bool:
+    """Whether parameter `name` (a flat name, any prefix) stays f32."""
+    return any(name == k or name.endswith("_" + k) for k in F32_KEEP)
+
+
+def _draw(init: str, shape, gen, dev) -> torch.Tensor:
+    """One f32 tensor of the reference's init kind: "normal" N(0, 0.02);
+    "dt_bias" softplus^-1 of U(1e-3, 1e-1); "a_log" log U(1, 16); "lam"
+    softplus^-1 of -log(u) / 8 for u ~ U(0.38, 0.8) (RG-LRU decays in
+    about (0.9, 0.999); 8 is `rglru.RG_C`)."""
+    if init == "normal":
+        return torch.randn(shape, generator=gen, device=dev) * 0.02
+    u = torch.rand(shape, generator=gen, device=dev)
+    if init == "dt_bias":
+        return torch.log(torch.expm1(u * (1e-1 - 1e-3) + 1e-3))
+    if init == "a_log":
+        return torch.log(u * 15.0 + 1.0)
+    if init == "lam":
+        return torch.log(torch.exp(-torch.log(u * 0.42 + 0.38) / 8.0) - 1.0)
+    raise ValueError(f"unknown init {init!r}")
+
+
+def random_tensor(init: str, shape, dtype, gen, dev) -> torch.Tensor:
+    """A random tensor of `init` kind in `dtype`, drawn in f32 from `gen`:
+    whole, or in runs of DRAW_SLICE elements of its flat order when it
+    has more than DRAW_WHOLE (arctic's experts: 17.8 GB in bf16 for two
+    layers)."""
+    n = math.prod(shape)
+    if n <= DRAW_WHOLE:
+        return _draw(init, shape, gen, dev).to(dtype)
+    t = torch.empty(shape, dtype=dtype, device=dev)
+    flat = t.view(-1)
+    for lo in range(0, n, DRAW_SLICE):
+        m = min(DRAW_SLICE, n - lo)
+        flat[lo:lo + m] = _draw(init, (m,), gen, dev).to(dtype)
+    return t
+
+
+class LM(nn.Module):
+    """What every family shares: one parameter a flat name of `shapes(cfg)`
+    (layer weights stacked on a leading axis), the token embedding
+    (scaled by sqrt(d) when tied) and the output head. `params` (name ->
+    tensor) loads given weights; without it the weights are random from
+    `seed`, drawn on the device. F32_KEEP parameters stay f32, the rest
+    take the config's dtype."""
+
+    FAMILY = ""
+    shapes = staticmethod(embed_shapes)
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0,
                  params: Optional[Dict[str, torch.Tensor]] = None):
@@ -158,9 +268,9 @@ class DenseLM(nn.Module):
                              f"{self.FAMILY!r} (models.model.build_model)")
         self.cfg = cfg
         dev = resolve_device(device)
-        dtype = cfg.torch_dtype
         gen = torch.Generator(device=dev).manual_seed(seed)
         for name, (shape, init) in self.shapes(cfg).items():
+            dtype = torch.float32 if keeps_f32(name) else cfg.torch_dtype
             if params is not None:
                 t = params[name]
                 if tuple(t.shape) != shape:
@@ -169,59 +279,121 @@ class DenseLM(nn.Module):
             elif init == "zeros":
                 t = torch.zeros(shape, dtype=dtype, device=dev)
             else:
-                t = (torch.randn(shape, generator=gen, device=dev) * 0.02
-                     ).to(dtype)
+                t = random_tensor(init, shape, dtype, gen, dev)
             self.register_parameter(name, nn.Parameter(t, requires_grad=False))
 
     @property
     def device(self) -> torch.device:
         return self.tok_embed.device
 
-    # ------------------------------------------------------------ blocks
-
     def _embed(self, tokens):
         scale = self.cfg.d_model ** 0.5 if self.cfg.tie_embeddings else 1.0
         return (self.tok_embed[tokens] * scale).to(self.cfg.torch_dtype)
 
-    def _qkv(self, i: int, x, positions):
+    def _rope(self, x, positions):
+        """RoPE over positions [B, S], M-RoPE over ids [B, S, 3], or x as
+        it is (`rope_type` "none")."""
+        cfg = self.cfg
+        if cfg.rope_type == "mrope":
+            return L.apply_mrope(x, positions, cfg.mrope_sections,
+                                 cfg.rope_theta)
+        if cfg.rope_type == "rope":
+            return L.apply_rope(x, positions, cfg.rope_theta)
+        return x
+
+    def _qkv(self, i: int, x, positions, prefix: str = ""):
+        """q [B, S, H, dh], k, v [B, S, G, dh] of the attention layer
+        `prefix` + "wq"... at index i of its stack, rotated."""
         cfg = self.cfg
         hd = cfg.resolved_head_dim
         b, s, _ = x.shape
-        q, k, v = x @ self.wq[i], x @ self.wk[i], x @ self.wv[i]
+
+        def p(n):
+            return getattr(self, prefix + n)[i]
+        q, k, v = x @ p("wq"), x @ p("wk"), x @ p("wv")
         if cfg.qkv_bias:
-            q, k, v = q + self.bq[i], k + self.bk[i], v + self.bv[i]
-        q = L.apply_rope(q.reshape(b, s, cfg.num_heads, hd), positions,
-                         cfg.rope_theta)
-        k = L.apply_rope(k.reshape(b, s, cfg.num_kv_heads, hd), positions,
-                         cfg.rope_theta)
+            q, k, v = q + p("bq"), k + p("bk"), v + p("bv")
+        q = self._rope(q.reshape(b, s, cfg.num_heads, hd), positions)
+        k = self._rope(k.reshape(b, s, cfg.num_kv_heads, hd), positions)
         return q, k, v.reshape(b, s, cfg.num_kv_heads, hd)
 
-    def _mlp_residual(self, i: int, x):
-        """x + the layer's FFN (SwiGLU, or GELU without w3) of
-        rmsnorm(x)."""
+    def _ffn(self, i: int, x, prefix: str = ""):
+        """x + the FFN `prefix` + "w1"... at index i (SwiGLU, or
+        squared-ReLU or GELU without w3) of rmsnorm(x)."""
         cfg = self.cfg
-        y = L.rmsnorm(x, self.mlp_norm[i], cfg.norm_eps)
-        w3 = self.w3[i] if cfg.act == "swiglu" else None
-        return x + L.mlp(y, self.w1[i], self.w2[i], w3, cfg.act)
+
+        def p(n):
+            return getattr(self, prefix + n)[i]
+        y = L.rmsnorm(x, p("mlp_norm"), cfg.norm_eps)
+        w3 = p("w3") if cfg.act == "swiglu" else None
+        return x + L.mlp(y, p("w1"), p("w2"), w3, cfg.act)
 
     def logits_from_hidden(self, x):
         head = self.tok_embed.T if self.cfg.tie_embeddings else self.lm_head
         return x @ head.to(x.dtype)
 
+    def final_logits(self, x):
+        """Logits [B, V] of the last position of x [B, S, d]."""
+        x = L.rmsnorm(x[:, -1:], self.final_norm, self.cfg.norm_eps)
+        return self.logits_from_hidden(x)[:, 0]
+
+
+class DenseLM(LM):
+    """Dense decoder over a paged KV pool (`LM`'s parameters, the
+    `param_shapes` layout)."""
+
+    FAMILY = "dense"
+    shapes = staticmethod(param_shapes)
+
+    # ------------------------------------------------------------ blocks
+
+    def _embed_inputs(self, tokens, patches=None):
+        """(x [B, S, d], positions) of a sequence: tokens [B, S] at
+        positions [B, S]; for a vision config the first N_IMG positions
+        are patches [B, N_IMG, d] @ patch_proj (scaled like the tokens
+        after them) at the M-RoPE ids [B, S, 3] of `mrope_positions`."""
+        cfg = self.cfg
+        b, S = tokens.shape
+        dev = tokens.device
+        if cfg.modality == "vision":
+            if patches is None or patches.shape[1] != N_IMG:
+                raise ValueError(f"{cfg.name}: a vision sequence starts "
+                                 f"with {N_IMG} patches")
+            scale = cfg.d_model ** 0.5 if cfg.tie_embeddings else 1.0
+            txt = self.tok_embed[tokens[:, N_IMG:]]
+            img = patches.to(txt.dtype) @ self.patch_proj
+            x = (torch.cat([img, txt], dim=1) * scale).to(cfg.torch_dtype)
+            return x, mrope_positions(S, dev)[None].expand(b, S, 3)
+        return (self._embed(tokens),
+                torch.arange(S, device=dev)[None].expand(b, S))
+
+    def _decode_positions(self, b: int, pos: int, device):
+        """The positions [b, 1] (M-RoPE ids [b, 1, 3]) of decode
+        position `pos`."""
+        if self.cfg.rope_type == "mrope":
+            return mrope_positions_decode(pos, b, device)
+        return torch.full((b, 1), pos, device=device)
+
+    def _mlp_residual(self, i: int, x):
+        """x + the layer's FFN of rmsnorm(x)."""
+        return self._ffn(i, x)
+
     # ------------------------------------------------------------- wave
 
     @torch.no_grad()
-    def prefill(self, tokens):
+    def prefill(self, tokens, patches=None):
         """Full-sequence forward of equal-length prompts, tokens [B, S]
-        int. Returns (last-position logits [B, V], the K/V cache
-        `init_cache(cfg, B, S)` filled): position p in slot p, or, when
-        S exceeds the sliding window, the last Sc positions rolled by
-        S % Sc so that position p lives in ring slot p % Sc. With
-        `kv_quant` attention reads the fake-quantized k/v and the cache
-        holds their int8 values and scales."""
+        int (a vision config's first N_IMG positions are `patches` [B,
+        N_IMG, d]; their token ids are ignored). Returns (last-position
+        logits [B, V], the K/V cache `init_cache(cfg, B, S)` filled):
+        position p in slot p, or, when S exceeds the sliding window, the
+        last Sc positions rolled by S % Sc so that position p lives in
+        ring slot p % Sc. With `kv_quant` attention reads the
+        fake-quantized k/v and the cache holds their int8 values and
+        scales."""
         cfg = self.cfg
         b, S = tokens.shape
-        positions = torch.arange(S, device=tokens.device)[None].expand(b, S)
+        x, positions = self._embed_inputs(tokens, patches)
         cache = init_cache(cfg, b, S, device=tokens.device)
         sc = cache["k"].shape[2]
 
@@ -232,11 +404,9 @@ class DenseLM(nn.Module):
             if cfg.kv_quant:
                 return _fake_quant(k), _fake_quant(v)
             return k, v
-        x = self._embed(tokens)
         for i in range(cfg.num_layers):
             x = self._full_block(i, x, positions, write)
-        x = L.rmsnorm(x[:, -1:], self.final_norm, cfg.norm_eps)
-        return self.logits_from_hidden(x)[:, 0], cache
+        return self.final_logits(x), cache
 
     def _full_block(self, i: int, x, positions, kv=None):
         """Layer i over whole sequences x [B, S, d]: attention through
@@ -254,14 +424,13 @@ class DenseLM(nn.Module):
         return self._mlp_residual(i, x + ctx.reshape(b, S, -1) @ self.wo[i])
 
     @torch.no_grad()
-    def hidden_states(self, tokens):
-        """Full-sequence forward without a cache, tokens [B, S] int: the
-        final-normed hidden states [B, S, d] (the reference's
-        `hidden_states`). Attention is `flash_prefill` with
-        `causal=cfg.causal` over every position, padding included."""
-        b, S = tokens.shape
-        positions = torch.arange(S, device=tokens.device)[None].expand(b, S)
-        x = self._embed(tokens)
+    def hidden_states(self, tokens, patches=None):
+        """Full-sequence forward without a cache, tokens [B, S] int (and
+        a vision config's `patches`, as in `prefill`): the final-normed
+        hidden states [B, S, d] (the reference's `hidden_states`).
+        Attention is `flash_prefill` with `causal=cfg.causal` over every
+        position, padding included."""
+        x, positions = self._embed_inputs(tokens, patches)
         for i in range(self.cfg.num_layers):
             x = self._full_block(i, x, positions)
         return L.rmsnorm(x, self.final_norm, self.cfg.norm_eps)
@@ -292,7 +461,7 @@ class DenseLM(nn.Module):
         b = token.shape[0]
         ring = cfg.sliding_window is not None
         slot = pos % cache["k"].shape[2] if ring else pos
-        positions = torch.full((b, 1), pos, device=token.device)
+        positions = self._decode_positions(b, pos, token.device)
         kv_len = torch.full((b,), pos + 1, dtype=torch.int32,
                             device=token.device)
         x = self._embed(token)
@@ -310,8 +479,7 @@ class DenseLM(nn.Module):
                                            ring=ring)
             x = x + ctx.reshape(b, 1, -1) @ self.wo[i]
             x = self._mlp_residual(i, x)
-        x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
-        return self.logits_from_hidden(x)[:, 0]
+        return self.final_logits(x)
 
     # ------------------------------------------------------------ paged
 

@@ -1,7 +1,8 @@
-"""Model building blocks in plain PyTorch (the port of the parts of
-`repro.models.layers` that the dense and MoE models run): rmsnorm in the
-`(1 + scale)` form, RoPE, the SwiGLU or GELU MLP and the int8 KV
-quantization.
+"""Model building blocks in plain PyTorch (the port of
+`repro.models.layers` without its mesh helpers): rmsnorm in the
+`(1 + scale)` form, RoPE and Qwen2-VL's M-RoPE, sinusoidal positions,
+the SwiGLU, squared-ReLU or GELU MLP, the depthwise causal conv with
+its streaming state, and the int8 KV quantization.
 Shapes follow the reference:
 activations [B, S, H, dh]. Attention is a kernel (`kernels/ops.py`:
 `flash_prefill`, `decode_attention`, `decode_attention_paged` and the
@@ -10,6 +11,8 @@ version, the port of `layers.attention` with a window, is
 `kernels/ref.py` `flash_prefill`.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -38,18 +41,73 @@ def apply_rope(x, positions, theta=10000.0):
     return out.to(x.dtype)
 
 
+def apply_mrope(x, positions3, sections, theta=1e6):
+    """M-RoPE (Qwen2-VL): x [B, S, H, dh]; positions3 [B, S, 3] the (t, h,
+    w) ids; `sections` share the dh/2 frequency slots among the three
+    streams in order. When they do not sum to dh/2 (a reduced head dim)
+    each is rescaled to max(1, int(s * f)) with f = (dh/2) / sum, and the
+    last takes the rest, as the reference does."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)                   # [dh/2]
+    sections = list(sections)
+    if sum(sections) != dh // 2:
+        f = (dh // 2) / sum(sections)
+        sections = [max(1, int(s * f)) for s in sections]
+        sections[-1] = dh // 2 - sum(sections[:-1])
+    sec = torch.cat([torch.full((s,), i, dtype=torch.long, device=x.device)
+                     for i, s in enumerate(sections)])
+    pos = positions3.float()[..., sec]                        # [B, S, dh/2]
+    ang = pos * freqs
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq_len: int, d: int, offset: int = 0,
+                         device=None):
+    """[seq_len, d] f32: sin at even columns, cos at odd, of (position +
+    offset) * exp(-2i * log(10000) / d)."""
+    pos = (torch.arange(seq_len, dtype=torch.float32, device=device)
+           + offset)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / d))
+    pe = torch.zeros(seq_len, d, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
 def mlp(x, w1, w2, w3, act: str = "swiglu"):
     """w1, w3: [d, ff]; w2: [ff, d]. swiglu: silu(x @ w1) * (x @ w3) @ w2;
-    gelu: gelu(x @ w1) @ w2 with jax.nn.gelu's default, the tanh
-    approximation (w3 unused, may be None)."""
+    sq_relu: relu(x @ w1)^2 @ w2; gelu: gelu(x @ w1) @ w2 with
+    jax.nn.gelu's default, the tanh approximation (w3 unused by the two
+    last, may be None)."""
     h = x @ w1
     if act == "swiglu":
         h = F.silu(h) * (x @ w3)
+    elif act == "sq_relu":
+        h = torch.square(F.relu(h))
     elif act == "gelu":
         h = F.gelu(h, approximate="tanh")
     else:
         raise ValueError(act)
     return h @ w2
+
+
+def causal_conv1d(x, w, state=None):
+    """Depthwise causal conv: x [B, S, C], w [K, C]. Returns (y [B, S, C],
+    the last K-1 inputs [B, K-1, C], the streaming state of the next
+    call). `state` (the previous call's) stands before x; zeros when
+    None. y sums the K taps in order, as the reference does."""
+    k = w.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, k - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    s = x.shape[1]
+    ys = sum(xp[:, i:i + s, :] * w[i] for i in range(k))
+    return ys, (xp[:, -(k - 1):, :] if k > 1 else None)
 
 
 def quantize_kv(x):

@@ -107,5 +107,6 @@ class MoELM(DenseLM):
                       self.we3[i], cfg.moe.top_k)
         if cfg.moe.dense_residual:
             yd = L.rmsnorm(x, self.mlp_norm[i], cfg.norm_eps)
-            out = out + L.mlp(yd, self.w1[i], self.w2[i], self.w3[i])
+            w3 = self.w3[i] if cfg.act == "swiglu" else None
+            out = out + L.mlp(yd, self.w1[i], self.w2[i], w3, cfg.act)
         return x + out

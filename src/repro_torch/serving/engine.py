@@ -525,15 +525,47 @@ class ContinuousEngine:
         return [results[r] for r in rids]
 
 
+def grow_cache(cfg, cache: Dict[str, torch.Tensor], max_len: int
+               ) -> Dict[str, torch.Tensor]:
+    """A prefill's cache, sized to the prompt, grown for decoding to
+    max_len positions, by the reference's rule (`Engine._grow_cache`):
+    for the dense, moe and encdec families the K/V planes "k", "v" (and
+    an int8 cache's scales "k_s", "v_s") grow along their position axis,
+    capped at the sliding window, since growing a ring past its window
+    would change the `pos % len` cursor modulus that the prefill roll
+    already baked into the layout; an encdec cache's "cross_k",
+    "cross_v" (the frames) never grow; the rglru and mamba2 caches are
+    returned as they are (fixed-size states, and rings of the prompt's
+    min(window, S) slots: ROADMAP F10)."""
+    if cfg.family not in ("dense", "moe", "encdec"):
+        return cache
+    target = max_len
+    if cfg.family in ("dense", "moe") and cfg.sliding_window:
+        target = min(target, cfg.sliding_window)
+    grown = dict(cache)
+    for name in ("k", "v", "k_s", "v_s"):
+        x = grown.get(name)
+        if x is not None and x.shape[2] < target:
+            pad = x.new_zeros(x.shape[:2] + (target - x.shape[2],)
+                              + x.shape[3:])
+            grown[name] = torch.cat([x, pad], dim=2)
+    return grown
+
+
 class Engine:
-    """Serving engine over one model (`DenseLM` or `MoELM`): `generate()`
-    routes through a shared `ContinuousEngine` when the config supports
-    the paged path, or through length-bucketed waves (`generate_wave`)
-    when it does not or when asked with `continuous=False`. A wave
-    prefills its equal-length prompts in one full-sequence forward
-    (`flash_prefill`) and decodes them together over a contiguous cache
-    (`decode_attention`, or `decode_attention_q8` on an int8 cache); a
-    sliding-window cache is a ring of window slots."""
+    """Serving engine over one model of a token-only family (`DenseLM`,
+    `MoELM`, `RGLRULM` or `Mamba2LM`): `generate()` routes through a
+    shared `ContinuousEngine` when the config supports the paged path,
+    or through length-bucketed waves (`generate_wave`) when it does not
+    (recurrentgemma, mamba2) or when asked with `continuous=False`. A
+    wave prefills its equal-length prompts in one full-sequence forward
+    (`flash_prefill` for attention) and decodes them together over the
+    model's cache (`decode_attention`, or `decode_attention_q8` on an
+    int8 cache; the recurrent states of rglru and mamba2); a
+    sliding-window cache is a ring of window slots. Whisper and qwen2-vl
+    take frames or patches, which the reference's `Engine` does not pass:
+    they are served through their models' `prefill` / `decode_step`, and
+    the Engine raises ValueError for them."""
 
     def __init__(self, model: DenseLM, *, max_len: int = 512,
                  eos_id: int = 2, prefill_chunk: Optional[int] = None,
@@ -541,6 +573,10 @@ class Engine:
         """`max_len`: KV budget per request (prompt + generation);
         `slots`, `prefill_chunk` (default 32) and `page_size`: the
         shared ContinuousEngine's."""
+        if model.cfg.family == "encdec" or model.cfg.modality != "text":
+            raise ValueError(f"{model.cfg.name}: the Engine serves token-"
+                             "only models (call the model's prefill and "
+                             "decode_step)")
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
@@ -564,29 +600,14 @@ class Engine:
 
     def _grow_cache(self, cache: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
-        """Prefill sizes the cache to the prompt; decode needs max_len,
-        capped at the sliding window: growing a ring past its window
-        would change the `pos % len` cursor modulus that the prefill roll
-        already baked into the layout. Every plane grows, the int8
-        cache's scales too."""
-        target = self.max_len
-        if self.cfg.sliding_window:
-            target = min(target, self.cfg.sliding_window)
-        grown = {}
-        for name, x in cache.items():
-            if x.shape[2] < target:
-                pad = x.new_zeros(x.shape[:2] + (target - x.shape[2],)
-                                  + x.shape[3:])
-                x = torch.cat([x, pad], dim=2)
-            grown[name] = x
-        return grown
+        return grow_cache(self.cfg, cache, self.max_len)
 
     def generate(self, prompts: List[np.ndarray], max_new: int = 32,
                  greedy: bool = True, seed: int = 0,
                  continuous: Optional[bool] = None) -> List[GenResult]:
         """`continuous=None` takes the continuous engine when the config
-        supports the paged path (`models.model.supports_paged`: every
-        config the port has), as the reference routes; `continuous=False`
+        supports the paged path (`models.model.supports_paged`), as the
+        reference routes; `continuous=False`
         runs waves of equal-length prompts, shortest first. Both draw a
         sampled request from fold_in(PRNGKey(seed), rid) with rid the
         prompt index, so greedy and sampled tokens are the same on

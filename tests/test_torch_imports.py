@@ -30,8 +30,18 @@ for name in names:
 # threefry draws of sampled decoding; serving under fire (the fault
 # harness, the replica schedulers and their health tracker); tiering and
 # durability (the tiered index, the store's crash and corruption faults);
-# the Table-5 pipelines, the paper's embedding model and the launchers
-for name in ("repro_torch.serving.rag", "repro_torch.serving.embedder",
+# the Table-5 pipelines, the paper's embedding model and the launchers;
+# the rest of the model zoo (the mamba2, rglru and encdec families and
+# the eight configurations they and the vision branch brought)
+for name in ("repro_torch.models.mamba2", "repro_torch.models.rglru",
+             "repro_torch.models.encdec", "repro_torch.configs.whisper_small",
+             "repro_torch.configs.recurrentgemma_9b",
+             "repro_torch.configs.mamba2_780m",
+             "repro_torch.configs.qwen2_vl_2b", "repro_torch.configs.qwen2_72b",
+             "repro_torch.configs.mistral_large_123b",
+             "repro_torch.configs.nemotron_4_15b",
+             "repro_torch.configs.arctic_480b",
+             "repro_torch.serving.rag", "repro_torch.serving.embedder",
              "repro_torch.serving.slm", "repro_torch.configs.gte_small",
              "repro_torch.launch.serve", "repro_torch.launch.scrub_index",
              "repro_torch.launch.soak_store",
@@ -72,8 +82,20 @@ from repro_torch.serving.rag import (PIPELINES, NaiveRAG, AdvancedRAG,
                                      EdgeRAG, MobileRAG, accuracy)
 from repro_torch.serving.embedder import ModelEmbedder
 from repro_torch.serving.slm import SLMGeneration
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 assert get_config("gte_small").causal is False
+from repro_torch.models.model import FAMILIES
+from repro_torch.models.mamba2 import Mamba2LM, ssd_chunked
+from repro_torch.models.rglru import RGLRULM, rglru_scan
+from repro_torch.models.encdec import EncDecLM
+from repro_torch.models.layers import (apply_mrope, causal_conv1d,
+                                       sinusoidal_positions)
+from repro_torch.serving.engine import grow_cache
+from repro_torch.convert import flat_names
+for arch in ARCH_IDS:
+    cfg = get_config(arch).reduced()
+    FAMILIES[cfg.family](cfg, device="cpu")
+assert len(ARCH_IDS) == 12
 from repro_torch.launch import serve, scrub_index, soak_store
 import chip_smoke
 sys.path.insert(0, {str(ROOT / "tools")!r})
@@ -85,7 +107,7 @@ print(len(names))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 46
+    assert int(out.stdout.split()[-1]) >= 57
 
 
 def test_no_jax_or_repro_import_lines():

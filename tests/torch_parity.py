@@ -1,0 +1,63 @@
+"""Shared by the model-zoo parity tests of the port (tests/test_torch_
+mamba2.py, _rglru.py, _encdec.py, _vision.py, _zoo.py): a reference
+model and the port's on the same converted params, and the tolerance
+they are held to."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from repro.configs import get_config as j_get_config
+from repro.models import model as jmodel
+from repro_torch.configs import get_config
+from repro_torch.convert import params_from_reference
+from repro_torch.models.model import build_model
+
+# f32 parity: max |port - reference| over max |reference|, per tensor.
+# The two sum in other orders (einsum contractions, the doubling scan
+# against lax.associative_scan), so they agree to rounding, not bits
+RTOL = 1e-5
+
+
+def pair(arch, seed=0, dtype="float32", **over):
+    """(reference config, its params, port config, port model) of the
+    reduced `arch` with `over`, on the CPU."""
+    jcfg = j_get_config(arch).reduced(dtype=dtype, **over)
+    cfg = get_config(arch).reduced(dtype=dtype, **over)
+    jparams = jmodel.init_params(jcfg, jax.random.PRNGKey(seed))
+    params = params_from_reference(jax.tree.map(np.asarray, jparams), "cpu")
+    return jcfg, jparams, cfg, build_model(cfg, device="cpu", params=params)
+
+
+def rel_err(got, want) -> float:
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float(np.max(np.abs(got - want)) / max(np.max(np.abs(want)),
+                                                   1e-30))
+
+
+def assert_close(got, want, what, rtol=RTOL):
+    err = rel_err(got, want)
+    assert err <= rtol, f"{what}: relative error {err:.3g} > {rtol}"
+
+
+def grow_reference(cache, names, target):
+    """The reference cache with `names` zero-padded to `target` positions
+    along axis 2 (as its Engine's `_grow_cache` does)."""
+    out = dict(cache)
+    for n in names:
+        x = out[n]
+        out[n] = jnp.concatenate([x, jnp.zeros(
+            x.shape[:2] + (target - x.shape[2],) + x.shape[3:], x.dtype)], 2)
+    return out
+
+
+def prompts(seed, lens, vocab=500):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(4, vocab, n).astype(np.int32) for n in lens]
+
+
+# the reference's prefill and decode step, compiled once per config and
+# shape (eager calls retrace their layer scans on every call)
+j_prefill = jax.jit(jmodel.prefill, static_argnums=0)
+j_decode = jax.jit(jmodel.decode_step, static_argnums=0)

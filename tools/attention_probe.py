@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Tile-shape probe of the port's three attention kernels on one GPU:
-`python3 tools/attention_probe.py [--paged | --decode | --q8] [--src DIR]`
-(`--paged` runs only the decode_attention_paged rows, `--decode` only
-the decode_attention rows, `--q8` only the int8 rows; `--src` names the
+`python3 tools/attention_probe.py [--paged | --decode | --q8 | --zoo]
+[--src DIR]` (`--paged` runs only the decode_attention_paged rows,
+`--decode` only the decode_attention rows, `--q8` only the int8 rows,
+`--zoo` only the model zoo's shapes; `--src` names the
 `src` directory whose
 `repro_torch` is imported, so that a parent tree unpacked with git
 archive can be timed in the same call).
@@ -34,6 +35,18 @@ kv_len 136), h2o's ring (q [1, 32, 80], K/V [1, 4096, 8, 80], kv_len
 4609), the main path's pages (the shape above) and h2o's ring pages
 (q [2, 32, 80] over a 256-page pool through 128-entry tables, kv_len
 4,096); each held against its plain version (2e-2).
+
+zoo (`--zoo`): nvcc's registers and spills of every flash_prefill and
+decode_attention instantiation (`-Xptxas -v`, from the build logs),
+then the wrappers in f32 (1e-5) and bf16 (2e-2) against their plain
+versions at the model zoo's shapes: flash_prefill at recurrentgemma-9b's
+local attention (q [1, 512, 16, 256] over one kv head, window 2,048),
+whisper-small's encoder (q, k, v [2, 1500, 12, 64], not causal) and
+cross-attention (q [2, 32, 12, 64] over 1,500 frames), qwen2-vl-2b's
+prefill (q [2, 320, 12, 128] over 2 kv heads); decode_attention at
+recurrentgemma's ring (q [2, 16, 256] over [2, 512, 1, 256], kv_len 520)
+and whisper's cross-attention (q [2, 12, 64] over 1,500 frames), each
+beside SDPA.
 
 Times: CUDA events over back-to-back calls (`call_ms`, host launch
 included) and torch.profiler's device time per call (`device_ms`, the
@@ -203,6 +216,9 @@ def decode_probe(g):
                           "wrapper call_ms": call_ms(wrap, 50),
                           "wrapper device_ms": device_ms(wrap)}))
         smem = ops.decode_smem_bytes(H // G, dh, 2)
+        # this tree's entry takes the ring stages before smem
+        stages = ([2] if len(build.SIGNATURES["decode_attention"][
+            "decode_attention_bf16"]) == 16 else [])
         for splits in splits_list:
             out = torch.empty_like(q)
             part = torch.empty(B * G * splits * (H // G) * (dh + 2),
@@ -211,8 +227,8 @@ def decode_probe(g):
             def call():
                 err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          lens.data_ptr(), B, S, H, G, dh, 1.0 / math.sqrt(dh),
-                         splits, smem, part.data_ptr(), out.data_ptr(),
-                         stream())
+                         splits, *stages, smem, part.data_ptr(),
+                         out.data_ptr(), stream())
                 if err:
                     raise RuntimeError(f"launch failed: cudaError {err}")
             call()
@@ -341,6 +357,94 @@ def h2o_ring_pages(g):
                                  device="cuda"), table
 
 
+def ptxas_lines(name):
+    """(kernel, registers, spill line) of each entry function in the
+    `-Xptxas -v` log that build.build_all kept for `name`."""
+    log = (build.BUILD_DIR / f"{name}.log").read_text().splitlines()
+    out, fn = [], None
+    for ln in log:
+        if "Compiling entry function" in ln:
+            fn, spill = ln.split("'")[1], ""
+        elif fn and "spill" in ln:
+            spill = ln.split(":")[-1].strip()
+        elif fn and "Used" in ln:
+            out.append((fn, ln.split("Used ")[1].split(",")[0], spill))
+            fn = None
+    return out
+
+
+def zoo_probe(g):
+    for name in ("flash_prefill", "decode_attention"):
+        for fn, regs, spill in ptxas_lines(name):
+            print(json.dumps({"ptxas": name, "kernel": fn,
+                              "registers": regs, "spill": spill}))
+    flash = [("recurrentgemma local window", 1, 512, 16, 512, 1, 256, 2048,
+              True),
+             ("whisper encoder", 2, 1500, 12, 1500, 12, 64, None, False),
+             ("whisper cross", 2, 32, 12, 1500, 12, 64, None, False),
+             ("qwen2-vl prefill", 2, 320, 12, 320, 2, 128, None, True)]
+    for label, B, Sq, H, Sk, G, dh, win, causal in flash:
+        q = torch.randn(B, Sq, H, dh, generator=g, device="cuda")
+        k, v = (torch.randn(B, Sk, G, dh, generator=g, device="cuda")
+                for _ in range(2))
+        qp = torch.arange(Sq, device="cuda")[:, None]
+        kp = torch.arange(Sk, device="cuda")[None, :]
+        mask = (kp <= qp) | (not causal)
+        if win:
+            mask &= qp - kp < win
+        for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            a = [t.to(dt) for t in (q, k, v)]
+            kw = dict(causal=causal, window=win)
+            got = ops.flash_prefill(*a, **kw)
+            want = ref.flash_prefill(*a, **kw)
+            err = (got.float() - want.float()).abs()
+            assert bool((err <= tol + tol * want.float().abs()).all()), \
+                (label, dt)
+            qq = a[0].transpose(1, 2)
+            kk, vv = (t.repeat_interleave(H // G, 2).transpose(1, 2)
+                      for t in a[1:])
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qq, kk, vv, attn_mask=mask)
+            call = lambda: ops.flash_prefill(*a, **kw)  # noqa: E731
+            print(json.dumps({"flash_prefill": label, "dtype": str(dt),
+                              "max_abs_err": err.max().item(),
+                              "call_ms": call_ms(call),
+                              "device_ms": device_ms(call),
+                              "sdpa call_ms": call_ms(sdpa),
+                              "sdpa device_ms": device_ms(sdpa)}))
+    decode = [("recurrentgemma ring", 2, 16, 512, 1, 256, 520, True),
+              ("whisper cross", 2, 12, 1500, 12, 64, 1500, False)]
+    for label, B, H, S, G, dh, kv, ring in decode:
+        q = torch.randn(B, H, dh, generator=g, device="cuda")
+        k, v = (torch.randn(B, S, G, dh, generator=g, device="cuda")
+                for _ in range(2))
+        lens = torch.full((B,), kv, dtype=torch.int32, device="cuda")
+        mask = (torch.arange(S, device="cuda") < min(kv, S))[
+            None, None, None, :]
+        for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            a = [t.to(dt) for t in (q, k, v)]
+            got = ops.decode_attention(*a, lens, ring=ring)
+            want = ref.decode_attention(*a, lens, ring=ring)
+            err = (got.float() - want.float()).abs()
+            assert bool((err <= tol + tol * want.float().abs()).all()), \
+                (label, dt)
+            kk, vv = (t.repeat_interleave(H // G, 2).transpose(1, 2)
+                      for t in a[1:])
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                a[0][:, :, None], kk, vv, attn_mask=mask)
+            call = lambda: ops.decode_attention(  # noqa: E731
+                *a, lens, ring=ring)
+            print(json.dumps({"decode_attention": label, "dtype": str(dt),
+                              "plan": ops.decode_split_plan(B, G, S),
+                              "stages": ops.decode_stages(
+                                  H // G, dh, a[0].element_size()),
+                              "max_abs_err": err.max().item(),
+                              "call_ms": call_ms(call, 50),
+                              "device_ms": device_ms(call),
+                              "sdpa call_ms": call_ms(sdpa, 50),
+                              "sdpa device_ms": device_ms(sdpa)}))
+
+
 def main() -> int:
     global build, ops, ref
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -349,6 +453,7 @@ def main() -> int:
     only.add_argument("--paged", action="store_true")
     only.add_argument("--decode", action="store_true")
     only.add_argument("--q8", action="store_true")
+    only.add_argument("--zoo", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("attention_probe: no CUDA device", file=sys.stderr)
@@ -363,6 +468,9 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(0)
     if args.q8:
         q8_probe(g)
+        return 0
+    if args.zoo:
+        zoo_probe(g)
         return 0
     if not (args.paged or args.decode):
         flash_probe(build_variants("flash_prefill", "flash_prefill_bf16",
