@@ -44,7 +44,11 @@ Phases, any failure exits non-zero (nothing is caught):
    (`scr_select_edges`). decode_attention_paged runs at
    the main path's shape and at a long-cache shape (4 rows at kv_len
    4,096 through 130-entry tables; no path runs it), and its edge cases
-   also at forced split counts (`paged_edges`). kmeans_assign runs at the
+   also at forced split counts (`paged_edges`). decode_attention's edge
+   cases also run at every forced route (tensor cores or CUDA cores),
+   split count and head grouping (`decode_forced_edges`), each giving the
+   same bits on two calls, and a call is one kernel node (its last split
+   block merges). kmeans_assign runs at the
    five shapes of its paths (the EcoVector build's, the IVF partition's
    and a PQ sub-quantizer's, on the baselines' own data; the graph
    baselines' partition and HNSWPQ's sub-quantizer) and its edge cases
@@ -58,7 +62,7 @@ Phases, any failure exits non-zero (nothing is caught):
    library call's and the share of its bound. The launch path: the
    wrappers' current stream equals `torch.cuda.current_stream()` under a
    side stream, and `scr_score`'s cached C entry point is timed alone
-   beside its wrapper and `bmm`.
+   beside its wrapper and `bmm` (the two in turns, five windows each).
    TF32 is off for every float32 matmul and convolution (the plain
    versions run in full f32).
 6. The same pipeline on a small corpus with the float32 reduced model,
@@ -893,12 +897,18 @@ def check_scr_score(w, q):
     out = torch.empty(B, NW, device=DEV)
     args = (w.data_ptr(), q.data_ptr(), B, NW, d, out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
+    # the wrapper and bmm in turns, five windows of 50 calls each, and the
+    # median of each: a call is ~10 us of host time, and one window is at
+    # the mercy of the host the card shares
+    turns = [(time_ms(lambda: ops.scr_score(w, q), iters=50),
+              time_ms(lambda: torch.bmm(w, q3), iters=50)) for _ in range(5)]
     return dict(
         shape=f"legacy query: windows {list(w.shape)}, q {list(q.shape)}",
         err=err, ties=0,
-        ms=time_ms(lambda: ops.scr_score(w, q), iters=50),
+        ms=float(np.median([t[0] for t in turns])),
         plain_ms=time_ms(lambda: ref.scr_score(w, q), iters=50),
-        library_ms=time_ms(lambda: torch.bmm(w, q3), iters=50),
+        library_ms=float(np.median([t[1] for t in turns])),
+        turns_ms=turns,
         bare_call_ms=time_ms(lambda: fn(*args), iters=200),
         bound_ms=b_ms, bound_by=b_by)
 
@@ -1265,9 +1275,12 @@ def check_decode_attention(label, q, k, v, kv_len, ring):
     mask = (torch.arange(S, device=q.device)[None, :] < n[:, None])
     mask = mask[:, None, None, :]
     kk, vv = _expand(k, H // G), _expand(v, H // G)
+    splits, groups = ops.decode_split_plan(B, G, S, H // G)
     return dict(
         shape=f"{label}: q {list(q.shape)}, k {list(k.shape)}, kv_len "
-              f"{kv_len.tolist()[:4]}..., ring {ring}, {q.dtype}",
+              f"{kv_len.tolist()[:4]}..., ring {ring}, {q.dtype}, route "
+              f"{ops.decode_route(q.dtype, dh)}, {splits} splits x "
+              f"{groups} head groups",
         err=err, ties=0,
         ms=time_ms(lambda: ops.decode_attention(q, k, v, kv_len, ring=ring),
                    iters=50),
@@ -1290,9 +1303,13 @@ def attention_edges():
     with kv_len > S, rows of mixed kv_len (1, 63, 4609 on a 4096-slot
     ring, 0) in one launch, S not a multiple of 64, a shape the plan
     splits at least 8 ways, Hg 16 at dh 256 (the wide pairs; one ring
-    stage in f32) on a 300-slot ring and split 32 ways, and a scalar
-    kv_len equal to the same [B] one. Returns the number of (case,
-    dtype) pairs checked."""
+    stage in f32) on a 300-slot ring and split 32 ways, each through the
+    wrapper and at every forced route, split count and head grouping
+    (`decode_forced_edges`, two calls bit-equal), and a scalar kv_len
+    equal to the same [B] one; then one kernel node a call (the merge in
+    the last split block) at recurrentgemma's and h2o's rings, through
+    the wrapper in bf16 and f32 and at each route. Returns the number of
+    (case, dtype, variant) checks."""
     g = torch.Generator(device=DEV).manual_seed(5)
 
     def rnd(*shape):
@@ -1349,19 +1366,70 @@ def attention_edges():
     for label, (B, H, S, G, dh), kv, ring in decode:
         q, k, v = rnd(B, H, dh), rnd(B, S, G, dh), rnd(B, S, G, dh)
         if label == "64 splits":
-            assert ops.decode_split_plan(B, G, S) >= 8
+            assert ops.decode_split_plan(B, G, S, H // G)[0] >= 8
         for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
             a = [t.to(dt) for t in (q, k, v)]
+            want = ref.decode_attention(*a, kv, ring=ring)
             close(f"decode_attention edge {label} {dt}",
-                  ops.decode_attention(*a, kv, ring=ring),
-                  ref.decode_attention(*a, kv, ring=ring), tol, tol)
+                  ops.decode_attention(*a, kv, ring=ring), want, tol, tol)
             n += 1
+            n += decode_forced_edges(f"edge {label}", a, kv, want, tol)
     qd, kd, vd = rnd(4, 4, 32), rnd(4, 40, 2, 32), rnd(4, 40, 2, 32)
     assert torch.equal(ops.decode_attention(qd, kd, vd, 17),
                        ops.decode_attention(qd, kd, vd, lens(17, 17, 17, 17))
                        ), \
         "decode_attention: a scalar kv_len differs from the same [B] one"
+    # one kernel node a call, the merge in the last split block: the
+    # wrapper and each route where the plan splits (recurrentgemma's ring
+    # in splits and head groups, h2o's in splits), [B] kv_len
+    for label, (B, H, S, G, dh), kv in (
+            ("recurrentgemma ring", (2, 16, 512, 1, 256), lens(520, 300)),
+            ("h2o ring", (1, 32, 4096, 8, 80), lens(4609))):
+        a = [rnd(B, H, dh).bfloat16(), rnd(B, S, G, dh).bfloat16(),
+             rnd(B, S, G, dh).bfloat16()]
+        assert ops.decode_split_plan(B, G, S, H // G)[0] > 1
+        calls = {"wrapper": lambda: ops.decode_attention(*a, kv, ring=True)}
+        for route in ops.DECODE_ROUTES:
+            calls[route] = lambda route=route: ops.decode_attention_launch(
+                *a, kv, route=route)
+        a32 = [t.float() for t in a]
+        calls["f32 wrapper"] = lambda: ops.decode_attention(*a32, kv,
+                                                            ring=True)
+        for name, fn in calls.items():
+            nodes = kernel_nodes(fn)
+            assert nodes == 1, \
+                f"decode_attention {label} {name}: {nodes} kernel nodes"
     return n + 1
+
+
+def decode_forced_edges(label, a, kv, want, tol):
+    """decode_attention at every forced route (the tensor cores only for a
+    bf16 cache at a dh they take), split count (1, the plan's, one tile a
+    split, and one in between) and head grouping (1, the plan's, one head
+    a block): each against the plain version `want` at `tol`, and each
+    giving the same bits on two calls. Returns the number of variants."""
+    q, k = a[0], a[1]
+    B, H, dh = q.shape
+    S, G = k.shape[1], k.shape[2]
+    Hg, tiles = H // G, -(-S // ops.DECODE_TILE)
+    plan = ops.decode_split_plan(B, G, S, Hg)
+    routes = [r for r in ops.DECODE_ROUTES
+              if r == "cuda" or (q.dtype == torch.bfloat16
+                                 and dh in ops.DECODE_TC_DH)]
+    n = 0
+    for route in routes:
+        for splits in sorted({1, plan[0], tiles, max(1, tiles // 3)}):
+            for groups in sorted({1, plan[1], Hg}):
+                out = ops.decode_attention_launch(
+                    *a, kv, route=route, splits=splits, head_groups=groups)
+                name = (f"decode_attention {label} {q.dtype} {route} route,"
+                        f" {splits} splits x {groups} head groups")
+                close(name, out, want, tol, tol)
+                again = ops.decode_attention_launch(
+                    *a, kv, route=route, splits=splits, head_groups=groups)
+                assert torch.equal(out, again), f"{name}: two calls differ"
+                n += 1
+    return n
 
 
 def q8_planes(x, zero_rows=()):
@@ -1481,7 +1549,8 @@ def q8_edges():
     (1e-5) and in bf16 (2e-2). decode_attention_q8: a ring that wraps
     (kv_len past S) beside rows of kv_len 1 and 0, positions whose K and
     V rows are all zero (their scales clamp to 1e-10), h2o's grouping at
-    dh 80, and a shape the plan splits at least 8 ways.
+    dh 80, and a shape the plan splits at least 8 ways (there one kernel
+    node a call: the merge in the last split block).
     decode_attention_paged_q8, through the wrapper and at forced split
     counts: kv_len under one page, a 64-position ring over three
     24-position pages (ring_len not a multiple of ps: kv_len 64 < W*ps),
@@ -1506,7 +1575,7 @@ def q8_edges():
     ]
     for label, (B, H, S, G, dh), kv, ring, zeros in contiguous:
         if label == "8+ splits":
-            assert ops.decode_split_plan(B, G, S) >= 8
+            assert ops.decode_split_plan(B, G, S, H // G)[0] >= 8
         q = rnd(B, H, dh)
         kq, ks = q8_planes(rnd(B, S, G, dh), zeros)
         vq, vs = q8_planes(rnd(B, S, G, dh), zeros)
@@ -1516,6 +1585,10 @@ def q8_edges():
                   ops.decode_attention_q8(q.to(dt), *a, ring=ring),
                   ref.decode_attention_q8(q.to(dt), *a, ring=ring), tol, tol)
             n += 1
+        if label == "8+ splits":     # the merge in the last split block
+            qb = q.bfloat16()
+            nodes = kernel_nodes(lambda: ops.decode_attention_q8(qb, *a))
+            assert nodes == 1, f"decode_attention_q8: {nodes} kernel nodes"
     rev = torch.arange(17, -1, -1, dtype=torch.int32, device=DEV)
     tail = torch.cat([ints(5, 9, 2), torch.zeros(15, dtype=torch.int32,
                                                   device=DEV)])
@@ -4521,7 +4594,8 @@ def main() -> int:
     sc_dev = prof["kernel_device_ms"]["scr_score"]
     print(f"scr_score launch path: wrapper {sc['ms']:.4f} ms a call, bare "
           f"cached ctypes call {sc['bare_call_ms']:.4f} ms, bmm "
-          f"{sc['library_ms']:.4f} ms, device "
+          f"{sc['library_ms']:.4f} ms (medians of five windows in turns, "
+          f"(wrapper, bmm): {json.dumps(sc['turns_ms'])}), device "
           + ("not measured (the profiler recorded no event)" if sc_dev is None
              else f"{sc_dev:.5f} ms"))
     print("launch path (call ms, profiled device ms):", json.dumps({

@@ -130,15 +130,18 @@ ECOSCAN_MAX_K = (227 * 1024 // 4 - 3 * 256) // 6
 _tickets: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
-def ecoscan_tickets(dev: torch.device, stream: int, B: int) -> torch.Tensor:
-    """The ecoscan kernel's per-query ticket counters for launches on
-    `stream` of `dev`: at least B ints, zero before a launch and zero
-    again after it (the last block of each query resets its counter).
-    One buffer a stream, so launches on two streams share no counter;
-    it is allocated (zeroed) only when a larger B first comes."""
+def tickets(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The ticket counters of the kernels whose last block merges
+    (ecoscan: one a query; decode_attention: one a (row, kv head, head
+    group)) for launches on `stream` of `dev`: at least n ints, zero
+    before a launch and zero again after it (the last block of each
+    counter resets it). One buffer a stream, shared by those kernels
+    (launches on one stream do not overlap), so launches on two streams
+    share no counter; it is allocated (zeroed) only when a larger n
+    first comes."""
     t = _tickets.get((dev.index, stream))
-    if t is None or t.numel() < B:
-        t = torch.zeros(max(B, 64), dtype=torch.int32, device=dev)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 64), dtype=torch.int32, device=dev)
         _tickets[(dev.index, stream)] = t
     return t
 
@@ -200,8 +203,7 @@ def ecoscan_launch(q, data, lens, probes, k: int, block_map=None,
     args = (q.data_ptr(), data.data_ptr(), lens.data_ptr(), probes.data_ptr(),
             None if block_map is None else block_map.data_ptr(), B, CAP, d,
             P, k)
-    rest = (scratch.data_ptr(), ecoscan_tickets(q.device, stream,
-                                                B).data_ptr(),
+    rest = (scratch.data_ptr(), tickets(q.device, stream, B).data_ptr(),
             out_d.data_ptr(), out_i.data_ptr(), stream)
     if tile is None:
         _raise_on(build.entry("ecoscan")(*args, *rest), "ecoscan")
@@ -294,16 +296,47 @@ SM_COUNT = 132        # streaming multiprocessors of an H100 SXM
 DECODE_BLOCKS_PER_SM = 4   # decode kernel blocks resident on one SM
 
 
-def decode_split_plan(B: int, G: int, S: int) -> int:
-    """Splits of each row's cache for `decode_attention`, from host-known
-    shapes only: enough (splits, G, B) blocks to fill the card's SM_COUNT
-    SMs with DECODE_BLOCKS_PER_SM blocks each, each split at least two
-    DECODE_TILE tiles (so at most tiles // 2 splits, and 1 when B*G
-    blocks already fill the card or the cache is short). Split s covers
-    `ref.decode_split_ranges`."""
+def decode_split_plan(B: int, G: int, S: int, Hg: int = 1
+                      ) -> Tuple[int, int]:
+    """(splits, head_groups) of `decode_attention` (and
+    `decode_attention_q8`) for B rows of G kv heads over S cache slots,
+    Hg query heads a kv head, from host-known shapes only: grid (splits,
+    G * head_groups, B). Splits of at least two DECODE_TILE tiles, enough
+    to fill the card's SM_COUNT SMs with DECODE_BLOCKS_PER_SM blocks
+    each; but no split at all where that gives two or fewer (the last
+    block's merge costs about three tiles of time, more than such a split
+    saves: attention_probe, PERF.md). Where B*G*splits blocks leave SMs
+    idle, each group's heads go to head_groups blocks of ceil(Hg /
+    head_groups) heads (every group non-empty), up to one block an SM:
+    they need no merge. Split s covers `ref.decode_split_ranges`; each
+    starts at a multiple of DECODE_TILE."""
     tiles = -(-S // DECODE_TILE)
-    want = -(-SM_COUNT * DECODE_BLOCKS_PER_SM // max(1, B * G))
-    return max(1, min(want, tiles // 2))
+    pairs = max(1, B * G)
+    splits = min(tiles // 2,
+                 -(-SM_COUNT * DECODE_BLOCKS_PER_SM // pairs))
+    if splits <= 2:
+        splits = 1
+    groups = 1
+    if pairs * splits < SM_COUNT and Hg > 1:
+        groups = max(1, min(Hg, SM_COUNT // (pairs * splits)))
+        groups = -(-Hg // -(-Hg // groups))
+    return splits, groups
+
+
+# head dims of decode_attention's tensor-core route (csrc/decode_attention.cu
+# namespace tc). It takes a bf16 cache at every Hg: attention_probe timed
+# both routes at Hg 1, 2, 4, 7 and 16 in one process and the tensor cores
+# won at each (PERF.md)
+DECODE_TC_DH = (32, 64, 80, 128, 256)
+DECODE_ROUTES = ("cuda", "tc")
+
+
+def decode_route(dtype: torch.dtype, dh: int) -> str:
+    """The route of a `decode_attention` call: "tc" (tensor cores) for a
+    bf16 cache at dh in DECODE_TC_DH, else "cuda" (CUDA cores: f32, the
+    1e-5 check route, or a dh the tensor-core kernel is not built for)."""
+    return ("tc" if dtype is torch.bfloat16 and dh in DECODE_TC_DH
+            else "cuda")
 
 
 SMEM_LIMIT = 227 * 1024     # dynamic shared memory a block may take
@@ -313,22 +346,42 @@ DECODE_WIDE_GROUP = 4096    # Hg * dh of decode_attention on a float cache
 
 def decode_smem_bytes(Hg: int, dh: int, esz: int, q8: bool = False,
                       stages: int = 2) -> int:
-    """Shared memory of a `decode_attention` or `decode_attention_paged`
-    block (both kernels' kTile is DECODE_TILE): the K and V rings
-    [stages, DECODE_TILE, dh + 16/esz] in the cache's type (esz bytes an
-    element), then in f32 the group's queries [Hg, dh], a tile's scores
-    [Hg, DECODE_TILE], the running max, sum and correction [Hg], and for
-    an int8 cache (`q8`) the K and V scale rings [2, DECODE_TILE]."""
+    """Shared memory of a CUDA-core `decode_attention` block of Hg heads,
+    or of a `decode_attention_paged` block (both kernels' kTile is
+    DECODE_TILE): the K and V rings [stages, DECODE_TILE, dh + 16/esz] in
+    the cache's type (esz bytes an element), then in f32 the queries
+    [Hg, dh], a tile's scores [Hg, DECODE_TILE], the running max, sum and
+    correction [Hg], and for an int8 cache (`q8`) the K and V scale rings
+    [2, DECODE_TILE]."""
     row = dh + 16 // esz
     return (2 * stages * DECODE_TILE * row * esz
             + (Hg * dh + Hg * DECODE_TILE + 3 * Hg
                + (4 * DECODE_TILE if q8 else 0)) * 4)
 
 
+def decode_tc_smem_bytes(dh: int) -> int:
+    """Shared memory of a tensor-core `decode_attention` block (`tc::
+    smem_bytes`): the K and V rings [2, DECODE_TILE, dh + 8] and Q
+    [16, dh + 8] in bf16, P [16, DECODE_TILE + 8] in bf16, then in f32
+    the scores [16, DECODE_TILE + 8] and the running max, sum and
+    correction [16]."""
+    return ((4 * DECODE_TILE + 16) * (dh + 8) * 2 + 16 * (DECODE_TILE + 8) * 2
+            + (16 * (DECODE_TILE + 8) + 3 * 16) * 4)
+
+
+def decode_merge_bytes(splits: int, Hb: int) -> int:
+    """Shared memory of the merge in the last split block
+    (`merge_floats`, csrc/decode_split.cuh): the partials' m, l and the
+    weights [splits, Hb] each and the denominators [Hb] in f32 (0 with
+    one split)."""
+    return (3 * splits + 1) * Hb * 4 if splits > 1 else 0
+
+
 def decode_stages(Hg: int, dh: int, esz: int, q8: bool = False) -> int:
-    """K/V ring stages of a `decode_attention` block: 2 (the next tile
-    loads while one computes), or 1 when two do not fit SMEM_LIMIT (f32
-    at dh 256: recurrentgemma's ring in the 1e-5 check)."""
+    """K/V ring stages of a CUDA-core `decode_attention` block of Hg
+    heads: 2 (the next tile loads while one computes), or 1 when two do
+    not fit SMEM_LIMIT (f32 at dh 256: recurrentgemma's ring in the 1e-5
+    check)."""
     return 2 if decode_smem_bytes(Hg, dh, esz, q8) <= SMEM_LIMIT else 1
 
 
@@ -346,17 +399,35 @@ def _decode_limits(name: str, Hg: int, dh: int, esz: int, q8: bool,
                          "shared memory)")
 
 
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _split_scratch(dev, stream: int, pairs: int, per_split: int,
+                   splits: int, groups: int):
+    """(partials, tickets) of a split decode launch over `pairs` (row, kv
+    head) pairs: f32 [pairs * splits * per_split] and the stream's ticket
+    counters (`tickets`, pairs * groups of them), both None with one
+    split. Both are tensors, which the caller keeps alive past the
+    launch."""
+    if splits == 1:
+        return None, None
+    part = torch.empty(pairs * splits * per_split, dtype=torch.float32,
+                       device=dev)
+    return part, tickets(dev, stream, pairs * groups)
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: Union[int, torch.Tensor], ring: bool = False):
     """q [B, H, dh]; k, v [B, S, G, dh] (f32 or bf16, same as q); kv_len
     an int or an i32 [B] tensor of each row's length. `ring`: the cache is
     a sliding-window ring (mask length min(kv_len, S)). Returns
     [B, H, dh] in q's dtype. The kernel takes Hg = H/G <= 16 heads a kv
-    head with Hg*dh <= DECODE_WIDE_GROUP. On the card the cache is split
-    across
-    `decode_split_plan(B, G, S)` blocks per (row, kv head); with more than
-    one split a second, small kernel merges the partials. The call counts
-    one launch either way."""
+    head with Hg*dh <= DECODE_WIDE_GROUP. On the card the call is one
+    launch (`decode_attention_launch`): `decode_route` picks the tensor
+    cores or the CUDA cores, `decode_split_plan` the splits and head
+    groups, and the last split block of each (row, kv head, head group)
+    merges."""
     suffix = _attention_dtype(q)
     specs = ((q, "q", q.dtype, 3), (k, "k", q.dtype, 4), (v, "v", q.dtype, 4))
     if isinstance(kv_len, torch.Tensor):
@@ -373,28 +444,66 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dev.type == "cpu":
         return ref.decode_attention(q, k, v, kv_len, ring=ring)
     Hg, esz = H // G, q.element_size()
-    stages = decode_stages(Hg, dh, esz)
     _decode_limits("decode_attention", Hg, dh, esz, False, DECODE_WIDE_GROUP,
-                   stages)
-    smem = decode_smem_bytes(Hg, dh, esz, stages=stages)
+                   decode_stages(Hg, dh, esz))
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("decode_attention: k, v must be 16-byte aligned")
-    if not isinstance(kv_len, torch.Tensor):
-        kv_len = torch.full((B,), int(kv_len), dtype=torch.int32, device=dev)
+    out = decode_attention_launch(q, k, v, kv_len)
+    if B and S:
+        decode_attention.launches += 1
+    return out
+
+
+def decode_attention_launch(q, k, v, kv_len, *, route: Optional[str] = None,
+                            splits: Optional[int] = None,
+                            head_groups: Optional[int] = None):
+    """Launch the decode_attention kernel on CUDA tensors that pass
+    `decode_attention`'s checks (no launch counted) -> [B, H, dh]: at the
+    wrapper's choices (`decode_route`, `decode_split_plan`) where an
+    argument is None, else at a forced route ("cuda" or "tc"), split
+    count (1 .. the cache's tiles) or head grouping (1 .. Hg, every group
+    non-empty), for checks and probes. Raises ValueError for a forced
+    value the kernel does not take. A ring's min(kv_len, S) over S
+    positions is the same mask as kv_len, so no ring flag is passed."""
+    suffix = _attention_dtype(q)
+    B, H, dh = q.shape
+    S, G = k.shape[1], k.shape[2]
+    dev = q.device
+    Hg, esz = H // G, q.element_size()
+    plan = decode_split_plan(B, G, S, Hg)
+    splits = plan[0] if splits is None else int(splits)
+    groups = plan[1] if head_groups is None else int(head_groups)
+    route = decode_route(q.dtype, dh) if route is None else route
+    Hb = -(-Hg // max(1, groups))
+    if (route not in DECODE_ROUTES
+            or (route == "tc" and (q.dtype is not torch.bfloat16
+                                   or dh not in DECODE_TC_DH))
+            or not 1 <= splits <= max(1, -(-S // DECODE_TILE))
+            or not 1 <= groups <= Hg or -(-Hg // Hb) != groups):
+        raise ValueError(f"decode_attention: route {route!r}, splits "
+                         f"{splits}, head groups {groups} not taken at q "
+                         f"{tuple(q.shape)} ({q.dtype}), S {S}")
     out = torch.empty_like(q)
     if B == 0 or S == 0:
         return out
-    splits = decode_split_plan(B, G, S)
-    # the partials of the splits (one split writes `out` directly)
-    part = torch.empty(B * G * splits * Hg * (dh + 2), dtype=torch.float32,
-                       device=dev) if splits > 1 else None
-    # over S positions, ring's min(kv_len, S) is the same mask as kv_len
-    fn = build.entry("decode_attention_" + suffix)
-    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-                 B, S, H, G, dh, 1.0 / math.sqrt(dh), splits, stages, smem,
-                 None if part is None else part.data_ptr(), out.data_ptr(),
-                 _stream(dev)), "decode_attention")
-    decode_attention.launches += 1
+    if route == "tc":
+        stages, smem = 2, decode_tc_smem_bytes(dh)
+    else:
+        stages = decode_stages(Hb, dh, esz)
+        smem = decode_smem_bytes(Hb, dh, esz, stages=stages)
+    smem = max(smem, decode_merge_bytes(splits, Hb))
+    if not isinstance(kv_len, torch.Tensor):
+        kv_len = torch.full((B,), int(kv_len), dtype=torch.int32, device=dev)
+    stream = _stream(dev)
+    part, tick = _split_scratch(dev, stream, B * G, Hg * (dh + 2), splits,
+                                groups)
+    err = build.entry("decode_attention_" + suffix)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), B, S, H,
+        G, dh, 1.0 / math.sqrt(dh), splits, groups, int(route == "tc"),
+        stages, smem, _ptr(part), _ptr(tick), out.data_ptr(), stream)
+    if err:
+        _raise_on(err, f"decode_attention ({route}, {splits} splits, "
+                  f"{groups} head groups)")
     return out
 
 
@@ -459,8 +568,8 @@ def decode_attention_q8(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     int8; ks, vs [B, S, G] f32 scales; kv_len an int or an i32 [B] tensor;
     `ring` as `decode_attention`. Returns [B, H, dh] in q's dtype
     (`ref.decode_attention_q8`). On the card the kernel reads the int8
-    cache and the scales directly, split as `decode_attention` is
-    (`decode_split_plan`), one launch counted per call."""
+    cache and the scales directly on the CUDA cores, split as
+    `decode_attention` is (`decode_split_plan`), one launch a call."""
     suffix = _attention_dtype(q)
     specs = ((q, "q", q.dtype, 3), (kq, "kq", torch.int8, 4),
              (ks, "ks", torch.float32, 3), (vq, "vq", torch.int8, 4),
@@ -479,7 +588,8 @@ def decode_attention_q8(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
         raise ValueError(f"kv_len: {kv_len.shape[0]} rows, q has {B}")
     if dev.type == "cpu":
         return ref.decode_attention_q8(q, kq, ks, vq, vs, kv_len, ring=ring)
-    _decode_limits("decode_attention_q8", H // G, dh, 1, True)
+    Hg = H // G
+    _decode_limits("decode_attention_q8", Hg, dh, 1, True)
     if kq.data_ptr() % 16 or vq.data_ptr() % 16:
         raise ValueError("decode_attention_q8: kq, vq must be 16-byte "
                          "aligned")
@@ -488,17 +598,20 @@ def decode_attention_q8(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0 or S == 0:
         return out
-    splits = decode_split_plan(B, G, S)
-    part = torch.empty(B * G * splits * (H // G) * (dh + 2),
-                       dtype=torch.float32, device=dev) if splits > 1 else None
+    splits, groups = decode_split_plan(B, G, S, Hg)
+    Hb = -(-Hg // groups)
+    stream = _stream(dev)
+    part, tick = _split_scratch(dev, stream, B * G, Hg * (dh + 2), splits,
+                                groups)
     # over S positions, ring's min(kv_len, S) is the same mask as kv_len
     fn = build.entry("decode_attention_q8_" + suffix)
     _raise_on(fn(q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
                  vs.data_ptr(), kv_len.data_ptr(), B, S, H, G, dh,
-                 1.0 / math.sqrt(dh), splits, 2,
-                 decode_smem_bytes(H // G, dh, 1, True),
-                 None if part is None else part.data_ptr(), out.data_ptr(),
-                 _stream(dev)), "decode_attention_q8")
+                 1.0 / math.sqrt(dh), splits, groups, 2,
+                 max(decode_smem_bytes(Hb, dh, 1, True),
+                     decode_merge_bytes(splits, Hb)),
+                 _ptr(part), _ptr(tick), out.data_ptr(), stream),
+              "decode_attention_q8")
     decode_attention_q8.launches += 1
     return out
 
@@ -549,22 +662,36 @@ def decode_attention_paged_q8(q: torch.Tensor, kq: torch.Tensor,
 
 def scr_score(windows: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """windows [B, NW, d] f32; q [B, d] f32 -> scores [B, NW] f32, the
-    inner product of each window with its query."""
-    dev = _checked((windows, "windows", torch.float32, 3),
-                   (q, "q", torch.float32, 2))
+    inner product of each window with its query. The shortest launch
+    path of the wrappers (a legacy query's call is ~1 us of device time):
+    CUDA inputs that pass `_checked`'s checks, made inline by cheap
+    getters (no `torch.device` built, no spec tuples), launch at once on
+    the raw stream; anything else goes through `_checked`, which raises
+    what it finds, or to the plain version on the CPU."""
+    f32 = torch.float32
+    if (windows.is_cuda and q.is_cuda and windows.dtype is f32
+            and q.dtype is f32 and windows.dim() == 3 and q.dim() == 2
+            and windows.is_contiguous() and q.is_contiguous()
+            and windows.get_device() == q.get_device()):
+        idx = windows.get_device()
+    else:
+        idx = -1
+        _checked((windows, "windows", f32, 3), (q, "q", f32, 2))
     B, NW, d = windows.shape
-    if tuple(q.shape) != (B, d):
+    if q.shape != (B, d):
         raise ValueError(f"scr_score: q {tuple(q.shape)} vs windows "
                          f"{tuple(windows.shape)}")
-    if dev.type == "cpu":
+    if idx < 0:
         return ref.scr_score(windows, q)
     out = windows.new_empty((B, NW))        # f32 on windows' device
-    if B == 0 or NW == 0:
-        return out
-    _raise_on(build.entry("scr_score")(
-        windows.data_ptr(), q.data_ptr(), B, NW, d, out.data_ptr(),
-        _stream(dev)), "scr_score")
-    scr_score.launches += 1
+    if B and NW:
+        err = build.entry("scr_score")(
+            windows.data_ptr(), q.data_ptr(), B, NW, d, out.data_ptr(),
+            _raw_stream(idx) if _raw_stream is not None
+            else _stream(windows.device))
+        if err:
+            _raise_on(err, "scr_score")
+        scr_score.launches += 1
     return out
 
 

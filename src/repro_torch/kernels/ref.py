@@ -367,19 +367,53 @@ def _split_merge(q, k, v, lens, n, ranges):
     return out.reshape(B, H, dh).to(q.dtype)
 
 
-def decode_attention_split(q, k, v, kv_len, splits: int):
+DECODE_TC_DH = (32, 64, 80, 128, 256)   # ops.DECODE_TC_DH
+
+
+def decode_head_groups(Hg: int, head_groups: int):
+    """The [lo, hi) query heads of each of the head_groups blocks of a
+    kv head's Hg heads: ceil(Hg / head_groups) heads a block, the last
+    block the rest."""
+    hb = -(-Hg // head_groups)
+    return [(lo, min(Hg, lo + hb)) for lo in range(0, Hg, hb)]
+
+
+def decode_attention_split(q, k, v, kv_len, splits: int,
+                           head_groups: int = 1, route: str = "cuda"):
     """The split-and-merge arithmetic of the decode_attention kernel in
     plain PyTorch (for tests: `decode_attention` is the contract). Row b
     walks its first n = min(kv_len, S) positions (all S when kv_len <= 0)
     with positions >= kv_len masked; a ring's min(kv_len, S) is the same
     mask. Each split of `decode_split_ranges` gives a partial over its
-    positions below n; the partials merge in split order (`_split_merge`)."""
-    B = q.shape[0]
-    S = k.shape[1]
+    positions below n; the partials merge in split order (`_split_merge`),
+    each head group (`decode_head_groups`: the kernel's blocks of a kv
+    head's heads) on its own. `route` is the kernel's: "cuda" or "tc";
+    both compute the same partials (scores in f32, probabilities rounded
+    to v's type for the PV product, sums in f32), so the model differs
+    only in what it takes: "tc" needs bf16 and dh in DECODE_TC_DH, and
+    raises ValueError otherwise, as the kernel's entry does."""
+    B, H, dh = q.shape
+    S, G = k.shape[1], k.shape[2]
+    Hg = H // G
+    hb = -(-Hg // max(1, head_groups))
+    if (route not in ("cuda", "tc") or not 1 <= head_groups <= Hg
+            or -(-Hg // hb) != head_groups
+            or (route == "tc" and (q.dtype != torch.bfloat16
+                                   or dh not in DECODE_TC_DH))):
+        raise ValueError(f"decode_attention_split: route {route!r}, head "
+                         f"groups {head_groups} at Hg {Hg}, dh {dh}, "
+                         f"{q.dtype}")
     lens = torch.as_tensor(kv_len, device=q.device).long().reshape(-1)
     lens = lens.expand(B)
     n = torch.where(lens > 0, lens.clamp(max=S), torch.full_like(lens, S))
-    return _split_merge(q, k, v, lens, n, decode_split_ranges(S, splits))
+    ranges = decode_split_ranges(S, splits)
+    qg = q.reshape(B, G, Hg, dh)
+    outs = []
+    for lo, hi in decode_head_groups(Hg, head_groups):
+        qh = qg[:, :, lo:hi].reshape(B, G * (hi - lo), dh)
+        outs.append(_split_merge(qh, k, v, lens, n, ranges).reshape(
+            B, G, hi - lo, dh))
+    return torch.cat(outs, 2).reshape(B, H, dh)
 
 
 def decode_paged_split_ranges(W: int, splits: int):

@@ -18,8 +18,11 @@ gte-small encoder's non-causal shape (q, k, v [256, 64, 6, 64]), beside
 SDPA on the same inputs. decode_attention: the built kernel at h2o's
 ring (q [B, 32, 80], k/v [B, 4096, 8, 80], kv_len 4609) and at the qwen2.5
 wave's decode (q [16, 14, 64], k/v [16, 280, 2, 64], kv_len 136) for
-several split counts (an argument of the kernel), beside the wrapper
-(the plan) and SDPA.
+at the MoE wave's (q [16, 16, 64] over 8 kv heads), at recurrentgemma's
+ring and at whisper's cross-attention (below): the plan and route, the
+wrapper and SDPA, then both routes (`ops.decode_attention_launch`) at
+forced split counts and head groupings, each held against the plain
+version (2e-2) (a `--src` tree without that entry: the wrapper only).
 decode_attention_paged: the wrapper (the committed split plan) and the
 kernel at forced split counts, each built with kTile 32, 64 (committed)
 and 128 positions a ring stage (1, 2 and 4 pages of 32), held against
@@ -36,8 +39,9 @@ kv_len 136), h2o's ring (q [1, 32, 80], K/V [1, 4096, 8, 80], kv_len
 (q [2, 32, 80] over a 256-page pool through 128-entry tables, kv_len
 4,096); each held against its plain version (2e-2).
 
-zoo (`--zoo`): nvcc's registers and spills of every flash_prefill and
-decode_attention instantiation (`-Xptxas -v`, from the build logs),
+zoo (`--zoo`): nvcc's registers and spills of every flash_prefill,
+decode_attention and decode_attention_paged instantiation (`-Xptxas -v`,
+from the build logs; `--decode` prints decode_attention's),
 then the wrappers in f32 (1e-5) and bf16 (2e-2) against their plain
 versions at the model zoo's shapes: flash_prefill at recurrentgemma-9b's
 local attention (q [1, 512, 16, 256] over one kv head, window 2,048),
@@ -46,11 +50,14 @@ cross-attention (q [2, 32, 12, 64] over 1,500 frames), qwen2-vl-2b's
 prefill (q [2, 320, 12, 128] over 2 kv heads); decode_attention at
 recurrentgemma's ring (q [2, 16, 256] over [2, 512, 1, 256], kv_len 520)
 and whisper's cross-attention (q [2, 12, 64] over 1,500 frames), each
-beside SDPA.
+with its plan and route beside SDPA, and in bf16 the other route's
+device ms at the same plan.
 
 Times: CUDA events over back-to-back calls (`call_ms`, host launch
-included) and torch.profiler's device time per call (`device_ms`, the
-split and merge launches summed). Prints the card and one JSON line per
+included), torch.profiler's device time per call (`device_ms`, every
+kernel of the call summed) and, for decode_attention and the int8 rows,
+the call's time on the device timeline in a CUDA graph (`graph_ms`: the
+gap before a second launch included, no host cost). Prints the card and one JSON line per
 measurement; exits 2 without a GPU.
 """
 import argparse
@@ -142,6 +149,32 @@ def device_ms(fn, n=20):
                if e.device_type == torch.autograd.DeviceType.CUDA) / n / 1e3
 
 
+def graph_ms(fn, n=20, reps=10):
+    """Device time of one call on the card's own timeline: n calls
+    captured in a CUDA graph, replayed `reps` times between CUDA events,
+    so that no host launch cost enters and the gaps between a call's
+    kernels do (a call of two launches pays its second launch's gap,
+    which the profiler's sum of kernel times leaves out)."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()                        # per-stream set-up outside the capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(reps):
+        g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (n * reps)
+
+
 def stream():
     return torch.cuda.current_stream().cuda_stream
 
@@ -191,56 +224,90 @@ def flash_probe(variants, g):
                               "device_ms": device_ms(call)}))
 
 
+# decode_attention's path shapes: (label, B, H, S, G, dh, kv_len, ring)
+DECODE_SHAPES = [
+    ("h2o ring B1", 1, 32, 4096, 8, 80, 4609, True),
+    ("h2o ring B2", 2, 32, 4096, 8, 80, 4609, True),
+    ("qwen wave", 16, 14, 280, 2, 64, 136, False),
+    ("moe wave", 16, 16, 280, 8, 64, 136, False),
+    ("recurrentgemma ring", 2, 16, 512, 1, 256, 520, True),
+    ("whisper cross", 2, 12, 1500, 12, 64, 1500, False),
+]
+
+
+def decode_inputs(g, B, H, S, G, dh, kv, dtype=torch.bfloat16):
+    q = torch.randn(B, H, dh, generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn(B, S, G, dh, generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    return q, k, v, torch.full((B,), kv, dtype=torch.int32, device="cuda")
+
+
+def sdpa_decode(q, k, v, kv, ring):
+    """SDPA on the same inputs (K/V expanded to H heads)."""
+    H, S, G = q.shape[1], k.shape[1], k.shape[2]
+    kk, vv = (t.repeat_interleave(H // G, 2).transpose(1, 2) for t in (k, v))
+    n = min(kv, S) if ring else kv
+    mask = (torch.arange(S, device="cuda") < n)[None, None, None, :]
+    return lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q[:, :, None], kk, vv, attn_mask=mask)
+
+
+def forced_variants(B, H, S, G):
+    """(splits, head_groups) to time beside the plan: one split, splits of
+    one tile, of two, three and four, and SPLITS, at every head grouping
+    with no empty group."""
+    Hg, tiles = H // G, -(-S // ops.DECODE_TILE)
+    plan = ops.decode_split_plan(B, G, S, Hg)
+    splits = sorted({1, plan[0], tiles, max(1, tiles // 2),
+                     max(1, tiles // 3), max(1, tiles // 4),
+                     max(1, 2 * tiles // 3)}
+                    | {s for s in SPLITS if s <= tiles})
+    groups = [n for n in (1, 2, 4, 7, 8, 16)
+              if n <= Hg and -(-Hg // -(-Hg // n)) == n]
+    return [(s, n) for s in splits for n in groups]
+
+
 def decode_probe(g):
-    fn = build.entry("decode_attention_bf16")
-    shapes = [("h2o ring B1", 1, 32, 4096, 8, 80, 4609, True, SPLITS),
-              ("h2o ring B2", 2, 32, 4096, 8, 80, 4609, True, SPLITS),
-              ("qwen wave", 16, 14, 280, 2, 64, 136, False, (1, 2, 4))]
-    for label, B, H, S, G, dh, kv, ring, splits_list in shapes:
-        q = torch.randn(B, H, dh, generator=g, device="cuda").bfloat16()
-        k, v = (torch.randn(B, S, G, dh, generator=g, device="cuda"
-                            ).bfloat16() for _ in range(2))
-        lens = torch.full((B,), kv, dtype=torch.int32, device="cuda")
-        want = ref.decode_attention(q, k, v, lens, ring=ring)
-        kk, vv = (t.repeat_interleave(H // G, 2).transpose(1, 2)
-                  for t in (k, v))
-        mask = (torch.arange(S, device="cuda") < kv)[None, None, None, :]
-        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            q[:, :, None], kk, vv, attn_mask=mask)
+    """Each path shape in bf16: the plan, SDPA and the wrapper; then, where
+    this tree has `ops.decode_attention_launch`, both routes at every
+    forced split count and head grouping, each held against the plain
+    version (2e-2), with device ms."""
+    forced = hasattr(ops, "decode_attention_launch")
+    if forced:
+        print_ptxas(("decode_attention",))
+    for label, B, H, S, G, dh, kv, ring in DECODE_SHAPES:
+        q, k, v, lens = decode_inputs(g, B, H, S, G, dh, kv)
+        want = ref.decode_attention(q, k, v, lens, ring=ring).float()
+        sdpa = sdpa_decode(q, k, v, kv, ring)
         wrap = lambda: ops.decode_attention(  # noqa: E731
             q, k, v, lens, ring=ring)
-        print(json.dumps({"decode_attention": label,
-                          "plan": ops.decode_split_plan(B, G, S),
-                          "sdpa call_ms": call_ms(sdpa, 50),
-                          "sdpa device_ms": device_ms(sdpa),
-                          "wrapper call_ms": call_ms(wrap, 50),
-                          "wrapper device_ms": device_ms(wrap)}))
-        smem = ops.decode_smem_bytes(H // G, dh, 2)
-        # this tree's entry takes the ring stages before smem
-        stages = ([2] if len(build.SIGNATURES["decode_attention"][
-            "decode_attention_bf16"]) == 16 else [])
-        for splits in splits_list:
-            out = torch.empty_like(q)
-            part = torch.empty(B * G * splits * (H // G) * (dh + 2),
-                               device="cuda")
-
-            def call():
-                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         lens.data_ptr(), B, S, H, G, dh, 1.0 / math.sqrt(dh),
-                         splits, *stages, smem, part.data_ptr(),
-                         out.data_ptr(), stream())
-                if err:
-                    raise RuntimeError(f"launch failed: cudaError {err}")
-            call()
-            torch.cuda.synchronize()
-            err = (out.float() - want.float()).abs()
-            assert bool((err <= 2e-2 + 2e-2 * want.float().abs()).all()), \
-                splits
-            print(json.dumps({"decode_attention": label,
-                              "splits": splits,
-                              "max_abs_err": err.max().item(),
-                              "call_ms": call_ms(call, 50),
-                              "device_ms": device_ms(call)}))
+        row = {"decode_attention": label,
+               "plan": ops.decode_split_plan(B, G, S, *(
+                   [H // G] if forced else []))}
+        if forced:
+            row["route"] = ops.decode_route(q.dtype, dh)
+        row.update({"sdpa call_ms": call_ms(sdpa, 50),
+                    "sdpa device_ms": device_ms(sdpa),
+                    "sdpa graph_ms": graph_ms(sdpa),
+                    "wrapper call_ms": call_ms(wrap, 50),
+                    "wrapper device_ms": device_ms(wrap),
+                    "wrapper graph_ms": graph_ms(wrap)})
+        print(json.dumps(row))
+        if not forced:
+            continue
+        for route in ops.DECODE_ROUTES:
+            for splits, groups in forced_variants(B, H, S, G):
+                def call():
+                    return ops.decode_attention_launch(
+                        q, k, v, lens, route=route, splits=splits,
+                        head_groups=groups)
+                err = (call().float() - want).abs()
+                assert bool((err <= 2e-2 + 2e-2 * want.abs()).all()), \
+                    (label, route, splits, groups)
+                print(json.dumps({"decode_attention": label, "route": route,
+                                  "splits": splits, "head_groups": groups,
+                                  "max_abs_err": err.max().item(),
+                                  "device_ms": device_ms(call)}))
 
 
 def paged_inputs(g, W, P, lens):
@@ -341,6 +408,7 @@ def q8_probe(g):
                  ("bf16", bf16))):
             row[f"{name} call_ms {turn}"] = call_ms(fn, 50)
             row[f"{name} device_ms {turn}"] = device_ms(fn)
+            row[f"{name} graph_ms {turn}"] = graph_ms(fn)
         print(json.dumps(row))
 
 
@@ -373,11 +441,16 @@ def ptxas_lines(name):
     return out
 
 
-def zoo_probe(g):
-    for name in ("flash_prefill", "decode_attention"):
+def print_ptxas(names):
+    for name in names:
         for fn, regs, spill in ptxas_lines(name):
             print(json.dumps({"ptxas": name, "kernel": fn,
                               "registers": regs, "spill": spill}))
+
+
+def zoo_probe(g):
+    print_ptxas(("flash_prefill", "decode_attention",
+                 "decode_attention_paged"))
     flash = [("recurrentgemma local window", 1, 512, 16, 512, 1, 256, 2048,
               True),
              ("whisper encoder", 2, 1500, 12, 1500, 12, 64, None, False),
@@ -412,15 +485,9 @@ def zoo_probe(g):
                               "device_ms": device_ms(call),
                               "sdpa call_ms": call_ms(sdpa),
                               "sdpa device_ms": device_ms(sdpa)}))
-    decode = [("recurrentgemma ring", 2, 16, 512, 1, 256, 520, True),
-              ("whisper cross", 2, 12, 1500, 12, 64, 1500, False)]
-    for label, B, H, S, G, dh, kv, ring in decode:
-        q = torch.randn(B, H, dh, generator=g, device="cuda")
-        k, v = (torch.randn(B, S, G, dh, generator=g, device="cuda")
-                for _ in range(2))
-        lens = torch.full((B,), kv, dtype=torch.int32, device="cuda")
-        mask = (torch.arange(S, device="cuda") < min(kv, S))[
-            None, None, None, :]
+    for label, B, H, S, G, dh, kv, ring in DECODE_SHAPES[-2:]:
+        q, k, v, lens = decode_inputs(g, B, H, S, G, dh, kv, torch.float32)
+        forced = hasattr(ops, "decode_attention_launch")
         for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
             a = [t.to(dt) for t in (q, k, v)]
             got = ops.decode_attention(*a, lens, ring=ring)
@@ -428,21 +495,33 @@ def zoo_probe(g):
             err = (got.float() - want.float()).abs()
             assert bool((err <= tol + tol * want.float().abs()).all()), \
                 (label, dt)
-            kk, vv = (t.repeat_interleave(H // G, 2).transpose(1, 2)
-                      for t in a[1:])
-            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                a[0][:, :, None], kk, vv, attn_mask=mask)
+            sdpa = sdpa_decode(*a, kv, ring)
             call = lambda: ops.decode_attention(  # noqa: E731
                 *a, lens, ring=ring)
-            print(json.dumps({"decode_attention": label, "dtype": str(dt),
-                              "plan": ops.decode_split_plan(B, G, S),
-                              "stages": ops.decode_stages(
-                                  H // G, dh, a[0].element_size()),
-                              "max_abs_err": err.max().item(),
-                              "call_ms": call_ms(call, 50),
-                              "device_ms": device_ms(call),
-                              "sdpa call_ms": call_ms(sdpa, 50),
-                              "sdpa device_ms": device_ms(sdpa)}))
+            row = {"decode_attention": label, "dtype": str(dt),
+                   "plan": ops.decode_split_plan(B, G, S, *(
+                       [H // G] if forced else [])),
+                   "stages": ops.decode_stages(H // G, dh,
+                                               a[0].element_size()),
+                   "max_abs_err": err.max().item(),
+                   "call_ms": call_ms(call, 50),
+                   "device_ms": device_ms(call),
+                   "graph_ms": graph_ms(call),
+                   "sdpa call_ms": call_ms(sdpa, 50),
+                   "sdpa device_ms": device_ms(sdpa),
+                   "sdpa graph_ms": graph_ms(sdpa)}
+            if forced:
+                row["route"] = ops.decode_route(dt, dh)
+                # the other route at the same plan (bf16 only)
+                if dt == torch.bfloat16:
+                    other = "cuda" if row["route"] == "tc" else "tc"
+                    oc = lambda: ops.decode_attention_launch(  # noqa: E731
+                        *a, lens, route=other)
+                    oerr = (oc().float() - want.float()).abs()
+                    assert bool((oerr <= tol + tol * want.float().abs()
+                                 ).all()), (label, other)
+                    row[f"{other} route device_ms"] = device_ms(oc)
+            print(json.dumps(row))
 
 
 def main() -> int:

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Launch-path probe of the port's eight kernel wrappers on one GPU:
+"""Launch-path probe of the port's kernel wrappers on one GPU:
 `python3 tools/launch_probe.py [--src DIR] [--iters N] [--steps]`.
 
-Times each wrapper of `repro_torch.kernels.ops` at a small shape of its
-path (synthetic inputs from a seed; the shapes of chip_smoke.py's kernel
-checks, the window and EcoVector packs cut to a few hundred blocks) with
+Times each of the ten wrappers of `repro_torch.kernels.ops` at a small
+shape of its path (synthetic inputs from a seed; the shapes of
+chip_smoke.py's kernel checks, the window and EcoVector packs cut to a
+few hundred blocks; decode_attention also at h2o's and recurrentgemma's
+rings) with
 CUDA events over `--iters` back-to-back calls: the call time, host
 launch included, which at these shapes is mostly the wrapper's host
 cost. `--src` names the `src` directory whose `repro_torch` is imported
@@ -15,10 +17,13 @@ the card (`nvidia-smi` name and power limit), then one JSON line
 
 `--steps` also prints {"scr_score host_us": {step: us}}: the host time
 of each step of a `scr_score` call at the legacy SCR path's shape (the
-wrapper, its checks, its output, its stream lookup against the public
-`torch.cuda.current_stream()`, the bare cached ctypes call) beside
-`bmm`, by perf_counter over many calls (the wrappers of this checkout's
-launch path only).
+wrapper, its checks, its output by `new_empty` and by `torch.empty`, the
+three `data_ptr`, the entry lookup, its stream lookup against the public
+`torch.cuda.current_stream()`, the bare cached ctypes call through
+`CDLL` and through `PyDLL`) beside `bmm`, by perf_counter over many
+calls, through the launch path of the tree `--src` names. Run it in
+turns with a parent tree: `--steps`, `--steps --src P`, `--src P`, then
+this tree again.
 """
 import argparse
 import json
@@ -61,21 +66,34 @@ def host_us(fn, n=2000):
 
 def scr_score_steps(build, ops):
     """Host us of each step of an `ops.scr_score` call, windows [1, 30,
-    384] and q [1, 384], beside `bmm` on the same inputs."""
+    384] and q [1, 384], beside `bmm` on the same inputs; the bare call
+    also through `ctypes.PyDLL` (the GIL held across the call, as
+    PyTorch's own ops launch) beside the loaded entry (`ctypes.CDLL`,
+    which releases and retakes it)."""
+    import ctypes
     g = torch.Generator(device="cuda").manual_seed(1)
     w = torch.randn(1, 30, 384, generator=g, device="cuda")
     q = torch.randn(1, 384, generator=g, device="cuda")
     q3 = q[:, :, None].contiguous()
     fn = build.entry("scr_score")
+    py = getattr(ctypes.PyDLL(str(build._target("scr_score"))), "scr_score")
+    py.argtypes, py.restype = fn.argtypes, fn.restype
     out = torch.empty(1, 30, device="cuda")
     args = (w.data_ptr(), q.data_ptr(), 1, 30, 384, out.data_ptr(),
             ops._stream(w.device))
     specs = ((w, "windows", torch.float32, 3), (q, "q", torch.float32, 2))
+    dev = w.device
     return {
         "wrapper": host_us(lambda: ops.scr_score(w, q)),
-        "bare ctypes call": host_us(lambda: fn(*args)),
+        "bare ctypes call (CDLL)": host_us(lambda: fn(*args)),
+        "bare ctypes call (PyDLL)": host_us(lambda: py(*args)),
         "checks": host_us(lambda: ops._checked(*specs)),
         "output new_empty": host_us(lambda: w.new_empty((1, 30))),
+        "output torch.empty(device=dev)": host_us(
+            lambda: torch.empty((1, 30), dtype=torch.float32, device=dev)),
+        "three data_ptr": host_us(
+            lambda: (w.data_ptr(), q.data_ptr(), out.data_ptr())),
+        "entry lookup": host_us(lambda: build.entry("scr_score")),
         "stream, raw getter": host_us(lambda: ops._stream(w.device)),
         "stream, torch.cuda.current_stream()": host_us(
             lambda: torch.cuda.current_stream().cuda_stream),
@@ -117,6 +135,13 @@ def calls(ops):
     qr, kr, vr = rnd(1, 32, 80, dtype=bf), rnd(1, 4096, 8, 80, dtype=bf), \
         rnd(1, 4096, 8, 80, dtype=bf)
     kv_ring = torch.full((1,), 4609, dtype=torch.int32, device="cuda")
+    qg, kg, vg = rnd(2, 16, 256, dtype=bf), rnd(2, 512, 1, 256, dtype=bf), \
+        rnd(2, 512, 1, 256, dtype=bf)
+    kv_rg = torch.full((2,), 520, dtype=torch.int32, device="cuda")
+    k8 = (ints(255, 16, 280, 2, 64) - 127).to(torch.int8)
+    s8 = rnd(16, 280, 2).abs()
+    p8 = (ints(255, 128, 16, 2, 64) - 127).to(torch.int8)
+    ps8 = rnd(128, 16, 2).abs()
     w, qs = rnd(1, 30, 384), rnd(1, 384)
     lut, codes = rnd(1, 8, 256), ints(256, 4946, 8).to(torch.uint8)
     return {
@@ -130,8 +155,14 @@ def calls(ops):
         "decode_attention": lambda: ops.decode_attention(qw, kw, vw, kv_wave),
         "decode_attention h2o ring": lambda: ops.decode_attention(
             qr, kr, vr, kv_ring, ring=True),
+        "decode_attention recurrentgemma ring": lambda: ops.decode_attention(
+            qg, kg, vg, kv_rg, ring=True),
         "scr_score": lambda: ops.scr_score(w, qs),
         "pq_adc": lambda: ops.pq_adc(lut, codes),
+        "decode_attention_q8": lambda: ops.decode_attention_q8(
+            qw, k8, s8, k8, s8, kv_wave),
+        "decode_attention_paged_q8": lambda: ops.decode_attention_paged_q8(
+            qd, p8, ps8, p8, ps8, kv_paged, table),
     }
 
 
