@@ -269,7 +269,20 @@ determinism`; a whole CPU build and two card builds with the
   nemotron chunk; decode_attention at recurrentgemma's ring ([2, 16, 256]
   over [2, 512, 1, 256]) and whisper's cross-attention ([2, 12, 64] over
   1,500); decode_attention_paged over nemotron's pool (their device ms:
-  `tools/attention_probe.py --zoo`).
+  `tools/attention_probe.py --zoo`);
+- the train path (after the zoo path): full-width qwen2.5-0.5B (f32
+  masters from the model's seeded bf16 draw, bf16 compute, remat, AdamW
+  with f32 moments), batches of 8 x 512 tokens from an `LMBatcher` over
+  `lm_token_stream` (the port's `HashTokenizer`): 6 steps on one batch
+  (the loss falls), 2 on fresh batches through a `Prefetcher`, one
+  profiled; step s, tokens/s, peak memory and the step's bound (8 N T at
+  989 TFLOP/s bf16). Then full-width granite-moe-1b-a400m for 2 steps:
+  moe_aux and the share of (token, expert) slots its capacity (1,280 an
+  expert) drops. Then one step of reduced f32 qwen2.5 on the card
+  against the CPU's (loss, gradients, parameters at 1e-4). Every launch
+  count reads 0 on this path: training attends through
+  `layers.attention`, and the kernels (no backward) refuse inputs that
+  require grad.
 
 The line before the last is the kernel summary as JSON; the last line is
 `{"ok": true, "device": {...}}`.
@@ -298,6 +311,8 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.config import (RunConfig, ShapeConfig,  # noqa: E402
+                                TrainConfig)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import kmeans as kmeans_mod  # noqa: E402
 from repro_torch.core import store_faults  # noqa: E402
@@ -309,7 +324,10 @@ from repro_torch.core.scr import (SCRConfig, sliding_windows,  # noqa: E402
                                   split_sentences)
 from repro_torch.core.tiered import TieredEcoVector  # noqa: E402
 from repro_torch.core.window_index import WindowIndex  # noqa: E402
-from repro_torch.data.synthetic import make_qa_corpus, sift_like  # noqa: E402
+from repro_torch.data.pipeline import LMBatcher, Prefetcher  # noqa: E402
+from repro_torch.data.synthetic import (lm_token_stream,  # noqa: E402
+                                        make_qa_corpus, sift_like)
+from repro_torch.data.tokenizer import HashTokenizer  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import scrub_index, serve  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
@@ -318,6 +336,8 @@ from repro_torch.models.dense import (DenseLM, cache_len,  # noqa: E402
 from repro_torch.models import rglru  # noqa: E402
 from repro_torch.models.dense import N_IMG  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.models import model as model_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.moe import MoELM  # noqa: E402
 from repro_torch.serving import rag as rag_mod  # noqa: E402
 from repro_torch.serving.embedder import (HashEmbedder,  # noqa: E402
@@ -335,6 +355,9 @@ from repro_torch.serving.scheduler import (Scheduler,  # noqa: E402
                                            SlotScheduler)
 from repro_torch.serving.session import RagSession  # noqa: E402
 from repro_torch.serving.trace import SLOController, TraceSink  # noqa: E402
+from repro_torch.train import optimizer as opt  # noqa: E402
+from repro_torch.train.trainer import (loss_and_grads,  # noqa: E402
+                                       make_states, make_train_step)
 
 HBM_BYTES_S = 3.35e12          # H100 SXM HBM3
 F32_FLOPS_S = 67e12            # f32 outside the tensor cores
@@ -432,6 +455,15 @@ VL_TEXT = 64
 ZOO = (("nemotron_4_15b", None), ("qwen2_72b", 8),
        ("mistral_large_123b", 8), ("arctic_480b", 2))
 ZOO_PROMPT = 256
+# the train path: full-width qwen2.5-0.5B (f32 masters, bf16 compute,
+# remat), TRAIN_B x TRAIN_S tokens a step from an LMBatcher over an LM
+# stream of TRAIN_STREAM tokens: TRAIN_REPEAT steps on one batch, then
+# TRAIN_FRESH on fresh ones; full-width granite-moe-1b-a400m for
+# TRAIN_MOE steps; one step of reduced f32 qwen on the card and the CPU
+TRAIN_B, TRAIN_S = 8, 512
+TRAIN_STREAM = 65536
+TRAIN_REPEAT, TRAIN_FRESH, TRAIN_MOE = 6, 2, 2
+BF16_FLOPS_S = 989e12          # H100 SXM dense bf16
 # every RagSession the run makes, with the path it ran on (CURRENT)
 SESSIONS = []
 CURRENT = [None]
@@ -499,6 +531,9 @@ PATH_KERNELS = {
     "families": ("flash_prefill", "decode_attention"),
     # nemotron and the cut large configs on the continuous engine
     "zoo": ("flash_prefill", "decode_attention_paged"),
+    # training attends through the plain layers.attention: no kernel
+    # (each launch count must read 0, `train_path`)
+    "train": (),
 }
 
 
@@ -1635,10 +1670,11 @@ def _device_events(prof):
     return out
 
 
-def _profiled(fn, n):
+def _profiled(fn, n, by_op=False):
     """torch.profiler over n calls of fn: wall and device ms per call,
     the device's idle share, and the device kernels and host ops that
-    take the most time."""
+    take the most time (`by_op`: also the aten ops by the device time of
+    the kernels each launched, children included)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1660,7 +1696,11 @@ def _profiled(fn, n):
         "top_host_ops": [
             {"name": e.key[:60], "ms_per_call": e.self_cpu_time_total / n
              / 1e3, "calls": e.count} for e in host[:6]],
-    }
+    } | ({"top_ops_by_device": [
+        {"name": e.key, "device_ms_per_call": e.device_time_total / n / 1e3,
+         "calls": e.count} for e in sorted(
+            (e for e in prof.key_averages() if e.key.startswith("aten::")),
+            key=lambda e: -e.device_time_total)[:10]]} if by_op else {})
 
 
 def profile_decode_steps(eng, prompts, n=8, greedy=True):
@@ -3856,6 +3896,208 @@ def zoo_path():
     return info, kin
 
 
+def _train_steps(step, state, batches):
+    """Run `step` over `batches` from state (masters, opt_state), each
+    step synchronised: (the state after, losses, seconds a step, the last
+    metrics)."""
+    ms, st = state
+    losses, secs = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms, st, met = step(ms, st, b)
+        losses.append(met["loss"].item())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    assert all(math.isfinite(x) for x in losses), losses
+    return (ms, st), losses, secs, met
+
+
+def _lm_batcher(cfg, seed):
+    tok = HashTokenizer(vocab_size=cfg.vocab_size)
+    return LMBatcher(lm_token_stream(tok, TRAIN_STREAM, seed=seed), TRAIN_B,
+                     TRAIN_S)
+
+
+def _train_run(cfg):
+    return RunConfig(model=cfg, shape=ShapeConfig("train", TRAIN_S, TRAIN_B,
+                                                  "train"),
+                     train=TrainConfig(learning_rate=1e-3, warmup_steps=5))
+
+
+def train_dense():
+    """Full-width qwen2.5-0.5B: f32 masters from the model's seeded bf16
+    draw, bf16 compute, remat, AdamW (f32 moments, lr 1e-3 after 5
+    warmup steps). TRAIN_REPEAT steps on batch 0 of an LMBatcher over
+    `lm_token_stream` (the loss must fall), TRAIN_FRESH steps on batches
+    1, 2 through a Prefetcher, then one step under the profiler. Step
+    seconds (the steady one: the median past the first), tokens/s, peak
+    memory above what the process held before the path, and the step's
+    bound: 8 N T FLOPs (forward, backward and the remat's second forward)
+    at 989 TFLOP/s bf16."""
+    cfg = GEN_CONFIG
+    run = _train_run(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model, ms, st = make_states(run, seed=0, device=DEV)
+    step, nmb, mdtype = make_train_step(run, model, max_steps=60)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_gb = (torch.cuda.memory_allocated() - held) / 1e9
+    batcher = _lm_batcher(cfg, 0)
+    batch = batcher.batch_at(0)
+    state, losses, secs, met = _train_steps(step, (ms, st),
+                                            [batch] * TRAIN_REPEAT)
+    assert losses[-1] < losses[0], losses
+    pf = Prefetcher(lambda s_: batcher.batch_at(s_ + 1), depth=2)
+    try:
+        fresh = [pf.next() for _ in range(TRAIN_FRESH)]
+    finally:
+        assert pf.stop()
+    state, fresh_losses, fresh_secs, met = _train_steps(step, state, fresh)
+    prof = _profiled(lambda: step(*state, batch), 1, by_op=True)
+    # the step's two parts alone: forward and backward, then AdamW
+    dev_batch = model_mod.to_device(batch, DEV)
+    lr_fn = opt.lr_schedule(run.train, 60)
+    parts = {"grads_s": [], "adamw_s": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads = loss_and_grads(model, state[0], dev_batch, 0.0)[2]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        opt.adamw_update(run.train, state[0], grads, state[1], lr_fn)
+        torch.cuda.synchronize()
+        parts["grads_s"].append(t1 - t0)
+        parts["adamw_s"].append(time.perf_counter() - t1)
+        del grads
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    n = model_mod.count_params(state[0])
+    tokens = TRAIN_B * TRAIN_S
+    steady = float(np.median(secs[1:] + fresh_secs))
+    bound_ms = 8 * n * tokens / BF16_FLOPS_S * 1e3
+    del model, state, ms, st
+    torch.cuda.empty_cache()
+    return dict(
+        config=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        params=n, masters="float32", compute=cfg.dtype, remat=cfg.remat,
+        moments=mdtype, microbatches=nmb, batch=[TRAIN_B, TRAIN_S],
+        tokens_per_step=tokens, init_s=init_s, held_gb=held / 1e9,
+        state_gb=state_gb,
+        losses=losses, fresh_losses=fresh_losses,
+        step_s=secs + fresh_secs, steady_step_s=steady,
+        tokens_per_s=tokens / steady, peak_gb=peak_gb, bound_ms=bound_ms,
+        bound_by="operations", share_of_bound=bound_ms / 1e3 / steady,
+        grad_norm=met["grad_norm"].item(), lr=met["lr"].item(),
+        step_parts_s=parts, profiled_step=prof)
+
+
+def train_moe():
+    """Full-width granite-moe-1b-a400m, TRAIN_MOE steps on batches 0, 1
+    of its own LMBatcher: capacity C = max(4, int(4096 * 8 * 1.25) // 32)
+    = 1,280 slots an expert against a mean of 1,024. Then one forward
+    under no_grad on the stepped masters counts the slots kept and
+    dropped over the 24 layers (`moe.capacity_slots` wrapped)."""
+    cfg = MOE_CONFIG
+    m = cfg.moe
+    T = TRAIN_B * TRAIN_S
+    C = moe_mod.capacity(T, m.top_k, m.num_experts, m.capacity_factor)
+    run = _train_run(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    model, ms, st = make_states(run, seed=1, device=DEV)
+    step, nmb, mdtype = make_train_step(run, model, max_steps=60)
+    batcher = _lm_batcher(cfg, 1)
+    batches = [batcher.batch_at(i) for i in range(TRAIN_MOE)]
+    state, losses, secs, met = _train_steps(step, (ms, st), batches)
+    slots = {"C": set(), "slots": 0, "kept": 0, "max_load": 0}
+    orig = moe_mod.capacity_slots
+
+    def counting(topi, E, C):
+        out = orig(topi, E, C)
+        slots["C"].add(C)
+        slots["slots"] += out[2].numel()
+        slots["kept"] += int(out[2].sum())
+        slots["max_load"] = max(slots["max_load"], int(torch.bincount(
+            topi.reshape(-1), minlength=E).max()))
+        return out
+    with patched(moe_mod, "capacity_slots", counting), torch.no_grad():
+        model_mod.loss_fn(model, state[0], model_mod.to_device(
+            batches[-1], DEV))
+    assert slots["C"] == {C} and slots["slots"] == \
+        cfg.num_layers * T * m.top_k, slots
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    n = model_mod.count_params(state[0])
+    del model, state, ms, st
+    torch.cuda.empty_cache()
+    return dict(
+        config=cfg.name, params=n, moments=mdtype, microbatches=nmb,
+        losses=losses, step_s=secs, moe_aux=met["moe_aux"].item(),
+        capacity=C, mean_slots_per_expert=T * m.top_k // m.num_experts,
+        max_expert_load=slots["max_load"],
+        dropped_share=1 - slots["kept"] / slots["slots"], peak_gb=peak_gb)
+
+
+def _adam_step_tol(lr, grads, eps, rtol):
+    """How far one AdamW step may move each parameter between two runs
+    whose gradients agree within rtol of each tensor's largest: the first
+    step's update u = g / (|g| + eps) moves by at most min(2, 2 rtol
+    max|g| / (|g| + eps)), times lr."""
+    return {n: lr * torch.clamp(2 * rtol * g.abs().max() / (g.abs() + eps),
+                                max=2.0) for n, g in grads.items()}
+
+
+def train_device_parity():
+    """One AdamW step of reduced qwen2.5 in f32 on the card against the
+    same step on the CPU (the same masters, batch and config; TF32 off):
+    loss, grad_norm and every gradient within 1e-4 of the CPU's (each
+    tensor's largest), and every parameter within 1e-4 of its tensor's
+    largest plus `_adam_step_tol`: cuBLAS sums in another order."""
+    cfg = dataclasses.replace(GEN_CONFIG.reduced(), dtype="float32")
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", 64, 4, "train"))
+    cpu_model, ms_c, st_c = make_states(run, seed=2, device="cpu")
+    gpu_model = build_model(cfg, device=DEV,
+                            params=dict(cpu_model.named_parameters()))
+    ms_g = {n: t.to(DEV) for n, t in ms_c.items()}
+    st_g = opt.init_opt_state(ms_g)
+    batch = model_mod.make_sample_batch(cfg, 4, 64, seed=3)
+    out = {}
+    for name, model, ms, st in (("cpu", cpu_model, ms_c, st_c),
+                                ("gpu", gpu_model, ms_g, st_g)):
+        _, _, grads = loss_and_grads(model, ms, model_mod.to_device(
+            batch, model.device), 0.0)
+        step = make_train_step(run, model)[0]
+        p, _, met = step(ms, st, batch)
+        out[name] = ({n: t.cpu() for n, t in grads.items()},
+                     {n: t.cpu() for n, t in p.items()},
+                     {k: v.item() for k, v in met.items()})
+    (gc_, pc, mc), (gg, pg, mg) = out["cpu"], out["gpu"]
+    errs = {k: abs(mg[k] - mc[k]) / abs(mc[k]) for k in ("loss", "nll",
+                                                           "grad_norm")}
+    assert max(errs.values()) <= 1e-4, errs
+    grad_err = max(float((gg[n] - gc_[n]).abs().max() / gc_[n].abs().max()
+                         .clamp(min=1e-30)) for n in gc_)
+    assert grad_err <= 1e-4, grad_err
+    tol = _adam_step_tol(mc["lr"], gc_, run.train.eps, 1e-4)
+    worst = 0.0
+    for n in pc:
+        err = (pg[n] - pc[n]).abs()
+        lim = 1e-4 * pc[n].abs().max() + tol[n]
+        assert bool((err <= lim).all()), (n, float(err.max()))
+        worst = max(worst, float(err.max() / pc[n].abs().max()))
+    return dict(config=cfg.name, dtype="float32", batch=[4, 64],
+                rel_err=errs, grad_rel_err=grad_err, param_rel_err=worst,
+                lr=mc["lr"])
+
+
+def train_path():
+    """The train path: `train_dense`, `train_moe`, `train_device_parity`
+    (no kernel launches: training attends through `layers.attention`)."""
+    return {"qwen": train_dense(), "moe": train_moe(),
+            "device_parity": train_device_parity()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4556,6 +4798,37 @@ def main() -> int:
     print("the model zoo's shapes:", json.dumps(zoo_shapes))
     del fam_in, zoo_in, nkp, nvp, k_nem, v_nem
     torch.cuda.empty_cache()
+    # ---- training: full-width qwen2.5-0.5B and granite-moe steps, the
+    # card's step against the CPU's; no hand-written kernel on the path
+    t_train = time.perf_counter()
+    train_info, train_launches = drive("train", train_path)
+    assert not any(train_launches.values()), train_launches
+    tq, tm_ = train_info["qwen"], train_info["moe"]
+    print("train path:", json.dumps(train_info))
+    print(f"train step, {tq['config']} ({tq['layers']} layers, d "
+          f"{tq['d_model']}, {tq['params']} parameters, f32 masters, bf16 "
+          f"compute, remat), B {TRAIN_B} x S {TRAIN_S} on {smi}: "
+          f"{tq['steady_step_s']:.4f} s, {tq['tokens_per_s']:.0f} tokens/s, "
+          f"peak {tq['peak_gb']:.2f} GB (states {tq['state_gb']:.2f} GB) "
+          f"above the {tq['held_gb']:.2f} GB that earlier paths hold; "
+          f"bound {tq['bound_ms']:.2f} ms (8 N T at 989 TFLOP/s bf16), "
+          f"{tq['share_of_bound']:.2%} of it; losses {tq['losses']} then "
+          f"{tq['fresh_losses']}")
+    print("train step parts (s, three times): forward and backward "
+          f"{tq['step_parts_s']['grads_s']}, AdamW "
+          f"{tq['step_parts_s']['adamw_s']}; profiled step:",
+          json.dumps({k: tq["profiled_step"][k] for k in (
+              "wall_ms", "device_ms", "device_idle_share")}))
+    print(f"train step, {tm_['config']}: {tm_['step_s']} s, losses "
+          f"{tm_['losses']}, moe_aux {tm_['moe_aux']:.4f}, capacity "
+          f"{tm_['capacity']} against a mean of "
+          f"{tm_['mean_slots_per_expert']} slots an expert (largest load "
+          f"{tm_['max_expert_load']}), dropped share "
+          f"{tm_['dropped_share']:.4%}")
+    print("train: the card's f32 step against the CPU's:",
+          json.dumps(train_info["device_parity"]),
+          f"; launches of the hand-written kernels: 0; the path took "
+          f"{time.perf_counter() - t_train:.1f} s")
     # ---- updates on the main path's index, after every path that uses
     # it; then ecoscan on the grown pack
     (upd, (ud_t, ul_t, uc_t)), upd_launches = drive(
@@ -4635,7 +4908,7 @@ def main() -> int:
              "window_updates": wu_launches, "fire": fire_launches,
              "durable": dur_launches, "pipelines": pipelines_launches,
              "embedder": embedder_launches, "families": families_launches,
-             "zoo": zoo_launches}
+             "zoo": zoo_launches, "train": train_launches}
     kernels = [{
         "name": name, "route": "cuda",
         "source": SOURCES[name],

@@ -3,8 +3,10 @@ port's five families need (dense and MoE decoders with RoPE, M-RoPE or
 no rotary embedding; SwiGLU, squared-ReLU or GELU FFNs; causal, or
 bidirectional for the gte-small encoder; optional sliding window,
 optional int8 KV cache; the Mamba2, RG-LRU and encoder-decoder
-sub-configs), with the reference's field names and defaults and the
-same `reduced` sizes."""
+sub-configs; remat and the MoE capacity factor of training), with the
+reference's field names and defaults and the same `reduced` sizes; and
+the training run's `ShapeConfig`, `TrainConfig` and `RunConfig` (the
+`MeshConfig` is carried, unused: the port runs on one device)."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,12 +18,15 @@ import torch
 
 @dataclass(frozen=True)
 class MoEConfig:
-    """Token-choice top-k experts (`repro.config.MoEConfig`'s serving
-    fields). `dense_residual`: a dense FFN runs beside the experts."""
+    """Token-choice top-k experts (`repro.config.MoEConfig` without its
+    mesh fields). `dense_residual`: a dense FFN runs beside the experts.
+    `capacity_factor` sizes each expert's buffer in training (the slots
+    past it are dropped); serving never drops."""
     num_experts: int = 0
     top_k: int = 0
     expert_d_ff: int = 0
     dense_residual: bool = False
+    capacity_factor: float = 1.25
 
 
 class _FieldsEqual:
@@ -108,6 +113,8 @@ class ModelConfig:
     encdec: EncDecConfig = field(default_factory=EncDecConfig)
     # int8 KV cache: int8 values with f32 scales per position and kv head
     kv_quant: bool = False
+    # recompute each layer's activations in the backward pass (training)
+    remat: bool = True
 
     @property
     def resolved_head_dim(self) -> int:
@@ -121,6 +128,42 @@ class ModelConfig:
     @property
     def torch_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+
+    def param_count(self) -> int:
+        """The reference's analytic parameter count (embedding and layer
+        weights, vocab unpadded, norms as 2d a layer): it picks the
+        optimizer's moment type and the microbatch count."""
+        d, hd = self.d_model, self.resolved_head_dim
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        att = d * (self.num_heads * hd) + 2 * d * (self.num_kv_heads * hd) \
+            + (self.num_heads * hd) * d
+        if self.family == "mamba2":
+            m = self.mamba
+            d_in = m.expand * d
+            nheads = d_in // m.head_dim
+            per = d * (2 * d_in + 2 * m.ssm_state + nheads) + d_in * d + nheads
+            return emb + self.num_layers * (per + 2 * d)
+        ffn_mult = 3 if self.act == "swiglu" else 2
+        ffn = ffn_mult * d * self.d_ff if self.d_ff else 0
+        per = att + ffn + 2 * d
+        if self.family == "moe":
+            e_ffn = ffn_mult * d * self.moe.expert_d_ff
+            per = (att + 2 * d + self.moe.num_experts * e_ffn
+                   + d * self.moe.num_experts)
+            if self.moe.dense_residual:
+                per += ffn
+        if self.family == "encdec":
+            return (emb + self.encdec.encoder_layers * per
+                    + self.encdec.decoder_layers * (per + att))
+        if self.family == "rglru":
+            w = self.rglru.lru_width or d
+            rec = (d * w * 2 + w * d + 2 * w * w + 3 * w
+                   + w * self.rglru.conv_width)
+            n_att = sum(1 for c in (self.rglru.pattern * self.num_layers)[
+                :self.num_layers] if c == "a")
+            return emb + n_att * per + (self.num_layers - n_att) * (
+                rec + ffn + 2 * d)
+        return emb + self.num_layers * per
 
     def reduced(self, **over: Any) -> "ModelConfig":
         """Small same-family config for CPU tests (`repro`'s `reduced`)."""
@@ -152,3 +195,50 @@ class ModelConfig:
             kw["sliding_window"] = 64
         kw.update(over)
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """A run's sequence length, global batch and kind (train | prefill |
+    decode)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The reference's device mesh (16 x 16, or 2 x 16 x 16 across pods).
+    Carried by `RunConfig` for its field set; the port runs on one
+    device and reads none of it."""
+    multi_pod: bool = False
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """AdamW and the step: learning rate, warmup (then a cosine to 0.1 of
+    it), decoupled weight decay, betas, eps, the global-norm clip (0: no
+    clip), the z-loss weight and the gradients' int8 round trip
+    ("int8_ef"). `microbatches` and `zero3` are the reference's fields,
+    unread as there."""
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    microbatches: int = 1
+    zero3: bool = True
+    grad_compression: str = "none"   # none | int8_ef
+    z_loss: float = 0.0
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    seed: int = 0

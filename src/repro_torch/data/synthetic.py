@@ -4,7 +4,8 @@ and questions for the same arguments):
 
   * SIFT-like  : 128-d non-negative int-valued patch descriptors,
   * NYTimes-like: 256-d clustered, L2-normalised text embeddings,
-  * a QA corpus with planted answer sentences, in the SQuAD style.
+  * a QA corpus with planted answer sentences, in the SQuAD style,
+  * an LM training token stream of such documents (`lm_token_stream`).
 """
 from __future__ import annotations
 
@@ -99,3 +100,20 @@ def make_qa_corpus(n_docs: int = 200, n_questions: int = 50,
         examples.append(QAExample(f"What is known about the {topic}?",
                                   answer, (d1,)))
     return QACorpus([" ".join(s) for s in docs], examples)
+
+
+def lm_token_stream(tokenizer, n_tokens: int, seed: int = 0) -> np.ndarray:
+    """n_tokens int32 ids for LM training: the documents of a SQuAD-style
+    corpus of max(20, n_tokens // 400) documents and 50 questions from
+    `seed`, each between bos and eos, in order until n_tokens are there;
+    repeated from the start when the corpus is shorter."""
+    corpus = make_qa_corpus(n_docs=max(20, n_tokens // 400),
+                            n_questions=50, seed=seed)
+    ids: List[int] = []
+    for doc in corpus.docs:
+        ids.extend(tokenizer.encode(doc, bos=True, eos=True))
+        if len(ids) >= n_tokens:
+            break
+    while len(ids) < n_tokens:
+        ids.extend(ids[: n_tokens - len(ids)])
+    return np.asarray(ids[:n_tokens], np.int32)

@@ -31,12 +31,17 @@ class HashTokenizer:
                                                     - self.reserved)
         return i
 
-    def encode(self, text: str) -> List[int]:
-        ids = []
+    def encode(self, text: str, *, bos: bool = False,
+               eos: bool = False) -> List[int]:
+        """The ids of text's words and punctuation, after bos_id and
+        before eos_id when asked."""
+        ids = [self.bos_id] if bos else []
         for w in _WORD_RE.findall(text):
             i = self._hash(w)
             self.id_to_word.setdefault(i, w)
             ids.append(i)
+        if eos:
+            ids.append(self.eos_id)
         return ids
 
     def decode(self, ids: Iterable[int]) -> str:

@@ -90,6 +90,19 @@ def is_kernel_fault(e: BaseException) -> bool:
     return isinstance(e, RuntimeError) and str(e).startswith("CUDA error")
 
 
+def _no_backward(name: str, *ts: torch.Tensor) -> None:
+    """The attention kernels have no backward, so a wrapper refuses an
+    input that autograd tracks (grad mode on and requires_grad): its
+    output would carry no gradient on the card. It refuses on the CPU
+    too, where the plain version would have differentiated, so the CPU
+    tests see what the card would hide. Training attends through
+    `models.layers.attention`."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise ValueError(f"{name}: an input requires grad, and the kernel "
+                         "has no backward (train through "
+                         "models.layers.attention)")
+
+
 _DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -260,7 +273,9 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     keys at positions < kv_len (Sk when None) that `causal` and `window`
     leave unmasked. Returns [B, Sq, H, dh] in q's dtype. On the card bf16
     runs on the tensor cores, f32 on the CUDA cores (in full f32); dh is
-    one of FLASH_PREFILL_DH."""
+    one of FLASH_PREFILL_DH. Refuses inputs that require grad
+    (`_no_backward`)."""
+    _no_backward("flash_prefill", q, k, v)
     suffix = _attention_dtype(q)
     dev = _checked((q, "q", q.dtype, 4), (k, "k", q.dtype, 4),
                    (v, "v", q.dtype, 4))
@@ -427,7 +442,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launch (`decode_attention_launch`): `decode_route` picks the tensor
     cores or the CUDA cores, `decode_split_plan` the splits and head
     groups, and the last split block of each (row, kv head, head group)
-    merges."""
+    merges. Refuses inputs that require grad (`_no_backward`)."""
+    _no_backward("decode_attention", q, k, v)
     suffix = _attention_dtype(q)
     specs = ((q, "q", q.dtype, 3), (k, "k", q.dtype, 4), (v, "v", q.dtype, 4))
     if isinstance(kv_len, torch.Tensor):
@@ -527,7 +543,9 @@ def decode_attention_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns [B, H, dh] in q's dtype. On the card the table is split
     across `decode_paged_split_plan(B, G, W, ps)` blocks per (row, kv
     head); with more than one split a second, small kernel merges the
-    partials. The call counts one launch either way."""
+    partials. The call counts one launch either way. Refuses inputs
+    that require grad (`_no_backward`)."""
+    _no_backward("decode_attention_paged", q, k, v)
     suffix = _attention_dtype(q)
     dev = _checked((q, "q", q.dtype, 3), (k, "k", q.dtype, 4),
                    (v, "v", q.dtype, 4), (kv_len, "kv_len", torch.int32, 1),
@@ -569,7 +587,9 @@ def decode_attention_q8(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     `ring` as `decode_attention`. Returns [B, H, dh] in q's dtype
     (`ref.decode_attention_q8`). On the card the kernel reads the int8
     cache and the scales directly on the CUDA cores, split as
-    `decode_attention` is (`decode_split_plan`), one launch a call."""
+    `decode_attention` is (`decode_split_plan`), one launch a call.
+    Refuses inputs that require grad (`_no_backward`)."""
+    _no_backward("decode_attention_q8", q, ks, vs)
     suffix = _attention_dtype(q)
     specs = ((q, "q", q.dtype, 3), (kq, "kq", torch.int8, 4),
              (ks, "ks", torch.float32, 3), (vq, "vq", torch.int8, 4),
@@ -625,7 +645,9 @@ def decode_attention_paged_q8(q: torch.Tensor, kq: torch.Tensor,
     kv_len [B] i32; table [B, W] i32 valid page ids. Returns [B, H, dh]
     in q's dtype (`ref.decode_attention_paged_q8`). On the card the kernel
     reads the int8 pages and their scales through the table, split as
-    `decode_attention_paged` is, one launch counted per call."""
+    `decode_attention_paged` is, one launch counted per call. Refuses
+    inputs that require grad (`_no_backward`)."""
+    _no_backward("decode_attention_paged_q8", q, ks, vs)
     suffix = _attention_dtype(q)
     dev = _checked((q, "q", q.dtype, 3), (kq, "kq", torch.int8, 4),
                    (ks, "ks", torch.float32, 3), (vq, "vq", torch.int8, 4),

@@ -34,14 +34,25 @@ decode runs the int8 kernels `decode_attention_q8` and
 Caches and page pools are updated in place. `LM` is the part every
 family shares: the parameters (the reference's init kinds and its f32
 recurrence parameters), the embedding and the output head.
+
+Training (`forward_logits`, `forward`; `models/model.py` `loss_fn`)
+runs the same blocks with the attention passed in: `_full_block` takes
+`attn`, which serving leaves at `ops.flash_prefill` (a kernel without a
+backward) and training sets to `layers.attention`, the reference's plain
+function. The training forward is not under `torch.no_grad()`, runs
+each layer under `torch.utils.checkpoint` when `cfg.remat`, and computes
+with whatever weights `bound` gives the model (the trainer's f32 masters
+cast to the compute dtype).
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
@@ -249,6 +260,30 @@ def random_tensor(init: str, shape, dtype, gen, dev) -> torch.Tensor:
     return t
 
 
+@contextlib.contextmanager
+def bound(model: nn.Module, params: Mapping[str, torch.Tensor]):
+    """Inside the block, `model` computes with `params` (name -> tensor,
+    names of its parameters) in place of its own weights. Each tensor is
+    set in the instance's `__dict__`, which attribute lookup reads before
+    `nn.Module`'s parameter table, and the entries there before come back
+    on exit, so bindings nest. Unlike `torch.func.functional_call`, a
+    binding can be opened again around a remat recompute in the backward
+    pass (`LM._remat`), after the forward's own binding has closed."""
+    unknown = [n for n in params if n not in model._parameters]
+    if unknown:
+        raise KeyError(f"not parameters of the model: {unknown}")
+    prev = {n: model.__dict__[n] for n in params if n in model.__dict__}
+    model.__dict__.update(params)
+    try:
+        yield model
+    finally:
+        for n in params:
+            if n in prev:
+                model.__dict__[n] = prev[n]
+            else:
+                model.__dict__.pop(n, None)
+
+
 class LM(nn.Module):
     """What every family shares: one parameter a flat name of `shapes(cfg)`
     (layer weights stacked on a leading axis), the token embedding
@@ -285,6 +320,28 @@ class LM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.tok_embed.device
+
+    def forward(self, batch):
+        """The training forward of a batch (name -> tensor: "tokens", and
+        by family "patches", or "frames" and "dec_tokens"): (logits [B,
+        S, V], the MoE aux loss summed over the layers, or None)."""
+        return self.forward_logits(batch["tokens"]), None
+
+    def _remat(self, fn, *args):
+        """fn(*args), under `torch.utils.checkpoint` (non-reentrant) when
+        `cfg.remat` and grad mode is on: the layer keeps its inputs and
+        recomputes the rest in the backward pass, as the reference's
+        `jax.checkpoint` does. The recompute runs after the forward has
+        returned, so it binds again the weights that the forward ran on."""
+        if not (self.cfg.remat and torch.is_grad_enabled()):
+            return fn(*args)
+        weights = {n: self.__dict__[n] for n in self._parameters
+                   if n in self.__dict__}
+
+        def run(*a):
+            with bound(self, weights):
+                return fn(*a)
+        return checkpoint(run, *args, use_reentrant=False)
 
     def _embed(self, tokens):
         scale = self.cfg.d_model ** 0.5 if self.cfg.tie_embeddings else 1.0
@@ -408,20 +465,58 @@ class DenseLM(LM):
             x = self._full_block(i, x, positions, write)
         return self.final_logits(x), cache
 
-    def _full_block(self, i: int, x, positions, kv=None):
-        """Layer i over whole sequences x [B, S, d]: attention through
-        `flash_prefill` (`causal=cfg.causal`, the window), then the FFN.
-        `kv(i, k, v)`, when given, sees k and v first and returns the
-        pair attended (the wave prefill writes its cache there)."""
+    def _attn_residual(self, i: int, x, positions, attn=None, kv=None):
+        """x + layer i's attention of rmsnorm(x) over whole sequences x [B,
+        S, d] (`causal=cfg.causal`, the window), computed by `attn`:
+        `ops.flash_prefill` when None (serving), `L.attention` in
+        training. `kv(i, k, v)`, when given, sees k and v first and
+        returns the pair attended (the wave prefill writes its cache
+        there)."""
         cfg = self.cfg
         b, S, _ = x.shape
         y = L.rmsnorm(x, self.attn_norm[i], cfg.norm_eps)
         q, k, v = self._qkv(i, y, positions)
         if kv is not None:
             k, v = kv(i, k, v)
-        ctx = ops.flash_prefill(q, k, v, causal=cfg.causal,
-                                window=cfg.sliding_window)
-        return self._mlp_residual(i, x + ctx.reshape(b, S, -1) @ self.wo[i])
+        ctx = (attn or ops.flash_prefill)(q, k, v, causal=cfg.causal,
+                                          window=cfg.sliding_window)
+        return x + ctx.reshape(b, S, -1) @ self.wo[i]
+
+    def _full_block(self, i: int, x, positions, kv=None, attn=None):
+        """Layer i over whole sequences x [B, S, d]: the attention
+        (`_attn_residual`, through `attn`), then the FFN."""
+        return self._mlp_residual(i, self._attn_residual(i, x, positions,
+                                                         attn, kv))
+
+    # --------------------------------------------------------- training
+
+    def _train_layer(self, i: int, x, positions):
+        """Layer i of the training forward: (its output, None: a dense
+        FFN has no aux loss)."""
+        return self._full_block(i, x, positions, attn=L.attention), None
+
+    def train_hidden(self, tokens, patches=None):
+        """The training forward to the final norm: (hidden states [B, S,
+        d], the layers' MoE aux losses summed in layer order, or None).
+        Attention is `L.attention`, each layer under `_remat`."""
+        x, positions = self._embed_inputs(tokens, patches)
+        aux = None
+        for i in range(self.cfg.num_layers):
+            x, a = self._remat(self._train_layer, i, x, positions)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        return L.rmsnorm(x, self.final_norm, self.cfg.norm_eps), aux
+
+    def forward_logits(self, tokens, patches=None):
+        """The training entry (the reference's `forward_logits`): logits
+        [B, S, V] of tokens [B, S] int (a vision config's first N_IMG
+        positions are `patches`, as in `prefill`), differentiable in the
+        bound weights."""
+        return self.logits_from_hidden(self.train_hidden(tokens, patches)[0])
+
+    def forward(self, batch):
+        return self.forward_logits(batch["tokens"], batch.get("patches")), \
+            None
 
     @torch.no_grad()
     def hidden_states(self, tokens, patches=None):

@@ -14,6 +14,12 @@ Attention is on the two kernels:
   `flash_prefill(causal=False)` with Sq (decoder positions) != Sk
   (frames), `decode_attention` over every frame in a decode step.
 
+Training (`forward_logits(frames, dec_tokens)`, the reference's `encode`
+then `decode_train`) runs the same layers with every attention through
+`layers.attention` (the kernels have no backward): the encoder's
+self-attention not causal, the decoder's causal, its cross-attention
+over the encoder's output.
+
 Weights are the reference's "enc_layers" and "dec_layers" trees
 flattened with "enc_" and "dec_" prefixes (convert.py). `prefill`
 returns the reference's cache {"k", "v" [Ld, B, Sd, G, dh], "cross_k",
@@ -31,6 +37,10 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.dense import LM, attn_shapes, embed_shapes, mlp_shapes
+
+# decoder positions per encoder frame in a training batch (the
+# reference's `encdec.DEC_RATIO`: S frames go with S // 8 tokens)
+DEC_RATIO = 8
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
@@ -60,14 +70,14 @@ class EncDecLM(LM):
         return L.sinusoidal_positions(n, self.cfg.d_model, offset,
                                       device).to(self.cfg.torch_dtype)
 
-    def _attn(self, i: int, x, prefix: str, causal: bool):
-        """x + self-attention of rmsnorm(x) (`flash_prefill`); returns
-        (the sum, k, v)."""
+    def _attn(self, i: int, x, prefix: str, causal: bool, attn=None):
+        """x + self-attention of rmsnorm(x) by `attn` (`ops.flash_prefill`
+        when None); returns (the sum, k, v)."""
         b, S, _ = x.shape
         y = L.rmsnorm(x, getattr(self, prefix + "attn_norm")[i],
                       self.cfg.norm_eps)
         q, k, v = self._qkv(i, y, None, prefix)
-        ctx = ops.flash_prefill(q, k, v, causal=causal)
+        ctx = (attn or ops.flash_prefill)(q, k, v, causal=causal)
         return x + ctx.reshape(b, S, -1) @ getattr(self, prefix + "wo")[i], \
             k, v
 
@@ -82,31 +92,64 @@ class EncDecLM(LM):
                 (enc_out @ self.dec_cross_wv[i]).reshape(
                     b, s, cfg.num_kv_heads, hd))
 
-    def _cross(self, i: int, x, ck, cv):
-        """x + cross-attention of rmsnorm(x) over (ck, cv): `flash_prefill`
-        (not causal) for a sequence, `decode_attention` over every frame
-        for one position."""
+    def _cross(self, i: int, x, ck, cv, attn=None):
+        """x + cross-attention of rmsnorm(x) over (ck, cv): by `attn` (not
+        causal) when given; else `flash_prefill` for a sequence,
+        `decode_attention` over every frame for one position."""
         cfg = self.cfg
         b, s, _ = x.shape
         y = L.rmsnorm(x, self.dec_cross_attn_norm[i], cfg.norm_eps)
         q = (y @ self.dec_cross_wq[i]).reshape(b, s, cfg.num_heads,
                                                cfg.resolved_head_dim)
-        if s == 1:
+        if attn is not None:
+            ctx = attn(q, ck, cv, causal=False)
+        elif s == 1:
             ctx = ops.decode_attention(q[:, 0], ck, cv, ck.shape[1])
         else:
             ctx = ops.flash_prefill(q, ck, cv, causal=False)
         return x + ctx.reshape(b, s, -1) @ self.dec_cross_wo[i]
 
+    def _enc_layer(self, i: int, x, attn=None):
+        """Encoder layer i: self-attention (not causal) by `attn`, then
+        the FFN."""
+        return self._ffn(i, self._attn(i, x, "enc_", False, attn)[0], "enc_")
+
+    def _encode(self, frames, attn=None):
+        x = frames.to(self.cfg.torch_dtype) @ self.frame_proj
+        x = x + self._positions(x.shape[1], 0, x.device)[None]
+        for i in range(self.cfg.encdec.encoder_layers):
+            x = self._remat(self._enc_layer, i, x, attn)
+        return x
+
     @torch.no_grad()
     def encode(self, frames):
         """frames [B, frames, d] stub embeddings -> the encoder's output
         [B, frames, d] in the model's dtype."""
-        x = frames.to(self.cfg.torch_dtype) @ self.frame_proj
+        return self._encode(frames)
+
+    def _dec_layer(self, i: int, x, enc_out):
+        """Decoder layer i of the training forward: causal self-attention,
+        cross-attention over enc_out, the FFN, all through
+        `L.attention`."""
+        x = self._attn(i, x, "dec_", True, L.attention)[0]
+        x = self._cross(i, x, *self.cross_kv(i, enc_out), L.attention)
+        return self._ffn(i, x, "dec_")
+
+    def forward_logits(self, frames, dec_tokens):
+        """The training entry (the reference's `forward_logits`: `encode`,
+        then `decode_train`): logits [B, Sd, V] of dec_tokens [B, Sd] int
+        after the frames [B, F, d], every attention by `L.attention`, each
+        layer under `_remat`."""
+        enc_out = self._encode(frames, L.attention)
+        x = self.tok_embed[dec_tokens].to(enc_out.dtype)
         x = x + self._positions(x.shape[1], 0, x.device)[None]
-        for i in range(self.cfg.encdec.encoder_layers):
-            x, _, _ = self._attn(i, x, "enc_", causal=False)
-            x = self._ffn(i, x, "enc_")
-        return x
+        for i in range(self.cfg.encdec.decoder_layers):
+            x = self._remat(self._dec_layer, i, x, enc_out)
+        return self.logits_from_hidden(
+            L.rmsnorm(x, self.final_norm, self.cfg.norm_eps))
+
+    def forward(self, batch):
+        return self.forward_logits(batch["frames"], batch["dec_tokens"]), None
 
     @torch.no_grad()
     def prefill(self, frames, dec_tokens):

@@ -2,13 +2,14 @@
 `repro.models.layers` without its mesh helpers): rmsnorm in the
 `(1 + scale)` form, RoPE and Qwen2-VL's M-RoPE, sinusoidal positions,
 the SwiGLU, squared-ReLU or GELU MLP, the depthwise causal conv with
-its streaming state, and the int8 KV quantization.
+its streaming state, the int8 KV quantization, and `attention`, the
+reference's chunked online-softmax attention that training runs.
 Shapes follow the reference:
-activations [B, S, H, dh]. Attention is a kernel (`kernels/ops.py`:
-`flash_prefill`, `decode_attention`, `decode_attention_paged` and the
-int8 `decode_attention_q8`, `decode_attention_paged_q8`); its plain
-version, the port of `layers.attention` with a window, is
-`kernels/ref.py` `flash_prefill`.
+activations [B, S, H, dh]. Serving's attention is a kernel
+(`kernels/ops.py`: `flash_prefill`, `decode_attention`,
+`decode_attention_paged` and the int8 `decode_attention_q8`,
+`decode_attention_paged_q8`), which has no backward; its plain version
+is `kernels/ref.py` `flash_prefill`.
 """
 from __future__ import annotations
 
@@ -108,6 +109,56 @@ def causal_conv1d(x, w, state=None):
     s = x.shape[1]
     ys = sum(xp[:, i:i + s, :] * w[i] for i in range(k))
     return ys, (xp[:, -(k - 1):, :] if k > 1 else None)
+
+
+def attention(q, k, v, *, causal: bool, window=None, q_offset: int = 0,
+              kv_len=None, chunk: int = 1024):
+    """The reference's `layers.attention`, the attention of the training
+    forward (differentiable: autograd takes its backward). q [B, Sq, H,
+    dh]; k, v [B, Sk, G, dh] with H % G == 0, the G kv heads not
+    expanded. Query i at position q_offset + i attends the keys that the
+    causal mask, the window (q - k < window) and kv_len (k < kv_len)
+    leave, masked scores filled with -1e30. The keys run in chunks of
+    `chunk` (zero-padded to whole chunks) through an online softmax: the
+    running max, sum and accumulator in f32, each chunk's scores and
+    probabilities in q's dtype before the f32 cast, as the reference
+    computes them. Returns [B, Sq, H, dh] in q's dtype."""
+    b, sq, h, dh = q.shape
+    sk, g = k.shape[1], k.shape[2]
+    n = h // g
+    scale = 1.0 / math.sqrt(dh)
+    nchunks = -(-sk // chunk)
+    pad = nchunks * chunk - sk
+    if pad:
+        k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (k, v))
+    dev = q.device
+    qpos = q_offset + torch.arange(sq, device=dev)
+    qg = q.reshape(b, sq, g, n, dh)
+    m = torch.full((b, g, n, sq), -1e30, device=dev)
+    l = torch.zeros((b, g, n, sq), device=dev)
+    acc = torch.zeros((b, g, n, sq, dh), device=dev)
+    for ci in range(nchunks):
+        kb = k[:, ci * chunk:(ci + 1) * chunk]
+        vb = v[:, ci * chunk:(ci + 1) * chunk]
+        kpos = ci * chunk + torch.arange(chunk, device=dev)
+        s = (torch.einsum("bqgnd,bkgd->bgnqk", qg, kb) * scale).float()
+        mask = kpos[None, :] < sk
+        if causal:
+            mask = mask & (kpos[None, :] <= qpos[:, None])
+        if window is not None:
+            mask = mask & (qpos[:, None] - kpos[None, :] < window)
+        if kv_len is not None:
+            mask = mask & (kpos[None, :] < kv_len)
+        s = torch.where(mask, s, torch.full((), -1e30, device=dev))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        ctx = torch.einsum("bgnqk,bkgd->bgnqd", p.to(kb.dtype), vb)
+        acc = acc * corr[..., None] + ctx.float()
+        m = m_new
+    out = acc / l[..., None].clamp(min=1e-30)
+    return out.reshape(b, h, sq, dh).transpose(1, 2).to(q.dtype)
 
 
 def quantize_kv(x):

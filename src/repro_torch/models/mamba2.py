@@ -5,8 +5,10 @@ A full sequence runs the chunked SSD algorithm (`ssd_chunked`): masked
 quadratic products within each chunk of `chunk_size` positions and a
 short recurrence over the chunks' states, in f32. A decode step is the
 O(1) update of each layer's state h [B, H, N, P] and of its depthwise
-conv's last K-1 inputs. The reference has no Pallas kernel on this
-family and neither has the port: the SSD's einsums are torch products
+conv's last K-1 inputs. Training (`forward_logits`) runs the whole
+sequence through the same `ssd_chunked`, which autograd differentiates.
+The reference has no Pallas kernel on this family and neither has the
+port: the SSD's einsums are torch products
 (`ssd_chunked` contracts each five-index einsum of the reference in two
 steps, so no [B, NC, Q, Q, H, P] intermediate is built). The cache
 {"h": [L, B, H, N, P] f32, "conv": [L, B, K-1, C]} has a fixed size, so
@@ -163,6 +165,16 @@ class Mamba2LM(LM):
             y_ssm = yv.reshape(-1, 1, d_in).to(xs.dtype)
         y_ssm = L.rmsnorm(y_ssm * F.silu(z), self.ssm_norm[i], cfg.norm_eps)
         return x + y_ssm @ self.w_out[i], (h, conv_state)
+
+    def forward_logits(self, tokens):
+        """The training entry (the reference's `forward_logits`): logits
+        [B, S, V] of tokens [B, S] int, each layer's mixer over the whole
+        sequence (`ssd_chunked`) under `_remat`."""
+        x = self._embed(tokens)
+        for i in range(self.cfg.num_layers):
+            x = self._remat(lambda j, y: self.mixer(j, y)[0], i, x)
+        return self.logits_from_hidden(
+            L.rmsnorm(x, self.final_norm, self.cfg.norm_eps))
 
     @torch.no_grad()
     def prefill(self, tokens):

@@ -14,7 +14,8 @@ A whole sequence runs the reference's associative `combine` as a
 log-depth doubling scan in torch (`rglru_scan`); a decode step is the
 one-step update. Local attention runs `flash_prefill` with the window
 over the whole sequence, and `decode_attention` over each layer's ring
-(`ring=True`).
+(`ring=True`); training (`forward_logits`) runs `layers.attention` with
+the window instead (the kernels have no backward).
 
 The caches keep the reference's names and layouts: "s{i}_h" [NB, B, w]
 f32 and "s{i}_conv" [NB, B, K-1, w] for a recurrent sub-layer, "s{i}_k",
@@ -149,19 +150,20 @@ class RGLRULM(LM):
         return self._ffn(i, x, prefix), (h, conv)
 
     def attn_block(self, prefix: str, i: int, x, positions, ring=None,
-                   pos: int = 0):
-        """Local-attention block over x [B, S, d] at positions [B, S]
-        (`flash_prefill`, causal, the window), or one decode step at
-        `pos` into ring = (k, v) [B, win, G, dh] (slot pos % win, in
-        place; `decode_attention` over min(pos + 1, win) slots). Returns
-        (the block's output, (k, v) of the whole sequence, or None)."""
+                   pos: int = 0, attn=None):
+        """Local-attention block over x [B, S, d] at positions [B, S] (by
+        `attn`, `flash_prefill` when None; causal, the window), or one
+        decode step at `pos` into ring = (k, v) [B, win, G, dh] (slot
+        pos % win, in place; `decode_attention` over min(pos + 1, win)
+        slots). Returns (the block's output, (k, v) of the whole
+        sequence, or None)."""
         cfg = self.cfg
         b, S, _ = x.shape
         y = L.rmsnorm(x, self._p(prefix, "attn_norm", i), cfg.norm_eps)
         q, k, v = self._qkv(i, y, positions, prefix)
         if ring is None:
-            ctx = ops.flash_prefill(q, k, v, causal=True,
-                                    window=cfg.rglru.local_window)
+            ctx = (attn or ops.flash_prefill)(q, k, v, causal=True,
+                                              window=cfg.rglru.local_window)
             kv = (k, v)
         else:
             ck, cv = ring
@@ -199,6 +201,25 @@ class RGLRULM(LM):
         cache = {n: (ts[0] if n.startswith("tail") else torch.stack(ts))
                  for n, ts in parts.items()}
         return self.final_logits(x), cache
+
+    def _train_layer(self, prefix: str, c: str, i: int, x, positions):
+        if c == "r":
+            return self.rec_block(prefix, i, x)[0]
+        return self.attn_block(prefix, i, x, positions, attn=L.attention)[0]
+
+    def forward_logits(self, tokens):
+        """The training entry (the reference's `forward_logits`): logits
+        [B, S, V] of tokens [B, S] int through the pattern's blocks and the
+        tail layers, the RG-LRU by the doubling `rglru_scan`, local
+        attention by `L.attention` with the window (no ring: F10 is a
+        serving rule), each layer under `_remat`."""
+        b, S = tokens.shape
+        positions = torch.arange(S, device=tokens.device)[None].expand(b, S)
+        x = self._embed(tokens)
+        for prefix, c, i in layer_plan(self.cfg):
+            x = self._remat(self._train_layer, prefix, c, i, x, positions)
+        return self.logits_from_hidden(
+            L.rmsnorm(x, self.final_norm, self.cfg.norm_eps))
 
     @torch.no_grad()
     def hidden_states(self, tokens):

@@ -32,8 +32,12 @@ for name in names:
 # durability (the tiered index, the store's crash and corruption faults);
 # the Table-5 pipelines, the paper's embedding model and the launchers;
 # the rest of the model zoo (the mamba2, rglru and encdec families and
-# the eight configurations they and the vision branch brought)
-for name in ("repro_torch.models.mamba2", "repro_torch.models.rglru",
+# the eight configurations they and the vision branch brought); training
+# (the optimizer, the gradients' int8 round trip, the step, the LM data
+# pipeline)
+for name in ("repro_torch.train.optimizer", "repro_torch.train.grad_compress",
+             "repro_torch.train.trainer", "repro_torch.data.pipeline",
+             "repro_torch.models.mamba2", "repro_torch.models.rglru",
              "repro_torch.models.encdec", "repro_torch.configs.whisper_small",
              "repro_torch.configs.recurrentgemma_9b",
              "repro_torch.configs.mamba2_780m",
@@ -97,6 +101,19 @@ for arch in ARCH_IDS:
     FAMILIES[cfg.family](cfg, device="cpu")
 assert len(ARCH_IDS) == 12
 from repro_torch.launch import serve, scrub_index, soak_store
+from repro_torch.config import RunConfig, ShapeConfig, TrainConfig
+from repro_torch.models.model import (IGNORE_LABEL, cast_params,
+                                      count_params, loss_fn,
+                                      make_sample_batch, masters, to_device)
+from repro_torch.models.layers import attention
+from repro_torch.models.moe import capacity_slots, train_ffn
+from repro_torch.train.optimizer import (adamw_update, init_opt_state,
+                                         lr_schedule, quantize_rows)
+from repro_torch.train.grad_compress import (compress_decompress,
+                                             compress_with_feedback)
+from repro_torch.train.trainer import make_states, make_train_step
+from repro_torch.data.pipeline import LMBatcher, Prefetcher, ShardSpec
+from repro_torch.data.synthetic import lm_token_stream
 import chip_smoke
 sys.path.insert(0, {str(ROOT / "tools")!r})
 import attention_probe, kmeans_probe, launch_probe, retrieval_probe
