@@ -279,14 +279,34 @@ determinism`; a whole CPU build and two card builds with the
   989 TFLOP/s bf16). Then full-width granite-moe-1b-a400m for 2 steps:
   moe_aux and the share of (token, expert) slots its capacity (1,280 an
   expert) drops. Then one step of reduced f32 qwen2.5 on the card
-  against the CPU's (loss, gradients, parameters at 1e-4). Every launch
-  count reads 0 on this path: training attends through
-  `layers.attention`, and the kernels (no backward) refuse inputs that
-  require grad.
+  against the CPU's (loss, gradients, parameters at 1e-4). The qwen
+  state after its steps (f32 masters, m and v, ~5.9 GB) is checkpointed
+  (`dist.checkpoint.save(blocking=False)` into a temp directory, free
+  space checked first), restored into fresh tensors bit-equal, and one
+  more step from both agrees within 1e-5 (seconds and GB/s of the save
+  and the warm restore). `python -m repro_torch.launch.train` runs on
+  the card at the reduced qwen2.5 config as a subprocess killed after
+  step 4 (exit 42), then again, resuming at step 4 from its step-3
+  checkpoint (both beside the graph baselines, whose host graphs leave
+  the card idle; joined here). Every launch count reads 0 on this path:
+  training attends through `layers.attention`, and the kernels (no
+  backward) refuse inputs that require grad;
+- the mesh path (after the train path): a one-rank NCCL group (a
+  `file://` store) over a (1, 1) mesh of the card.
+  `core.distributed.make_sharded_retrieval` over the main path's
+  EcoVector pack (the 16 questions at k 10) scans with the ecoscan
+  kernel and returns `search_device_batched`'s ids and distances, and
+  `reference_retrieval`'s ids but for ties; ecoscan is held to its plain
+  version at that shape. Full-width qwen2.5-0.5B's train step under
+  `use_mesh` (DTensor states) equals the unmeshed step's loss within
+  1e-6; `reshard_restore` of the train path's checkpoint onto the mesh
+  is bit-equal to a plain restore; the checkpoint's directory is then
+  removed.
 
 The line before the last is the kernel summary as JSON; the last line is
 `{"ok": true, "device": {...}}`.
 """
+import atexit
 import collections
 import contextlib
 import ctypes
@@ -314,6 +334,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.config import (RunConfig, ShapeConfig,  # noqa: E402
                                 TrainConfig)
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.convert import (state_from_tree, state_tree,  # noqa: E402
+                                 tree_leaves)
+from repro_torch.core import distributed as cdist  # noqa: E402
 from repro_torch.core import kmeans as kmeans_mod  # noqa: E402
 from repro_torch.core import store_faults  # noqa: E402
 from repro_torch.core.baselines import make_index  # noqa: E402
@@ -328,8 +351,11 @@ from repro_torch.data.pipeline import LMBatcher, Prefetcher  # noqa: E402
 from repro_torch.data.synthetic import (lm_token_stream,  # noqa: E402
                                         make_qa_corpus, sift_like)
 from repro_torch.data.tokenizer import HashTokenizer  # noqa: E402
+from repro_torch.dist import checkpoint, sharding  # noqa: E402
+from repro_torch.dist.fault import reshard_restore  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import scrub_index, serve  # noqa: E402
+from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.dense import (DenseLM, cache_len,  # noqa: E402
                                       chunk_rows)
@@ -356,6 +382,7 @@ from repro_torch.serving.scheduler import (Scheduler,  # noqa: E402
 from repro_torch.serving.session import RagSession  # noqa: E402
 from repro_torch.serving.trace import SLOController, TraceSink  # noqa: E402
 from repro_torch.train import optimizer as opt  # noqa: E402
+from repro_torch.train import trainer as trainer_mod  # noqa: E402
 from repro_torch.train.trainer import (loss_and_grads,  # noqa: E402
                                        make_states, make_train_step)
 
@@ -463,6 +490,12 @@ ZOO_PROMPT = 256
 TRAIN_B, TRAIN_S = 8, 512
 TRAIN_STREAM = 65536
 TRAIN_REPEAT, TRAIN_FRESH, TRAIN_MOE = 6, 2, 2
+# the train path's checkpoint (its directory, kept for the mesh path's
+# reshard_restore and removed after it) and the launcher's kill and
+# resume: reduced qwen2.5, LAUNCH_STEPS steps, a checkpoint every
+# LAUNCH_INTERVAL, the first run killed after step LAUNCH_KILL
+CKPT = {}
+LAUNCH_STEPS, LAUNCH_INTERVAL, LAUNCH_KILL = 6, 2, 3
 BF16_FLOPS_S = 989e12          # H100 SXM dense bf16
 # every RagSession the run makes, with the path it ran on (CURRENT)
 SESSIONS = []
@@ -534,6 +567,8 @@ PATH_KERNELS = {
     # training attends through the plain layers.attention: no kernel
     # (each launch count must read 0, `train_path`)
     "train": (),
+    # the sharded retrieval's local scan on a (1, 1) mesh
+    "mesh": ("ecoscan",),
 }
 
 
@@ -3973,6 +4008,9 @@ def train_dense():
         parts["adamw_s"].append(time.perf_counter() - t1)
         del grads
     peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    ckpt_info = checkpoint_round_trip(
+        step, state, batcher.batch_at(TRAIN_FRESH + 1),
+        TRAIN_REPEAT + TRAIN_FRESH)
     n = model_mod.count_params(state[0])
     tokens = TRAIN_B * TRAIN_S
     steady = float(np.median(secs[1:] + fresh_secs))
@@ -3990,7 +4028,102 @@ def train_dense():
         tokens_per_s=tokens / steady, peak_gb=peak_gb, bound_ms=bound_ms,
         bound_by="operations", share_of_bound=bound_ms / 1e3 / steady,
         grad_norm=met["grad_norm"].item(), lr=met["lr"].item(),
-        step_parts_s=parts, profiled_step=prof)
+        step_parts_s=parts, profiled_step=prof, checkpoint=ckpt_info)
+
+
+def _bits(t):
+    """t's raw bits as an integer tensor of its element size."""
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def checkpoint_round_trip(step, state, batch, ckpt_step):
+    """`dist.checkpoint` at full width: (masters, opt_state) saved with
+    blocking=False into a fresh temp directory (free space checked
+    first), joined, and restored into fresh tensors on the card, every
+    one bit-equal; then one more step from both states, the losses
+    within 1e-5 relative (the embedding backward's atomics are not
+    bit-deterministic). The directory stays for the mesh path
+    (`CKPT`). Seconds and GB/s of the save (snapshot, then the write
+    and commit) and of the restore (a warm read: the files were just
+    written), and the round trip's own peak memory above what was held
+    when it began (the restored state and the two steps)."""
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tree = state_tree(*state)
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+    d = tempfile.mkdtemp(prefix="ckpt_")
+    atexit.register(shutil.rmtree, d, True)   # if the mesh path never runs
+    CKPT.update(dir=d, step=ckpt_step)
+    free = shutil.disk_usage(d).free
+    if free < 1.2 * nbytes:
+        raise RuntimeError(f"checkpoint: {free / 1e9:.2f} GB free in {d}, "
+                           f"{nbytes / 1e9:.2f} GB to write")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    th = checkpoint.save(d, ckpt_step, tree, blocking=False)
+    snap_s = time.perf_counter() - t0
+    th.join()
+    save_s = time.perf_counter() - t0
+    written = _tree_bytes(d)
+    assert checkpoint.latest_step(d) == ckpt_step
+    t0 = time.perf_counter()
+    restored = checkpoint.restore(d, ckpt_step, tree, device=DEV)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    pairs = list(zip(tree_leaves(tree), tree_leaves(restored)))
+    assert all(a.dtype == b.dtype and a.shape == b.shape
+               and a.data_ptr() != b.data_ptr()
+               and torch.equal(_bits(a), _bits(b)) for a, b in pairs)
+    p1, _, m1 = step(*state, batch)
+    p2, _, m2 = step(*state_from_tree(restored), batch)
+    l1, l2 = m1["loss"].item(), m2["loss"].item()
+    assert abs(l1 - l2) <= 1e-5 * abs(l1), (l1, l2)
+    dmax = max(float((p1[n] - p2[n]).abs().max()) for n in p1)
+    return dict(step=ckpt_step, leaves=len(pairs), bytes=nbytes,
+                bytes_written=written, free_gb=free / 1e9,
+                snapshot_s=snap_s, save_s=save_s, save_gb_s=nbytes / save_s
+                / 1e9, restore_s=restore_s,
+                restore_gb_s=nbytes / restore_s / 1e9, bit_equal=True,
+                next_loss=[l1, l2], max_param_diff=dmax,
+                peak_gb=(torch.cuda.max_memory_allocated() - held) / 1e9)
+
+
+def launcher_runs():
+    """`python -m repro_torch.launch.train` on the card at the reduced
+    qwen2.5 config, twice as subprocesses, one after the other: first
+    killed after step LAUNCH_KILL (exit 42; its checkpoint at the
+    interval before), then resumed from that checkpoint to the last
+    step. Returns the seconds of each run and the step resumed at."""
+    d = tempfile.mkdtemp(prefix="launch_")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--device",
+           DEV, "--arch", "qwen25_0_5b", "--steps", str(LAUNCH_STEPS),
+           "--batch", "2", "--seq", "64", "--ckpt-dir", d,
+           "--ckpt-interval", str(LAUNCH_INTERVAL)]
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+
+    def run(extra):
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd + extra, env=env, capture_output=True,
+                           text=True, timeout=300)
+        return p, time.perf_counter() - t0
+    try:
+        p, s1 = run(["--kill-at", str(LAUNCH_KILL)])
+        assert p.returncode == 42, p.stdout + p.stderr
+        last = LAUNCH_KILL // LAUNCH_INTERVAL * LAUNCH_INTERVAL
+        assert checkpoint.latest_step(d) == last, \
+            checkpoint.available_steps(d)
+        p, s2 = run([])
+        assert p.returncode == 0, p.stdout + p.stderr
+        assert f"resuming at step {last + 1}" in p.stdout, p.stdout
+        assert f"step {LAUNCH_STEPS - 1} loss=" in p.stdout, p.stdout
+        assert checkpoint.latest_step(d) == LAUNCH_STEPS - 1
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return dict(killed_at=LAUNCH_KILL, steps=LAUNCH_STEPS,
+                killed_run_s=s1, resumed_at=last + 1, resumed_run_s=s2,
+                last_lines=p.stdout.strip().splitlines()[-2:])
 
 
 def train_moe():
@@ -4014,8 +4147,8 @@ def train_moe():
     slots = {"C": set(), "slots": 0, "kept": 0, "max_load": 0}
     orig = moe_mod.capacity_slots
 
-    def counting(topi, E, C):
-        out = orig(topi, E, C)
+    def counting(topi, E, C, *rest):
+        out = orig(topi, E, C, *rest)
         slots["C"].add(C)
         slots["slots"] += out[2].numel()
         slots["kept"] += int(out[2].sum())
@@ -4092,10 +4225,151 @@ def train_device_parity():
 
 
 def train_path():
-    """The train path: `train_dense`, `train_moe`, `train_device_parity`
-    (no kernel launches: training attends through `layers.attention`)."""
+    """The train path: `train_dense` (with its checkpoint round trip),
+    `train_moe`, `train_device_parity`, and the train launcher's kill and
+    resume (`launcher_runs`) (no kernel launches: training attends
+    through `layers.attention`)."""
     return {"qwen": train_dense(), "moe": train_moe(),
-            "device_parity": train_device_parity()}
+            "device_parity": train_device_parity(),
+            "launcher": launcher_runs()}
+
+
+def same_first_step(tcfg, lr, plain, meshed):
+    """The mesh step's updated masters, m and v (DTensors, read through
+    `to_local`) against the unmeshed step's, both the first from the same
+    states: the tensors bit-equal counted, and each within its bound: m
+    and v within 1e-5 of the tensor's largest (the gradients agree so:
+    the embedding backward's atomics), a master within 1e-6 of its
+    largest plus `_adam_step_tol` at that agreement, with the gradient
+    that the step applied read from the plain m (g = m / (1 - beta1))."""
+    (p1, s1), (p2, s2) = plain, meshed
+    grads = {n: m / (1 - tcfg.beta1) for n, m in s1["m"].items()}
+    tol = _adam_step_tol(lr, grads, tcfg.eps, 1e-5)
+    equal, worst = 0, {"master": 0.0, "m": 0.0, "v": 0.0}
+    for n in p1:
+        for kind, a, b in (("master", p1[n], p2[n]),
+                           ("m", s1["m"][n], s2["m"][n]),
+                           ("v", s1["v"][n], s2["v"][n])):
+            b = b.to_local()
+            equal += int(torch.equal(a, b))
+            err = (a - b).abs()
+            top = a.abs().max()
+            lim = (1e-6 * top + tol[n]) if kind == "master" else 1e-5 * top
+            assert bool((err <= lim).all()), (kind, n, float(err.max()))
+            worst[kind] = max(worst[kind], float(err.max() / top.clamp(
+                min=1e-30)))
+    return dict(tensors=3 * len(p1), bit_equal=equal,
+                max_rel_diff=worst)
+
+
+def mesh_path(pipe, embed, questions, want):
+    """The mesh path, on a one-rank NCCL group (a `file://` store in a
+    temp dir, destroyed at the end) over a (1, 1) mesh of the card:
+    `core.distributed.make_sharded_retrieval` over the main path's
+    EcoVector pack (inputs placed by `retrieval_shardings`), the 16
+    questions at k 10 and the main path's n_probe, whose local scan is
+    the ecoscan kernel: ids and distances equal to `want`
+    (`search_device_batched`'s, taken before the path), ids equal to
+    `reference_retrieval`'s (numpy) but for ties within 1e-4; full-width
+    qwen2.5-0.5B's train step under `use_mesh` (DTensor states placed by
+    `trainer.place_states`) against the unmeshed step, loss within 1e-6
+    relative and every updated master, m and v as `same_first_step`
+    holds them; `reshard_restore` of the train path's checkpoint onto the
+    mesh, bit-equal to a plain restore. Removes the train path's
+    checkpoint directory. Returns (info, ecoscan's inputs at the
+    sharded shape)."""
+    import torch.distributed as tdist
+    store = tempfile.mkdtemp(prefix="pg_")
+    info = {}
+    tdist.init_process_group("nccl" if DEV == "cuda" else "gloo",
+                             init_method=f"file://{store}/store", rank=0,
+                             world_size=1)
+    try:
+        mesh = make_test_mesh(1, 1, device_type=DEV)
+        idx = pipe.index
+        d_t, l_t, c_t = idx.device_arrays()
+        sid = torch.tensor(idx._device_pack[2], dtype=torch.int32,
+                           device=DEV)
+        qn = embed(questions)
+        qt = torch.tensor(qn, device=DEV)
+        k, n_probe = 10, pipe.n_probe
+        ret = cdist.make_sharded_retrieval(mesh, k=k, n_probe=n_probe)
+        placed = [sharding.distribute(t, s) for t, s in zip(
+            (qt, c_t, d_t, l_t, sid), cdist.retrieval_shardings(mesh))]
+        before = ops.ecoscan.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dists, ids = ret(*placed)
+        torch.cuda.synchronize()
+        info["retrieval_s"] = time.perf_counter() - t0
+        info["retrieval_ecoscan_launches"] = ops.ecoscan.launches - before
+        assert info["retrieval_ecoscan_launches"] >= 1
+        want_ids, want_d = want
+        assert np.array_equal(ids.cpu().numpy(), want_ids)
+        assert np.array_equal(dists.cpu().numpy(), want_d)
+        lens, sid_np = l_t.cpu().numpy(), sid.cpu().numpy()
+        rd, ri = cdist.reference_retrieval(
+            qn, c_t.cpu().numpy(), d_t.cpu().numpy(), lens, sid_np, k=k,
+            n_probe=n_probe)
+        # each id's row of the pack, for the distances of tied picks
+        live = np.arange(sid_np.shape[1])[None] < lens[:, None]
+        row_of = np.full(int(sid_np.max()) + 1, -1, np.int64)
+        row_of[sid_np[live]] = np.flatnonzero(live)
+        flat = d_t.reshape(-1, d_t.shape[-1])
+
+        def value_of(id_t):
+            v = flat[torch.tensor(row_of[id_t.cpu().numpy()], device=DEV)]
+            return ((v - qt[:, None]) ** 2).sum(-1)
+        info["reference_ties"] = same_or_tied(
+            "sharded retrieval vs reference_retrieval", ids,
+            torch.tensor(ri, device=DEV), value_of, 1e-4, 1e-4)
+        close("sharded retrieval distances", dists.cpu(),
+              torch.tensor(rd), 1e-4, 1e-4)
+        probes = ref.route_topk(qt, c_t, n_probe)
+        eco_in = (qt, d_t, l_t, probes, k)
+        # the train step under use_mesh against the unmeshed step
+        cfg = GEN_CONFIG
+        run = _train_run(cfg)
+        model, ms, st = make_states(run, seed=0, device=DEV)
+        step, _, _ = make_train_step(run, model, max_steps=60)
+        batch = _lm_batcher(cfg, 0).batch_at(0)
+        p1, s1, m1 = step(ms, st, batch)
+        with sharding.use_mesh(mesh):
+            pm, ps = trainer_mod.place_states(run, mesh, ms, st)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pm, ps, m2 = step(pm, ps, batch)
+            torch.cuda.synchronize()
+            info["mesh_step_s"] = time.perf_counter() - t0
+        l1, l2 = m1["loss"].item(), m2["loss"].item()
+        assert abs(l1 - l2) <= 1e-6 * abs(l1), (l1, l2)
+        info["step_loss"] = [l1, l2]
+        info["step_state"] = same_first_step(run.train, m1["lr"].item(),
+                                             (p1, s1), (pm, ps))
+        del model, ms, st, pm, ps, p1, s1
+        # the train path's checkpoint, placed on the mesh
+        pspecs = model_mod.param_specs(cfg)
+        like = state_tree(*trainer_mod.state_structs(run))
+        specs = state_tree(pspecs, opt.opt_state_specs(pspecs, "float32"))
+        t0 = time.perf_counter()
+        tree, start = reshard_restore(CKPT["dir"], like, mesh, specs)
+        torch.cuda.synchronize()
+        info["reshard_restore_s"] = time.perf_counter() - t0
+        assert start == CKPT["step"] + 1
+        plain = checkpoint.restore(CKPT["dir"], CKPT["step"], like,
+                                   device=DEV)
+        pairs = list(zip(tree_leaves(tree), tree_leaves(plain)))
+        assert all(torch.equal(_bits(a.to_local()), _bits(b))
+                   for a, b in pairs)
+        info["reshard_leaves_bit_equal"] = len(pairs)
+        del tree, plain, pairs
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+        if "dir" in CKPT:
+            shutil.rmtree(CKPT.pop("dir"), ignore_errors=True)
+    torch.cuda.empty_cache()
+    return info, eco_in
 
 
 def main() -> int:
@@ -4829,6 +5103,31 @@ def main() -> int:
           json.dumps(train_info["device_parity"]),
           f"; launches of the hand-written kernels: 0; the path took "
           f"{time.perf_counter() - t_train:.1f} s")
+    # ---- the mesh path: the sharded retrieval, the train step under a
+    # (1, 1) mesh and the elastic restore of the train path's checkpoint
+    t_mesh = time.perf_counter()
+    mesh_want = pipe.index.search_device_batched(
+        embed(questions), k=10, n_probe=pipe.n_probe)
+    (mesh_info, mesh_eco), mesh_launches = drive(
+        "mesh", lambda: mesh_path(pipe, embed, questions, mesh_want))
+    mesh_s = time.perf_counter() - t_mesh
+    results["ecoscan"]["shapes"].append(check_ecoscan(
+        "mesh path: sharded retrieval's local scan, (1, 1) mesh",
+        *mesh_eco))
+    tq_ck = tq["checkpoint"]
+    print("mesh path:", json.dumps(mesh_info), f"; the path took "
+          f"{mesh_s:.1f} s")
+    print(f"checkpoint, {tq['config']} (f32 masters, m, v) on {smi}: "
+          f"{tq_ck['bytes'] / 1e9:.3f} GB in {tq_ck['leaves']} leaves "
+          f"({tq_ck['bytes_written']} bytes on disk); save "
+          f"{tq_ck['save_s']:.2f} s ({tq_ck['save_gb_s']:.2f} GB/s; the "
+          f"snapshot to host {tq_ck['snapshot_s']:.2f} s of it), restore "
+          f"{tq_ck['restore_s']:.2f} s ({tq_ck['restore_gb_s']:.2f} GB/s, "
+          "warm read); bit-equal; the next step's losses "
+          f"{tq_ck['next_loss']}, largest parameter difference "
+          f"{tq_ck['max_param_diff']:.3g}")
+    print("train launcher, kill and resume on the card:",
+          json.dumps(train_info["launcher"]))
     # ---- updates on the main path's index, after every path that uses
     # it; then ecoscan on the grown pack
     (upd, (ud_t, ul_t, uc_t)), upd_launches = drive(
@@ -4908,7 +5207,8 @@ def main() -> int:
              "window_updates": wu_launches, "fire": fire_launches,
              "durable": dur_launches, "pipelines": pipelines_launches,
              "embedder": embedder_launches, "families": families_launches,
-             "zoo": zoo_launches, "train": train_launches}
+             "zoo": zoo_launches, "train": train_launches,
+             "mesh": mesh_launches}
     kernels = [{
         "name": name, "route": "cuda",
         "source": SOURCES[name],

@@ -5,8 +5,8 @@ bidirectional for the gte-small encoder; optional sliding window,
 optional int8 KV cache; the Mamba2, RG-LRU and encoder-decoder
 sub-configs; remat and the MoE capacity factor of training), with the
 reference's field names and defaults and the same `reduced` sizes; and
-the training run's `ShapeConfig`, `TrainConfig` and `RunConfig` (the
-`MeshConfig` is carried, unused: the port runs on one device)."""
+the training run's `ShapeConfig`, `MeshConfig` (the production mesh
+that `launch.mesh` builds), `TrainConfig` and `RunConfig`."""
 from __future__ import annotations
 
 import dataclasses
@@ -18,15 +18,18 @@ import torch
 
 @dataclass(frozen=True)
 class MoEConfig:
-    """Token-choice top-k experts (`repro.config.MoEConfig` without its
-    mesh fields). `dense_residual`: a dense FFN runs beside the experts.
-    `capacity_factor` sizes each expert's buffer in training (the slots
-    past it are dropped); serving never drops."""
+    """Token-choice top-k experts (`repro.config.MoEConfig` but its
+    `router_jitter`). `dense_residual`: a dense FFN runs beside the
+    experts. `capacity_factor` sizes each expert's buffer in training
+    (the slots past it are dropped); serving never drops. `int8_gather`:
+    on a mesh, the experts' FSDP all-gathers move int8 values and per-row
+    scales (ZeRO++; `models.moe.Q8AllGather`) instead of the weights."""
     num_experts: int = 0
     top_k: int = 0
     expert_d_ff: int = 0
     dense_residual: bool = False
     capacity_factor: float = 1.25
+    int8_gather: bool = False
 
 
 class _FieldsEqual:
@@ -209,9 +212,9 @@ class ShapeConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The reference's device mesh (16 x 16, or 2 x 16 x 16 across pods).
-    Carried by `RunConfig` for its field set; the port runs on one
-    device and reads none of it."""
+    """The reference's device mesh: 16 x 16 over ("data", "model"), or
+    2 x 16 x 16 over ("pod", "data", "model") with `multi_pod`
+    (`launch.mesh.make_production_mesh(multi_pod=...)` builds it)."""
     multi_pod: bool = False
 
 

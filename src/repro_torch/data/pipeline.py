@@ -51,22 +51,23 @@ class LMBatcher:
 
 
 class Prefetcher:
-    """batch_fn(step) for steps 0, 1, ... made ahead by a daemon thread
-    into a queue of `depth`. `next` waits up to `timeout_s` for the
-    producer; past that it computes the expected step's batch itself
-    (the straggler path). `stop` ends the thread."""
+    """batch_fn(step) for steps start, start + 1, ... (0 by default) made
+    ahead by a daemon thread into a queue of `depth`. `next` waits up to
+    `timeout_s` for the producer; past that it computes the expected
+    step's batch itself (the straggler path). `stop` ends the thread."""
 
-    def __init__(self, batch_fn, depth: int = 2, timeout_s: float = 30.0):
+    def __init__(self, batch_fn, depth: int = 2, timeout_s: float = 30.0,
+                 start: int = 0):
         self.batch_fn = batch_fn
         self.q: queue.Queue = queue.Queue(maxsize=depth)
         self.timeout_s = timeout_s
         self._stop = threading.Event()
-        self._step = 0
+        self._step = start
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
 
     def _run(self):
-        step = 0
+        step = self._step
         while not self._stop.is_set():
             b = self.batch_fn(step)
             while not self._stop.is_set():

@@ -1,19 +1,26 @@
-"""Replica health for the serving schedulers (the port's copy of
-`HealthConfig` and `HealthTracker` from `repro.dist.fault`).
+"""Fault tolerance (the port of `repro.dist.fault`).
 
+  RestartManager   periodic checkpoints + restart-from-latest; survives
+                   kill -9 because every committed save is atomic and the
+                   manager never trusts uncommitted state.
+  StepWatchdog     flags straggler steps against a running mean.
+  reshard_restore  elastic recovery: a checkpoint written under one mesh
+                   restores bit-identically onto another (ranks lost or
+                   added) by placing the host leaves with the target
+                   mesh's DTensor placements (`dist.sharding`).
   HealthTracker    strike/drain/probation/recovery state machine for one
                    replica-like unit, the health primitive behind the
-                   `SlotScheduler`'s failover.
-
-The reference module's training-side `RestartManager`, `StepWatchdog` and
-`reshard_restore` belong to the distributed training stack, which the
-port does not have yet.
+                   `SlotScheduler`'s failover (the serving counterpart of
+                   RestartManager's training-side role).
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional, Tuple
+
+from repro_torch.convert import tree_map
+from repro_torch.dist import checkpoint
 
 
 @dataclass
@@ -116,3 +123,115 @@ class HealthTracker:
         assert self.state == self.DRAINED, f"probe from {self.state}"
         self.state = self.PROBING
         self.probes += 1
+
+
+class RestartManager:
+    """Checkpoint every `interval` steps; resume from the latest commit.
+
+    `async_save=False` (default) blocks on the disk write inside
+    `on_step`, so a kill -9 at any point between steps loses at most
+    `interval` steps, the durability contract the kill-at tests assert.
+    `async_save=True` overlaps the write with the next steps (the snapshot
+    is still taken before `on_step` returns); a crash may lose the
+    in-flight save on top of the interval. Restores land on `device`.
+    """
+
+    def __init__(self, ckpt_dir: str, interval: int = 50,
+                 async_save: bool = False, device="cuda"):
+        self.ckpt_dir = ckpt_dir
+        self.interval = interval
+        self.async_save = async_save
+        self.device = device
+        self._pending = None
+
+    def maybe_restore(self, state: Any) -> Tuple[Any, int]:
+        """(state, first_step_to_run): the restored latest checkpoint and
+        its step + 1, or the passed-in state and 0 when none committed."""
+        latest = checkpoint.latest_step(self.ckpt_dir)
+        if latest is None:
+            return state, 0
+        return (checkpoint.restore(self.ckpt_dir, latest, state,
+                                   self.device), latest + 1)
+
+    def on_step(self, step: int, state: Any) -> None:
+        if self.interval <= 0 or step <= 0 or step % self.interval:
+            return
+        self._save(step, state)
+
+    def finalize(self, step: int, state: Any) -> None:
+        """Unconditional blocking save of the final state."""
+        self.flush()
+        checkpoint.save(self.ckpt_dir, step, state)
+
+    def flush(self) -> None:
+        """Wait for any in-flight async save to commit."""
+        if self._pending is not None:
+            self._pending.join()
+            self._pending = None
+
+    def _save(self, step: int, state: Any) -> None:
+        self.flush()
+        if self.async_save:
+            self._pending = checkpoint.save(self.ckpt_dir, step, state,
+                                            blocking=False)
+        else:
+            checkpoint.save(self.ckpt_dir, step, state)
+
+
+class StragglerReport(NamedTuple):
+    is_straggler: bool
+    step_time_s: float
+    mean_s: float
+    step: int
+
+
+class StepWatchdog:
+    """start()/stop(step) around each training step; a step slower than
+    `factor` x the running mean of healthy steps is flagged. The first
+    `warmup` steps only feed the mean (warm-up steps must not trip it),
+    and flagged steps are left out of it, so one hung rank cannot drag
+    the baseline up and mask the next stall."""
+
+    def __init__(self, factor: float = 3.0, warmup: int = 2,
+                 history: int = 64):
+        self.factor = factor
+        self.warmup = warmup
+        self.history = history
+        self._times: list = []
+        self._t0: Optional[float] = None
+
+    def start(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def stop(self, step: int) -> StragglerReport:
+        assert self._t0 is not None, "stop() without start()"
+        dt = time.perf_counter() - self._t0
+        self._t0 = None
+        mean = (sum(self._times) / len(self._times)) if self._times else dt
+        flag = len(self._times) >= self.warmup and dt > self.factor * mean
+        if not flag:
+            self._times.append(dt)
+            if len(self._times) > self.history:
+                self._times.pop(0)
+        return StragglerReport(flag, dt, mean, step)
+
+
+def reshard_restore(ckpt_dir: str, like: Any, mesh, specs,
+                    step: Optional[int] = None) -> Tuple[Any, int]:
+    """Restore the latest (or given) checkpoint onto `mesh`.
+
+    `like` gives the tree's structure and shapes (tensors or meta
+    tensors), `specs` the matching logical-axis spec tree. The leaves are
+    read on the host and placed as DTensors with the target mesh's
+    (shape-pruned) placements, so the values are bit-identical however
+    the writing mesh was laid out: the checkpoint format knows no mesh.
+    Returns (state, first_step_to_run).
+    """
+    from repro_torch.dist.sharding import distribute, spec_tree_to_shardings
+    if step is None:
+        step = checkpoint.latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no committed checkpoint in {ckpt_dir}")
+    host = checkpoint.restore_host(ckpt_dir, step, like)
+    shardings = spec_tree_to_shardings(mesh, specs, like)
+    return tree_map(distribute, host, shardings), step + 1

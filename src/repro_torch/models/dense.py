@@ -321,6 +321,13 @@ class LM(nn.Module):
     def device(self) -> torch.device:
         return self.tok_embed.device
 
+    def local_weights(self, mesh) -> Dict[str, int]:
+        """The masters this model takes on `mesh` as this rank's shards
+        and gathers in its layers (name -> the gathered dimension of the
+        stacked tensor); the train step gathers every other master whole
+        (`train.trainer.mesh_step`). None here."""
+        return {}
+
     def forward(self, batch):
         """The training forward of a batch (name -> tensor: "tokens", and
         by family "patches", or "frames" and "dec_tokens"): (logits [B,

@@ -12,15 +12,21 @@ them to the model (`dense.bound`) and runs its training forward, then
 the reference's masked cross entropy with the optional z-loss and the
 MoE aux loss. Batches are name -> array dicts (`make_sample_batch`),
 numpy until `to_device` moves them.
+
+Sharding (the rest of it): `param_specs`, `batch_specs` and
+`cache_specs` give each tensor's logical axes (`dist.sharding`) by the
+port's names; `param_shapes` and `batch_struct` the shapes they are
+pruned against.
 """
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.models.dense import LM, N_IMG, DenseLM, bound, keeps_f32
 from repro_torch.models.encdec import DEC_RATIO, EncDecLM
 from repro_torch.models.mamba2 import Mamba2LM
@@ -152,3 +158,108 @@ def make_sample_batch(cfg: ModelConfig, B: int, S: int, seed: int = 0
             np.float32)
         out["labels"][:, :N_IMG] = IGNORE_LABEL
     return out
+
+
+# ------------------------------------------------------- sharding specs
+
+# the logical axes of each parameter by its name without a prefix (the
+# reference's `ParamDef` axes, `models/common.py` and each family's
+# `defs`); mamba2's conv_w differs from rglru's
+_AXES = {
+    "tok_embed": ("tp", "fsdp"), "final_norm": ("fsdp",),
+    "lm_head": ("fsdp", "tp"), "patch_proj": ("fsdp", "tp"),
+    "frame_proj": ("fsdp", "tp"),
+    "attn_norm": (None, "fsdp"), "mlp_norm": (None, "fsdp"),
+    "moe_norm": (None, "fsdp"), "norm": (None, "fsdp"),
+    "wq": (None, "fsdp", "tp"), "wk": (None, "fsdp", "tp"),
+    "wv": (None, "fsdp", "tp"), "wo": (None, "tp", "fsdp"),
+    "bq": (None, "tp"), "bk": (None, "tp"), "bv": (None, "tp"),
+    "w1": (None, "fsdp", "tp"), "w3": (None, "fsdp", "tp"),
+    "w2": (None, "tp", "fsdp"),
+    "router": (None, "fsdp", None),
+    "we1": (None, "expert", "fsdp", None),
+    "we3": (None, "expert", "fsdp", None),
+    "we2": (None, "expert", None, "fsdp"),
+    "w_xz": (None, "fsdp", "tp"), "w_bc": (None, "fsdp", None),
+    "w_dt": (None, "fsdp", "tp"), "dt_bias": (None, "tp"),
+    "A_log": (None, "tp"), "D": (None, "tp"), "ssm_norm": (None, "tp"),
+    "w_out": (None, "tp", "fsdp"), "conv_w": (None, None, "tp"),
+    "w_in": (None, "fsdp", "tp"), "w_gate": (None, "fsdp", "tp"),
+    "w_rx": (None, "fsdp", "tp"), "b_rx": (None, "tp"), "lam": (None, "tp"),
+}
+_FAMILY_AXES = {"mamba2": {"conv_w": (None, None, None)}}
+_PREFIX = re.compile(r"^(?:enc_|dec_)?(?:s\d+_|tail\d+_)?(?:cross_)?")
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """name -> shape of every parameter of `cfg`'s model."""
+    return {n: shape for n, (shape, _) in
+            FAMILIES[cfg.family].shapes(cfg).items()}
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, tuple]:
+    """name -> logical axes of every parameter (the reference's
+    `param_specs`, flattened to the port's names)."""
+    axes = {**_AXES, **_FAMILY_AXES.get(cfg.family, {})}
+    return {n: axes[_PREFIX.sub("", n)] for n in param_shapes(cfg)}
+
+
+def batch_struct(cfg: ModelConfig, shape: ShapeConfig
+                 ) -> Dict[str, torch.Tensor]:
+    """Meta tensors (shape and dtype, no storage) of one train batch of
+    `shape`, as the reference's `batch_struct`."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def meta(shp, dtype=torch.int32):
+        return torch.empty(shp, dtype=dtype, device="meta")
+    if cfg.family == "encdec":
+        return {"frames": meta((B, S, cfg.d_model), torch.bfloat16),
+                "dec_tokens": meta((B, S // DEC_RATIO)),
+                "labels": meta((B, S // DEC_RATIO))}
+    out = {"tokens": meta((B, S)), "labels": meta((B, S))}
+    if cfg.modality == "vision":
+        out["patches"] = meta((B, N_IMG, cfg.d_model), torch.bfloat16)
+    return out
+
+
+def batch_specs(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Logical axes of each batch input (rows on "batch")."""
+    if cfg.family == "encdec":
+        return {"frames": ("batch", None, None),
+                "dec_tokens": ("batch", None), "labels": ("batch", None)}
+    out = {"tokens": ("batch", None), "labels": ("batch", None)}
+    if cfg.modality == "vision":
+        out["patches"] = ("batch", None, None)
+    return out
+
+
+def cache_specs(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Logical axes of the serving cache's tensors by their names (the
+    reference's `cache_specs` of each family)."""
+    kv = (None, "batch", None, "tp", None)
+    if cfg.family == "encdec":
+        return {"k": kv, "v": kv, "cross_k": kv, "cross_v": kv}
+    if cfg.family == "mamba2":
+        return {"h": (None, "batch", "tp", None, None),
+                "conv": (None, "batch", None, None)}
+    if cfg.family == "rglru":
+        pat = cfg.rglru.pattern
+        specs: Dict[str, tuple] = {}
+        for i, c in enumerate(pat):
+            if c == "r":
+                specs[f"s{i}_h"] = (None, "batch", "tp")
+                specs[f"s{i}_conv"] = (None, "batch", None, "tp")
+            else:
+                specs[f"s{i}_k"] = kv
+                specs[f"s{i}_v"] = kv
+        for j in range(cfg.num_layers % len(pat)):
+            if pat[j] == "r":
+                specs[f"tail{j}_h"] = ("batch", "tp")
+                specs[f"tail{j}_conv"] = ("batch", None, "tp")
+            else:
+                specs[f"tail{j}_k"] = kv[1:]
+                specs[f"tail{j}_v"] = kv[1:]
+        return specs
+    if cfg.kv_quant:
+        return {"k": kv, "v": kv, "k_s": kv[:-1], "v_s": kv[:-1]}
+    return {"k": kv, "v": kv}

@@ -26,13 +26,17 @@ no int8 KV (`models.model.supports_paged` excludes both combinations):
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.dist import collectives as C
+from repro_torch.dist.sharding import (get_mesh, local_index, local_slice,
+                                       logical_to_spec, mesh_shape,
+                                       spec_axes)
 from repro_torch.models.dense import DenseLM, param_shapes as dense_shapes
 
 
@@ -102,30 +106,40 @@ def capacity(T: int, top_k: int, num_experts: int,
     return max(4, int(T * top_k * capacity_factor) // num_experts)
 
 
-def capacity_slots(topi, num_experts: int, C: int):
+def capacity_slots(topi, num_experts: int, C: int, e_offset: int = 0,
+                   n_local: Optional[int] = None):
     """Where the slots of topi [T, k] (each token's experts) go, as the
-    reference's `_local_moe` places them: the flat [T*k] expert ids
-    sorted stably (`order`), so an expert's slots come in token order; a
-    slot is kept while its place among its expert's is below C. Returns
-    (order, dest, keep) [T*k]: the sorted slots' flat indices, their row
-    of the [E*C + 1] buffer (E*C, a row never read, for a dropped slot)
-    and whether each is kept."""
+    reference's `_local_moe` places them, for the n_local experts from
+    e_offset held here (all of them by default): the flat [T*k] local
+    expert ids (n_local for another rank's expert) sorted stably
+    (`order`), so an expert's slots come in token order; a slot is kept
+    while it is local and its place among its expert's is below C.
+    Returns (order, dest, keep) [T*k]: the sorted slots' flat indices,
+    their row of the [El*C + 1] buffer (El*C, a row never read, for a
+    dropped slot) and whether each is kept."""
     T, k = topi.shape
+    El = num_experts if n_local is None else n_local
     eids = topi.reshape(-1)
-    order = torch.argsort(eids, stable=True)
-    sorted_ids = eids[order]
-    counts = torch.bincount(eids, minlength=num_experts)
+    local = (eids >= e_offset) & (eids < e_offset + El)
+    leids = torch.where(local, eids - e_offset, torch.full_like(eids, El))
+    order = torch.argsort(leids, stable=True)
+    sorted_ids = leids[order]
+    counts = torch.bincount(leids, minlength=El + 1)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(T * k, device=topi.device) - starts[sorted_ids]
-    keep = pos < C
+    keep = (sorted_ids < El) & (pos < C)
     dest = torch.where(keep, sorted_ids * C + pos,
-                       torch.full_like(pos, num_experts * C))
+                       torch.full_like(pos, El * C))
     return order, dest, keep
 
 
-def train_ffn(cfg: ModelConfig, x, router, we1, we2, we3):
-    """The training FFN of x [T, d] (the reference's `_local_moe` on one
-    device, capacity from `cfg.moe.capacity_factor`). Routing is
+def train_ffn(cfg: ModelConfig, x, router, we1, we2, we3,
+              e_offset: int = 0):
+    """The training FFN of x [T, d] (the reference's `_local_moe`,
+    capacity from `cfg.moe.capacity_factor`) over the experts we1, we2,
+    we3 hold: all of them on one device, or El of them from `e_offset`
+    (expert parallelism, `ep_ffn`; the output then sums only their
+    slots). Routing is
     `topk_route`; the aux loss is E * sum(f * pbar), f each expert's
     share of the T*k slots (no gradient) and pbar its mean probability.
     The kept slots (`capacity_slots`) fill the [E, C, d] buffer, the
@@ -140,10 +154,11 @@ def train_ffn(cfg: ModelConfig, x, router, we1, we2, we3):
     probs, topv, topi = topk_route(x, router, k)
     f = torch.bincount(topi.reshape(-1), minlength=E).float() / (T * k)
     aux = E * torch.sum(f * probs.mean(0))
+    El = we1.shape[0]
     C = capacity(T, k, E, m.capacity_factor)
-    order, dest, keep = capacity_slots(topi, E, C)
-    buf = x.new_zeros((E * C + 1, d)).index_put((dest,), x[order // k])
-    h = buf[:E * C].reshape(E, C, d)
+    order, dest, keep = capacity_slots(topi, E, C, e_offset, El)
+    buf = x.new_zeros((El * C + 1, d)).index_put((dest,), x[order // k])
+    h = buf[:El * C].reshape(El, C, d)
     a = torch.matmul(h, we1)
     if cfg.act == "swiglu":
         a = F.silu(a) * torch.matmul(h, we3)
@@ -151,7 +166,7 @@ def train_ffn(cfg: ModelConfig, x, router, we1, we2, we3):
         a = torch.square(F.relu(a))
     else:
         a = F.gelu(a, approximate="tanh")
-    out = torch.matmul(a, we2).reshape(E * C, d)
+    out = torch.matmul(a, we2).reshape(El * C, d)
     out = torch.cat([out, out.new_zeros((1, d))])
     w = topv.reshape(-1)[order].to(x.dtype)
     vals = torch.where(keep[:, None], out[dest] * w[:, None],
@@ -169,6 +184,102 @@ def train_ffn(cfg: ModelConfig, x, router, we1, we2, we3):
     return y, aux
 
 
+# ------------------------------------------------- expert parallelism
+
+
+class Q8AllGather(torch.autograd.Function):
+    """ZeRO++-style int8 weight all-gather (the reference's
+    `q8_all_gather`): quantise the local shard with per-row scales along
+    `quant_axis` (max|w| / 127, at least 1e-20), all-gather the int8
+    values and the f32 scales along `gather_axis` over the mesh `axes`,
+    dequantise in bf16. Backward: the reduce-scatter of the f32 gradient
+    that the plain gather's would be (straight through), in w's dtype."""
+
+    @staticmethod
+    def forward(ctx, w, mesh, axes, gather_axis, quant_axis):
+        ctx.mesh, ctx.axes, ctx.gather_axis = mesh, axes, gather_axis
+        ctx.dtype = w.dtype
+        wf = w.float()
+        s = (wf.abs().amax(quant_axis, keepdim=True) / 127.0).clamp(
+            min=1e-20)
+        q = torch.round(wf / s).to(torch.int8)
+        qf = C.all_gather(q, mesh, axes, gather_axis)
+        sf = C.all_gather(s, mesh, axes, gather_axis)
+        return qf.to(torch.bfloat16) * sf.to(torch.bfloat16)
+
+    @staticmethod
+    def backward(ctx, g):
+        gw = C.reduce_scatter(g.float(), ctx.mesh, ctx.axes, ctx.gather_axis)
+        return gw.to(ctx.dtype), None, None, None, None
+
+
+def expert_parallel(mesh) -> bool:
+    """Whether the MoE layers run `ep_ffn`: a mesh with a "model" axis is
+    installed (as the reference's `moe_ffn` takes its shard_map path)."""
+    return mesh is not None and "model" in mesh_shape(mesh)
+
+
+# the per-layer axes of the weights `ep_ffn` gathers: (logical axes,
+# gather dimension, quantisation dimension)
+EP_WEIGHTS = {"router": (("fsdp", None), 0, 1),
+              "we1": (("expert", "fsdp", None), 1, 2),
+              "we3": (("expert", "fsdp", None), 1, 2),
+              "we2": (("expert", None, "fsdp"), 2, 1)}
+
+
+def ep_ffn(cfg: ModelConfig, x, router, we1, we2, we3, mesh=None):
+    """The training FFN of x [b, s, d] (this rank's batch rows) under
+    expert parallelism on `mesh` (the ambient one by default), as the
+    reference's `moe_ffn` shard_map body: the model axis's rank midx
+    holds the El = E / tp experts from midx * El, and every weight's
+    FSDP dimension is split over the data ranks. The layer's weights come
+    as those shards, or whole (then each rank cuts its own shard). Each
+    FSDP dimension is all-gathered (`Q8AllGather` with
+    `cfg.moe.int8_gather`, else a plain gather, both reduce-scattering
+    the gradient), every rank routes all its tokens and computes its own
+    experts' slots (`train_ffn` at e_offset midx * El), and the outputs
+    sum over the model axis by an all-reduce (the reference's
+    `out_scatter`, a reduce-scatter over the sequence, waits for a
+    sequence-split residual stream). The aux loss is the mean of the
+    ranks'. Returns (y, aux).
+
+    The inputs the ranks of the model axis share (x and the gathered
+    router) sum their gradients over it (`GradAllReduce`), since each
+    rank's backward reaches them through its own experts only."""
+    mesh = mesh if mesh is not None else get_mesh()
+    m = cfg.moe
+    sizes = mesh_shape(mesh)
+    tp = sizes["model"]
+    if m.num_experts % tp:
+        raise ValueError(f"{m.num_experts} experts over {tp} model ranks")
+    El = m.num_experts // tp
+    midx, _ = local_index(mesh, ("model",))
+    b, s, d = x.shape
+    f = m.expert_d_ff
+    full = {"router": (d, m.num_experts), "we1": (m.num_experts, d, f),
+            "we3": (m.num_experts, d, f), "we2": (m.num_experts, f, d)}
+    gather = Q8AllGather.apply if m.int8_gather else \
+        (lambda w, mh, ax, ga, qa: C.AllGather.apply(w, mh, ax, ga))
+
+    def gathered(name, w):
+        if w is None:
+            return None
+        axes, ga, qa = EP_WEIGHTS[name]
+        spec = logical_to_spec(mesh, axes, full[name])
+        if tuple(w.shape) == full[name]:
+            w = local_slice(w, mesh, spec)
+        return gather(w, mesh, spec_axes(spec[ga]), ga, qa)
+
+    router_f = C.GradAllReduce.apply(gathered("router", router), mesh,
+                                     ("model",))
+    we1_f, we2_f = gathered("we1", we1), gathered("we2", we2)
+    we3_f = gathered("we3", we3) if cfg.act == "swiglu" else None
+    xt = C.GradAllReduce.apply(x, mesh, ("model",)).reshape(-1, d)
+    y, aux = train_ffn(cfg, xt, router_f, we1_f, we2_f, we3_f, midx * El)
+    y = C.AllReduce.apply(y.reshape(b, s, d), mesh, ("model",))
+    return y, C.AllReduce.apply(aux, mesh, ("model",)) / tp
+
+
 class MoELM(DenseLM):
     """MoE decoder over the dense model's attention and paged KV pool;
     only the FFN differs: drop-free in serving (`_mlp_residual`), with
@@ -184,6 +295,15 @@ class MoELM(DenseLM):
             raise ValueError(f"{cfg.name}: the MoE family runs neither a "
                              "sliding window nor an int8 KV cache")
         super().__init__(cfg, **kw)
+
+    def local_weights(self, mesh) -> Dict[str, int]:
+        """Under expert parallelism (`expert_parallel`), the router and
+        the experts' weights: `ep_ffn` gathers their FSDP shards itself
+        (`EP_WEIGHTS`)."""
+        if not expert_parallel(mesh):
+            return {}
+        return {n: ga + 1 for n, (_, ga, _) in EP_WEIGHTS.items()
+                if hasattr(self, n)}
 
     def _mlp_residual(self, i: int, x):
         """x + the experts' FFN of the normed x (+ the dense FFN of its
@@ -215,9 +335,14 @@ class MoELM(DenseLM):
         FFN with `dense_residual`). Returns (its output, its aux loss)."""
         x = self._attn_residual(i, x, positions, L.attention)
         y = self._experts_in(i, x)
-        out, aux = train_ffn(self.cfg, y.reshape(-1, y.shape[-1]),
-                             self.router[i], self.we1[i], self.we2[i],
-                             self.we3[i])
+        mesh = get_mesh()
+        if expert_parallel(mesh):
+            out, aux = ep_ffn(self.cfg, y, self.router[i], self.we1[i],
+                              self.we2[i], self.we3[i], mesh)
+        else:
+            out, aux = train_ffn(self.cfg, y.reshape(-1, y.shape[-1]),
+                                 self.router[i], self.we1[i], self.we2[i],
+                                 self.we3[i])
         return x + self._dense_beside(i, x, out.reshape(y.shape)), aux
 
     def forward_logits(self, tokens, patches=None):

@@ -1,5 +1,5 @@
-"""AdamW with optional int8 moments (the port of `repro.train.optimizer`
-on one device; its sharding specs come with the mesh).
+"""AdamW with optional int8 moments (the port of `repro.train.optimizer`):
+the update, and the moments' logical axes (`opt_state_specs`) on a mesh.
 
 Parameters, gradients and moments are name -> tensor dicts.
 Moments are f32 ("float32"), or with `moments_dtype="int8"` the first
@@ -12,7 +12,7 @@ linear int8 code would flush small second moments to zero and blow up
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Mapping
+from typing import Callable, Dict, Mapping, Optional
 
 import torch
 
@@ -22,11 +22,17 @@ from repro_torch.config import TrainConfig
 # ------------------------------------------------------- int8 moment codec
 
 
-def quantize_rows(x: torch.Tensor) -> Dict[str, torch.Tensor]:
+def quantize_rows(x: torch.Tensor, row_max: Optional[Callable] = None
+                  ) -> Dict[str, torch.Tensor]:
     """Symmetric int8 code with per-row (last-axis) f32 scales: s =
     max|x| / 127 over the row (kept as a trailing axis of 1), q = x /
-    max(s, 1e-20) rounded half to even."""
-    s = x.abs().amax(-1, keepdim=True) / 127.0
+    max(s, 1e-20) rounded half to even. `row_max`, when given, completes
+    the rows' max|x| of a shard whose row is split across ranks (a max
+    over them)."""
+    mx = x.abs().amax(-1, keepdim=True)
+    if row_max is not None:
+        mx = row_max(mx)
+    s = mx / 127.0
     q = torch.round(x / s.clamp(min=1e-20)).to(torch.int8)
     return {"q": q, "s": s}
 
@@ -75,6 +81,19 @@ def init_opt_state(params: Mapping[str, torch.Tensor],
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def opt_state_specs(param_specs: Mapping[str, tuple],
+                    moments_dtype: str = "float32") -> dict:
+    """Logical axes of the AdamW state from the parameters' (name ->
+    axes): m and v as their parameter, an int8 m's scales without the
+    last axis; "step" a scalar."""
+    def mk_m(spec):
+        if moments_dtype == "int8":
+            return {"q": spec, "s": tuple(spec[:-1]) + (None,)}
+        return spec
+    return {"m": {n: mk_m(s) for n, s in param_specs.items()},
+            "v": dict(param_specs), "step": ()}
+
+
 def global_norm(tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in f32."""
     return torch.sqrt(sum(torch.sum(torch.square(t.float()))
@@ -82,14 +101,22 @@ def global_norm(tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:
 
 
 def adamw_update(cfg: TrainConfig, params, grads, opt_state, lr_fn,
-                 moments_dtype: str = "float32"):
+                 moments_dtype: str = "float32", *,
+                 gnorm: Optional[torch.Tensor] = None,
+                 row_max: Optional[Mapping[str, Callable]] = None):
     """One AdamW step, as the reference's: gradients in f32 scaled by
     min(1, grad_clip / max(global norm, 1e-12)) (no clip when grad_clip
     is 0), bias-corrected moments, decoupled weight decay, the update in
     f32 and the parameters back in their dtype. Returns (new params, new
-    state, {"grad_norm", "lr"})."""
+    state, {"grad_norm", "lr"}).
+
+    On a mesh each rank updates its own shards (every term but the norm
+    and an int8 m's row scales is elementwise): `gnorm` is then the
+    whole gradient's norm, and `row_max[name]` the max over the ranks
+    that split that parameter's rows (`quantize_rows`)."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / gnorm.clamp(min=1e-12), max=1.0) \
         if cfg.grad_clip else 1.0
     lr = lr_fn(step)
@@ -108,7 +135,8 @@ def adamw_update(cfg: TrainConfig, params, grads, opt_state, lr_fn,
         pf = p.float()
         new_p[n] = (pf - lr * (u + cfg.weight_decay * pf)).to(p.dtype)
         if moments_dtype == "int8":
-            new_m[n], new_v[n] = quantize_rows(mf), vf.to(torch.bfloat16)
+            new_m[n] = quantize_rows(mf, (row_max or {}).get(n))
+            new_v[n] = vf.to(torch.bfloat16)
         else:
             new_m[n], new_v[n] = mf, vf
     return new_p, {"m": new_m, "v": new_v, "step": step}, \

@@ -34,8 +34,12 @@ for name in names:
 # the rest of the model zoo (the mamba2, rglru and encdec families and
 # the eight configurations they and the vision branch brought); training
 # (the optimizer, the gradients' int8 round trip, the step, the LM data
-# pipeline)
-for name in ("repro_torch.train.optimizer", "repro_torch.train.grad_compress",
+# pipeline); checkpoints, the train launcher and sharding (the mesh, its
+# collectives, the sharded retrieval)
+for name in ("repro_torch.dist.checkpoint", "repro_torch.dist.sharding",
+             "repro_torch.dist.collectives", "repro_torch.core.distributed",
+             "repro_torch.launch.train", "repro_torch.launch.mesh",
+             "repro_torch.train.optimizer", "repro_torch.train.grad_compress",
              "repro_torch.train.trainer", "repro_torch.data.pipeline",
              "repro_torch.models.mamba2", "repro_torch.models.rglru",
              "repro_torch.models.encdec", "repro_torch.configs.whisper_small",
@@ -114,6 +118,14 @@ from repro_torch.train.grad_compress import (compress_decompress,
 from repro_torch.train.trainer import make_states, make_train_step
 from repro_torch.data.pipeline import LMBatcher, Prefetcher, ShardSpec
 from repro_torch.data.synthetic import lm_token_stream
+from repro_torch.dist import checkpoint, fault, sharding
+from repro_torch.dist.fault import (RestartManager, StepWatchdog,
+                                    reshard_restore)
+from repro_torch.core.distributed import (make_sharded_retrieval,
+                                          reference_retrieval)
+from repro_torch.models.moe import Q8AllGather, ep_ffn
+from repro_torch.train.trainer import mesh_step, state_shardings
+from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
 import chip_smoke
 sys.path.insert(0, {str(ROOT / "tools")!r})
 import attention_probe, kmeans_probe, launch_probe, retrieval_probe

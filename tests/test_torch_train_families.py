@@ -6,7 +6,10 @@ import pytest
 
 from repro_torch.models import model as tm
 from repro_torch.models.encdec import DEC_RATIO
-from torch_parity import assert_loss_and_grads, loss_and_grads_pair, pair
+from torch_parity import (assert_loss_and_grads, loss_and_grads_pair,
+                          one_thread, pair)
+
+pytestmark = pytest.mark.usefixtures(one_thread.__name__)
 
 
 @pytest.mark.parametrize("arch,S,over", [

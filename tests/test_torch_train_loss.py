@@ -21,7 +21,9 @@ from repro_torch.models import model as tm
 from repro_torch.models import moe
 from repro_torch.models.dense import bound
 from torch_parity import (assert_close, assert_loss_and_grads,
-                          loss_and_grads_pair, pair)
+                          loss_and_grads_pair, one_thread, pair)
+
+pytestmark = pytest.mark.usefixtures(one_thread.__name__)
 
 
 @pytest.mark.parametrize("arch,S,z_coef", [

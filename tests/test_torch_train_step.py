@@ -32,7 +32,9 @@ from repro_torch.models import model as tm
 from repro_torch.train import grad_compress as gc
 from repro_torch.train import optimizer as opt
 from repro_torch.train import trainer
-from torch_parity import assert_close, j_loss_and_grads, pair
+from torch_parity import assert_close, j_loss_and_grads, one_thread, pair
+
+pytestmark = pytest.mark.usefixtures(one_thread.__name__)
 
 SHAPES = {"w": (6, 40), "stack": (2, 5, 24), "norm": (24,)}
 

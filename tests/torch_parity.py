@@ -6,6 +6,8 @@ they are held to."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from repro.configs import get_config as j_get_config
 from repro.models import model as jmodel
@@ -99,3 +101,17 @@ def assert_loss_and_grads(ref, port, what):
     assert set(pg) == set(jg), (what, set(pg) ^ set(jg))
     for n in jg:
         assert_close(pg[n], jg[n], f"{what} grad {n}")
+
+
+@pytest.fixture(scope="module", autouse=False)
+def one_thread():
+    """torch on one intra-op thread for a module's tests (restored after
+    it): the reduced models' ops are small, and with the workers of a
+    parallel run sharing the cores, a pool of threads a process waits on
+    itself far longer than one thread computes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
