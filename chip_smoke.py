@@ -123,8 +123,8 @@ determinism`; a whole CPU build and two card builds with the
   the 16 questions (legacy SCR), its doc sets beside the main path's
   (reported);
 - the graph baselines (after the IVF baselines): HNSW, HNSWPQ, IVF-HNSW
-  and EcoVector through `make_index` over the first N_G (6,000) of the
-  same SIFT-like vectors (M 12, efc 60, 23 clusters, m_pq 8; the cut is
+  and EcoVector through `make_index` over the first N_G (3,000) of the
+  same SIFT-like vectors (M 12, efc 60, 16 clusters, m_pq 8; the cut is
   printed under `reduced`): build s, search ms p50, recall@10 and @1
   against exact search, `ram_bytes`, disk bytes and loads, at ef 64 or
   n_probe 4 and 16; `kmeans_assign` runs in HNSWPQ's PQ training and the
@@ -301,10 +301,31 @@ determinism`; a whole CPU build and two card builds with the
   `use_mesh` (DTensor states) equals the unmeshed step's loss within
   1e-6; `reshard_restore` of the train path's checkpoint onto the mesh
   is bit-equal to a plain restore; the checkpoint's directory is then
-  removed.
+  removed;
+- the roofline path (after every other path, so that its lists fit
+  beside what they hold): the dry run's cost model (`roofline/`,
+  `kernels/cost.py`) against the card at one H100's share of its cells.
+  First the modelled terms, traced on fake tensors on the host: the
+  sharded retrieval at one card's share of the retrieval dry run (a
+  fake one-rank (1, 1) mesh), full-width qwen2.5-0.5B's prefill of 2 x
+  32,768 tokens (one device's rows of prefill_32k), a decode step of 8
+  rows over a 32,768-slot cache (of decode_32k) and the train path's
+  step. Then the same work on the card: 90,842 clusters x 1,024 x 128
+  of f32 random lists (47.6 GB, made from a seed; their int32 slot ids
+  checked) through `make_sharded_retrieval` on a (1, 1) NCCL mesh, B
+  1,024, n_probe 16, k 10 (ecoscan at that shape; its ids and distances
+  equal a direct ecoscan call's, and ecoscan is held to its plain
+  version on the first 32 queries); the prefill on flash_prefill and
+  four decode steps on decode_attention under the profiler, both
+  kernels then held to their plain versions at those shapes
+  (flash_prefill on its last 32 queries of each row). Each
+  modelled term is printed beside the measured ms, the share of the
+  bound and the card's name and power limit; the train step's time and
+  peak are read from the train path.
 
-The line before the last is the kernel summary as JSON; the last line is
-`{"ok": true, "device": {...}}`.
+Each driven path prints its seconds; the lines before the last are the
+paths' seconds (`path_s`) and the kernel summary as JSON; the last line
+is `{"ok": true, "device": {...}}`.
 """
 import atexit
 import collections
@@ -354,6 +375,10 @@ from repro_torch.data.tokenizer import HashTokenizer  # noqa: E402
 from repro_torch.dist import checkpoint, sharding  # noqa: E402
 from repro_torch.dist.fault import reshard_restore  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import cost as kcost  # noqa: E402
+from repro_torch.roofline import graph  # noqa: E402
+from repro_torch.roofline import hardware as hw  # noqa: E402
+from repro_torch.launch import dryrun, retrieval_dryrun  # noqa: E402
 from repro_torch.launch import scrub_index, serve  # noqa: E402
 from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
@@ -386,9 +411,6 @@ from repro_torch.train import trainer as trainer_mod  # noqa: E402
 from repro_torch.train.trainer import (loss_and_grads,  # noqa: E402
                                        make_states, make_train_step)
 
-HBM_BYTES_S = 3.35e12          # H100 SXM HBM3
-F32_FLOPS_S = 67e12            # f32 outside the tensor cores
-BF16_FLOPS_S = 989e12          # bf16 tensor cores, dense
 # device and scale of the main path
 DEV = "cuda"
 N_DOCS = 16384
@@ -410,9 +432,9 @@ M_PQ = 8
 # the graph baselines: the first N_G of the same vectors, M 12 and efc 60
 # (benchmarks/common.py's graph settings). Graph inserts are host numpy,
 # 6-10 ms an insert at 1,000-4,000 nodes on the host CPU of an H100
-# machine (tools/hnsw_probe.py), so N_G keeps the graph phases to a few
-# minutes
-N_G = 6000
+# machine (tools/hnsw_probe.py), so N_G keeps the graph phases to about a
+# minute (3,000 since the roofline path joined the script's time limit)
+N_G = 3000
 GRAPH_BASELINES = ("HNSW", "HNSWPQ", "IVF-HNSW", "EcoVector")
 GRAPH_KW = dict(M=12, ef_construction=60)
 # the updates phase on the main path's index: inserts (perturbed corpus
@@ -496,7 +518,14 @@ TRAIN_REPEAT, TRAIN_FRESH, TRAIN_MOE = 6, 2, 2
 # LAUNCH_INTERVAL, the first run killed after step LAUNCH_KILL
 CKPT = {}
 LAUNCH_STEPS, LAUNCH_INTERVAL, LAUNCH_KILL = 6, 2, 3
-BF16_FLOPS_S = 989e12          # H100 SXM dense bf16
+# the roofline path: one H100's share of the retrieval dry run (B queries,
+# n_probe, k over the clusters of CAP x d that 0.6 of 80 GB holds), and
+# full-width qwen2.5-0.5B at one device's share of prefill_32k (32 rows
+# over 16 data ranks) and of decode_32k (128 over 16), ROOF_DECODE_STEPS
+# steps; the ecoscan check's first ROOF_CHECK_Q queries
+ROOF_B, ROOF_PROBE, ROOF_K, ROOF_CAP, ROOF_D = 1024, 16, 10, 1024, 128
+ROOF_PREFILL, ROOF_DECODE = (2, 32768), (8, 32768)
+ROOF_DECODE_STEPS, ROOF_CHECK_Q = 4, 32
 # every RagSession the run makes, with the path it ran on (CURRENT)
 SESSIONS = []
 CURRENT = [None]
@@ -569,7 +598,13 @@ PATH_KERNELS = {
     "train": (),
     # the sharded retrieval's local scan on a (1, 1) mesh
     "mesh": ("ecoscan",),
+    # one H100's share of the retrieval dry run; qwen2.5's prefill and
+    # decode at one device's share of prefill_32k and decode_32k
+    "roofline": ("ecoscan", "flash_prefill", "decode_attention"),
 }
+# each driven path's seconds, in the order they ran, and the script's start
+PATH_S = {}
+T_START = [0.0]
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -585,12 +620,6 @@ def time_ms(fn, iters=20, warmup=3):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
-
-
-def bound(nbytes, flops, peak):
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / peak
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
 
 
 def close(name, got, want, rtol, atol):
@@ -634,11 +663,8 @@ def _kmeans_check(label, x, cent):
 def check_kmeans(label, x, cent):
     """kmeans_assign at one path shape: against plain, times (library:
     `cdist` + `argmin`), and the f32 bound of the work."""
-    N, d = x.shape
-    NC = cent.shape[0]
     _, err, ties = _kmeans_check(f"kmeans_assign {label}", x, cent)
-    b_ms, b_by = bound((N * d + NC * d) * 4 + N * 8,
-                       2.0 * N * NC * d + 2.0 * (N + NC) * d, F32_FLOPS_S)
+    b_ms, b_by = kcost.kmeans_assign(x, cent).bound_ms()
     return dict(
         shape=f"{label}: x {list(x.shape)}, centroids {list(cent.shape)}",
         err=err, ties=ties,
@@ -694,20 +720,6 @@ def _slot_dist(q, data):
     return value_of
 
 
-def _ecoscan_bound(q, data, lens, probes, k, block_map):
-    """Bytes bound of one ecoscan call: the rows of the distinct probed
-    (and mapped, unmasked) lists, q, probes, the map and the outputs."""
-    B, d = q.shape
-    blk = probes.long() if block_map is None else \
-        block_map[probes.clamp(min=0).long()].long()
-    ok = (probes >= 0) & (blk >= 0)
-    rows = int(lens[torch.unique(blk[ok])].clamp(max=data.shape[1]).sum())
-    cand = int(lens[blk.clamp(min=0)].clamp(max=data.shape[1])[ok].sum())
-    maps = 0 if block_map is None else block_map.numel()
-    return bound((rows * d + B * d + probes.numel() + maps + B * k * 2) * 4,
-                 2.0 * d * (cand + rows), F32_FLOPS_S)
-
-
 def _bit_equal(name, fn):
     """Two calls of fn give the same bits."""
     a, b = fn(), fn()
@@ -715,11 +727,16 @@ def _bit_equal(name, fn):
         f"{name}: two calls differ"
 
 
-def _ecoscan_case(label, q, data, lens, probes, k, block_map=None):
+def _ecoscan_case(label, q, data, lens, probes, k, block_map=None,
+                  rows=None):
     """ecoscan against plain through the wrapper and at each forced tile
     (ids exact except ties within 2e-5, values 2e-5), each bit-equal
-    across two calls. Returns (max abs error, tied swaps, wrapper ids)."""
-    want = ref.ecoscan(q, data, lens, probes, k, block_map=block_map)
+    across two calls. `rows`: each call runs the whole batch and its
+    first `rows` queries are held against the plain version of those
+    alone (all when None). Returns (max abs error, tied swaps, wrapper
+    ids)."""
+    r = q.shape[0] if rows is None else rows
+    want = ref.ecoscan(q[:r], data, lens, probes[:r], k, block_map=block_map)
     calls = [("", lambda: ops.ecoscan(q, data, lens, probes, k,
                                       block_map=block_map))]
     calls += [(f" at tile {t}", lambda t=t: ops.ecoscan_launch(
@@ -728,10 +745,11 @@ def _ecoscan_case(label, q, data, lens, probes, k, block_map=None):
     err, ties, ids = 0.0, 0, None
     for tag, fn in calls:
         dist, got = fn()
-        ties = max(ties, same_or_tied(f"ecoscan {label}{tag}", got, want[1],
-                                      _slot_dist(q, data), 2e-5, 2e-5))
-        err = max(err, close(f"ecoscan {label}{tag}", dist, want[0], 2e-5,
-                             2e-5))
+        ties = max(ties, same_or_tied(f"ecoscan {label}{tag}", got[:r],
+                                      want[1], _slot_dist(q[:r], data),
+                                      2e-5, 2e-5))
+        err = max(err, close(f"ecoscan {label}{tag}", dist[:r], want[0],
+                             2e-5, 2e-5))
         _bit_equal(f"ecoscan {label}{tag}", fn)
         ids = got if ids is None else ids
     return err, ties, ids
@@ -743,7 +761,8 @@ def check_ecoscan(label, q, data, lens, probes, k, block_map=None,
     `topk` over the gathered lists) and the bound of the work."""
     B, d = q.shape
     err, ties, _ = _ecoscan_case(label, q, data, lens, probes, k, block_map)
-    b_ms, b_by = _ecoscan_bound(q, data, lens, probes, k, block_map)
+    b_ms, b_by = kcost.ecoscan(q, data, lens, probes, k,
+                               block_map).bound_ms()
     blk = probes.long() if block_map is None else \
         block_map[probes.clamp(min=0).long()].long()
 
@@ -860,12 +879,7 @@ def check_scr_select(label, q, data, lens, ids):
     ND, CAPW, _ = data.shape
     K = ids.shape[1]
     err, ties, _ = _scr_case(label, q, data, lens, ids)
-    valid = ids >= 0
-    n_win = int(lens[ids.clamp(min=0).long()][valid].sum())
-    uniq = torch.unique(ids[valid].long())
-    b_ms, b_by = bound(int(lens[uniq].sum()) * d * 4 + B * d * 4
-                       + ids.numel() * 4 + B * K * 8, 2.0 * d * n_win,
-                       F32_FLOPS_S)
+    b_ms, b_by = kcost.scr_select(q, data, lens, ids).bound_ms()
 
     def library():
         g_ = data[ids.clamp(min=0).long()].reshape(B, K * CAPW, d)
@@ -958,8 +972,7 @@ def check_scr_score(w, q):
         qe = torch.randn(b_, dd, generator=g, device=DEV)
         close(f"scr_score edge {b_}x{nw}x{dd}", ops.scr_score(we, qe),
               ref.scr_score(we, qe), 1e-5, 1e-5)
-    b_ms, b_by = bound((B * NW * d + B * d + B * NW) * 4, 2.0 * B * NW * d,
-                       F32_FLOPS_S)
+    b_ms, b_by = kcost.scr_score(w, q).bound_ms()
     q3 = q[:, :, None].contiguous()
     # the cached C entry point alone, on prepared arguments: what is left
     # of a call without the wrapper's checks, allocation and stream lookup
@@ -1041,7 +1054,8 @@ def _pq_times(label, lut, codes, seg=None, iters=50):
 
         def plain():
             return ref.pq_adc(lut, codes)
-        stacked, seg_bytes = codes, 0
+        stacked = codes
+        b_ms, b_by = kcost.pq_adc(lut, codes).bound_ms()
     else:
         st, off, _ = seg
 
@@ -1054,9 +1068,8 @@ def _pq_times(label, lut, codes, seg=None, iters=50):
         stacked = codes[torch.repeat_interleave(
             st.long() - off[:-1].long(), lens)
             + torch.arange(rows, device=DEV)]
-        seg_bytes = (st.numel() + off.numel()) * 4
-    b_ms, b_by = bound(rows * M + (B * M * K + B * rows) * 4 + seg_bytes,
-                       float(B * rows * M), F32_FLOPS_S)
+        b_ms, b_by = kcost.pq_adc(lut, codes, st, off,
+                                  rows).bound_ms()
     flat = stacked.long() + K * torch.arange(M, device=DEV)
     tabs = [lut[b].reshape(M * K, 1) for b in range(B)]
 
@@ -1171,11 +1184,8 @@ def check_decode(label, q, kp, vp, kv_len, table):
     close(f"decode_attention_paged {label} f32",
           ops.decode_attention_paged(*a32, kv_len, table),
           ref.decode_attention_paged(*a32, kv_len, table), 1e-5, 1e-5)
-    kv = int(kv_len.clamp(min=0, max=W * ps).sum())
-    npg = int(((kv_len.clamp(min=0) + ps - 1) // ps).clamp(max=W).sum())
-    esz = q.element_size()
-    b_ms, b_by = bound(2 * kv * G * dh * esz + 2 * q.numel() * esz
-                       + (npg + B) * 4, 4.0 * kv * H * dh, BF16_FLOPS_S)
+    b_ms, b_by = kcost.decode_attention_paged(q, kp, vp, kv_len,
+                                              table).bound_ms()
     j = torch.arange(W * ps, device=DEV)
     mask = (j[None, :] < kv_len[:, None])[:, None, None, :]
 
@@ -1271,14 +1281,6 @@ def chunk_buffer(kp, vp, row, offset, c, ps, ring_len=0):
     return k, v, lo
 
 
-def unmasked_pairs(sq, q_offset, kv_len, window, causal):
-    """(query, key) pairs that causal / window / kv_len leave unmasked."""
-    qpos = q_offset + np.arange(sq)
-    hi = np.minimum(kv_len, qpos + 1) if causal else np.full(sq, kv_len)
-    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(sq)
-    return int(np.clip(hi - lo, 0, None).sum())
-
-
 def check_flash_prefill(label, q, k, v, *, window=None, q_offset=0,
                         kv_len=None, causal=True, plain_iters=20):
     """flash_prefill at one path shape: kernel against plain in q's type
@@ -1296,11 +1298,8 @@ def check_flash_prefill(label, q, k, v, *, window=None, q_offset=0,
         a32 = [t.float() for t in (q, k, v)]
         close(f"flash_prefill {label} f32", ops.flash_prefill(*a32, **kw),
               ref.flash_prefill(*a32, **kw), 1e-5, 1e-5)
-    esz = q.element_size()
-    pairs = unmasked_pairs(Sq, q_offset, kv, window, causal)
-    b_ms, b_by = bound((2 * q.numel() + 2 * B * kv * G * dh) * esz,
-                       4.0 * dh * H * B * pairs,
-                       BF16_FLOPS_S if bf16 else F32_FLOPS_S)
+    b_ms, b_by = kcost.flash_prefill(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset, kv_len=kv).bound_ms()
     qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(Sk, device=q.device)[None, :]
     mask = kpos < kv
@@ -1338,10 +1337,8 @@ def check_decode_attention(label, q, k, v, kv_len, ring):
               ref.decode_attention(*a32, kv_len, ring=ring), 1e-5, 1e-5)
     n = kv_len.long().clamp(max=S)
     n = torch.where(n > 0, n, S)
-    esz = q.element_size()
-    b_ms, b_by = bound(2 * int(n.sum()) * G * dh * esz + 2 * q.numel() * esz
-                       + 4 * B, 4.0 * int(n.sum()) * H * dh,
-                       BF16_FLOPS_S if bf16 else F32_FLOPS_S)
+    b_ms, b_by = kcost.decode_attention(q, k, v, kv_len,
+                                        ring).bound_ms()
     mask = (torch.arange(S, device=q.device)[None, :] < n[:, None])
     mask = mask[:, None, None, :]
     kk, vv = _expand(k, H // G), _expand(v, H // G)
@@ -1512,16 +1509,6 @@ def q8_planes(x, zero_rows=()):
     return L.quantize_kv(x)
 
 
-def _q8_bound(n_pos, G, H, dh, q):
-    """Bytes bound of an int8 decode call: int8 K and V plus their f32
-    scales once for the n_pos positions the rows attend, q read and the
-    output written once; operations 4*H*dh a position."""
-    esz = q.element_size()
-    return bound(2 * n_pos * G * (dh + 4) + 2 * q.numel() * esz
-                 + 4 * q.shape[0], 4.0 * n_pos * H * dh,
-                 BF16_FLOPS_S if q.dtype == torch.bfloat16 else F32_FLOPS_S)
-
-
 def check_decode_q8(label, q, kq, ks, vq, vs, kv_len, ring):
     """decode_attention_q8 at one path shape: kernel against plain in q's
     type (bf16: 2e-2) and in f32 (1e-5); times, the bytes bound, and the
@@ -1537,7 +1524,7 @@ def check_decode_q8(label, q, kq, ks, vq, vs, kv_len, ring):
           ref.decode_attention_q8(q.float(), *a, ring=ring), 1e-5, 1e-5)
     n = kv_len.long().clamp(max=S)
     n = torch.where(n > 0, n, S)
-    b_ms, b_by = _q8_bound(int(n.sum()), G, H, dh, q)
+    b_ms, b_by = kcost.decode_attention_q8(q, *a, ring=ring).bound_ms()
     mask = (torch.arange(S, device=q.device)[None, :] < n[:, None]
             )[:, None, None, :]
 
@@ -1589,8 +1576,7 @@ def check_decode_paged_q8(label, q, kq, ks, vq, vs, kv_len, table):
     close(f"decode_attention_paged_q8 {label} f32",
           ops.decode_attention_paged_q8(q.float(), *a),
           ref.decode_attention_paged_q8(q.float(), *a), 1e-5, 1e-5)
-    kv = int(kv_len.clamp(min=0, max=W * ps).sum())
-    b_ms, b_by = _q8_bound(kv, G, H, dh, q)
+    b_ms, b_by = kcost.decode_attention_paged_q8(q, *a).bound_ms()
     j = torch.arange(W * ps, device=DEV)
     mask = (j[None, :] < kv_len[:, None])[:, None, None, :]
 
@@ -1789,13 +1775,16 @@ def drive(path, fn):
     just after; each kernel of the path must have launched."""
     ops.reset_launch_counts()
     CURRENT[0] = path
+    t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
+    PATH_S[path] = time.perf_counter() - t0
     CURRENT[0] = None
     counts = ops.launch_counts()
     missing = [n for n in PATH_KERNELS[path] if counts[n] == 0]
     assert not missing, f"kernels not launched on the {path} path: {missing}"
-    print(f"launches on the {path} path:", json.dumps(counts))
+    print(f"launches on the {path} path:", json.dumps(counts),
+          f"; the path took {PATH_S[path]:.1f} s")
     return out, counts
 
 
@@ -4014,7 +4003,7 @@ def train_dense():
     n = model_mod.count_params(state[0])
     tokens = TRAIN_B * TRAIN_S
     steady = float(np.median(secs[1:] + fresh_secs))
-    bound_ms = 8 * n * tokens / BF16_FLOPS_S * 1e3
+    bound_ms = 8 * n * tokens / hw.BF16_FLOPS_S * 1e3
     del model, state, ms, st
     torch.cuda.empty_cache()
     return dict(
@@ -4372,7 +4361,297 @@ def mesh_path(pipe, embed, questions, want):
     return info, eco_in
 
 
+def _bound_ms(c):
+    """The largest of a modelled cost's three terms, in ms."""
+    return max(c["t_compute_s"], c["t_memory_s"], c["t_collective_s"]) * 1e3
+
+
+def _terms(c):
+    """The modelled terms of a `graph.trace_cost` dict, in ms and GB."""
+    return {"flops": c["flops"], "bytes": c["bytes"],
+            "t_compute_ms": c["t_compute_s"] * 1e3,
+            "t_memory_ms": c["t_memory_s"] * 1e3,
+            "t_collective_ms": c["t_collective_s"] * 1e3,
+            "bound_ms": _bound_ms(c),
+            "dominant": graph.dominant(c["t_compute_s"], c["t_memory_s"],
+                                       c["t_collective_s"]),
+            "peak_gb": c["peak_bytes"] / 1e9,
+            "kernel_nodes": c["kernel_nodes"]}
+
+
+def roofline_model():
+    """The cost model's terms of the roofline path's runs, traced on fake
+    tensors on the host (nothing runs on the card): the sharded retrieval
+    at one H100's share on a (1, 1) mesh of a fake one-rank group (the
+    retrieval dry run's sizing), qwen2.5-0.5B's prefill and a decode step
+    at one device's share of prefill_32k and decode_32k, and the train
+    path's step (TRAIN_B x TRAIN_S, masters, m, v and the model's weights
+    held, as the train path's process holds them)."""
+    t0 = time.perf_counter()
+    ret = retrieval_dryrun.run(False, B=ROOF_B, d=ROOF_D, cap=ROOF_CAP,
+                               n_probe=ROOF_PROBE, k=ROOF_K, out=None,
+                               mesh=retrieval_dryrun.card_mesh(),
+                               tag_mesh="one card")
+    dryrun.release()
+    cfg = GEN_CONFIG
+    mode = graph.fake_mode()
+    with mode:
+        lm = dryrun.fake_model(cfg)
+        toks = torch.zeros(ROOF_PREFILL, dtype=torch.long)
+        cache = dryrun.decode_cache(cfg, ROOF_DECODE[0], ROOF_DECODE[1])
+        tok = torch.zeros((ROOF_DECODE[0], 1), dtype=torch.long)
+        ms = {n: torch.empty(s_) for n, s_ in
+              model_mod.param_shapes(cfg).items()}
+        st = opt.init_opt_state(ms, "float32")
+        batch = {n: torch.zeros((TRAIN_B, TRAIN_S), dtype=torch.int32)
+                 for n in ("tokens", "labels")}
+    w = list(lm.parameters())
+    prefill = graph.trace_cost(lm.prefill, toks, live=w, mode=mode)
+    decode = graph.trace_cost(lm.decode_step, cache, tok, ROOF_DECODE[1] - 1,
+                              live=w, mode=mode)
+    step, _, _ = make_train_step(_train_run(cfg), lm, max_steps=60)
+    train = graph.trace_cost(step, ms, st, batch, live=w, mode=mode)
+    return {"retrieval": ret, "prefill": _terms(prefill),
+            "decode": _terms(decode), "train": _terms(train),
+            "trace_s": time.perf_counter() - t0}
+
+
+def roofline_retrieval():
+    """One H100's share of the retrieval dry run, run for real: NC
+    clusters (`retrieval_dryrun.clusters_per_device`: 0.6 of 80 GB) of
+    ROOF_CAP x ROOF_D f32 random lists made on the card from a seed (the
+    lists full), their global slot ids (checked under int32), random
+    centroids and ROOF_B queries, through `make_sharded_retrieval` on a
+    (1, 1) NCCL mesh at n_probe ROOF_PROBE, k ROOF_K. Returns (info, the
+    inputs of its ecoscan call)."""
+    import torch.distributed as tdist
+    nc = retrieval_dryrun.clusters_per_device(ROOF_CAP, ROOF_D)
+    assert nc * ROOF_CAP < 2 ** 31, "slot ids past int32"
+    store = tempfile.mkdtemp(prefix="pg_")
+    tdist.init_process_group("nccl" if DEV == "cuda" else "gloo",
+                             init_method=f"file://{store}/store", rank=0,
+                             world_size=1)
+    try:
+        mesh = make_test_mesh(1, 1, device_type=DEV)
+        g = torch.Generator(device=DEV).manual_seed(11)
+        t0 = time.perf_counter()
+        data = torch.randn(nc, ROOF_CAP, ROOF_D, generator=g, device=DEV)
+        lens = torch.full((nc,), ROOF_CAP, dtype=torch.int32, device=DEV)
+        sid = torch.arange(nc * ROOF_CAP, dtype=torch.int32,
+                           device=DEV).view(nc, ROOF_CAP)
+        cent = torch.randn(nc, ROOF_D, generator=g, device=DEV)
+        q = torch.randn(ROOF_B, ROOF_D, generator=g, device=DEV)
+        torch.cuda.synchronize()
+        make_s = time.perf_counter() - t0
+        ret = cdist.make_sharded_retrieval(mesh, k=ROOF_K, n_probe=ROOF_PROBE)
+        dists, ids = ret(q, cent, data, lens, sid)          # NCCL set-up
+        call_ms = time_ms(lambda: ret(q, cent, data, lens, sid), iters=5,
+                          warmup=1)
+        probes = ref.route_topk(q, cent, ROOF_PROBE)
+        route_ms = time_ms(lambda: ref.route_topk(q, cent, ROOF_PROBE),
+                           iters=5, warmup=1)
+        d_k, s_k = ops.ecoscan(q, data, lens, probes, ROOF_K)
+        # the retrieval is the scan on one rank: its ids are the slots
+        # (slot ids = row * CAP + j), its distances the scan's
+        assert torch.equal(ids, s_k) and torch.equal(dists, d_k)
+        assert bool(torch.isfinite(dists).all()) and bool((ids >= 0).all())
+        info = {"clusters": nc, "lists_gb": data.numel() * 4 / 1e9,
+                "slot_ids_gb": sid.numel() * 4 / 1e9,
+                "held_gb": torch.cuda.memory_allocated() / 1e9,
+                "make_s": make_s, "call_ms": call_ms, "route_ms": route_ms,
+                "distinct_probed": int(torch.unique(probes).numel())}
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return info, (q, data, lens, probes, ROOF_K)
+
+
+def check_ecoscan_share(q, data, lens, probes, k):
+    """ecoscan at the roofline path's shape: each call at the whole batch
+    (through the wrapper and at each forced tile, `_ecoscan_case`), its
+    first ROOF_CHECK_Q queries held against `ref.ecoscan` on those alone
+    (the plain version gathers every probed list: [B, P, CAP, d]); the
+    kernel timed at the whole batch and at those queries, the plain
+    version and the library call at those; the bound of the whole batch's
+    work (`kernels/cost.py`, the distinct probed rows of this run's
+    probes)."""
+    nq = ROOF_CHECK_Q
+    err, ties, _ = _ecoscan_case("one H100's share", q, data, lens, probes,
+                                 k, rows=nq)
+    c = kcost.ecoscan(q, data, lens, probes, k)
+    b_ms, b_by = c.bound_ms()
+    B, d = q.shape
+    qs, ps = q[:nq], probes[:nq]
+
+    def library():
+        g_ = data[ps.long()].reshape(nq, -1, d)
+        return torch.topk(torch.cdist(qs[:, None], g_)[:, 0], k,
+                          largest=False)
+    return dict(
+        shape=f"one H100's share of the retrieval dry run: q {list(q.shape)},"
+              f" data {list(data.shape)}, probes {list(probes.shape)}, k {k};"
+              f" held on its first {nq} queries, plain and library timed on"
+              " those",
+        err=err, ties=ties,
+        ms=time_ms(lambda: ops.ecoscan(q, data, lens, probes, k), iters=5),
+        ms_first_queries=time_ms(lambda: ops.ecoscan(qs, data, lens, ps, k)),
+        plain_ms=time_ms(lambda: ref.ecoscan(qs, data, lens, ps, k),
+                         iters=5),
+        library_ms=time_ms(library, iters=5), bound_ms=b_ms, bound_by=b_by,
+        probed_gb=c.bytes / 1e9)
+
+
+def check_flash_share(cfg):
+    """flash_prefill at one device's share of prefill_32k (ROOF_PREFILL
+    rows of cfg's heads, random bf16 q, k, v from a seed): the kernel's
+    output of the whole shape held against the plain version on its
+    first and last ROOF_CHECK_Q queries of each row (those alone, at
+    their query offset over every key: the plain version's scores of the
+    whole shape would take 120 GB), in bf16 (2e-2) and in f32 (1e-5); the
+    kernel and SDPA (causal) timed at the whole shape, the plain version
+    on the last queries; the bound of the whole shape's work."""
+    g = torch.Generator(device=DEV).manual_seed(13)
+    (b, S), H, G, dh = ROOF_PREFILL, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.resolved_head_dim
+    nq = ROOF_CHECK_Q
+    q, k, v = (torch.randn(b, S, h, dh, generator=g, device=DEV).to(
+        torch.bfloat16) for h in (H, G, G))
+    err = 0.0
+    for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+        qd, kd, vd = (t.to(dt) for t in (q, k, v))
+        out = ops.flash_prefill(qd, kd, vd)
+        for part, off in (("first", 0), ("last", S - nq)):
+            want = ref.flash_prefill(qd[:, off:off + nq], kd, vd,
+                                     q_offset=off)
+            err = max(err, close(
+                f"flash_prefill one device's share of prefill_32k, its "
+                f"{part} {nq} queries, {dt}", out[:, off:off + nq], want,
+                tol, tol))
+        del out, qd, kd, vd
+    b_ms, b_by = kcost.flash_prefill(q, k, v).bound_ms()
+    qq, kk, vv = q.transpose(1, 2), _expand(k, H // G), _expand(v, H // G)
+    qt = q[:, -nq:].contiguous()
+    return dict(
+        shape=f"one device's share of prefill_32k: q {list(q.shape)}, k "
+              f"{list(k.shape)}, causal, bf16; held on its first and last "
+              f"{nq} queries, the plain version timed on the last",
+        err=err, ties=0,
+        ms=time_ms(lambda: ops.flash_prefill(q, k, v), iters=3, warmup=1),
+        plain_ms=time_ms(lambda: ref.flash_prefill(qt, k, v,
+                                                   q_offset=S - nq),
+                         iters=3),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qq, kk, vv, is_causal=True), iters=3, warmup=1),
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def roofline_qwen(model):
+    """Full-width qwen2.5-0.5B (the main path's model) at one device's
+    share of prefill_32k (one prefill of ROOF_PREFILL tokens, on
+    flash_prefill) and of decode_32k (ROOF_DECODE_STEPS steps of
+    ROOF_DECODE[0] rows over a random ROOF_DECODE[1]-slot cache, on
+    decode_attention): wall and profiled device ms of each. Returns
+    (info, decode_attention's inputs at layer 0: q, k, v, kv_len)."""
+    g = torch.Generator(device=DEV).manual_seed(12)
+    cfg = model.cfg
+    toks = torch.randint(0, cfg.vocab_size, ROOF_PREFILL, generator=g,
+                         device=DEV)
+    logits, _ = model.prefill(toks)                     # warm
+    assert bool(torch.isfinite(logits.float()).all())
+    del logits
+    prefill = _profiled(lambda: model.prefill(toks), 1)
+    b, S = ROOF_DECODE
+    shape = (cfg.num_layers, b, S, cfg.num_kv_heads, cfg.resolved_head_dim)
+    cache = {n: torch.randn(shape, generator=g, device=DEV).to(
+        cfg.torch_dtype) for n in ("k", "v")}
+    tok = torch.randint(0, cfg.vocab_size, (b, 1), generator=g, device=DEV)
+    out = model.decode_step(cache, tok, S - 1)          # warm
+    assert out.shape == (b, cfg.vocab_padded)
+    assert bool(torch.isfinite(out.float()).all())
+    decode = _profiled(lambda: model.decode_step(cache, tok, S - 1),
+                       ROOF_DECODE_STEPS)
+    q = torch.randn(b, cfg.num_heads, cfg.resolved_head_dim, generator=g,
+                    device=DEV).to(cfg.torch_dtype)
+    dec_in = (q, cache["k"][0].clone(), cache["v"][0].clone(),
+              torch.full((b,), S, dtype=torch.int32, device=DEV))
+    del cache
+    torch.cuda.empty_cache()
+    return {"prefill": prefill, "decode_step": decode}, dec_in
+
+
+def roofline_path(model):
+    """The roofline path: the cost model's terms (`roofline_model`, on
+    the host), then the same work on the card: the retrieval at one
+    H100's share (`roofline_retrieval`; everything earlier paths cached
+    is freed first), qwen2.5's prefill and decode (`roofline_qwen`).
+    Returns (info, ecoscan's and decode_attention's inputs at the path's
+    shapes)."""
+    t0 = time.perf_counter()
+    modelled = roofline_model()
+    torch.cuda.empty_cache()
+    ret_info, eco_in = roofline_retrieval()
+    qwen, dec_in = roofline_qwen(model)
+    return {"modelled": modelled, "retrieval": ret_info, "qwen": qwen,
+            "path_s": time.perf_counter() - t0}, eco_in, dec_in
+
+
+def share(measured_ms, bound_ms):
+    return bound_ms / measured_ms if measured_ms else None
+
+
+def print_roofline(roof, eco, train_q, smi):
+    """The roofline path's readings, each modelled term beside the
+    measured time and the card's name and power limit."""
+    m, r = roof["modelled"], roof["retrieval"]
+    mr = m["retrieval"]
+    bound_r = _bound_ms(mr)
+    print(f"roofline, retrieval at one H100's share on {smi}: "
+          f"{r['clusters']:,} clusters x {ROOF_CAP} x {ROOF_D} f32 "
+          f"({r['lists_gb']:.1f} GB of lists, {r['slot_ids_gb']:.3f} GB of "
+          f"slot ids, made in {r['make_s']:.2f} s; {r['held_gb']:.1f} GB "
+          f"held), B {ROOF_B}, n_probe {ROOF_PROBE}, k {ROOF_K}, "
+          f"{r['distinct_probed']:,} distinct probed lists; modelled: "
+          f"compute {mr['t_compute_s'] * 1e3:.3f} ms, memory "
+          f"{mr['t_memory_s'] * 1e3:.3f} ms, collective "
+          f"{mr['t_collective_s'] * 1e3:.3f} ms, {mr['dominant']}-bound, "
+          f"peak {mr['peak_bytes_per_device'] / 1e9:.2f} GB; ecoscan's "
+          f"count from shapes {mr['ecoscan']['bytes'] / 1e9:.2f} GB, from "
+          f"this run's probes {eco['probed_gb']:.2f} GB (bound "
+          f"{eco['bound_ms']:.3f} ms); measured: the call "
+          f"{r['call_ms']:.3f} ms ({share(r['call_ms'], bound_r):.1%} of the "
+          f"modelled bound), the route {r['route_ms']:.3f} ms, ecoscan "
+          f"{eco['ms']:.3f} ms ({share(eco['ms'], eco['bound_ms']):.1%} of "
+          f"its bound)")
+    q = roof["qwen"]
+    train_dev = train_q["profiled_step"]["device_ms"]
+    runs = (("prefill", m["prefill"], q["prefill"]["wall_ms"],
+             q["prefill"]["device_ms"], None),
+            ("decode step", m["decode"], q["decode_step"]["wall_ms"],
+             q["decode_step"]["device_ms"], None),
+            ("train step", m["train"], train_q["steady_step_s"] * 1e3,
+             train_dev, train_q["peak_gb"]))
+    shapes = {"prefill": f"{ROOF_PREFILL[0]} x {ROOF_PREFILL[1]} tokens",
+              "decode step": f"{ROOF_DECODE[0]} rows over "
+                             f"{ROOF_DECODE[1]} slots",
+              "train step": f"{TRAIN_B} x {TRAIN_S} (the train path's)"}
+    for name, t, wall, dev, peak in runs:
+        print(f"roofline, qwen2.5-0.5B {name} ({shapes[name]}) on {smi}: "
+              f"modelled t_compute {t['t_compute_ms']:.3f} ms, t_memory "
+              f"{t['t_memory_ms']:.3f} ms, {t['dominant']}-bound, peak "
+              f"{t['peak_gb']:.2f} GB, kernel nodes "
+              f"{json.dumps(t['kernel_nodes'])}; measured wall "
+              f"{wall:.3f} ms ({share(wall, t['bound_ms']):.1%} of the "
+              "bound), device "
+              + ("not measured (the profiler recorded no event)"
+                 if dev is None else
+                 f"{dev:.3f} ms ({share(dev, t['bound_ms']):.1%})")
+              + ("" if peak is None else f", peak {peak:.2f} GB"))
+    print(f"roofline path: {roof['path_s']:.1f} s, of which "
+          f"{m['trace_s']:.1f} s the host's traces")
+
+
 def main() -> int:
+    T_START[0] = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -5149,6 +5428,24 @@ def main() -> int:
           "CPU")
     print("small input, paged families (requests):", json.dumps(n_families),
           "GPU tokens = CPU tokens and wave = continuous, on each")
+    # ---- the roofline path: the cost model's terms against the card at
+    # one H100's share of the dry run's cells (after every other path, so
+    # that the 47.6 GB of lists fit beside what they hold)
+    torch.cuda.empty_cache()
+    (roof, roof_eco, roof_dec), roof_launches = drive(
+        "roofline", lambda: roofline_path(slm.model))
+    eco_share = check_ecoscan_share(*roof_eco)
+    results["ecoscan"]["shapes"].append(eco_share)
+    del roof_eco
+    torch.cuda.empty_cache()
+    results["decode_attention"]["shapes"].append(check_decode_attention(
+        "one device's share of decode_32k", *roof_dec, False))
+    results["flash_prefill"]["shapes"].append(check_flash_share(
+        slm.model.cfg))
+    del roof_dec
+    torch.cuda.empty_cache()
+    print("roofline path:", json.dumps(roof, default=str))
+    print_roofline(roof, eco_share, tq, smi)
     print(f"attention edge cases: {n_edges} agree with the plain versions")
     print(f"kmeans_assign edge cases: {n_kmeans_edges} agree with the plain "
           "version")
@@ -5208,7 +5505,7 @@ def main() -> int:
              "durable": dur_launches, "pipelines": pipelines_launches,
              "embedder": embedder_launches, "families": families_launches,
              "zoo": zoo_launches, "train": train_launches,
-             "mesh": mesh_launches}
+             "mesh": mesh_launches, "roofline": roof_launches}
     kernels = [{
         "name": name, "route": "cuda",
         "source": SOURCES[name],
@@ -5226,6 +5523,8 @@ def main() -> int:
     assert len(kernels) == len(ops.KERNELS)
     assert all(k["launches"] > 0 for k in kernels)
     assert all(math.isfinite(k["ms"]) for k in kernels)
+    print("path_s:", json.dumps(dict(PATH_S, total=time.perf_counter()
+                                     - T_START[0])))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,13 +3,16 @@ port's five families need (dense and MoE decoders with RoPE, M-RoPE or
 no rotary embedding; SwiGLU, squared-ReLU or GELU FFNs; causal, or
 bidirectional for the gte-small encoder; optional sliding window,
 optional int8 KV cache; the Mamba2, RG-LRU and encoder-decoder
-sub-configs; remat and the MoE capacity factor of training), with the
-reference's field names and defaults and the same `reduced` sizes; and
-the training run's `ShapeConfig`, `MeshConfig` (the production mesh
-that `launch.mesh` builds), `TrainConfig` and `RunConfig`."""
+sub-configs; remat and the MoE capacity factor of training; whether a
+sub-quadratic path takes the long_500k cell), with the reference's field
+names and defaults and the same `reduced` sizes; and the run's
+`ShapeConfig` (the reference's four `SHAPES`), `MeshConfig` (the
+production mesh that `launch.mesh` builds), `TrainConfig` and
+`RunConfig`."""
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
 
@@ -118,6 +121,9 @@ class ModelConfig:
     kv_quant: bool = False
     # recompute each layer's activations in the backward pass (training)
     remat: bool = True
+    # a sub-quadratic attention path exists (sliding window, recurrence or
+    # SSD): the config takes the long_500k cell
+    subquadratic: bool = False
 
     @property
     def resolved_head_dim(self) -> int:
@@ -168,6 +174,16 @@ class ModelConfig:
                 rec + ffn + 2 * d)
         return emb + self.num_layers * per
 
+    def active_param_count(self) -> int:
+        """Parameters a token activates (MoE: only its top_k experts), the
+        N of the dry run's 6 N T and 2 N T."""
+        if self.family != "moe":
+            return self.param_count()
+        ffn_mult = 3 if self.act == "swiglu" else 2
+        e_ffn = ffn_mult * self.d_model * self.moe.expert_d_ff
+        inactive = (self.moe.num_experts - self.moe.top_k) * e_ffn
+        return self.param_count() - self.num_layers * inactive
+
     def reduced(self, **over: Any) -> "ModelConfig":
         """Small same-family config for CPU tests (`repro`'s `reduced`)."""
         kw: dict[str, Any] = dict(
@@ -210,12 +226,29 @@ class ShapeConfig:
     kind: str
 
 
+# the reference's cells: (sequence length, global batch, kind)
+SHAPES: dict = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
 @dataclass(frozen=True)
 class MeshConfig:
     """The reference's device mesh: 16 x 16 over ("data", "model"), or
     2 x 16 x 16 over ("pod", "data", "model") with `multi_pod`
     (`launch.mesh.make_production_mesh(multi_pod=...)` builds it)."""
     multi_pod: bool = False
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (2, 16, 16) if self.multi_pod else (16, 16)
+
+    @property
+    def num_devices(self) -> int:
+        return math.prod(self.shape)
 
 
 @dataclass(frozen=True)

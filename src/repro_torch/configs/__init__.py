@@ -1,11 +1,11 @@
 """Architecture registry of the port: the reference's ten assigned
 architectures and the paper's two models (`repro.configs.ARCH_IDS +
-PAPER_IDS`)."""
+PAPER_IDS`), and the (architecture x shape) cells of the dry run."""
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import SHAPES, ModelConfig, ShapeConfig
 
 ARCH_IDS = [
     "arctic_480b",
@@ -33,3 +33,15 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_reduced(arch: str) -> ModelConfig:
     return get_config(arch).reduced()
+
+
+def cells(arch: str) -> list[ShapeConfig]:
+    """The shapes `arch` takes in the dry run: every one of `SHAPES` but
+    long_500k, which needs a sub-quadratic attention path."""
+    cfg = get_config(arch)
+    return [s for s in SHAPES.values()
+            if s.name != "long_500k" or cfg.subquadratic]
+
+
+def skipped_cells(arch: str) -> list[str]:
+    return [] if get_config(arch).subquadratic else ["long_500k"]

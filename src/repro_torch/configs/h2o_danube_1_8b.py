@@ -13,4 +13,5 @@ CONFIG = ModelConfig(
     vocab_size=32000,
     head_dim=80,
     sliding_window=4096,
+    subquadratic=True,
 )

@@ -17,4 +17,5 @@ CONFIG = ModelConfig(
     mamba=MambaConfig(ssm_state=128, head_dim=64, expand=2, conv_width=4,
                       chunk_size=256),
     tie_embeddings=True,
+    subquadratic=True,
 )

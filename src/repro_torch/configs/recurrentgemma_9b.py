@@ -16,4 +16,5 @@ CONFIG = ModelConfig(
     act="gelu",
     rglru=RGLRUConfig(lru_width=4096, local_window=2048, pattern="rra"),
     tie_embeddings=True,
+    subquadratic=True,
 )

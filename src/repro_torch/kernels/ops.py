@@ -13,6 +13,13 @@ microseconds of device time: one pass of checks per wrapper (`_checked`),
 the C entry point from `build.ENTRY`, and the current stream's raw handle
 without building a `torch.cuda.Stream` (`_stream`).
 
+A wrapper on the dry run's path (`flash_prefill`, `decode_attention`,
+`decode_attention_q8`, `ecoscan`) handed a tensor without data (fake or
+meta) takes the trace route of `cost.node`: it records its kernel's
+node, costed by `kernels/cost.py`, in the active dry-run trace and
+returns empty outputs; outside a trace it raises. It computes nothing
+there: no plain version runs.
+
 A launch that fails raises `KernelError` (as does a kernel that does not
 build or load). `is_kernel_fault` tells such a fault, or a CUDA error
 that PyTorch raised, from any other exception: the serving ladders
@@ -26,7 +33,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, cost, ref
 from repro_torch.kernels.build import KernelError
 
 KERNELS = ("kmeans_assign", "ecoscan", "scr_select", "decode_attention_paged",
@@ -179,6 +186,13 @@ def ecoscan(q: torch.Tensor, data: torch.Tensor, lens: torch.Tensor,
     P = probes.shape[1]
     if d2 != d or lens.shape[0] != R or probes.shape[0] != B or k < 1:
         raise ValueError("ecoscan shapes disagree")
+    if R * CAP >= 2 ** 31:
+        raise ValueError(f"ecoscan: {R} x {CAP} slots pass the int32 slot "
+                         "ids")
+    if cost.traced(q):
+        return cost.node("ecoscan", lambda: (
+            q.new_empty((B, k)), q.new_empty((B, k), dtype=torch.int32)),
+            q, data, lens, probes, k, block_map)
     if dev.type == "cpu":
         return ref.ecoscan(q, data, lens, probes, k, block_map=block_map)
     if B == 0 or P == 0 or CAP == 0:
@@ -287,6 +301,10 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q_offset < 0 or (window is not None and window < 1):
         raise ValueError(f"q_offset {q_offset} < 0 or window {window} < 1")
     kv = Sk if kv_len is None else max(0, min(int(kv_len), Sk))
+    if cost.traced(q):
+        return cost.node("flash_prefill", lambda: torch.empty_like(q), q, k,
+                         v, causal=causal, window=window, q_offset=q_offset,
+                         kv_len=kv)
     if dev.type == "cpu":
         return ref.flash_prefill(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset, kv_len=kv)
@@ -457,6 +475,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if isinstance(kv_len, torch.Tensor):
         if kv_len.shape[0] != B:
             raise ValueError(f"kv_len: {kv_len.shape[0]} rows, q has {B}")
+    if cost.traced(q):
+        return cost.node("decode_attention", lambda: torch.empty_like(q), q,
+                         k, v, kv_len, ring)
     if dev.type == "cpu":
         return ref.decode_attention(q, k, v, kv_len, ring=ring)
     Hg, esz = H // G, q.element_size()
@@ -606,6 +627,9 @@ def decode_attention_q8(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
                          f"{tuple(ks.shape)}")
     if isinstance(kv_len, torch.Tensor) and kv_len.shape[0] != B:
         raise ValueError(f"kv_len: {kv_len.shape[0]} rows, q has {B}")
+    if cost.traced(q):
+        return cost.node("decode_attention_q8", lambda: torch.empty_like(q),
+                         q, kq, ks, vq, vs, kv_len, ring)
     if dev.type == "cpu":
         return ref.decode_attention_q8(q, kq, ks, vq, vs, kv_len, ring=ring)
     Hg = H // G

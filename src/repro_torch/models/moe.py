@@ -106,6 +106,15 @@ def capacity(T: int, top_k: int, num_experts: int,
     return max(4, int(T * top_k * capacity_factor) // num_experts)
 
 
+def counts(ids, n: int):
+    """How often each value of [0, n) occurs in ids (all of them below
+    n): `torch.bincount(ids, minlength=n)` with its size known before
+    the values, so the card needs no host sync to size it and a dry-run
+    trace sees a static shape."""
+    return torch.zeros(n, dtype=torch.long, device=ids.device).scatter_add_(
+        0, ids.long(), torch.ones_like(ids, dtype=torch.long))
+
+
 def capacity_slots(topi, num_experts: int, C: int, e_offset: int = 0,
                    n_local: Optional[int] = None):
     """Where the slots of topi [T, k] (each token's experts) go, as the
@@ -124,8 +133,8 @@ def capacity_slots(topi, num_experts: int, C: int, e_offset: int = 0,
     leids = torch.where(local, eids - e_offset, torch.full_like(eids, El))
     order = torch.argsort(leids, stable=True)
     sorted_ids = leids[order]
-    counts = torch.bincount(leids, minlength=El + 1)
-    starts = torch.cumsum(counts, 0) - counts
+    n = counts(leids, El + 1)
+    starts = torch.cumsum(n, 0) - n
     pos = torch.arange(T * k, device=topi.device) - starts[sorted_ids]
     keep = (sorted_ids < El) & (pos < C)
     dest = torch.where(keep, sorted_ids * C + pos,
@@ -152,7 +161,7 @@ def train_ffn(cfg: ModelConfig, x, router, we1, we2, we3,
     T, d = x.shape
     E, k = m.num_experts, m.top_k
     probs, topv, topi = topk_route(x, router, k)
-    f = torch.bincount(topi.reshape(-1), minlength=E).float() / (T * k)
+    f = counts(topi.reshape(-1), E).float() / (T * k)
     aux = E * torch.sum(f * probs.mean(0))
     El = we1.shape[0]
     C = capacity(T, k, E, m.capacity_factor)

@@ -35,8 +35,13 @@ for name in names:
 # the eight configurations they and the vision branch brought); training
 # (the optimizer, the gradients' int8 round trip, the step, the LM data
 # pipeline); checkpoints, the train launcher and sharding (the mesh, its
-# collectives, the sharded retrieval)
-for name in ("repro_torch.dist.checkpoint", "repro_torch.dist.sharding",
+# collectives, the sharded retrieval); the dry run on the H100 cost model
+# (the roofline package, the kernels' cost functions, the two launchers)
+for name in ("repro_torch.roofline.hardware", "repro_torch.roofline.graph",
+             "repro_torch.roofline.breakdown", "repro_torch.roofline.report",
+             "repro_torch.kernels.cost", "repro_torch.launch.dryrun",
+             "repro_torch.launch.retrieval_dryrun",
+             "repro_torch.dist.checkpoint", "repro_torch.dist.sharding",
              "repro_torch.dist.collectives", "repro_torch.core.distributed",
              "repro_torch.launch.train", "repro_torch.launch.mesh",
              "repro_torch.train.optimizer", "repro_torch.train.grad_compress",
@@ -126,6 +131,16 @@ from repro_torch.core.distributed import (make_sharded_retrieval,
 from repro_torch.models.moe import Q8AllGather, ep_ffn
 from repro_torch.train.trainer import mesh_step, state_shardings
 from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
+from repro_torch.roofline.graph import trace_cost, fake_mode
+from repro_torch.roofline.hardware import BF16_FLOPS_S, link_bytes_s
+from repro_torch.roofline.report import interesting, markdown
+from repro_torch.roofline.breakdown import breakdown
+from repro_torch.kernels.cost import Cost, node, tracing
+from repro_torch.launch.dryrun import run_cell, trace_cell, write_summary
+from repro_torch.launch.retrieval_dryrun import clusters_per_device
+from repro_torch.configs import cells, skipped_cells
+from repro_torch.config import SHAPES
+assert clusters_per_device() == 90842
 import chip_smoke
 sys.path.insert(0, {str(ROOT / "tools")!r})
 import attention_probe, kmeans_probe, launch_probe, retrieval_probe
