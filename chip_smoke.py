@@ -48,10 +48,16 @@ Phases, any failure exits non-zero (nothing is caught):
    cases also run at every forced route (tensor cores or CUDA cores),
    split count and head grouping (`decode_forced_edges`), each giving the
    same bits on two calls, and a call is one kernel node (its last split
-   block merges). kmeans_assign runs at the
-   five shapes of its paths (the EcoVector build's, the IVF partition's
-   and a PQ sub-quantizer's, on the baselines' own data; the graph
-   baselines' partition and HNSWPQ's sub-quantizer) and its edge cases
+   block merges). flash_prefill's dh-64/128 bf16 edge cases also run at
+   both bf16 routes (`tc` on mma.sync, `wgmma` on wgmma fed by TMA) and
+   at every compiled wgmma plan (`prefill_forced_edges`), two wgmma calls
+   bit-equal; at its wgmma path shapes the tc route is held and timed
+   beside it. Each driven path prints flash_prefill's launches by route,
+   and the main and roofline paths must launch the wgmma route.
+   kmeans_assign runs at the five shapes of its paths (the EcoVector
+   build's, the IVF partition's and a PQ sub-quantizer's, on the
+   baselines' own data; the graph baselines' partition and HNSWPQ's
+   sub-quantizer) and its edge cases
    (`kmeans_edges`); ecoscan also on the pack the updates grew. pq_adc
    equals its plain version bit for bit (both sum in numpy's order),
    through the wrapper and at forced
@@ -316,9 +322,12 @@ determinism`; a whole CPU build and two card builds with the
   1,024, n_probe 16, k 10 (ecoscan at that shape; its ids and distances
   equal a direct ecoscan call's, and ecoscan is held to its plain
   version on the first 32 queries); the prefill on flash_prefill and
-  four decode steps on decode_attention under the profiler, both
-  kernels then held to their plain versions at those shapes
-  (flash_prefill on its last 32 queries of each row). Each
+  four decode steps on decode_attention under the profiler (with
+  flash_prefill's device ms within the prefill, and the prefill again
+  with flash_prefill's tc route forced), both kernels then held to their
+  plain versions at those shapes (flash_prefill on its first and last
+  32 queries of each row, timed in turns with its tc route and SDPA).
+  Each
   modelled term is printed beside the measured ms, the share of the
   bound and the card's name and power limit; the train step's time and
   peak are read from the train path.
@@ -548,6 +557,12 @@ SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in
            ops.KERNELS}
 SOURCES["decode_attention_q8"] = SOURCES["decode_attention"]
 SOURCES["decode_attention_paged_q8"] = SOURCES["decode_attention_paged"]
+# flash_prefill's routes (`ops.prefill_route`): bf16 at dh 64 and 128 on
+# wgmma, at the other dh on mma.sync, f32 on the CUDA cores
+PREFILL_SOURCES = {
+    "wgmma": "src/repro_torch/kernels/csrc/flash_prefill_sm90.cu",
+    "tc": SOURCES["flash_prefill"], "cuda": SOURCES["flash_prefill"]}
+SOURCES["flash_prefill"] = PREFILL_SOURCES["wgmma"]
 # the kernels each path must launch
 PATH_KERNELS = {
     "main": ("kmeans_assign", "ecoscan", "scr_select",
@@ -604,6 +619,8 @@ PATH_KERNELS = {
 }
 # each driven path's seconds, in the order they ran, and the script's start
 PATH_S = {}
+# flash_prefill's launches by route on each driven path
+PREFILL_ROUTES = {}
 T_START = [0.0]
 
 
@@ -1274,8 +1291,9 @@ def chunk_buffer(kp, vp, row, offset, c, ps, ring_len=0):
     `chunk_rows`): the slot's history in position order, then the chunk,
     here the pool rows the chunk writes. Returns (k, v, lo); the chunk's
     queries sit at q_offset offset - lo."""
+    tile = ops.prefill_key_tile(kp.dtype, kp.shape[-1])
     lo, gather, (pg, off) = chunk_rows(row, offset, c, offset + c, ps,
-                                       ring_len)
+                                       ring_len, tile=tile)
     k, v = (torch.cat([t.reshape((-1,) + t.shape[2:])[gather], t[pg, off]]
                       )[None] for t in (kp, vp))
     return k, v, lo
@@ -1308,9 +1326,11 @@ def check_flash_prefill(label, q, k, v, *, window=None, q_offset=0,
     if window:
         mask = mask & (qpos - kpos < window)
     qq, kk, vv = q.transpose(1, 2), _expand(k, H // G), _expand(v, H // G)
-    return dict(
+    route = ops.prefill_route(q.dtype, dh)
+    out = dict(
         shape=f"{label}: q {list(q.shape)}, k {list(k.shape)}, window "
-              f"{window}, q_offset {q_offset}, kv_len {kv}, {q.dtype}",
+              f"{window}, q_offset {q_offset}, kv_len {kv}, {q.dtype}, "
+              f"route {route}",
         err=err, ties=0,
         ms=time_ms(lambda: ops.flash_prefill(q, k, v, **kw)),
         plain_ms=time_ms(lambda: ref.flash_prefill(q, k, v, **kw),
@@ -1318,6 +1338,21 @@ def check_flash_prefill(label, q, k, v, *, window=None, q_offset=0,
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qq, kk, vv, attn_mask=mask)),
         bound_ms=b_ms, bound_by=b_by)
+    if route == "wgmma":
+        # the tc route beside it (held against the plain version too),
+        # both through `flash_prefill_launch` in turns (tc, wgmma, wgmma,
+        # tc): the wrapper's checks are in neither
+        close(f"flash_prefill {label}, tc route",
+              ops.flash_prefill_launch(q, k, v, route="tc", **kw),
+              ref.flash_prefill(q, k, v, **kw), tol, tol)
+        turns = {"tc": [], "wgmma": []}
+        for r in ("tc", "wgmma", "wgmma", "tc"):
+            turns[r].append(time_ms(lambda: ops.flash_prefill_launch(
+                q, k, v, route=r, **kw)))
+        out["tc_ms"] = sum(turns["tc"]) / 2
+        out["wgmma_launch_ms"] = sum(turns["wgmma"]) / 2
+        out["plan"] = ops.prefill_plan(dh, Sq, Sk, B * H)
+    return out
 
 
 def check_decode_attention(label, q, k, v, kv_len, ring):
@@ -1387,6 +1422,9 @@ def attention_edges():
     kc, vc = rnd(1, 96, 2, 64), rnd(1, 96, 2, 64)
     kc[:, 50:] = 1e4
     vc[:, 50:] = 1e4
+    kc2, vc2 = rnd(1, 300, 2, 128), rnd(1, 300, 2, 128)
+    kc2[:, 250:] = 1e4
+    vc2[:, 250:] = 1e4
     flash = [
         ("dh 32, Sq 77", (rnd(2, 77, 4, 32), rnd(2, 77, 2, 32),
                           rnd(2, 77, 2, 32)), dict()),
@@ -1406,15 +1444,42 @@ def attention_edges():
          dict(window=40)),
         ("dh 256, not causal, Sq 33 over 100", qkv(33, 4, 100, 2, 256),
          dict(causal=False)),
+        # dh 64 and 128 again, for the wgmma route: Sq 1 and 77, Hg 7,
+        # windows, 1e4 past kv_len, kv_len 0, every key masked, not
+        # causal with Sq != Sk, several key tiles (the ring wraps) at a
+        # query offset
+        ("dh 64, Sq 77", qkv(77, 8, 77, 2, 64), dict()),
+        ("dh 64, window 5", qkv(100, 8, 100, 2, 64), dict(window=5)),
+        ("dh 64, not causal, Sq 33 over 100", qkv(33, 4, 100, 2, 64),
+         dict(causal=False)),
+        ("dh 64, 2 x 700, window 200", (rnd(2, 700, 4, 64),
+                                         rnd(2, 700, 2, 64),
+                                         rnd(2, 700, 2, 64)),
+         dict(window=200)),
+        ("dh 128, Sq 1", qkv(1, 14, 300, 2, 128), dict(q_offset=299)),
+        ("dh 128, Hg 7", qkv(130, 14, 130, 2, 128), dict()),
+        ("dh 128, Hg 7, chunk, 1e4 past kv_len",
+         (rnd(1, 32, 14, 128), kc2, vc2), dict(q_offset=218, kv_len=250)),
+        ("dh 128, window 40", qkv(300, 8, 300, 2, 128), dict(window=40)),
+        ("dh 128, kv_len 0", qkv(70, 4, 90, 2, 128), dict(kv_len=0)),
+        ("dh 128, every key masked", qkv(40, 4, 100, 2, 128),
+         dict(q_offset=60, window=8, kv_len=20)),
+        ("dh 128, not causal, Sq 33 over 300", qkv(33, 4, 300, 2, 128),
+         dict(causal=False)),
+        ("dh 128, Sq 300 over 1000 at q_offset 700",
+         qkv(300, 4, 1000, 1, 128), dict(q_offset=700)),
     ]
     n = 0
     for label, (q, k, v), kw in flash:
         for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
             a = [t.to(dt) for t in (q, k, v)]
+            want = ref.flash_prefill(*a, **kw)
             close(f"flash_prefill edge {label} {dt}",
-                  ops.flash_prefill(*a, **kw), ref.flash_prefill(*a, **kw),
-                  tol, tol)
+                  ops.flash_prefill(*a, **kw), want, tol, tol)
             n += 1
+            dh = q.shape[-1]
+            if dt is torch.bfloat16 and dh in ops.PREFILL_WGMMA_DH:
+                n += prefill_forced_edges(f"edge {label}", a, kw, want, tol)
 
     def lens(*x):
         return torch.tensor(x, dtype=torch.int32, device=DEV)
@@ -1467,6 +1532,24 @@ def attention_edges():
             assert nodes == 1, \
                 f"decode_attention {label} {name}: {nodes} kernel nodes"
     return n + 1
+
+
+def prefill_forced_edges(label, a, kw, want, tol):
+    """flash_prefill at both bf16 routes (`ops.flash_prefill_launch`) and
+    at every compiled wgmma plan, each held against the plain version;
+    two calls of the wgmma route bit-equal. Returns the checks made."""
+    dh = a[0].shape[-1]
+    calls = {"tc": dict(route="tc"), "wgmma": dict(route="wgmma")}
+    for plan in ops.PREFILL_PLANS[dh]:
+        calls[f"wgmma plan {plan}"] = dict(route="wgmma", plan=plan)
+    for name, force in calls.items():
+        close(f"flash_prefill {label} bf16, {name}",
+              ops.flash_prefill_launch(*a, **kw, **force), want, tol, tol)
+    one, two = (ops.flash_prefill_launch(*a, **kw, route="wgmma")
+                for _ in range(2))
+    assert torch.equal(one, two), \
+        f"flash_prefill {label}: two wgmma calls differ"
+    return len(calls) + 1
 
 
 def decode_forced_edges(label, a, kv, want, tol):
@@ -1691,11 +1774,12 @@ def _device_events(prof):
     return out
 
 
-def _profiled(fn, n, by_op=False):
+def _profiled(fn, n, by_op=False, match=None):
     """torch.profiler over n calls of fn: wall and device ms per call,
     the device's idle share, and the device kernels and host ops that
     take the most time (`by_op`: also the aten ops by the device time of
-    the kernels each launched, children included)."""
+    the kernels each launched, children included; `match`: the device ms
+    a call of the kernels whose name holds it)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1721,7 +1805,11 @@ def _profiled(fn, n, by_op=False):
         {"name": e.key, "device_ms_per_call": e.device_time_total / n / 1e3,
          "calls": e.count} for e in sorted(
             (e for e in prof.key_averages() if e.key.startswith("aten::")),
-            key=lambda e: -e.device_time_total)[:10]]} if by_op else {})
+            key=lambda e: -e.device_time_total)[:10]]} if by_op else {}) | (
+        {f"{match}_device_ms": sum(t for k, t, _ in dev if match in k) / n
+         / 1e3, f"{match}_kernels": sorted({k[:90] for k, _, _ in dev
+                                            if match in k})}
+        if match else {})
 
 
 def profile_decode_steps(eng, prompts, n=8, greedy=True):
@@ -1781,9 +1869,11 @@ def drive(path, fn):
     PATH_S[path] = time.perf_counter() - t0
     CURRENT[0] = None
     counts = ops.launch_counts()
+    PREFILL_ROUTES[path] = dict(ops.flash_prefill.routes)
     missing = [n for n in PATH_KERNELS[path] if counts[n] == 0]
     assert not missing, f"kernels not launched on the {path} path: {missing}"
     print(f"launches on the {path} path:", json.dumps(counts),
+          "; flash_prefill's by route:", json.dumps(PREFILL_ROUTES[path]),
           f"; the path took {PATH_S[path]:.1f} s")
     return out, counts
 
@@ -4507,42 +4597,62 @@ def check_flash_share(cfg):
     output of the whole shape held against the plain version on its
     first and last ROOF_CHECK_Q queries of each row (those alone, at
     their query offset over every key: the plain version's scores of the
-    whole shape would take 120 GB), in bf16 (2e-2) and in f32 (1e-5); the
-    kernel and SDPA (causal) timed at the whole shape, the plain version
-    on the last queries; the bound of the whole shape's work."""
+    whole shape would take 120 GB), in bf16 (the wrapper's wgmma route,
+    and the tc route beside it; the first queries at 2e-2, the last at
+    2e-2 of their largest plain value: each of those averages thousands
+    of keys, so its values are a few hundredths and a fixed 2e-2 would
+    pass a kernel that dropped key tiles) and in f32 (1e-5); at the whole
+    shape the tc route, the wgmma route and SDPA (causal) timed in turns
+    (tc, wgmma, SDPA, SDPA, wgmma, tc), the plain version on the last
+    queries; the bound of the whole shape's work."""
     g = torch.Generator(device=DEV).manual_seed(13)
     (b, S), H, G, dh = ROOF_PREFILL, cfg.num_heads, cfg.num_kv_heads, \
         cfg.resolved_head_dim
     nq = ROOF_CHECK_Q
     q, k, v = (torch.randn(b, S, h, dh, generator=g, device=DEV).to(
         torch.bfloat16) for h in (H, G, G))
-    err = 0.0
-    for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+    err, held = 0.0, {}
+    for dt, tol, route in ((torch.bfloat16, 2e-2, None),
+                           (torch.bfloat16, 2e-2, "tc"),
+                           (torch.float32, 1e-5, None)):
         qd, kd, vd = (t.to(dt) for t in (q, k, v))
-        out = ops.flash_prefill(qd, kd, vd)
+        out = (ops.flash_prefill(qd, kd, vd) if route is None else
+               ops.flash_prefill_launch(qd, kd, vd, route=route))
+        name = f"{dt}, route {route or ops.prefill_route(dt, dh)}"
         for part, off in (("first", 0), ("last", S - nq)):
             want = ref.flash_prefill(qd[:, off:off + nq], kd, vd,
                                      q_offset=off)
-            err = max(err, close(
-                f"flash_prefill one device's share of prefill_32k, its "
-                f"{part} {nq} queries, {dt}", out[:, off:off + nq], want,
-                tol, tol))
+            rtol, atol = tol, tol
+            if part == "last" and dt is torch.bfloat16:
+                rtol, atol = 0.0, tol * want.float().abs().max().item()
+            e = close(f"flash_prefill one device's share of prefill_32k, "
+                      f"its {part} {nq} queries, {name}",
+                      out[:, off:off + nq], want, rtol, atol)
+            held[f"{name}, {part} {nq}"] = {"max_abs_err": e, "atol": atol}
+            err = max(err, e) if route is None else err
         del out, qd, kd, vd
     b_ms, b_by = kcost.flash_prefill(q, k, v).bound_ms()
     qq, kk, vv = q.transpose(1, 2), _expand(k, H // G), _expand(v, H // G)
     qt = q[:, -nq:].contiguous()
+    calls = {"tc": lambda: ops.flash_prefill_launch(q, k, v, route="tc"),
+             "wgmma": lambda: ops.flash_prefill(q, k, v),
+             "sdpa": lambda: F.scaled_dot_product_attention(
+                 qq, kk, vv, is_causal=True)}
+    turns = {name: [] for name in calls}
+    for name in ("tc", "wgmma", "sdpa", "sdpa", "wgmma", "tc"):
+        turns[name].append(time_ms(calls[name], iters=3, warmup=1))
     return dict(
         shape=f"one device's share of prefill_32k: q {list(q.shape)}, k "
-              f"{list(k.shape)}, causal, bf16; held on its first and last "
-              f"{nq} queries, the plain version timed on the last",
-        err=err, ties=0,
-        ms=time_ms(lambda: ops.flash_prefill(q, k, v), iters=3, warmup=1),
+              f"{list(k.shape)}, causal, bf16, route "
+              f"{ops.prefill_route(q.dtype, dh)}, plan "
+              f"{ops.prefill_plan(dh, S, S, b * H)}; held on its first and "
+              f"last {nq} queries, the plain version timed on the last",
+        err=err, ties=0, ms=sum(turns["wgmma"]) / 2,
         plain_ms=time_ms(lambda: ref.flash_prefill(qt, k, v,
                                                    q_offset=S - nq),
                          iters=3),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qq, kk, vv, is_causal=True), iters=3, warmup=1),
-        bound_ms=b_ms, bound_by=b_by)
+        library_ms=sum(turns["sdpa"]) / 2, tc_ms=sum(turns["tc"]) / 2,
+        turns_ms=turns, held=held, bound_ms=b_ms, bound_by=b_by)
 
 
 def roofline_qwen(model):
@@ -4550,16 +4660,35 @@ def roofline_qwen(model):
     share of prefill_32k (one prefill of ROOF_PREFILL tokens, on
     flash_prefill) and of decode_32k (ROOF_DECODE_STEPS steps of
     ROOF_DECODE[0] rows over a random ROOF_DECODE[1]-slot cache, on
-    decode_attention): wall and profiled device ms of each. Returns
-    (info, decode_attention's inputs at layer 0: q, k, v, kv_len)."""
+    decode_attention): wall and profiled device ms of each, with
+    flash_prefill's device ms within the prefill's; then the same
+    prefill with flash_prefill's bf16 route forced to `tc` (the route
+    before wgmma) in the same run, the largest difference of its logits
+    from the first's reported beside their largest value (not checked:
+    the two routes sum in different orders and bf16 carries that through
+    24 layers; each route is held against the plain version in
+    `check_flash_share`). Returns (info, decode_attention's inputs at
+    layer 0: q, k, v, kv_len)."""
     g = torch.Generator(device=DEV).manual_seed(12)
     cfg = model.cfg
     toks = torch.randint(0, cfg.vocab_size, ROOF_PREFILL, generator=g,
                          device=DEV)
     logits, _ = model.prefill(toks)                     # warm
     assert bool(torch.isfinite(logits.float()).all())
-    del logits
-    prefill = _profiled(lambda: model.prefill(toks), 1)
+    prefill = _profiled(lambda: model.prefill(toks), 1,
+                        match="flash_prefill")
+    with patched(ops, "prefill_route", lambda dtype, dh: (
+            "tc" if dtype is torch.bfloat16 else "cuda")):
+        tc_logits, _ = model.prefill(toks)
+        prefill_tc = _profiled(lambda: model.prefill(toks), 1,
+                               match="flash_prefill")
+    prefill["tc_route"] = {k: prefill_tc[k] for k in (
+        "wall_ms", "device_ms", "flash_prefill_device_ms",
+        "flash_prefill_kernels")}
+    prefill["tc_route"]["logits_max_abs_diff"] = float(
+        (tc_logits.float() - logits.float()).abs().max())
+    prefill["tc_route"]["logits_max_abs"] = float(logits.float().abs().max())
+    del logits, tc_logits
     b, S = ROOF_DECODE
     shape = (cfg.num_layers, b, S, cfg.num_kv_heads, cfg.resolved_head_dim)
     cache = {n: torch.randn(shape, generator=g, device=DEV).to(
@@ -4634,6 +4763,18 @@ def print_roofline(roof, eco, train_q, smi):
               "decode step": f"{ROOF_DECODE[0]} rows over "
                              f"{ROOF_DECODE[1]} slots",
               "train step": f"{TRAIN_B} x {TRAIN_S} (the train path's)"}
+    pf = q["prefill"]
+    print(f"roofline, qwen2.5-0.5B prefill ({shapes['prefill']}) on {smi}: "
+          f"flash_prefill {pf['flash_prefill_device_ms']:.3f} ms of the "
+          f"prefill's {pf['device_ms']:.3f} ms device "
+          f"({pf['flash_prefill_kernels']}); with the tc route forced in the "
+          f"same run: {pf['tc_route']['flash_prefill_device_ms']:.3f} ms of "
+          f"{pf['tc_route']['device_ms']:.3f} ms device, wall "
+          f"{pf['tc_route']['wall_ms']:.3f} ms against {pf['wall_ms']:.3f}; "
+          f"logits differ by at most "
+          f"{pf['tc_route']['logits_max_abs_diff']:.3g} (reported, not "
+          f"checked) of a largest |logit| "
+          f"{pf['tc_route']['logits_max_abs']:.3g}")
     for name, t, wall, dev, peak in runs:
         print(f"roofline, qwen2.5-0.5B {name} ({shapes[name]}) on {smi}: "
               f"modelled t_compute {t['t_compute_ms']:.3f} ms, t_memory "
@@ -5478,6 +5619,13 @@ def main() -> int:
                   f"{sh['ms'] / sh['library_ms']:.3g}x the library's time, "
                   f"{sh['bound_ms'] / sh['ms']:.3%} of the bound, "
                   f"max abs err {sh['err']:.3g}, ties {sh['ties']}"
+                  + (f", through the launch: tc route {sh['tc_ms']:.4f} ms,"
+                     f" wgmma {sh['wgmma_launch_ms']:.4f} ms ("
+                     f"{sh['tc_ms'] / sh['wgmma_launch_ms']:.3g}x)"
+                     if "wgmma_launch_ms" in sh else
+                     f", tc route {sh['tc_ms']:.4f} ms ("
+                     f"{sh['tc_ms'] / sh['ms']:.3g}x the kernel's time)"
+                     if "tc_ms" in sh else "")
                   + (f" [{sh['shape']}]" if "shape" in sh else ""))
     # no clean path's pipeline fell back, no clean session failed or
     # retried
@@ -5517,9 +5665,19 @@ def main() -> int:
         "library_ms": r["library_ms"],
         "device_ms": prof["kernel_device_ms"][name],
         "shapes": [{k: sh[k] for k in ("shape", "ms", "plain_ms", "library_ms",
-                                       "bound_ms", "err")}
+                                       "bound_ms", "err", "tc_ms",
+                                       "wgmma_launch_ms", "held") if k in sh}
                    for sh in r.get("shapes", [])]}
         for name, r in results.items()]
+    fp = next(k for k in kernels if k["name"] == "flash_prefill")
+    fp["launches_by_route"] = {r: sum(c[r] for c in PREFILL_ROUTES.values())
+                               for r in ops.PREFILL_ROUTES}
+    fp["launches_by_route_and_path"] = PREFILL_ROUTES
+    fp["sources_by_route"] = PREFILL_SOURCES
+    fp["tc_ms"] = results["flash_prefill"].get("tc_ms")
+    # the main path's chunks and the roofline path's prefill run on wgmma
+    assert PREFILL_ROUTES["main"]["wgmma"] > 0, PREFILL_ROUTES["main"]
+    assert PREFILL_ROUTES["roofline"]["wgmma"] > 0, PREFILL_ROUTES["roofline"]
     assert len(kernels) == len(ops.KERNELS)
     assert all(k["launches"] > 0 for k in kernels)
     assert all(math.isfinite(k["ms"]) for k in kernels)

@@ -70,6 +70,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                               _I, _I, _F, _P, _P],
         "flash_prefill_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _F, _P, _P]},
+    "flash_prefill_sm90": {
+        "flash_prefill_wgmma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _F, _I, _I, _I, _I, _I, _P, _P],
+        "flash_prefill_wgmma_maps": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                     _I, _I]},
     "scr_score": {
         "scr_score": [_P, _P, _I, _I, _I, _P, _P]},
     "pq_adc": {

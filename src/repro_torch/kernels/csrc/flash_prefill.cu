@@ -23,7 +23,7 @@
 // thousands of keys per query) it is bound by operations: the bf16
 // tensor-core rate (989 TFLOP/s) for bf16 inputs, the f32 rate for f32.
 //
-// bf16 route (`flash_prefill_bf16`), FlashAttention-2 on the tensor
+// bf16 route "tc" (`flash_prefill_bf16`), FlashAttention-2 on the tensor
 // cores: one block of 4 warps per (query tile of 64 rows, head, batch),
 // each warp owning 16 query rows, heavy late query tiles issued first.
 // The block walks key tiles of 64 in absolute positions (only those that
@@ -47,10 +47,13 @@
 // it by less than a tenth (PERF.md): neither the K/V traffic nor the
 // shared-memory reads bound it, but each warp's serial chain of Q K^T,
 // softmax (one MUFU exponential per pair, which at dh 80 costs most of
-// the matmul's time) and P V. Next step: `wgmma` with two warpgroups
-// taking turns at softmax and matmul, fed by TMA from a producer warp
-// (dh 80 rows are 160 bytes, which fit no 128-byte swizzle without
-// padding the head dim).
+// the matmul's time) and P V. At dh 64 and 128 bf16 now takes the
+// `wgmma` route instead (csrc/flash_prefill_sm90.cu: TMA from a producer
+// warp, consumer warpgroups overlapping each other's exponentials and
+// products; `ops.prefill_route`); this kernel keeps dh 32, 80 and 256 and
+// stays the probe's and chip_smoke's forced "tc" route at every dh. Next
+// step: dh 80 on `wgmma`, whose 160-byte rows fit no 128-byte swizzle
+// (the 32-byte swizzle, or the head dim padded to 128).
 //
 // f32 route (`flash_prefill_f32`), kept on the CUDA cores as the 1e-5
 // check (tensor cores would take f32 as TF32): one block per (query tile
@@ -62,23 +65,9 @@
 // tile is 16 keys (`F32Tile`).
 #include "common.cuh"
 #include "mma.cuh"
+#include "prefill_keys.cuh"
 
 namespace {
-
-// [kbeg, kend): the key positions that a block of query rows at absolute
-// positions [qlo, qhi] visits, kbeg rounded down to a tile. The last row
-// is the most masked one; when it has no unmasked key, the block visits
-// every key of Sk so that such rows get the uniform average.
-__device__ __forceinline__ void key_range(int qlo, int qhi, int Sk, int causal,
-                                          int window, int kv_len, int tile,
-                                          int& kbeg, int& kend) {
-  kend = causal ? min(kv_len, qhi + 1) : kv_len;
-  kbeg = window > 0 ? max(0, qlo - window + 1) / tile * tile : 0;
-  if (kend <= (window > 0 ? max(0, qhi - window + 1) : 0)) {
-    kbeg = 0;
-    kend = Sk;
-  }
-}
 
 // ------------------------------------------------- f32 on the CUDA cores
 

@@ -271,12 +271,100 @@ def scr_select(q: torch.Tensor, data: torch.Tensor, lens: torch.Tensor,
     return scores, wins
 
 
+SM_COUNT = 132        # streaming multiprocessors of an H100 SXM
 FLASH_PREFILL_DH = (32, 64, 80, 128, 256)
-# keys per tile of flash_prefill: 64 on the bf16 tensor-core route
+# keys per tile of flash_prefill: 64 on the bf16 `tc` route
 # (csrc/flash_prefill.cu `kBK`), 32 on the f32 route (`kTK`). Keys that
 # start at a multiple of it split into the same tiles, summed in the same
 # order, as keys that start at position 0
 FLASH_KEY_TILE = 64
+# flash_prefill's routes: "cuda" (f32 on the CUDA cores, the 1e-5
+# check), "tc" (bf16 on `mma.sync`, csrc/flash_prefill.cu), "wgmma" (bf16
+# on `wgmma` fed by TMA, csrc/flash_prefill_sm90.cu) at PREFILL_WGMMA_DH
+PREFILL_ROUTES = ("cuda", "tc", "wgmma")
+PREFILL_WGMMA_DH = (64, 128)
+# the plans (keys a tile, stages, consumer warpgroups of 64 query rows,
+# blocks an SM) that csrc/flash_prefill_sm90.cu compiles
+# (FLASH_WGMMA_PLAN) at each dh. The first is the long plan, whose keys
+# are the route's key tile: at dh 64 one consumer, two blocks an SM (the
+# two blocks' warpgroups overlap each other's exponentials and products
+# with no turns to take; two consumers taking turns measured slower,
+# PERF.md), at dh 128 two consumers taking turns. The narrow plan (the
+# long plan's keys, one consumer: at dh 64 the long plan itself) takes a
+# grid that the long plan's blocks would not spread over every SM, the
+# short plan (64-key tiles, one consumer) at most PREFILL_SHORT keys
+PREFILL_PLANS = {64: ((128, 2, 1, 2), (64, 2, 1, 3)),
+                 128: ((128, 2, 2, 1), (128, 2, 1, 1), (64, 2, 1, 2))}
+PREFILL_SHORT = 64    # keys that the short plan takes
+
+
+def prefill_route(dtype: torch.dtype, dh: int) -> str:
+    """The route of a `flash_prefill` call, by dtype and dh alone (so a
+    wave's full prefill and the continuous engine's chunks of one model
+    take the same): "wgmma" for bf16 at dh in PREFILL_WGMMA_DH, "tc" for
+    bf16 at any other dh, "cuda" for f32."""
+    if dtype is torch.bfloat16:
+        return "wgmma" if dh in PREFILL_WGMMA_DH else "tc"
+    return "cuda"
+
+
+def _plan_info(dh: int, plan: Tuple[int, int, int, int]) -> Dict[str, int]:
+    keys, stages, consumers, per_sm = plan
+    rows = 64 * consumers
+    return {"keys": keys, "stages": stages, "consumers": consumers,
+            "blocks_per_sm": per_sm, "rows": rows,
+            "smem": 1024 + (rows + 2 * stages * keys) * dh * 2 + 256}
+
+
+# every compiled plan's info, and each dh's (long, narrow, short) plans,
+# built once: a chunk's call is launch-bound, so the pick is a lookup
+_PLAN_INFO = {(dh, p): _plan_info(dh, p) for dh, plans in PREFILL_PLANS.items()
+              for p in plans}
+_PLAN_PICKS = {dh: (plans[0],
+                    next(p for p in plans if p[0] == plans[0][0]
+                         and p[2] == 1),
+                    next(p for p in plans if p[0] == PREFILL_SHORT
+                         and p[2] == 1))
+               for dh, plans in PREFILL_PLANS.items()}
+
+
+def prefill_plan(dh: int, Sq: Optional[int] = None, Sk: Optional[int] = None,
+                 blocks: int = SM_COUNT,
+                 plan: Optional[Tuple[int, int, int, int]] = None
+                 ) -> Dict[str, int]:
+    """The wgmma route's tile for Sq queries over Sk keys at dh in
+    `blocks` (batch x query heads) blocks of query rows, or a forced
+    `plan` of PREFILL_PLANS[dh]: the short plan where Sk <=
+    PREFILL_SHORT, the narrow plan where the long plan's grid has fewer
+    blocks than the card has SMs, else the long plan. A row's sums depend
+    only on the key tiles, not on the block that holds it, so every
+    choice gives the long plan's output: the narrow plan's keys are the
+    long plan's, and the short plan's keys fall in one tile either way.
+    Returns (a shared dict: read, do not change) keys, stages,
+    consumers, blocks_per_sm, rows (64 a consumer) and the block's shared
+    bytes (`Plan::SMEM`: 1 KB of alignment, Q [rows, dh] and the K and V
+    rings [stages, keys, dh] in bf16, 256 bytes of mbarriers), which the
+    wrapper hands to the kernel: it refuses a plan it does not compile or
+    bytes that are not the plan's."""
+    if plan is None:
+        long_, narrow, short = _PLAN_PICKS[dh]
+        plan = long_
+        if Sk is not None and Sk <= PREFILL_SHORT:
+            plan = short
+        elif Sq is not None and blocks * -(-Sq // (64 * long_[2])) < SM_COUNT:
+            plan = narrow
+    return _PLAN_INFO[(dh, tuple(plan))]
+
+
+def prefill_key_tile(dtype: torch.dtype, dh: int) -> int:
+    """Keys per tile of the route that `flash_prefill` takes at (dtype,
+    dh): the long wgmma plan's keys, or FLASH_KEY_TILE (the tc route's
+    tile, a multiple of the f32 route's). A chunk whose keys start at a
+    multiple of it sums in the same tiles as the wave's full prefill
+    (`dense.chunk_rows`)."""
+    if prefill_route(dtype, dh) == "wgmma":
+        return PREFILL_PLANS[dh][0][0]
+    return FLASH_KEY_TILE
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -285,12 +373,15 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q [B, Sq, H, dh]; k, v [B, Sk, G, dh] (f32 or bf16, same as q;
     H % G == 0). Query i at absolute position q_offset + i attends the
     keys at positions < kv_len (Sk when None) that `causal` and `window`
-    leave unmasked. Returns [B, Sq, H, dh] in q's dtype. On the card bf16
-    runs on the tensor cores, f32 on the CUDA cores (in full f32); dh is
-    one of FLASH_PREFILL_DH. Refuses inputs that require grad
+    leave unmasked. Returns [B, Sq, H, dh] in q's dtype. On the card the
+    call is one launch on the route `prefill_route` picks (bf16 on the
+    tensor cores, by `wgmma` at dh 64 and 128 and by `mma.sync` at the
+    others; f32 on the CUDA cores, in full f32); dh is one of
+    FLASH_PREFILL_DH. Counts its launches by route in
+    `flash_prefill.routes`. Refuses inputs that require grad
     (`_no_backward`)."""
     _no_backward("flash_prefill", q, k, v)
-    suffix = _attention_dtype(q)
+    _attention_dtype(q)
     dev = _checked((q, "q", q.dtype, 4), (k, "k", q.dtype, 4),
                    (v, "v", q.dtype, 4))
     B, Sq, H, dh = q.shape
@@ -312,20 +403,61 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_prefill: dh {dh} not in {FLASH_PREFILL_DH}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_prefill: q, k, v must be 16-byte aligned")
+    route = prefill_route(q.dtype, dh)
+    out = flash_prefill_launch(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset, kv_len=kv, route=route)
+    if B and Sq and H:
+        flash_prefill.launches += 1
+        flash_prefill.routes[route] += 1
+    return out
+
+
+def flash_prefill_launch(q, k, v, *, causal: bool = True,
+                         window: Optional[int] = None, q_offset: int = 0,
+                         kv_len: Optional[int] = None,
+                         route: Optional[str] = None,
+                         plan: Optional[Tuple[int, int, int, int]] = None):
+    """Launch flash_prefill on CUDA tensors that pass `flash_prefill`'s
+    checks (no launch counted) -> [B, Sq, H, dh]: on the route
+    `prefill_route` picks and the plan `prefill_plan` gives where `route`
+    and `plan` are None, else on a forced route ("cuda", "tc" or
+    "wgmma") and, on the wgmma route, a forced plan of PREFILL_PLANS[dh],
+    for checks and probes. Raises ValueError for a route or plan that q's
+    dtype or dh does not take: "cuda" takes f32, "tc" bf16, "wgmma" bf16
+    at PREFILL_WGMMA_DH (`prefill_plan`'s tile for the shape where `plan`
+    is None)."""
+    B, Sq, H, dh = q.shape
+    Sk, G = k.shape[1], k.shape[2]
+    kv = Sk if kv_len is None else max(0, min(int(kv_len), Sk))
+    route = prefill_route(q.dtype, dh) if route is None else route
+    if (route not in PREFILL_ROUTES or dh not in FLASH_PREFILL_DH
+            or (route == "cuda") != (q.dtype is torch.float32)
+            or q.dtype not in _DTYPE_SUFFIX
+            or (route == "wgmma" and dh not in PREFILL_WGMMA_DH)
+            or (plan is not None and (route != "wgmma" or tuple(plan)
+                                      not in PREFILL_PLANS[dh]))):
+        raise ValueError(f"flash_prefill: route {route!r}, plan {plan} not "
+                         f"taken at q {tuple(q.shape)} ({q.dtype})")
     out = torch.empty_like(q)
     if B == 0 or Sq == 0 or H == 0:
         return out
-    fn = build.entry("flash_prefill_" + suffix)
-    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), B, Sq, Sk, H, G,
-                 dh, int(causal), window or 0, q_offset, kv,
-                 1.0 / math.sqrt(dh), out.data_ptr(), _stream(dev)),
-              "flash_prefill")
-    flash_prefill.launches += 1
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), B, Sq, Sk, H, G, dh,
+            int(causal), window or 0, q_offset, kv, 1.0 / math.sqrt(dh))
+    stream = _stream(q.device)
+    if route == "wgmma":
+        p = prefill_plan(dh, Sq, Sk, B * H, plan)
+        err = build.entry("flash_prefill_wgmma")(
+            *args, p["keys"], p["stages"], p["consumers"], p["blocks_per_sm"],
+            p["smem"], out.data_ptr(), stream)
+    else:
+        err = build.entry("flash_prefill_" + _DTYPE_SUFFIX[q.dtype])(
+            *args, out.data_ptr(), stream)
+    if err:
+        _raise_on(err, f"flash_prefill ({route}, plan {plan})")
     return out
 
 
 DECODE_TILE = 64      # positions per tile of the two decode kernels
-SM_COUNT = 132        # streaming multiprocessors of an H100 SXM
 DECODE_BLOCKS_PER_SM = 4   # decode kernel blocks resident on one SM
 
 
@@ -827,6 +959,7 @@ _WRAPPERS = {n: globals()[n] for n in KERNELS}
 def reset_launch_counts() -> None:
     for w in _WRAPPERS.values():
         w.launches = 0
+    flash_prefill.routes = dict.fromkeys(PREFILL_ROUTES, 0)
 
 
 def launch_counts() -> Dict[str, int]:

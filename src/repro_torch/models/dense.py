@@ -179,7 +179,7 @@ def init_page_pool(cfg: ModelConfig, num_pages: int, page_size: int,
 
 
 def chunk_rows(row, offset: int, c: int, limit: int, page_size: int,
-               ring_len: int = 0):
+               ring_len: int = 0, *, tile: int):
     """Where a [C]-token prompt chunk at positions [offset, offset + C)
     reads and writes the slot whose page-table row is `row` ([W] int32).
     Position p lives at cursor p % ring_len of a sliding-window ring, at
@@ -188,8 +188,9 @@ def chunk_rows(row, offset: int, c: int, limit: int, page_size: int,
     [lo, offset), their flat pool rows `gather` (page * page_size +
     offset) in position order; the chunk's real tokens (p < limit, and
     p < W * page_size without a ring) are written at (page, offset).
-    lo is max(0, offset - ring) rounded down to flash_prefill's key tile
-    (`ops.FLASH_KEY_TILE`): the history holds every query's window (the
+    lo is max(0, offset - ring) rounded down to `tile`, the key tile of
+    the route that flash_prefill takes at the attention's dtype and head
+    dim (`ops.prefill_key_tile`): the history holds every query's window (the
     positions the rounding adds lie outside it, masked), attention
     depends on positions only through their differences, and the keys
     fall into the tiles they fill at absolute positions, as in the wave
@@ -200,7 +201,7 @@ def chunk_rows(row, offset: int, c: int, limit: int, page_size: int,
     end = limit if ring_len else min(limit, ring)
     dev = row.device
     rowl = row.long()
-    lo = max(0, offset - ring) // ops.FLASH_KEY_TILE * ops.FLASH_KEY_TILE
+    lo = max(0, offset - ring) // tile * tile
     hist = torch.arange(lo, offset, device=dev) % ring
     lw = torch.arange(offset, max(offset, min(offset + c, end)),
                       device=dev) % ring
@@ -670,8 +671,9 @@ class DenseLM(LM):
         cfg = self.cfg
         c = tokens.shape[1]
         limit = offset + c if limit is None else limit
+        tile = ops.prefill_key_tile(cfg.torch_dtype, cfg.resolved_head_dim)
         lo, gather, dst = chunk_rows(row, offset, c, limit, page_size,
-                                     ring_len)
+                                     ring_len, tile=tile)
         n_keep = dst[0].numel()
         positions = offset + torch.arange(c, device=tokens.device)[None, :]
         x = self._embed(tokens)

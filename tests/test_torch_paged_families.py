@@ -135,7 +135,8 @@ def test_chunk_rows(offset, limit, ring_len):
     written."""
     ps, W, c = 8, (ring_len or 168) // 8, 32
     row = torch.randperm(64)[:W].to(torch.int32)
-    lo, gather, (pg, off) = chunk_rows(row, offset, c, limit, ps, ring_len)
+    lo, gather, (pg, off) = chunk_rows(row, offset, c, limit, ps, ring_len,
+                                       tile=ops.FLASH_KEY_TILE)
     ring = ring_len or W * ps
     assert lo % ops.FLASH_KEY_TILE == 0
     assert lo <= max(0, offset - ring) < lo + ops.FLASH_KEY_TILE

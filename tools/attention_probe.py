@@ -1,12 +1,28 @@
 #!/usr/bin/env python3
 """Tile-shape probe of the port's three attention kernels on one GPU:
-`python3 tools/attention_probe.py [--paged | --decode | --q8 | --zoo]
-[--src DIR]` (`--paged` runs only the decode_attention_paged rows,
-`--decode` only the decode_attention rows, `--q8` only the int8 rows,
-`--zoo` only the model zoo's shapes; `--src` names the
-`src` directory whose
-`repro_torch` is imported, so that a parent tree unpacked with git
-archive can be timed in the same call).
+`python3 tools/attention_probe.py [--prefill | --paged | --decode | --q8 |
+--zoo] [--src DIR]` (`--prefill` runs only flash_prefill's routes at its
+dh-64 and dh-128 path shapes, `--paged` only the decode_attention_paged
+rows, `--decode` only the decode_attention rows, `--q8` only the int8
+rows, `--zoo` only the model zoo's shapes; `--src` names the `src`
+directory whose `repro_torch` is imported, so that a parent tree
+unpacked with git archive can be timed in the same call).
+
+prefill (`--prefill`): nvcc's registers and spills of every
+flash_prefill instantiation (`-Xptxas -v`; the wgmma plans' shared bytes
+from `ops.prefill_plan`, which ptxas does not see: they are dynamic),
+the host microseconds of the wgmma route's three tensor maps (the C entry
+`flash_prefill_wgmma_maps`), then at each dh-64/128 path shape
+(PREFILL_SHAPES: one device's share of qwen2.5's prefill_32k, whisper's
+encoder and cross-attention, gte-small's encoder, qwen2-vl's prefill, the
+main path's chunk and nemotron's chunk) the `tc` and `wgmma` routes
+(`ops.flash_prefill_launch`) held against `ref.flash_prefill` (bf16,
+2e-2; the share on its first and last 32 queries) and timed in turns
+with SDPA (tc, wgmma, SDPA, SDPA, wgmma, tc: profiler device ms, and call
+ms), then every compiled wgmma plan (`ops.PREFILL_PLANS`, the tile
+knobs: keys a tile, stages, consumers, blocks an SM) at each shape. A
+`--src` tree without `ops.prefill_route` (a parent of the wgmma route):
+its wrapper and SDPA at each shape.
 
 flash_prefill: builds `csrc/flash_prefill.cu` once per setting of its
 tensor-core route's knobs (kMT 16-row m-tiles per warp, kBK keys per
@@ -66,6 +82,7 @@ import json
 import math
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -80,6 +97,19 @@ KNOBS = [dict(kMT=1, kBK=64, kStages=2), dict(kMT=2, kBK=64, kStages=2),
          dict(kMT=1, kBK=128, kStages=2), dict(kMT=1, kBK=32, kStages=2),
          dict(kMT=1, kBK=64, kStages=3)]
 SPLITS = (1, 8, 17, 32)
+# flash_prefill's dh-64/128 path shapes: (label, B, Sq, H, Sk, G, dh,
+# q_offset, kv_len, causal)
+PREFILL_SHAPES = [
+    ("prefill_32k share", 2, 32768, 14, 32768, 2, 64, 0, 32768, True),
+    ("whisper encoder", 2, 1500, 12, 1500, 12, 64, 0, 1500, False),
+    ("whisper cross", 2, 32, 12, 1500, 12, 64, 0, 1500, False),
+    ("gte encoder", 256, 64, 6, 64, 6, 64, 0, 64, False),
+    ("qwen2-vl prefill", 2, 320, 12, 320, 2, 128, 0, 320, True),
+    ("main chunk", 1, 32, 14, 96, 2, 64, 64, 96, True),
+    ("nemotron chunk", 1, 32, 48, 96, 8, 128, 64, 96, True),
+    ("dh 128, 8k (not a path shape)", 2, 8192, 12, 8192, 2, 128, 0, 8192,
+     True),
+]
 # kTile settings of decode_attention_paged.cu; the first is the committed
 PAGED_TILES = (64, 32, 128)
 
@@ -524,11 +554,110 @@ def zoo_probe(g):
             print(json.dumps(row))
 
 
+def prefill_inputs(g, B, Sq, H, Sk, G, dh):
+    q = torch.randn(B, Sq, H, dh, generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn(B, Sk, G, dh, generator=g, device="cuda").bfloat16()
+            for _ in range(2))
+    return q, k, v
+
+
+def prefill_held(got, q, k, v, kw):
+    """Max abs error of `got` against the plain version (2e-2 asserted),
+    on the first and last 32 queries alone where Sq passes 4,096 (the
+    plain scores of the whole shape would not fit)."""
+    Sq = q.shape[1]
+    parts = [(0, Sq)] if Sq <= 4096 else [(0, 32), (Sq - 32, Sq)]
+    err = 0.0
+    for lo, hi in parts:
+        want = ref.flash_prefill(q[:, lo:hi], k, v, **dict(
+            kw, q_offset=kw["q_offset"] + lo)).float()
+        e = (got[:, lo:hi].float() - want).abs()
+        assert bool((e <= 2e-2 + 2e-2 * want.abs()).all()), (lo, hi)
+        err = max(err, e.max().item())
+    return err
+
+
+def prefill_sdpa(q, k, v, q_off, kv, causal):
+    """SDPA on the same inputs, K/V expanded to H heads: is_causal where
+    the mask is the plain causal one, else a boolean mask."""
+    H, Sq, Sk, G = q.shape[2], q.shape[1], k.shape[1], k.shape[2]
+    qq = q.transpose(1, 2)
+    kk, vv = (t.repeat_interleave(H // G, 2).transpose(1, 2) for t in (k, v))
+    if causal and q_off == 0 and kv == Sk == Sq:
+        return lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qq, kk, vv, is_causal=True)
+    qp = q_off + torch.arange(Sq, device="cuda")[:, None]
+    kp = torch.arange(Sk, device="cuda")[None, :]
+    mask = ((kp <= qp) | (not causal)) & (kp < kv)
+    return lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qq, kk, vv, attn_mask=mask)
+
+
+def prefill_probe(g):
+    """flash_prefill's routes at its dh-64/128 path shapes (module doc)."""
+    routed = hasattr(ops, "prefill_route")
+    print_ptxas(("flash_prefill",) + (("flash_prefill_sm90",) if routed
+                                      else ()))
+    if not routed:
+        for label, B, Sq, H, Sk, G, dh, q_off, kv, causal in PREFILL_SHAPES:
+            q, k, v = prefill_inputs(g, B, Sq, H, Sk, G, dh)
+            kw = dict(causal=causal, q_offset=q_off, kv_len=kv)
+            wrap = lambda: ops.flash_prefill(q, k, v, **kw)  # noqa: E731
+            sdpa = prefill_sdpa(q, k, v, q_off, kv, causal)
+            n = 5 if Sq > 4096 else 20
+            print(json.dumps({"flash_prefill": label, "src": "wrapper",
+                              "max_abs_err": prefill_held(wrap(), q, k, v,
+                                                          kw),
+                              "wrapper device_ms": device_ms(wrap, n),
+                              "sdpa device_ms": device_ms(sdpa, n),
+                              "wrapper call_ms": call_ms(wrap, n)}))
+        return
+    for dh in ops.PREFILL_WGMMA_DH:
+        for plan in ops.PREFILL_PLANS[dh]:
+            print(json.dumps({"wgmma plan": ops.prefill_plan(dh, plan=plan),
+                              "dh": dh}))
+    q, k, v = prefill_inputs(g, *PREFILL_SHAPES[0][1:7])
+    enc = build.entry("flash_prefill_wgmma_maps")
+    for iters in (1, 1000):
+        t0 = time.perf_counter()
+        err = enc(q.data_ptr(), k.data_ptr(), v.data_ptr(), 2, 32768, 32768,
+                  14, 2, 64, 128, 128, iters)
+        us = (time.perf_counter() - t0) / iters * 1e6
+        assert err == 0, err
+    print(json.dumps({"wgmma maps": "three tensor maps encoded on the host",
+                      "us_per_call": us}))
+    for label, B, Sq, H, Sk, G, dh, q_off, kv, causal in PREFILL_SHAPES:
+        q, k, v = prefill_inputs(g, B, Sq, H, Sk, G, dh)
+        kw = dict(causal=causal, q_offset=q_off, kv_len=kv)
+        n = 5 if Sq > 4096 else 20
+        calls = {route: lambda route=route: ops.flash_prefill_launch(
+            q, k, v, route=route, **kw) for route in ("tc", "wgmma")}
+        row = {"flash_prefill": label, "route": ops.prefill_route(q.dtype,
+                                                                  dh),
+               "plan": ops.prefill_plan(dh, Sq, Sk, B * H)}
+        for route, fn in calls.items():
+            row[f"{route} max_abs_err"] = prefill_held(fn(), q, k, v, kw)
+        calls["sdpa"] = prefill_sdpa(q, k, v, q_off, kv, causal)
+        for turn, name in enumerate(("tc", "wgmma", "sdpa", "sdpa", "wgmma",
+                                     "tc")):
+            row[f"{name} device_ms {turn}"] = device_ms(calls[name], n)
+        for name, fn in calls.items():
+            row[f"{name} call_ms"] = call_ms(fn, n)
+        print(json.dumps(row))
+        for plan in ops.PREFILL_PLANS[dh]:
+            fn = lambda plan=plan: ops.flash_prefill_launch(  # noqa: E731
+                q, k, v, route="wgmma", plan=plan, **kw)
+            print(json.dumps({"flash_prefill": label, "wgmma plan": plan,
+                              "max_abs_err": prefill_held(fn(), q, k, v, kw),
+                              "device_ms": device_ms(fn, n)}))
+
+
 def main() -> int:
     global build, ops, ref
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     only = ap.add_mutually_exclusive_group()
+    only.add_argument("--prefill", action="store_true")
     only.add_argument("--paged", action="store_true")
     only.add_argument("--decode", action="store_true")
     only.add_argument("--q8", action="store_true")
@@ -550,6 +679,9 @@ def main() -> int:
         return 0
     if args.zoo:
         zoo_probe(g)
+        return 0
+    if args.prefill:
+        prefill_probe(g)
         return 0
     if not (args.paged or args.decode):
         flash_probe(build_variants("flash_prefill", "flash_prefill_bf16",
