@@ -43,12 +43,12 @@ Phases, any failure exits non-zero (nothing is caught):
    docs over the main path's window pack) and its edge cases
    (`scr_select_edges`). decode_attention_paged runs at
    the main path's shape and at a long-cache shape (4 rows at kv_len
-   4,096 through 130-entry tables; no path runs it), and its edge cases
-   also at forced split counts (`paged_edges`). decode_attention's edge
-   cases also run at every forced route (tensor cores or CUDA cores),
-   split count and head grouping (`decode_forced_edges`), each giving the
-   same bits on two calls, and a call is one kernel node (its last split
-   block merges). flash_prefill's dh-64/128 bf16 edge cases also run at
+   4,096 through 130-entry tables; no path runs it). The edge cases of
+   both decode kernels and of their int8 twins also run at every forced
+   route (tensor cores or CUDA cores), split count and head grouping
+   (`decode_forced_edges`, `paged_forced_edges`), each giving the same
+   bits on two calls, and a call of each is one kernel node (its last
+   split block merges; no merge kernel in any profile). flash_prefill's dh-64/128 bf16 edge cases also run at
    both bf16 routes (`tc` on mma.sync, `wgmma` on wgmma fed by TMA) and
    at every compiled wgmma plan (`prefill_forced_edges`), two wgmma calls
    bit-equal; at its wgmma path shapes the tc route is held and timed
@@ -1152,37 +1152,59 @@ def check_pq_adc(lut, pack, seg, flat_lut):
     return dict(path, shapes=[path, flat])
 
 
-def paged_forced(q, kp, vp, kv_len, table, splits):
-    """The decode_attention_paged kernel at a forced split count, through
-    its C entry point (the wrapper always takes the plan); no launch is
-    counted."""
+def paged_forced_edges(label, q, pool, kv_len, table, want, tol,
+                       splits=()):
+    """decode_attention_paged (pool (k, v)) or decode_attention_paged_q8
+    (pool (kq, ks, vq, vs)) at every forced route (the tensor cores only
+    for bf16 q at a dh they take), split count (1, the plan's, one entry
+    a split and `splits`) and head grouping (1, the plan's, one head a
+    block, and 2 where it divides): each against the plain version `want`
+    at `tol`, and each giving the same bits on two calls
+    (`ops.decode_attention_paged_launch`, `_q8_launch`; no launch
+    counted). Returns the number of variants."""
+    q8 = len(pool) == 4
+    launch = (ops.decode_attention_paged_q8_launch if q8
+              else ops.decode_attention_paged_launch)
     B, H, dh = q.shape
-    _, ps, G, _ = kp.shape
-    W = table.shape[1]
-    out = torch.empty_like(q)
-    part = torch.empty(B * G * splits * (H // G) * (dh + 2), device=q.device)
-    err = build.entry("decode_attention_paged_" + ops._attention_dtype(q))(
-        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), kv_len.data_ptr(),
-        table.data_ptr(), B, H, G, dh, ps, W, splits, part.data_ptr(),
-        out.data_ptr(), ops._stream(q.device))
-    assert err == 0, f"decode_attention_paged at {splits} splits: {err}"
-    return out
+    ps, G = pool[0].shape[1], pool[0].shape[2]
+    W, Hg = table.shape[1], H // G
+    plan = ops.decode_paged_split_plan(B, G, W, ps, Hg)
+    routes = [r for r in ops.DECODE_ROUTES
+              if r == "cuda" or ops.decode_paged_route(q.dtype, dh) == "tc"]
+    groups = sorted({1, plan[1], Hg} | ({2} if Hg % 2 == 0 else set()))
+    name = "decode_attention_paged" + ("_q8" if q8 else "")
+    n = 0
+    for route in routes:
+        for sp in sorted({1, plan[0], W, *splits} & set(range(1, W + 1))):
+            for hg in groups:
+                if route == "cuda" and -(-Hg // hg) * dh > (
+                        ops.DECODE_MAX_GROUP if q8 else ops.DECODE_WIDE_GROUP):
+                    continue
+                out = launch(q, *pool, kv_len, table, route=route,
+                             splits=sp, head_groups=hg)
+                what = (f"{name} {label} {q.dtype} {route} route, {sp} "
+                        f"splits x {hg} head groups")
+                close(what, out, want, tol, tol)
+                again = launch(q, *pool, kv_len, table, route=route,
+                               splits=sp, head_groups=hg)
+                assert torch.equal(out, again), f"{what}: two calls differ"
+                n += 1
+    return n
 
 
 def paged_cases(label, q, kp, vp, kv_len, table, splits=()):
     """decode_attention_paged against plain at one shape, in f32 (1e-5)
-    and in bf16 (2e-2): the wrapper (the plan's splits) and the kernel at
-    each forced split count. Returns the number of (case, dtype) pairs."""
+    and in bf16 (2e-2): the wrapper (the plan) and the kernel at every
+    forced route, split count and head grouping (`paged_forced_edges`).
+    Returns the number of (case, dtype, variant) checks."""
     n = 0
     for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
         a = [t.to(dt) for t in (q, kp, vp)]
         want = ref.decode_attention_paged(*a, kv_len, table)
         close(f"decode_attention_paged {label} {dt}",
               ops.decode_attention_paged(*a, kv_len, table), want, tol, tol)
-        for sp in splits:
-            close(f"decode_attention_paged {label} {dt} at {sp} splits",
-                  paged_forced(*a, kv_len, table, sp), want, tol, tol)
-        n += 1 + len(splits)
+        n += 1 + paged_forced_edges(label, a[0], a[1:], kv_len, table, want,
+                                    tol, splits)
     return n
 
 
@@ -1215,8 +1237,9 @@ def check_decode(label, q, kp, vp, kv_len, table):
             attn_mask=mask)
     return dict(
         shape=f"{label}: q {list(q.shape)}, pool {list(kp.shape)}, table "
-              f"{list(table.shape)}, kv_len {kv_len.tolist()[:4]}, splits "
-              f"{ops.decode_paged_split_plan(B, G, W, ps)}, {q.dtype}",
+              f"{list(table.shape)}, kv_len {kv_len.tolist()[:4]}, (splits, "
+              f"head groups) {ops.decode_paged_split_plan(B, G, W, ps, H // G)}"
+              f", route {ops.decode_paged_route(q.dtype, dh)}, {q.dtype}",
         err=err, ties=0,
         ms=time_ms(lambda: ops.decode_attention_paged(q, kp, vp, kv_len,
                                                       table), iters=50),
@@ -1242,13 +1265,17 @@ def long_cache_inputs(H, G, dh, g):
 
 def paged_edges(H, G, dh):
     """Edge cases of decode_attention_paged, each in f32 and bf16 through
-    the wrapper and at forced split counts (1, several, one split per
-    table entry): reduced grouping (Hg 2, ps 16) with kv_len 0 / 1 / page
-    end / W*ps over tables that repeat, reverse and point tail entries at
-    page 0; qwen2.5's grouping over 18-entry tables at kv_len 0, 1, a
-    page end and past W*ps; Hg 16 at dh 128 (Hg*dh 2048); pages of 24
-    positions, so a 64-position tile spans pages, at dh 80. Returns the
-    number of (case, dtype, split count) triples checked."""
+    the wrapper and at every forced route, split count (1, the plan's,
+    several, one split per table entry) and head grouping
+    (`paged_cases`): reduced grouping (Hg 2, ps 16) with kv_len 0 / 1 /
+    page end / W*ps over tables that repeat, reverse and point tail
+    entries at page 0; qwen2.5's grouping over 18-entry tables at kv_len
+    0, 1, a page end and past W*ps; short rows over long tables (most
+    splits empty); Hg 16 at dh 128 and at dh 256; pages of 24 positions,
+    so a 64-position tile spans pages, at dh 80. Then one kernel node a
+    call (the merge in the last split block) through the wrapper in bf16
+    and f32 and at each route, where the plan splits. Returns the number
+    of (case, dtype, variant) checks."""
     g = torch.Generator(device=DEV).manual_seed(3)
 
     def rnd(*shape):
@@ -1262,22 +1289,49 @@ def paged_edges(H, G, dh):
     cases = [
         ("Hg 2, ps 16", (4, 4, 2, 32, 8, 16),
          ints(0, 1, 16, 64), ints(3, 1, 0, 0, 2, 5, 7, 1, 4, 4, 6, 0,
-                                  7, 6, 5, 4).view(4, 4), (1, 2, 3, 4)),
+                                  7, 6, 5, 4).view(4, 4), (2, 3)),
         ("qwen grouping, W 18", (4, H, G, dh, 24, 32),
          ints(0, 1, 96, 600), torch.stack([rev, tail, rev.flip(0), tail]),
-         (1, 2, 7, 18)),
+         (2, 7)),
+        ("short rows, W 130", (2, H, G, dh, 140, 32), ints(40, 300),
+         torch.stack([torch.randperm(140, generator=g, device=DEV)[:130]
+                      for _ in range(2)]).to(torch.int32), (9, 65)),
         ("Hg 16, dh 128", (2, 32, 2, 128, 10, 32), ints(300, 17),
          torch.stack([torch.arange(10, dtype=torch.int32, device=DEV),
-                      ints(9, 9, 0, 1, 2, 3, 4, 5, 6, 7)]), (1, 3)),
+                      ints(9, 9, 0, 1, 2, 3, 4, 5, 6, 7)]), (3,)),
+        ("Hg 16, dh 256", (2, 16, 1, 256, 12, 16), ints(190, 1),
+         torch.stack([torch.arange(12, dtype=torch.int32, device=DEV)
+                      .roll(r) for r in (0, 7)]), (4,)),
         ("ps 24, dh 80", (3, 8, 2, 80, 12, 24), ints(70, 288, 25),
          torch.stack([torch.arange(12, dtype=torch.int32, device=DEV)
-                      .roll(r) for r in (0, 5, 11)]), (1, 4, 12)),
+                      .roll(r) for r in (0, 5, 11)]), (4,)),
     ]
     n = 0
     for label, (B, H_, G_, dh_, P, ps), kv, tb, splits in cases:
         n += paged_cases(label, rnd(B, H_, dh_), rnd(P, ps, G_, dh_),
                          rnd(P, ps, G_, dh_), kv, tb, splits)
-    return n
+    # one kernel node a call at h2o's ring pages and the long cache
+    for label, (B, H_, G_, dh_, ps, W), kv in (
+            ("h2o ring pages", (2, 32, 8, 80, 32, 128), ints(4096, 4000)),
+            ("long cache", (4, H, G, dh, 32, 130), ints(4096, 10, 300, 0))):
+        P = B * W
+        a = [rnd(B, H_, dh_).bfloat16(), rnd(P, ps, G_, dh_).bfloat16(),
+             rnd(P, ps, G_, dh_).bfloat16()]
+        tb = torch.randperm(P, generator=g, device=DEV).to(
+            torch.int32).view(B, W)
+        assert ops.decode_paged_split_plan(B, G_, W, ps, H_ // G_)[0] > 1
+        calls = {"wrapper": lambda: ops.decode_attention_paged(*a, kv, tb)}
+        for route in ops.DECODE_ROUTES:
+            calls[route] = lambda route=route: \
+                ops.decode_attention_paged_launch(*a, kv, tb, route=route)
+        a32 = [t.float() for t in a]
+        calls["f32 wrapper"] = lambda: ops.decode_attention_paged(*a32, kv,
+                                                                  tb)
+        for name, fn in calls.items():
+            nodes = kernel_nodes(fn)
+            assert nodes == 1, \
+                f"decode_attention_paged {label} {name}: {nodes} kernel nodes"
+    return n + 1
 
 
 def _expand(t, rep):
@@ -1627,23 +1681,6 @@ def check_decode_q8(label, q, kq, ks, vq, vs, kv_len, ring):
         library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
 
 
-def paged_q8_forced(q, kq, ks, vq, vs, kv_len, table, splits):
-    """The decode_attention_paged_q8 kernel at a forced split count,
-    through its C entry point; no launch is counted."""
-    B, H, dh = q.shape
-    _, ps, G, _ = kq.shape
-    W = table.shape[1]
-    out = torch.empty_like(q)
-    part = torch.empty(B * G * splits * (H // G) * (dh + 2), device=q.device)
-    err = build.entry("decode_attention_paged_q8_"
-                      + ops._attention_dtype(q))(
-        q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
-        vs.data_ptr(), kv_len.data_ptr(), table.data_ptr(), B, H, G, dh, ps,
-        W, splits, part.data_ptr(), out.data_ptr(), ops._stream(q.device))
-    assert err == 0, f"decode_attention_paged_q8 at {splits} splits: {err}"
-    return out
-
-
 def check_decode_paged_q8(label, q, kq, ks, vq, vs, kv_len, table):
     """decode_attention_paged_q8 at one path shape: kernel against plain
     in q's type (bf16: 2e-2) and in f32 (1e-5); times, the bytes bound of
@@ -1675,8 +1712,9 @@ def check_decode_paged_q8(label, q, kq, ks, vq, vs, kv_len, table):
     return dict(
         shape=f"{label}: q {list(q.shape)}, pool {list(kq.shape)} int8, "
               f"table {list(table.shape)}, kv_len {kv_len.tolist()[:4]}, "
-              f"splits {ops.decode_paged_split_plan(B, G, W, ps)}, "
-              f"{q.dtype}",
+              f"(splits, head groups) "
+              f"{ops.decode_paged_split_plan(B, G, W, ps, H // G)}, route "
+              f"{ops.decode_paged_route(q.dtype, dh)}, {q.dtype}",
         err=err, ties=0,
         ms=time_ms(lambda: ops.decode_attention_paged_q8(q, *a), iters=50),
         plain_ms=time_ms(lambda: ref.decode_attention_paged_q8(q, *a)),
@@ -1690,12 +1728,15 @@ def q8_edges():
     V rows are all zero (their scales clamp to 1e-10), h2o's grouping at
     dh 80, and a shape the plan splits at least 8 ways (there one kernel
     node a call: the merge in the last split block).
-    decode_attention_paged_q8, through the wrapper and at forced split
-    counts: kv_len under one page, a 64-position ring over three
-    24-position pages (ring_len not a multiple of ps: kv_len 64 < W*ps),
-    zero rows, and qwen's grouping over tables that repeat, reverse and
-    point tail entries at page 0 at kv_len 0, 1, a page end and past
-    W*ps. Returns the number of (case, dtype, split count) triples."""
+    decode_attention_paged_q8, through the wrapper and at every forced
+    route, split count and head grouping (`paged_forced_edges`): kv_len
+    under one page, a 64-position ring over three 24-position pages
+    (ring_len not a multiple of ps: kv_len 64 < W*ps, and tiles that span
+    pages), zero rows, qwen's grouping over tables that repeat, reverse
+    and point tail entries at page 0 at kv_len 0, 1, a page end and past
+    W*ps, h2o's grouping at dh 80, and Hg 16 at dh 128; then one kernel
+    node a call at h2o's int8 ring pages. Returns the number of (case,
+    dtype, variant) checks."""
     g = torch.Generator(device=DEV).manual_seed(6)
 
     def rnd(*shape):
@@ -1742,24 +1783,47 @@ def q8_edges():
          torch.stack([torch.arange(6, dtype=torch.int32, device=DEV),
                       ints(5, 4, 3, 2, 1, 0)]), (0, 3, 15), (1, 6)),
         ("qwen grouping, W 18", (4, 14, 2, 64, 24, 32), ints(0, 1, 96, 600),
-         torch.stack([rev, tail, rev.flip(0), tail]), (), (1, 7, 18)),
+         torch.stack([rev, tail, rev.flip(0), tail]), (), (7,)),
+        ("h2o grouping, dh 80", (2, 32, 8, 80, 20, 32), ints(600, 33),
+         torch.stack([torch.arange(20, dtype=torch.int32, device=DEV)
+                      .roll(r) for r in (0, 9)]), (), (5,)),
+        ("Hg 16, dh 128", (2, 32, 2, 128, 10, 32), ints(300, 17),
+         torch.stack([torch.arange(10, dtype=torch.int32, device=DEV),
+                      ints(9, 9, 0, 1, 2, 3, 4, 5, 6, 7)]), (), (3,)),
     ]
     for label, (B, H, G, dh, P, ps), kv, tb, zeros, splits in paged:
         q = rnd(B, H, dh)
         kq, ks = q8_planes(rnd(P, ps, G, dh), zeros)
         vq, vs = q8_planes(rnd(P, ps, G, dh), zeros)
-        a = (kq, ks, vq, vs, kv, tb)
+        pool = (kq, ks, vq, vs)
         for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-            want = ref.decode_attention_paged_q8(q.to(dt), *a)
+            want = ref.decode_attention_paged_q8(q.to(dt), *pool, kv, tb)
             close(f"decode_attention_paged_q8 edge {label} {dt}",
-                  ops.decode_attention_paged_q8(q.to(dt), *a), want, tol,
-                  tol)
-            for sp in splits:
-                close(f"decode_attention_paged_q8 edge {label} {dt} at {sp}"
-                      " splits", paged_q8_forced(q.to(dt), *a, sp), want,
-                      tol, tol)
-            n += 1 + len(splits)
-    return n
+                  ops.decode_attention_paged_q8(q.to(dt), *pool, kv, tb),
+                  want, tol, tol)
+            n += 1 + paged_forced_edges(f"edge {label}", q.to(dt), pool, kv,
+                                        tb, want, tol, splits)
+    # one kernel node a call (the merge in the last split block) at h2o's
+    # int8 ring pages, through the wrapper and at each route
+    B, H, G, dh, ps, W = 2, 32, 8, 80, 32, 128
+    q = rnd(B, H, dh).bfloat16()
+    kq, ks = q8_planes(rnd(B * W, ps, G, dh))
+    vq, vs = q8_planes(rnd(B * W, ps, G, dh))
+    tb = torch.randperm(B * W, generator=g, device=DEV).to(
+        torch.int32).view(B, W)
+    kv = ints(4096, 4000)
+    assert ops.decode_paged_split_plan(B, G, W, ps, H // G)[0] > 1
+    calls = {"wrapper": lambda: ops.decode_attention_paged_q8(
+        q, kq, ks, vq, vs, kv, tb)}
+    for route in ops.DECODE_ROUTES:
+        calls[route] = lambda route=route: \
+            ops.decode_attention_paged_q8_launch(q, kq, ks, vq, vs, kv, tb,
+                                                 route=route)
+    for name, fn in calls.items():
+        nodes = kernel_nodes(fn)
+        assert nodes == 1, \
+            f"decode_attention_paged_q8 {name}: {nodes} kernel nodes"
+    return n + 1
 
 
 # ------------------------------------------------------------- profile
@@ -1837,7 +1901,10 @@ def profile_phase(slm, prompts, kernel_calls):
     step = profile_decode_steps(slm.engine, prompts)
     per_kernel = {}
     for name, call in kernel_calls.items():
-        per_kernel[name] = _profiled(call, 20)["device_ms"]
+        prof = _profiled(call, 20, match="merge")
+        per_kernel[name] = prof["device_ms"]
+        if name.startswith("decode_attention"):    # the merge is in-kernel
+            assert not prof["merge_kernels"], (name, prof["merge_kernels"])
     return {"decode_step": step, "kernel_device_ms": per_kernel}
 
 
@@ -5277,7 +5344,7 @@ def main() -> int:
         check_decode_paged_q8("h2o int8 ring pages", q_ring2, *h8_pool,
                               len_ring2, table_h8),
     ]
-    assert ops.decode_paged_split_plan(4, G, W, ps) > 1
+    assert ops.decode_paged_split_plan(4, G, W, ps, H // G)[0] > 1
     long_in = long_cache_inputs(H, G, dh, g)
     paged_shapes = [
         check_decode("main path", q_dec, pool["k"][0], pool["v"][0], kv_len,

@@ -48,13 +48,17 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "scr_select": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]},
     "decode_attention_paged": {
         "decode_attention_paged_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                       _I, _I, _I, _P, _P, _P],
+                                       _I, _I, _F, _I, _I, _I, _I, _I, _P,
+                                       _P, _P, _P],
         "decode_attention_paged_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                        _I, _I, _I, _P, _P, _P],
+                                        _I, _I, _F, _I, _I, _I, _I, _I, _P,
+                                        _P, _P, _P],
         "decode_attention_paged_q8_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                          _I, _I, _I, _I, _I, _P, _P, _P],
-        "decode_attention_paged_q8_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                           _I, _I, _I, _I, _I, _P, _P, _P]},
+                                          _I, _I, _I, _I, _F, _I, _I, _I, _I,
+                                          _I, _P, _P, _P, _P],
+        "decode_attention_paged_q8_bf16": [_P, _P, _P, _P, _P, _P, _P, _I,
+                                           _I, _I, _I, _I, _I, _F, _I, _I,
+                                           _I, _I, _I, _P, _P, _P, _P]},
     "decode_attention": {
         "decode_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                  _I, _I, _I, _I, _I, _P, _P, _P, _P],

@@ -1,16 +1,17 @@
-// Shared by the two split flash-decode kernels (decode_attention.cu over a
-// contiguous cache, decode_attention_paged.cu over a page pool), each in a
-// float cache and an int8 one: the loads that read a ring tile's rows as
-// f32, the merge of the splits' partials (in the last split block of
-// decode_attention.cu, in a second launch of decode_attention_paged.cu),
-// the once-a-device shared-memory attribute, and the 4-byte cp.async of
-// the int8 scales.
+// Shared by the two split flash-decode kernels (decode_body.cuh, which
+// decode_attention.cu instantiates over a contiguous cache and
+// decode_attention_paged.cu over a page pool), each in a float cache and
+// an int8 one: the unpacking of a 16-byte row load as f32, the merge of
+// the splits' partials in the last split block of each (row, kv head,
+// head group), a split block that holds no position, the once-a-device
+// shared-memory attribute, and the 4-byte cp.async of the int8 scales.
 //
-// A split writes its partial of (b, g, split) as f32 at
-// part + ((b * G + g) * splits + split) * Hg * (dh + 2): the unnormalised
-// acc [Hg, dh], then the running max m [Hg], then the running sum l [Hg]
-// (a block of a head group writes the rows of its heads). A split that
-// held no position of its row writes l = 0.
+// A launch's partials are f32, for the pairs = B * G (row, kv head) pairs:
+// first the unnormalised acc of every (b, g, split) [pairs, splits, Hg,
+// dh] (`part_acc`), then the running max m and sum l of every (b, g,
+// split) [pairs, splits, 2, Hg] (`part_ml`). A block of a head group
+// writes the rows of its heads. A split that held no position of its row
+// writes only m = -1e30 and l = 0, and the merge sums none of its acc.
 #pragma once
 #include <atomic>
 #include <type_traits>
@@ -72,38 +73,52 @@ __device__ __forceinline__ void cp_async4(unsigned dst, const void* src,
                "l"(src), "r"(in ? 4 : 0));
 }
 
-// The merge of the partials of heads [h0, h0 + nh) of one (b, g), pb
-// pointing at its first split's partial: out_h = sum_s acc_s w_s /
+// Where the partial of split sp of pair bg = b * G + g lies, among
+// `pairs` pairs: its acc [Hg, dh], and its m [Hg] then l [Hg]
+__device__ __forceinline__ float* part_acc(float* part, size_t bg, int sp,
+                                          int splits, int Hg, int dh) {
+  return part + (bg * splits + sp) * Hg * dh;
+}
+__device__ __forceinline__ float* part_ml(float* part, size_t pairs,
+                                         size_t bg, int sp, int splits,
+                                         int Hg, int dh) {
+  return part + pairs * splits * Hg * dh + (bg * splits + sp) * 2 * Hg;
+}
+
+// The merge of the partials of heads [h0, h0 + nh) of one pair (acc, ml:
+// its first split's, `part_acc` and `part_ml`): out_h = sum_s acc_s w_s /
 // max(sum_s l_s w_s, 1e-30) with w_s = exp(m_s - max_s m_s) over the
 // non-empty splits (l_s > 0). The block reads every split's m and l at
 // once into shared memory; one warp per head finds the max and the
 // weights and sums the denominator (lanes over splits, then the warp's
-// fixed tree); each output sums its acc_s in split order. No atomics: the
-// same partials give the same output bits, whichever block merges. The
-// partials are read through L2 (`__ldcg`): other blocks of the same
-// launch may have written them (`decode_merge_kernel`, the paged kernel's
-// second launch, is the same arithmetic over read-only partials). sm:
-// shared m, l and weights [splits * nh] each, then the denominators [nh]
-// (`merge_floats`); out: the output row of head h0. Contains barriers:
-// call from every thread of the block.
+// fixed tree); each output sums its acc_s in split order, its loads
+// issued together. No atomics: the same partials give the same output
+// bits, whichever block merges. A split of weight 0 (an empty one, l = 0)
+// adds nothing: its acc, which an empty split never writes, is loaded but
+// not summed. The partials are read through L2 (`__ldcg`): other blocks
+// of the same launch wrote them. (One round of cp.async of every split's
+// acc rows into shared memory instead measured 1-5 us slower at the
+// split path shapes: PERF.md.) sm: shared m, l and weights [splits * nh]
+// each, then the denominators [nh] (`merge_floats`); out: the output row
+// of head h0. Contains barriers: call from every thread of the block.
 __host__ __device__ constexpr int merge_floats(int splits, int nh) {
   return (3 * splits + 1) * nh;
 }
 
 template <typename T>
-__device__ __forceinline__ void merge_heads(const float* pb, int Hg, int dh,
-                                            int splits, int h0, int nh,
-                                            float* sm, T* out) {
+__device__ __forceinline__ void merge_heads(const float* acc, const float* ml,
+                                            int Hg, int dh, int splits,
+                                            int h0, int nh, float* sm,
+                                            T* out) {
   const int n = splits * nh;
   float* m_s = sm;
   float* l_s = m_s + n;
   float* w_s = l_s + n;
   float* den = w_s + n;
-  const size_t stride = (size_t)Hg * (dh + 2);
   for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const float* ml = pb + (e / nh) * stride + (size_t)Hg * dh + h0 + e % nh;
-    m_s[e] = __ldcg(ml);
-    l_s[e] = __ldcg(ml + Hg);
+    const float* mls = ml + (size_t)(e / nh) * 2 * Hg + h0 + e % nh;
+    m_s[e] = __ldcg(mls);
+    l_s[e] = __ldcg(mls + Hg);
   }
   __syncthreads();
   const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
@@ -123,18 +138,21 @@ __device__ __forceinline__ void merge_heads(const float* pb, int Hg, int dh,
     if (lane == 0) den[h] = fmaxf(lt, 1e-30f);
   }
   __syncthreads();
-  // two neighbouring outputs a thread (dh and the partials' stride are
-  // even), each summed in split order
+  // two neighbouring outputs a thread (dh is even), each summed in split
+  // order
+  const size_t stride = (size_t)Hg * dh;       // a split's acc
   for (int e = 2 * threadIdx.x; e < nh * dh; e += 2 * blockDim.x) {
     const int h = e / dh;
-    const float* a = pb + (size_t)h0 * dh + e;
+    const float* a = acc + (size_t)h0 * dh + e;
     float2 at = make_float2(0.f, 0.f);
 #pragma unroll 16
     for (int s = 0; s < splits; ++s) {
-      const float2 x = __ldcg(reinterpret_cast<const float2*>(a + s * stride));
       const float w = w_s[s * nh + h];
-      at.x += x.x * w;
-      at.y += x.y * w;
+      const float2 x = __ldcg(reinterpret_cast<const float2*>(a + s * stride));
+      if (w != 0.f) {
+        at.x += x.x * w;
+        at.y += x.y * w;
+      }
     }
     out[e] = from_f<T>(at.x / den[h]);
     out[e + 1] = from_f<T>(at.y / den[h]);
@@ -148,9 +166,10 @@ __device__ __forceinline__ void merge_heads(const float* pb, int Hg, int dh,
 // blocks resets the ticket for the next launch and merges
 // (`merge_heads`, its shared scratch `smem`, which the block no longer
 // needs). So a call is one launch, and the merge order is the split
-// order.
+// order. acc, ml: the pair's first split's partial.
 template <typename T>
-__device__ __forceinline__ void finish_split(const float* pb, int Hg, int dh,
+__device__ __forceinline__ void finish_split(const float* acc,
+                                             const float* ml, int Hg, int dh,
                                              int splits, int h0, int nh,
                                              int* ticket, float* smem,
                                              T* out) {
@@ -165,7 +184,32 @@ __device__ __forceinline__ void finish_split(const float* pb, int Hg, int dh,
     }
   }
   if (!__syncthreads_or(last)) return;
-  merge_heads<T>(pb, Hg, dh, splits, h0, nh, smem, out);
+  merge_heads<T>(acc, ml, Hg, dh, splits, h0, nh, smem, out);
+}
+
+// A split block whose split holds none of its row's positions (it lies
+// past the row's length): it loads nothing. With one split its output
+// rows are 0 (the row has no position: W or S is 0); with more it writes
+// its partial's m = -1e30 and l = 0 for its heads [h0, h0 + nh) (ml: its
+// own split's) and takes its ticket (`finish_split`: it may be the last,
+// and then it merges). acc, ml0: the pair's first split's partial; out:
+// the output row of head h0. Contains barriers: call from every thread of
+// the block.
+template <typename T>
+__device__ __forceinline__ void skip_split(const float* acc, const float* ml0,
+                                           float* ml, int Hg, int dh,
+                                           int splits, int h0, int nh,
+                                           int* ticket, float* smem, T* out) {
+  if (splits == 1) {
+    for (int e = threadIdx.x; e < nh * dh; e += blockDim.x)
+      out[e] = from_f<T>(0.f);
+    return;
+  }
+  if (threadIdx.x < nh) {
+    ml[h0 + threadIdx.x] = kMask;
+    ml[Hg + h0 + threadIdx.x] = 0.f;
+  }
+  finish_split<T>(acc, ml0, Hg, dh, splits, h0, nh, ticket, smem, out);
 }
 
 // Let `kernel` take up to the 227 KB of dynamic shared memory a block can
@@ -180,77 +224,6 @@ cudaError_t allow_smem(K* kernel, std::atomic<unsigned>& done) {
                            227 * 1024);
   if (e == cudaSuccess && dev < 32) done.fetch_or(1u << dev);
   return e;
-}
-
-// One block per (g, b): out = sum_s acc_s w_s / max(sum_s l_s w_s, 1e-30)
-// with w_s = exp(m_s - max_s m_s) over the non-empty splits (l_s > 0).
-// One warp per head finds the max and the weights and sums the
-// denominator (lanes over splits, then the warp's fixed tree); each
-// output sums its acc_s in split order. No atomics: the same partials
-// give the same output bits. Shared memory: the partials' m, then l,
-// then the weights, each [splits, Hg], then the denominators [Hg].
-// decode_attention_paged's second launch. It is `merge_heads`'s
-// arithmetic, kept apart: in a launch of its own the partials are
-// read-only, so they are read through `__restrict__` pointers (the
-// read-only path, about half the time of `merge_heads`'s L2 loads at
-// h2o's 33 ring-page splits), which a merge inside the launch that
-// writes them may not use.
-template <typename T>
-__global__ void __launch_bounds__(1024)
-decode_merge_kernel(const float* __restrict__ part, int H, int G, int dh,
-                    int splits, T* __restrict__ out) {
-  extern __shared__ float sm[];
-  const int g = blockIdx.x, b = blockIdx.y, Hg = H / G;
-  const int n = splits * Hg;
-  float* m_s = sm;
-  float* l_s = m_s + n;
-  float* w_s = l_s + n;
-  float* den = w_s + n;
-  const size_t stride = (size_t)Hg * (dh + 2);
-  const float* pb = part + ((size_t)b * G + g) * splits * stride;
-  const size_t qbase = ((size_t)b * H + (size_t)g * Hg) * dh;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const float* ps = pb + (e / Hg) * stride + Hg * dh + e % Hg;
-    m_s[e] = ps[0];
-    l_s[e] = ps[Hg];
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-  for (int h = threadIdx.x >> 5; h < Hg; h += nw) {
-    float mt = kMask;
-    for (int s = lane; s < splits; s += 32)
-      if (l_s[s * Hg + h] > 0.f) mt = fmaxf(mt, m_s[s * Hg + h]);
-    mt = warp_max(mt);
-    float lt = 0.f;
-    for (int s = lane; s < splits; s += 32) {
-      const float ls = l_s[s * Hg + h];
-      const float w = ls > 0.f ? expf(m_s[s * Hg + h] - mt) : 0.f;
-      w_s[s * Hg + h] = w;
-      lt += ls * w;
-    }
-    lt = warp_sum(lt);
-    if (lane == 0) den[h] = fmaxf(lt, 1e-30f);
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < Hg * dh; e += blockDim.x) {
-    const int h = e / dh;
-    float at = 0.f;
-#pragma unroll 16
-    for (int s = 0; s < splits; ++s) at += pb[s * stride + e] * w_s[s * Hg + h];
-    out[qbase + e] = from_f<T>(at / den[h]);
-  }
-}
-
-// the merge launch over every (g, b) of a B-row batch
-template <typename T>
-cudaError_t launch_merge(const void* part, int B, int H, int G, int dh,
-                         int splits, void* out, cudaStream_t st) {
-  const int Hg = H / G;
-  const size_t smem = (size_t)(3 * splits + 1) * Hg * sizeof(float);
-  const int threads = min(1024, (Hg * dh + 31) / 32 * 32);
-  decode_merge_kernel<T><<<dim3(G, B), threads, smem, st>>>(
-      static_cast<const float*>(part), H, G, dh, splits, static_cast<T*>(out));
-  return cudaGetLastError();
 }
 
 }  // namespace

@@ -461,24 +461,20 @@ DECODE_TILE = 64      # positions per tile of the two decode kernels
 DECODE_BLOCKS_PER_SM = 4   # decode kernel blocks resident on one SM
 
 
-def decode_split_plan(B: int, G: int, S: int, Hg: int = 1
-                      ) -> Tuple[int, int]:
-    """(splits, head_groups) of `decode_attention` (and
-    `decode_attention_q8`) for B rows of G kv heads over S cache slots,
-    Hg query heads a kv head, from host-known shapes only: grid (splits,
-    G * head_groups, B). Splits of at least two DECODE_TILE tiles, enough
-    to fill the card's SM_COUNT SMs with DECODE_BLOCKS_PER_SM blocks
-    each; but no split at all where that gives two or fewer (the last
-    block's merge costs about three tiles of time, more than such a split
-    saves: attention_probe, PERF.md). Where B*G*splits blocks leave SMs
-    idle, each group's heads go to head_groups blocks of ceil(Hg /
-    head_groups) heads (every group non-empty), up to one block an SM:
-    they need no merge. Split s covers `ref.decode_split_ranges`; each
-    starts at a multiple of DECODE_TILE."""
-    tiles = -(-S // DECODE_TILE)
-    pairs = max(1, B * G)
+def _split_plan(tiles: int, pairs: int, Hg: int, most: int
+                ) -> Tuple[int, int]:
+    """(splits, head_groups) of a split decode launch over `pairs` (row, kv
+    head) pairs whose rows span `tiles` DECODE_TILE tiles, at most `most`
+    splits: the rule of both decode kernels. Splits of at least two
+    tiles, enough to fill the card's SM_COUNT SMs with
+    DECODE_BLOCKS_PER_SM blocks each; but no split at all where that
+    gives two or fewer (the last block's merge costs about three tiles of
+    time, more than such a split saves: attention_probe, PERF.md). Where
+    pairs*splits blocks leave SMs idle, each group's Hg heads go to
+    head_groups blocks of ceil(Hg / head_groups) heads (every group
+    non-empty), up to one block an SM: they need no merge."""
     splits = min(tiles // 2,
-                 -(-SM_COUNT * DECODE_BLOCKS_PER_SM // pairs))
+                 -(-SM_COUNT * DECODE_BLOCKS_PER_SM // pairs), most)
     if splits <= 2:
         splits = 1
     groups = 1
@@ -486,6 +482,17 @@ def decode_split_plan(B: int, G: int, S: int, Hg: int = 1
         groups = max(1, min(Hg, SM_COUNT // (pairs * splits)))
         groups = -(-Hg // -(-Hg // groups))
     return splits, groups
+
+
+def decode_split_plan(B: int, G: int, S: int, Hg: int = 1
+                      ) -> Tuple[int, int]:
+    """(splits, head_groups) of `decode_attention` (and
+    `decode_attention_q8`) for B rows of G kv heads over S cache slots,
+    Hg query heads a kv head, from host-known shapes only: grid (splits,
+    G * head_groups, B), by `_split_plan`'s rule. Split s covers
+    `ref.decode_split_ranges`; each starts at a multiple of DECODE_TILE."""
+    tiles = -(-S // DECODE_TILE)
+    return _split_plan(tiles, max(1, B * G), Hg, tiles)
 
 
 # head dims of decode_attention's tensor-core route (csrc/decode_attention.cu
@@ -504,17 +511,27 @@ def decode_route(dtype: torch.dtype, dh: int) -> str:
             else "cuda")
 
 
+def decode_paged_route(dtype: torch.dtype, dh: int) -> str:
+    """The route of a `decode_attention_paged` or
+    `decode_attention_paged_q8` call, by q's dtype: "tc" (tensor cores,
+    over a bf16 pool or an int8 one widened to bf16 in shared memory)
+    for bf16 q at dh in DECODE_TC_DH, else "cuda" (CUDA cores: f32 q, the
+    1e-5 check route, or a dh the tensor-core kernel is not built
+    for)."""
+    return decode_route(dtype, dh)
+
+
 SMEM_LIMIT = 227 * 1024     # dynamic shared memory a block may take
-DECODE_MAX_GROUP = 2048     # Hg * dh of the paged and int8 decode kernels
-DECODE_WIDE_GROUP = 4096    # Hg * dh of decode_attention on a float cache
+DECODE_MAX_GROUP = 2048     # Hg * dh of the int8 kernels on the CUDA cores
+DECODE_WIDE_GROUP = 4096    # Hg * dh of a float cache on the CUDA cores
 
 
 def decode_smem_bytes(Hg: int, dh: int, esz: int, q8: bool = False,
                       stages: int = 2) -> int:
-    """Shared memory of a CUDA-core `decode_attention` block of Hg heads,
-    or of a `decode_attention_paged` block (both kernels' kTile is
-    DECODE_TILE): the K and V rings [stages, DECODE_TILE, dh + 16/esz] in
-    the cache's type (esz bytes an element), then in f32 the queries
+    """Shared memory of a CUDA-core decode block of Hg heads, contiguous
+    or paged (`decode_split_kernel`, csrc/decode_body.cuh, whose kTile
+    is DECODE_TILE): the K and V rings [stages, DECODE_TILE, dh + 16/esz]
+    in the cache's type (esz bytes an element), then in f32 the queries
     [Hg, dh], a tile's scores [Hg, DECODE_TILE], the running max, sum and
     correction [Hg], and for an int8 cache (`q8`) the K and V scale rings
     [2, DECODE_TILE]."""
@@ -524,14 +541,17 @@ def decode_smem_bytes(Hg: int, dh: int, esz: int, q8: bool = False,
                + (4 * DECODE_TILE if q8 else 0)) * 4)
 
 
-def decode_tc_smem_bytes(dh: int) -> int:
-    """Shared memory of a tensor-core `decode_attention` block (`tc::
-    smem_bytes`): the K and V rings [2, DECODE_TILE, dh + 8] and Q
-    [16, dh + 8] in bf16, P [16, DECODE_TILE + 8] in bf16, then in f32
+def decode_tc_smem_bytes(dh: int, q8: bool = False) -> int:
+    """Shared memory of a tensor-core decode block (`tc::smem_bytes`,
+    csrc/decode_body.cuh): the K and V rings [2, DECODE_TILE, dh + 8] and
+    Q [16, dh + 8] in bf16, P [16, DECODE_TILE + 8] in bf16, then in f32
     the scores [16, DECODE_TILE + 8] and the running max, sum and
-    correction [16]."""
+    correction [16], the row slots of two tiles [2, DECODE_TILE] (8 bytes
+    each); over an int8 pool (`q8`) then the f32 K and V scale rings [2,
+    DECODE_TILE] each (its int8 rows wait in registers)."""
     return ((4 * DECODE_TILE + 16) * (dh + 8) * 2 + 16 * (DECODE_TILE + 8) * 2
-            + (16 * (DECODE_TILE + 8) + 3 * 16) * 4)
+            + (16 * (DECODE_TILE + 8) + 3 * 16) * 4 + 2 * DECODE_TILE * 8
+            + (4 * DECODE_TILE * 4 if q8 else 0))
 
 
 def decode_merge_bytes(splits: int, Hb: int) -> int:
@@ -543,9 +563,9 @@ def decode_merge_bytes(splits: int, Hb: int) -> int:
 
 
 def decode_stages(Hg: int, dh: int, esz: int, q8: bool = False) -> int:
-    """K/V ring stages of a CUDA-core `decode_attention` block of Hg
-    heads: 2 (the next tile loads while one computes), or 1 when two do
-    not fit SMEM_LIMIT (f32 at dh 256: recurrentgemma's ring in the 1e-5
+    """K/V ring stages of a CUDA-core decode block of Hg heads: 2 (the
+    next tile loads while one computes), or 1 when two do not fit
+    SMEM_LIMIT (f32 at dh 256: recurrentgemma's ring in the 1e-5
     check)."""
     return 2 if decode_smem_bytes(Hg, dh, esz, q8) <= SMEM_LIMIT else 1
 
@@ -568,17 +588,25 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+_partials: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
 def _split_scratch(dev, stream: int, pairs: int, per_split: int,
                    splits: int, groups: int):
     """(partials, tickets) of a split decode launch over `pairs` (row, kv
-    head) pairs: f32 [pairs * splits * per_split] and the stream's ticket
-    counters (`tickets`, pairs * groups of them), both None with one
-    split. Both are tensors, which the caller keeps alive past the
-    launch."""
+    head) pairs: the stream's f32 partials, at least pairs * splits *
+    per_split floats, and its ticket counters (`tickets`, pairs * groups
+    of them); both None with one split. One partials buffer a stream, as
+    the tickets are (launches on one stream do not overlap), allocated
+    only when a larger launch first comes: a call allocates nothing but
+    its output."""
     if splits == 1:
         return None, None
-    part = torch.empty(pairs * splits * per_split, dtype=torch.float32,
-                       device=dev)
+    n = pairs * splits * per_split
+    part = _partials.get((dev.index, stream))
+    if part is None or part.numel() < n:
+        part = torch.empty(n, dtype=torch.float32, device=dev)
+        _partials[(dev.index, stream)] = part
     return part, tickets(dev, stream, pairs * groups)
 
 
@@ -676,60 +704,118 @@ def decode_attention_launch(q, k, v, kv_len, *, route: Optional[str] = None,
     return out
 
 
-def decode_paged_split_plan(B: int, G: int, W: int, ps: int) -> int:
-    """Splits of each row's page table for `decode_attention_paged`, from
-    host-known shapes only (the row's kv_len stays on the device): enough
-    (splits, G, B) blocks to fill the card's SM_COUNT SMs with
-    DECODE_BLOCKS_PER_SM blocks each, but never more splits than table
-    entries W, nor than DECODE_TILE-position tiles in the table's W*ps
-    positions (so a split holds a tile's worth of positions on average).
-    Split s covers `ref.decode_paged_split_ranges(W, splits)[s]`."""
-    tiles = -(-W * ps // DECODE_TILE)
-    want = -(-SM_COUNT * DECODE_BLOCKS_PER_SM // max(1, B * G))
-    return max(1, min(want, W, tiles))
+def decode_paged_split_plan(B: int, G: int, W: int, ps: int, Hg: int = 1
+                            ) -> Tuple[int, int]:
+    """(splits, head_groups) of `decode_attention_paged` and
+    `decode_attention_paged_q8` for B rows of G kv heads through W-entry
+    tables of ps-position pages, Hg query heads a kv head, from
+    host-known shapes only (the row's kv_len stays on the device): grid
+    (splits, G * head_groups, B), by `_split_plan`'s rule over the
+    table's W*ps positions, never more splits than entries W. Split s
+    covers the entries `ref.decode_paged_split_ranges(W, splits)[s]`; a
+    split past a row's ceil(kv_len / ps) entries loads nothing and only
+    takes its ticket."""
+    return _split_plan(-(-W * ps // DECODE_TILE), max(1, B * G), Hg, W)
+
+
+def _paged_launch(name: str, q, k, v, k_scale, v_scale, kv_len, table,
+                  route: Optional[str], splits: Optional[int],
+                  head_groups: Optional[int]):
+    """Launch decode_attention_paged (k_scale None: a float pool) or
+    decode_attention_paged_q8 (an int8 pool and its scales) on CUDA
+    tensors that pass the wrapper's checks -> [B, H, dh], at the plan's
+    and route's choices where an argument is None; raises ValueError for
+    a forced value (or, for the wrapper, a grouping: at most 16 heads a
+    block, Hb*dh within the CUDA cores' pairs) the kernel does not take.
+    One launch; none counted."""
+    B, H, dh = q.shape
+    ps, G = k.shape[1], k.shape[2]
+    W = table.shape[1]
+    Hg, q8 = H // G, k_scale is not None
+    esz = 1 if q8 else q.element_size()
+    plan = decode_paged_split_plan(B, G, W, ps, Hg)
+    splits = plan[0] if splits is None else int(splits)
+    groups = plan[1] if head_groups is None else int(head_groups)
+    route = decode_paged_route(q.dtype, dh) if route is None else route
+    Hb = -(-Hg // max(1, groups))
+    if route == "tc":
+        stages, smem = 2, decode_tc_smem_bytes(dh, q8)
+        taken = q.dtype is torch.bfloat16 and dh in DECODE_TC_DH and Hb <= 16
+    else:
+        stages = decode_stages(Hb, dh, esz, q8)
+        smem = decode_smem_bytes(Hb, dh, esz, q8, stages)
+        taken = (route == "cuda" and Hb <= 16 and smem <= SMEM_LIMIT
+                 and Hb * dh <= (DECODE_MAX_GROUP if q8 else
+                                 DECODE_WIDE_GROUP)
+                 and dh % 8 == 0 and dh % (16 // esz) == 0)
+    if (not taken or not 1 <= splits <= max(1, W)
+            or not 1 <= groups <= Hg or -(-Hg // Hb) != groups):
+        raise ValueError(f"{name}: route {route!r}, splits {splits}, head "
+                         f"groups {groups} not taken at q {tuple(q.shape)} "
+                         f"({q.dtype}), W {W}, ps {ps}")
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    smem = max(smem, decode_merge_bytes(splits, Hb))
+    stream = _stream(q.device)
+    part, tick = _split_scratch(q.device, stream, B * G, Hg * (dh + 2),
+                                splits, groups)
+    pool = ((k.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
+             v_scale.data_ptr()) if q8 else (k.data_ptr(), v.data_ptr()))
+    err = build.entry(f"{name}_{_attention_dtype(q)}")(
+        q.data_ptr(), *pool, kv_len.data_ptr(), table.data_ptr(), B, H, G,
+        dh, ps, W, 1.0 / math.sqrt(dh), splits, groups, int(route == "tc"),
+        stages, smem, _ptr(part), _ptr(tick), out.data_ptr(), stream)
+    if err:
+        _raise_on(err, f"{name} ({route}, {splits} splits, {groups} head "
+                  "groups)")
+    return out
 
 
 def decode_attention_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            kv_len: torch.Tensor, table: torch.Tensor):
     """q [B, H, dh]; k, v [P, ps, G, dh] one layer of the page pool (f32
     or bf16, same as q); kv_len [B] i32; table [B, W] i32 valid page ids.
-    Returns [B, H, dh] in q's dtype. On the card the table is split
-    across `decode_paged_split_plan(B, G, W, ps)` blocks per (row, kv
-    head); with more than one split a second, small kernel merges the
-    partials. The call counts one launch either way. Refuses inputs
-    that require grad (`_no_backward`)."""
+    Returns [B, H, dh] in q's dtype. On the card the call is one launch
+    (`decode_attention_paged_launch`): `decode_paged_route` picks the
+    tensor cores (bf16) or the CUDA cores (f32), `decode_paged_split_plan`
+    the splits of the table and the head groups, and the last split block
+    of each (row, kv head, head group) merges. Refuses inputs that
+    require grad (`_no_backward`)."""
     _no_backward("decode_attention_paged", q, k, v)
-    suffix = _attention_dtype(q)
+    _attention_dtype(q)
     dev = _checked((q, "q", q.dtype, 3), (k, "k", q.dtype, 4),
                    (v, "v", q.dtype, 4), (kv_len, "kv_len", torch.int32, 1),
                    (table, "table", torch.int32, 2))
     B, H, dh = q.shape
     P, ps, G, dh2 = k.shape
-    W = table.shape[1]
     if (v.shape != k.shape or dh2 != dh or G == 0 or H % G
             or kv_len.shape[0] != B or table.shape[0] != B):
         raise ValueError("decode_attention_paged shapes disagree")
     if dev.type == "cpu":
         return ref.decode_attention_paged(q, k, v, kv_len, table)
-    Hg = H // G
-    _decode_limits("decode_attention_paged", Hg, dh, q.element_size(), False)
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("decode_attention_paged: k, v must be 16-byte "
                          "aligned")
-    out = torch.empty_like(q)
-    if B == 0:
-        return out
-    splits = decode_paged_split_plan(B, G, W, ps)
-    # the partials of the splits (one split writes `out` directly)
-    part = torch.empty(B * G * splits * Hg * (dh + 2), dtype=torch.float32,
-                       device=dev) if splits > 1 else None
-    fn = build.entry("decode_attention_paged_" + suffix)
-    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-                 table.data_ptr(), B, H, G, dh, ps, W, splits,
-                 None if part is None else part.data_ptr(), out.data_ptr(),
-                 _stream(dev)), "decode_attention_paged")
-    decode_attention_paged.launches += 1
+    out = decode_attention_paged_launch(q, k, v, kv_len, table)
+    if B:
+        decode_attention_paged.launches += 1
     return out
+
+
+def decode_attention_paged_launch(q, k, v, kv_len, table, *,
+                                  route: Optional[str] = None,
+                                  splits: Optional[int] = None,
+                                  head_groups: Optional[int] = None):
+    """Launch the decode_attention_paged kernel on CUDA tensors that pass
+    `decode_attention_paged`'s checks (no launch counted) -> [B, H, dh]:
+    at the wrapper's choices (`decode_paged_route`,
+    `decode_paged_split_plan`) where an argument is None, else at a
+    forced route ("cuda" or "tc"), split count (1 .. W) or head grouping
+    (1 .. Hg, every group non-empty), for checks and probes. Raises
+    ValueError for a forced value the kernel does not take."""
+    return _paged_launch("decode_attention_paged", q, k, v, None, None,
+                         kv_len, table, route, splits, head_groups)
 
 
 def decode_attention_q8(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
@@ -800,11 +886,12 @@ def decode_attention_paged_q8(q: torch.Tensor, kq: torch.Tensor,
     dh] int8 and ks, vs [P, ps, G] f32, one layer of the int8 page pool;
     kv_len [B] i32; table [B, W] i32 valid page ids. Returns [B, H, dh]
     in q's dtype (`ref.decode_attention_paged_q8`). On the card the kernel
-    reads the int8 pages and their scales through the table, split as
-    `decode_attention_paged` is, one launch counted per call. Refuses
-    inputs that require grad (`_no_backward`)."""
+    reads the int8 pages and their scales through the table, on the route
+    and plan of `decode_attention_paged` (bf16 q: the tensor cores, the
+    int8 rows widened to bf16 in shared memory), one launch a call.
+    Refuses inputs that require grad (`_no_backward`)."""
     _no_backward("decode_attention_paged_q8", q, ks, vs)
-    suffix = _attention_dtype(q)
+    _attention_dtype(q)
     dev = _checked((q, "q", q.dtype, 3), (kq, "kq", torch.int8, 4),
                    (ks, "ks", torch.float32, 3), (vq, "vq", torch.int8, 4),
                    (vs, "vs", torch.float32, 3),
@@ -812,30 +899,31 @@ def decode_attention_paged_q8(q: torch.Tensor, kq: torch.Tensor,
                    (table, "table", torch.int32, 2))
     B, H, dh = q.shape
     P, ps, G, dh2 = kq.shape
-    W = table.shape[1]
     if (vq.shape != kq.shape or dh2 != dh or G == 0 or H % G
             or ks.shape != kq.shape[:3] or vs.shape != kq.shape[:3]
             or kv_len.shape[0] != B or table.shape[0] != B):
         raise ValueError("decode_attention_paged_q8 shapes disagree")
     if dev.type == "cpu":
         return ref.decode_attention_paged_q8(q, kq, ks, vq, vs, kv_len, table)
-    _decode_limits("decode_attention_paged_q8", H // G, dh, 1, True)
     if kq.data_ptr() % 16 or vq.data_ptr() % 16:
         raise ValueError("decode_attention_paged_q8: kq, vq must be 16-byte "
                          "aligned")
-    out = torch.empty_like(q)
-    if B == 0:
-        return out
-    splits = decode_paged_split_plan(B, G, W, ps)
-    part = torch.empty(B * G * splits * (H // G) * (dh + 2),
-                       dtype=torch.float32, device=dev) if splits > 1 else None
-    fn = build.entry("decode_attention_paged_q8_" + suffix)
-    _raise_on(fn(q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
-                 vs.data_ptr(), kv_len.data_ptr(), table.data_ptr(), B, H, G,
-                 dh, ps, W, splits, None if part is None else part.data_ptr(),
-                 out.data_ptr(), _stream(dev)), "decode_attention_paged_q8")
-    decode_attention_paged_q8.launches += 1
+    out = decode_attention_paged_q8_launch(q, kq, ks, vq, vs, kv_len, table)
+    if B:
+        decode_attention_paged_q8.launches += 1
     return out
+
+
+def decode_attention_paged_q8_launch(q, kq, ks, vq, vs, kv_len, table, *,
+                                     route: Optional[str] = None,
+                                     splits: Optional[int] = None,
+                                     head_groups: Optional[int] = None):
+    """`decode_attention_paged_launch` over an int8 pool: the
+    decode_attention_paged_q8 kernel on CUDA tensors that pass its
+    wrapper's checks, at forced route, split count or head grouping (no
+    launch counted)."""
+    return _paged_launch("decode_attention_paged_q8", q, kq, vq, ks, vs,
+                         kv_len, table, route, splits, head_groups)
 
 
 def scr_score(windows: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

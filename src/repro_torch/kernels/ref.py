@@ -329,18 +329,23 @@ def decode_split_ranges(S: int, splits: int, tile: int = 64):
              min(S, (s + 1) * tiles // splits * tile)) for s in range(splits)]
 
 
-def _split_merge(q, k, v, lens, n, ranges):
+def _split_merge(q, k, v, lens, n, ranges, ks=None, vs=None):
     """Partials of the position ranges [lo, hi) cut at each row's n, merged
     in range order (the arithmetic of both split decode kernels). k, v
     [B, S, G, dh]; lens [B] masks positions >= kv_len with -1e30; a
     partial is (m, l, unnormalised acc) with the probabilities rounded to
     v's type before the PV product, and an empty one has l = 0 and is
     skipped. out = sum acc_s w_s / max(sum l_s w_s, 1e-30) with w_s =
-    exp(m_s - max m)."""
+    exp(m_s - max m). ks, vs [B, S, G]: the scales of an int8 cache k, v;
+    a score is then (q . k) * scale * ks, and a probability enters the PV
+    product as exp(s - m) * vs rounded to q's type (the running sum takes
+    it unscaled)."""
     B, H, dh = q.shape
     S, G = k.shape[1], k.shape[2]
     qg = q.float().reshape(B, G, H // G, dh)
     s = torch.einsum("bgnd,bsgd->bgns", qg, k.float()) * (1.0 / math.sqrt(dh))
+    if ks is not None:
+        s = s * ks.float().permute(0, 2, 1)[:, :, None, :]
     pos = torch.arange(S, device=q.device)
     s = torch.where((pos[None, :] < lens[:, None])[:, None, None, :], s,
                     torch.full_like(s, MASK))
@@ -351,8 +356,11 @@ def _split_merge(q, k, v, lens, n, ranges):
         m = torch.where(inside, s, torch.full_like(s, MASK)).amax(-1)
         p = torch.where(inside, torch.exp(s - m[..., None]),
                         torch.zeros_like(s))
-        acc = torch.einsum("bgns,bsgd->bgnd", p.to(v.dtype).float(),
-                           v.float())
+        if vs is None:
+            pv = p.to(v.dtype)
+        else:
+            pv = (p * vs.float().permute(0, 2, 1)[:, :, None, :]).to(q.dtype)
+        acc = torch.einsum("bgns,bsgd->bgnd", pv.float(), v.float())
         parts.append((m, p.sum(-1), acc))
     mt = torch.full_like(parts[0][0], MASK)
     for m, l, _ in parts:
@@ -392,28 +400,14 @@ def decode_attention_split(q, k, v, kv_len, splits: int,
     to v's type for the PV product, sums in f32), so the model differs
     only in what it takes: "tc" needs bf16 and dh in DECODE_TC_DH, and
     raises ValueError otherwise, as the kernel's entry does."""
-    B, H, dh = q.shape
-    S, G = k.shape[1], k.shape[2]
-    Hg = H // G
-    hb = -(-Hg // max(1, head_groups))
-    if (route not in ("cuda", "tc") or not 1 <= head_groups <= Hg
-            or -(-Hg // hb) != head_groups
-            or (route == "tc" and (q.dtype != torch.bfloat16
-                                   or dh not in DECODE_TC_DH))):
-        raise ValueError(f"decode_attention_split: route {route!r}, head "
-                         f"groups {head_groups} at Hg {Hg}, dh {dh}, "
-                         f"{q.dtype}")
+    B = q.shape[0]
+    S = k.shape[1]
     lens = torch.as_tensor(kv_len, device=q.device).long().reshape(-1)
     lens = lens.expand(B)
     n = torch.where(lens > 0, lens.clamp(max=S), torch.full_like(lens, S))
-    ranges = decode_split_ranges(S, splits)
-    qg = q.reshape(B, G, Hg, dh)
-    outs = []
-    for lo, hi in decode_head_groups(Hg, head_groups):
-        qh = qg[:, :, lo:hi].reshape(B, G * (hi - lo), dh)
-        outs.append(_split_merge(qh, k, v, lens, n, ranges).reshape(
-            B, G, hi - lo, dh))
-    return torch.cat(outs, 2).reshape(B, H, dh)
+    return _grouped_split_merge("decode_attention_split", q, k, v, lens, n,
+                                decode_split_ranges(S, splits), head_groups,
+                                route)
 
 
 def decode_paged_split_ranges(W: int, splits: int):
@@ -434,24 +428,81 @@ def _gather_pages(k, table):
     return k.reshape((P * ps,) + k.shape[2:])[idx]
 
 
-def decode_attention_paged_split(q, k, v, kv_len, table, splits: int):
-    """The split-and-merge arithmetic of the decode_attention_paged kernel
-    in plain PyTorch (for tests: `decode_attention_paged` is the
-    contract). Row b counts its first npg = ceil(kv_len / ps) table
-    entries (all W when kv_len <= 0) with positions >= kv_len masked;
-    each split of `decode_paged_split_ranges` gives a partial over its
-    entries below npg, and the partials merge in split order
-    (`_split_merge`)."""
-    B = q.shape[0]
-    ps = k.shape[1]
-    W = table.shape[1]
+def _grouped_split_merge(name, q, k, v, lens, n, ranges, head_groups,
+                         route, ks=None, vs=None):
+    """`_split_merge` for each head group (`decode_head_groups`: the
+    kernels' blocks of a kv head's heads) on its own, after the checks of
+    the kernels' entries: `route` "cuda" or "tc", the tensor cores only
+    for bf16 q at dh in DECODE_TC_DH, head groups that leave none empty
+    (ValueError otherwise). Both routes compute the same partials, so the
+    model differs only in what it takes."""
+    B, H, dh = q.shape
+    G = k.shape[2]
+    Hg = H // G
+    hb = -(-Hg // max(1, head_groups))
+    if (route not in ("cuda", "tc") or not 1 <= head_groups <= Hg
+            or -(-Hg // hb) != head_groups
+            or (route == "tc" and (q.dtype != torch.bfloat16
+                                   or dh not in DECODE_TC_DH))):
+        raise ValueError(f"{name}: route {route!r}, head groups "
+                         f"{head_groups} at Hg {Hg}, dh {dh}, {q.dtype}")
+    qg = q.reshape(B, G, Hg, dh)
+    outs = []
+    for lo, hi in decode_head_groups(Hg, head_groups):
+        qh = qg[:, :, lo:hi].reshape(B, G * (hi - lo), dh)
+        outs.append(_split_merge(qh, k, v, lens, n, ranges, ks, vs).reshape(
+            B, G, hi - lo, dh))
+    return torch.cat(outs, 2).reshape(B, H, dh)
+
+
+def _paged_rows(kv_len, table, ps: int, splits: int):
+    """(lens, n, ranges) of the paged kernels: row b walks its first
+    npg = ceil(kv_len / ps) table entries (all W when kv_len <= 0), n =
+    npg * ps positions; split s covers the positions of the entries
+    `decode_paged_split_ranges(W, splits)[s]`."""
+    B, W = table.shape
     lens = kv_len.long().reshape(B)
     npg = torch.where(lens > 0, ((lens + ps - 1) // ps).clamp(max=W),
                       torch.full_like(lens, W))
     ranges = [(lo * ps, hi * ps)
               for lo, hi in decode_paged_split_ranges(W, splits)]
-    return _split_merge(q, _gather_pages(k, table), _gather_pages(v, table),
-                        lens, npg * ps, ranges)
+    return lens, npg * ps, ranges
+
+
+def decode_attention_paged_split(q, k, v, kv_len, table, splits: int,
+                                 head_groups: int = 1, route: str = "cuda"):
+    """The split-and-merge arithmetic of the decode_attention_paged kernel
+    in plain PyTorch (for tests: `decode_attention_paged` is the
+    contract). Row b counts its first npg = ceil(kv_len / ps) table
+    entries (all W when kv_len <= 0) with positions >= kv_len masked;
+    each split of `decode_paged_split_ranges` gives a partial over its
+    entries below npg (a split past npg is empty), and the partials merge
+    in split order (`_split_merge`), each head group on its own; `route`
+    as `_grouped_split_merge` takes it."""
+    lens, n, ranges = _paged_rows(kv_len, table, k.shape[1], splits)
+    return _grouped_split_merge(
+        "decode_attention_paged_split", q, _gather_pages(k, table),
+        _gather_pages(v, table), lens, n, ranges, head_groups, route)
+
+
+def decode_attention_paged_q8_split(q, kq, ks, vq, vs, kv_len, table,
+                                    splits: int, head_groups: int = 1,
+                                    route: str = "cuda"):
+    """`decode_attention_paged_split` over an int8 pool (kq, vq [P, ps, G,
+    dh] int8, ks, vs [P, ps, G] f32): the decode_attention_paged_q8
+    kernel's arithmetic. On the tensor cores ("tc") the int8 rows are
+    widened to bf16 (exact) for the bf16 products; on either route a
+    score is (q . kq) * scale * ks in f32, a probability enters the PV
+    product as exp(s - m) * vs rounded to q's type, and the running sum
+    takes it unscaled."""
+    lens, n, ranges = _paged_rows(kv_len, table, kq.shape[1], splits)
+    k, v = _gather_pages(kq, table), _gather_pages(vq, table)
+    if route == "tc":
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    return _grouped_split_merge(
+        "decode_attention_paged_q8_split", q, k, v, lens, n, ranges,
+        head_groups, route, _gather_pages(ks, table),
+        _gather_pages(vs, table))
 
 
 def decode_attention_paged(q, k, v, kv_len, table):

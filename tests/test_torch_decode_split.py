@@ -163,9 +163,10 @@ def test_split_model_refuses_what_the_kernel_refuses():
 
 def test_smem_of_the_tensor_core_route():
     # K, V rings and Q in bf16 rows of dh + 8, P, then f32 scores and
-    # the three running vectors; one dh-256 block within 227 KB
+    # the three running vectors, and two tiles' row slots (8 bytes each);
+    # one dh-256 block within 227 KB
     assert ops.decode_tc_smem_bytes(256) == (4 * 64 + 16) * 264 * 2 + \
-        16 * 72 * 2 + (16 * 72 + 48) * 4
+        16 * 72 * 2 + (16 * 72 + 48) * 4 + 2 * 64 * 8
     assert all(ops.decode_tc_smem_bytes(d) <= ops.SMEM_LIMIT
                for d in ops.DECODE_TC_DH)
     assert ops.decode_merge_bytes(1, 16) == 0

@@ -4,9 +4,11 @@
 --zoo] [--src DIR]` (`--prefill` runs only flash_prefill's routes at its
 dh-64 and dh-128 path shapes, `--paged` only the decode_attention_paged
 rows, `--decode` only the decode_attention rows, `--q8` only the int8
-rows, `--zoo` only the model zoo's shapes; `--src` names the `src`
-directory whose `repro_torch` is imported, so that a parent tree
-unpacked with git archive can be timed in the same call).
+rows, `--paged --q8` both, `--zoo` only the model zoo's shapes; `--src`
+names the `src` directory whose `repro_torch` is imported, so that a
+parent tree unpacked with git archive can be timed in the same call,
+and with `--paged` / `--q8` the tree timed in turns beside this
+checkout's).
 
 prefill (`--prefill`): nvcc's registers and spills of every
 flash_prefill instantiation (`-Xptxas -v`; the wgmma plans' shared bytes
@@ -39,21 +41,33 @@ ring and at whisper's cross-attention (below): the plan and route, the
 wrapper and SDPA, then both routes (`ops.decode_attention_launch`) at
 forced split counts and head groupings, each held against the plain
 version (2e-2) (a `--src` tree without that entry: the wrapper only).
-decode_attention_paged: the wrapper (the committed split plan) and the
-kernel at forced split counts, each built with kTile 32, 64 (committed)
-and 128 positions a ring stage (1, 2 and 4 pages of 32), held against
-`ref.decode_attention_paged` (bf16, 2e-2) at chip_smoke's main-path
-shape (q [4, 14, 64] over a 72-page pool, 18-entry tables, kv_len 150-240)
-and at its long-cache shape (4 rows at kv_len 4,096 through 130-entry
-tables), beside SDPA on the gathered K/V.
-int8 (`--q8`): the wrappers of the two int8 decode kernels and of their
-bf16 siblings, in turns (bf16, int8, int8, bf16), on the same values
+decode_attention_paged (`--paged`) and its int8 twin (`--q8`; both
+flags together run both): nvcc's registers and spills of every
+decode_attention_paged and decode_attention instantiation (they share
+csrc/decode_body.cuh), then at the five path shapes (`paged_shapes`: the
+main path's pages, q [4, 14, 64] over a 72-page pool through 18-entry
+tables of 32-position pages at kv_len 150-240; h2o's ring pages, q [2,
+32, 80] over a 256-page pool through 128-entry tables at kv_len 4,096;
+the long cache, 4 rows at kv_len 4,096 through 130-entry tables; and
+the int8 pool of the first two, `quantize_kv` of the same values) the
+wrapper held against its plain version (2e-2) and timed in turns with a
+second tree's wrapper where `--src` names one (a parent unpacked with
+git archive, imported beside this checkout's in the same process:
+parent, new, new, parent), with SDPA on the gathered (int8: gathered and
+dequantized) K/V, and the bound of `kernels/cost.py`; then this
+checkout's kernel at every forced route, split count and head grouping
+(`ops.decode_attention_paged_launch`, `_q8_launch`), each held against
+the plain version; with `--paged` and a second tree, also
+decode_attention (the same kernel body and merge over a contiguous
+cache) at its bf16 path shapes in turns with that tree's. In these two
+modes `--src` names that second tree, not the one imported.
+int8 (`--q8`) also: the wrappers of the two int8 decode kernels and of
+their bf16 siblings, in turns (bf16, int8, int8, bf16), on the same values
 (the int8 planes are `quantize_kv` of the bf16 K/V), at chip_smoke's
 path shapes: the qwen2.5 wave (q [16, 14, 64], K/V [16, 280, 2, 64],
 kv_len 136), h2o's ring (q [1, 32, 80], K/V [1, 4096, 8, 80], kv_len
-4609), the main path's pages (the shape above) and h2o's ring pages
-(q [2, 32, 80] over a 256-page pool through 128-entry tables, kv_len
-4,096); each held against its plain version (2e-2).
+4609), the main path's pages and h2o's ring pages; each held against its
+plain version (2e-2).
 
 zoo (`--zoo`): nvcc's registers and spills of every flash_prefill,
 decode_attention and decode_attention_paged instantiation (`-Xptxas -v`,
@@ -90,7 +104,7 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "attention_probe"
-build = ops = ref = None      # repro_torch.kernels of --src, set by main()
+build = ops = ref = kcost = None   # repro_torch.kernels, set by main()
 # knob settings of flash_prefill's tensor-core route; the first is the
 # committed one
 KNOBS = [dict(kMT=1, kBK=64, kStages=2), dict(kMT=2, kBK=64, kStages=2),
@@ -110,8 +124,6 @@ PREFILL_SHAPES = [
     ("dh 128, 8k (not a path shape)", 2, 8192, 12, 8192, 2, 128, 0, 8192,
      True),
 ]
-# kTile settings of decode_attention_paged.cu; the first is the committed
-PAGED_TILES = (64, 32, 128)
 
 
 def variant_source(src, knobs):
@@ -351,54 +363,162 @@ def paged_inputs(g, W, P, lens):
                                    device="cuda"), table
 
 
-def paged_probe(variants, g):
-    shapes = [("main path", paged_inputs(g, 18, 72, [180, 210, 150, 240]),
-               (1, 2, 4, 9, 18)),
-              ("long cache", paged_inputs(g, 130, 520, [4096] * 4),
-               (1, 9, 18, 33, 65, 130))]
-    for label, (q, kp, vp, lens, table), splits_list in shapes:
-        B, H, dh = q.shape
-        P, ps, G, _ = kp.shape
-        W = table.shape[1]
-        want = ref.decode_attention_paged(q, kp, vp, lens, table)
-        j = torch.arange(W * ps, device="cuda")
-        idx = table.long()[:, j // ps] * ps + (j % ps)
-        kk, vv = (t.reshape(P * ps, G, dh)[idx].repeat_interleave(H // G, 2)
-                  .transpose(1, 2) for t in (kp, vp))
-        mask = (j[None, :] < lens[:, None])[:, None, None, :]
-        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            q[:, :, None], kk, vv, attn_mask=mask)
-        wrap = lambda: ops.decode_attention_paged(  # noqa: E731
-            q, kp, vp, lens, table)
-        print(json.dumps({"decode_attention_paged": label,
-                          "plan": ops.decode_paged_split_plan(B, G, W, ps),
-                          "sdpa call_ms": call_ms(sdpa, 50),
-                          "sdpa device_ms": device_ms(sdpa),
-                          "wrapper call_ms": call_ms(wrap, 50),
-                          "wrapper device_ms": device_ms(wrap)}))
-        for knobs, fn in variants:
-            for splits in splits_list:
-                out = torch.empty_like(q)
-                part = torch.empty(B * G * splits * (H // G) * (dh + 2),
-                                   device="cuda")
+def load_tree(src):
+    """`src`'s repro_torch.kernels as (build, ops, ref, cost), imported
+    beside this checkout's: its modules are taken out of sys.modules
+    again, and keep their own globals (its build directory, its ticket
+    buffers), so both trees' wrappers run in one process."""
+    def ours():
+        return {n: m for n, m in sys.modules.items()
+                if n == "repro_torch" or n.startswith("repro_torch.")}
+    saved = ours()
+    for n in saved:
+        del sys.modules[n]
+    sys.path.insert(0, src)
+    try:
+        from repro_torch.kernels import build as b, cost as c, ops as o, \
+            ref as r
+    finally:
+        sys.path.remove(src)
+        for n in ours():
+            del sys.modules[n]
+        sys.modules.update(saved)
+    b.build_all()
+    return b, o, r, c
 
-                def call():
-                    err = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                             lens.data_ptr(), table.data_ptr(), B, H, G, dh,
-                             ps, W, splits, part.data_ptr(), out.data_ptr(),
-                             stream())
-                    if err:
-                        raise RuntimeError(f"launch failed: cudaError {err}")
-                call()
-                torch.cuda.synchronize()
-                err = (out.float() - want.float()).abs()
-                assert bool((err <= 2e-2 + 2e-2 * want.float().abs()).all()), \
-                    (label, knobs, splits)
-                print(json.dumps({"decode_attention_paged": label,
-                                  "knobs": knobs, "splits": splits,
-                                  "max_abs_err": err.max().item(),
-                                  "call_ms": call_ms(call, 50),
-                                  "device_ms": device_ms(call)}))
+
+def paged_shapes(g, q8):
+    """(label, wrapper arguments) at the paged path shapes: bf16 pools,
+    or (q8) the int8 pool (`quantize_kv`) of the first two."""
+    from repro_torch.models import layers as L
+    rows = [("main path", paged_inputs(g, 18, 72, [180, 210, 150, 240])),
+            ("h2o ring pages", h2o_ring_pages(g)),
+            ("long cache", paged_inputs(g, 130, 520, [4096] * 4))]
+    if not q8:
+        return rows
+    return [(f"{label} int8", (q, *L.quantize_kv(kp), *L.quantize_kv(vp),
+                               lens, table))
+            for label, (q, kp, vp, lens, table) in rows[:2]]
+
+
+def paged_library(args, q8):
+    """SDPA over the gathered (int8: gathered and dequantized) K/V."""
+    from repro_torch.models import layers as L
+    q, lens, table = args[0], args[-2], args[-1]
+    B, H, dh = q.shape
+    ps, G = args[1].shape[1], args[1].shape[2]
+    W = table.shape[1]
+    j = torch.arange(W * ps, device="cuda")
+    idx = table.long()[:, j // ps] * ps + (j % ps)
+    mask = (j[None, :] < lens[:, None])[:, None, None, :]
+
+    def rows(t, s=None):
+        x = t.reshape((-1,) + t.shape[2:])[idx]
+        if s is not None:
+            x = L.dequantize_kv(x, s.reshape(-1, G)[idx], q.dtype)
+        return x.repeat_interleave(H // G, 2).transpose(1, 2)
+
+    def call():
+        if q8:
+            k, v = rows(args[1], args[2]), rows(args[3], args[4])
+        else:
+            k, v = rows(args[1]), rows(args[2])
+        return F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                              attn_mask=mask)
+    return call
+
+
+def paged_probe(g, q8, parent):
+    """The paged path shapes in turns with `parent` (module doc), then
+    this checkout's kernel at every forced route, split count and head
+    grouping."""
+    name = "decode_attention_paged_q8" if q8 else "decode_attention_paged"
+    launch = getattr(ops, name + "_launch")
+    for label, args in paged_shapes(g, q8):
+        q, table = args[0], args[-1]
+        B, H, dh = q.shape
+        ps, G = args[1].shape[1], args[1].shape[2]
+        W, Hg = table.shape[1], H // G
+        want = getattr(ref, name)(*args).float()
+        fns = {"new": lambda args=args: getattr(ops, name)(*args)}
+        if parent:
+            fns["parent"] = lambda args=args: getattr(parent[1], name)(*args)
+        plan = ops.decode_paged_split_plan(B, G, W, ps, Hg)
+        b_ms, b_by = getattr(kcost, name)(*args).bound_ms()
+        row = {name: label, "plan": plan,
+               "route": ops.decode_paged_route(q.dtype, dh),
+               "bound_ms": b_ms, "bound_by": b_by}
+        for tree, fn in fns.items():
+            err = (fn().float() - want).abs()
+            assert bool((err <= 2e-2 + 2e-2 * want.abs()).all()), \
+                (label, tree)
+            row[f"{tree} max_abs_err"] = err.max().item()
+        for turn, tree in enumerate(("parent", "new", "new", "parent")
+                                    if parent else ("new", "new")):
+            row[f"{tree} device_ms {turn}"] = device_ms(fns[tree], 50)
+            row[f"{tree} call_ms {turn}"] = call_ms(fns[tree], 50)
+            row[f"{tree} graph_ms {turn}"] = graph_ms(fns[tree])
+        lib = paged_library(args, q8)
+        row["sdpa device_ms"] = device_ms(lib)
+        row["sdpa call_ms"] = call_ms(lib)
+        print(json.dumps(row))
+        routes = [r for r in ops.DECODE_ROUTES if r == "cuda"
+                  or ops.decode_paged_route(q.dtype, dh) == "tc"]
+        splits = sorted({1, 2, 4, 8, plan[0], W // 4, W // 2, W}
+                        & set(range(1, W + 1)))
+        groups = [n for n in (1, 2, 4, 7, 8, 16)
+                  if n <= Hg and -(-Hg // -(-Hg // n)) == n]
+        for route in routes:
+            for sp in splits:
+                for hg in groups:
+                    def call(route=route, sp=sp, hg=hg):
+                        return launch(*args, route=route, splits=sp,
+                                      head_groups=hg)
+                    err = (call().float() - want).abs()
+                    assert bool((err <= 2e-2 + 2e-2 * want.abs()).all()), \
+                        (label, route, sp, hg)
+                    print(json.dumps({name: label, "route": route,
+                                      "splits": sp, "head_groups": hg,
+                                      "max_abs_err": err.max().item(),
+                                      "device_ms": device_ms(call)}))
+
+
+def shared_body_turns(g, parent):
+    """decode_attention (whose body and merge the paged kernel shares) at
+    its bf16 path shapes, and decode_attention_q8 at three of them, in
+    turns with `parent`'s: device (and graph) ms."""
+    for label, B, H, S, G, dh, kv, ring in DECODE_SHAPES:
+        q, k, v, lens = decode_inputs(g, B, H, S, G, dh, kv)
+        want = ref.decode_attention(q, k, v, lens, ring=ring).float()
+        fns = {"new": lambda: ops.decode_attention(q, k, v, lens, ring=ring),
+               "parent": lambda: parent[1].decode_attention(q, k, v, lens,
+                                                            ring=ring)}
+        row = {"decode_attention": label,
+               "plan": ops.decode_split_plan(B, G, S, H // G)}
+        for tree, fn in fns.items():
+            err = (fn().float() - want).abs()
+            assert bool((err <= 2e-2 + 2e-2 * want.abs()).all()), \
+                (label, tree)
+        for turn, tree in enumerate(("parent", "new", "new", "parent")):
+            row[f"{tree} device_ms {turn}"] = device_ms(fns[tree], 50)
+            row[f"{tree} graph_ms {turn}"] = graph_ms(fns[tree])
+        print(json.dumps(row))
+    from repro_torch.models import layers as L
+    for label, B, H, S, G, dh, kv, ring in DECODE_SHAPES[:3]:
+        q, k, v, lens = decode_inputs(g, B, H, S, G, dh, kv)
+        a8 = (*L.quantize_kv(k), *L.quantize_kv(v), lens)
+        want = ref.decode_attention_q8(q, *a8, ring=ring).float()
+        fns = {"new": lambda: ops.decode_attention_q8(q, *a8, ring=ring),
+               "parent": lambda: parent[1].decode_attention_q8(q, *a8,
+                                                               ring=ring)}
+        row = {"decode_attention_q8": label}
+        for tree, fn in fns.items():
+            err = (fn().float() - want).abs()
+            assert bool((err <= 2e-2 + 2e-2 * want.abs()).all()), \
+                (label, tree)
+        for turn, tree in enumerate(("parent", "new", "new", "parent")):
+            row[f"{tree} device_ms {turn}"] = device_ms(fns[tree], 50)
+        print(json.dumps(row))
 
 
 def q8_probe(g):
@@ -653,29 +773,45 @@ def prefill_probe(g):
 
 
 def main() -> int:
-    global build, ops, ref
+    global build, ops, ref, kcost
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     only = ap.add_mutually_exclusive_group()
     only.add_argument("--prefill", action="store_true")
-    only.add_argument("--paged", action="store_true")
     only.add_argument("--decode", action="store_true")
-    only.add_argument("--q8", action="store_true")
     only.add_argument("--zoo", action="store_true")
+    ap.add_argument("--paged", action="store_true")
+    ap.add_argument("--q8", action="store_true")
     args = ap.parse_args()
+    if (args.paged or args.q8) and (args.prefill or args.decode
+                                     or args.zoo):
+        ap.error("--paged and --q8 go with each other only")
     if not torch.cuda.is_available():
         print("attention_probe: no CUDA device", file=sys.stderr)
         return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    sys.path.insert(0, args.src)
+    paged = args.paged or args.q8
+    parent = None
+    if paged and Path(args.src).resolve() != (ROOT / "src").resolve():
+        parent = load_tree(args.src)
+        print(json.dumps({"parent": args.src}))
+    sys.path.insert(0, str(ROOT / "src") if paged else args.src)
     from repro_torch.kernels import build, ops, ref
-    print(json.dumps({"src": args.src}))
+    from repro_torch.kernels import cost as kcost
+    print(json.dumps({"src": str(ROOT / "src") if paged else args.src}))
     build.build_all()
     g = torch.Generator(device="cuda").manual_seed(0)
-    if args.q8:
-        q8_probe(g)
+    if paged:
+        print_ptxas(("decode_attention_paged", "decode_attention"))
+        if args.paged:
+            paged_probe(g, False, parent)
+            if parent:
+                shared_body_turns(g, parent)
+        if args.q8:
+            paged_probe(g, True, parent)
+            q8_probe(g)
         return 0
     if args.zoo:
         zoo_probe(g)
@@ -683,15 +819,10 @@ def main() -> int:
     if args.prefill:
         prefill_probe(g)
         return 0
-    if not (args.paged or args.decode):
+    if not args.decode:
         flash_probe(build_variants("flash_prefill", "flash_prefill_bf16",
                                    KNOBS), g)
-    if not args.paged:
-        decode_probe(g)
-    if not args.decode:
-        paged_probe(build_variants("decode_attention_paged",
-                                   "decode_attention_paged_bf16",
-                                   [dict(kTile=t) for t in PAGED_TILES]), g)
+    decode_probe(g)
     return 0
 
 
