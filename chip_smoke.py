@@ -12,7 +12,10 @@ Phases, any failure exits non-zero (nothing is caught):
    window pack)
    with full-width qwen2.5-0.5B in bf16 (24 layers, random weights from a
    seed), `answer_batch(16 questions, generate=True, max_new=16)` through
-   4 slots; the chunked prefill runs `flash_prefill`. The retrieval and
+   4 slots; the chunked prefill runs `flash_prefill_paged` (one launch a
+   layer, the slot's history read in the kernel; a profiled chunk of the
+   main path's model and one of h2o's last ring chunk show no gather or
+   `cat` of K/V and no flash_prefill launch). The retrieval and
    SCR fallbacks count what they absorb: at the end of the run every
    clean path's pipeline (main, legacy, host search, sampled, window
    updates) has counted zero, and no session of a clean path has counted
@@ -53,7 +56,18 @@ Phases, any failure exits non-zero (nothing is caught):
    at every compiled wgmma plan (`prefill_forced_edges`), two wgmma calls
    bit-equal; at its wgmma path shapes the tc route is held and timed
    beside it. Each driven path prints flash_prefill's launches by route,
-   and the main and roofline paths must launch the wgmma route.
+   and the wave and roofline paths must launch the wgmma route (the main
+   path none: its chunks run flash_prefill_paged). flash_prefill_paged
+   runs at every chunk shape of the paths (the main path's, h2o's last
+   ring chunk, both over int8 pools, the MoE chunk, nemotron's) against
+   its plain version (bf16, 2e-2), its f32 route bit-equal to f32
+   flash_prefill on the gathered buffer, timed beside the parent's way
+   (gather + `cat`, then SDPA as the library's time, and flash_prefill
+   alone on the gathered buffer), and at its edge cases
+   (`prefill_paged_edges`: every dh, tiles across pages and across the
+   history / chunk boundary, a wrapped ring, lo's rounding, a table that
+   repeats and reverses pages, a history of 0, ragged C, every split
+   count up to 8, two calls bit-equal, one kernel node a call).
    kmeans_assign runs at the five shapes of its paths (the EcoVector
    build's, the IVF partition's and a PQ sub-quantizer's, on the
    baselines' own data; the graph baselines' partition and HNSWPQ's
@@ -88,9 +102,9 @@ Phases, any failure exits non-zero (nothing is caught):
 More paths run after phase 4, and their kernels join phases 5-7 (the
 int8 decode kernels at their paths' shapes and their edge cases,
 `q8_edges`, with the library's way: dequantize in torch, then SDPA; the
-float attention kernels also at these paths' shapes: flash_prefill on
-h2o's last ring chunk, its buffer re-materialized from layer 0's pool
-as `prefill_chunk_paged` builds it (`chunk_buffer`), and on a MoE chunk;
+float attention kernels also at these paths' shapes: flash_prefill_paged
+on h2o's last ring chunk through layer 0's pool (bf16 and int8), and on a
+MoE chunk;
 decode_attention_paged over h2o's 128-page ring rows at kv_len 4,096 and
 over the MoE pool; decode_attention on the MoE wave's cache); then
 the F8 phase: the EcoVector partition (the main path's 16,384
@@ -271,8 +285,9 @@ determinism`; a whole CPU build and two card builds with the
   Phase 5 takes flash_prefill at recurrentgemma's local window ([1, 512,
   16, 256] over one kv head, window 2,048), whisper's encoder ([2, 1500,
   12, 64], not causal) and cross-attention ([2, 32, 12, 64] over 1,500
-  frames), qwen2-vl's prefill ([2, 320, 12, 128] over 2 kv heads) and a
-  nemotron chunk; decode_attention at recurrentgemma's ring ([2, 16, 256]
+  frames) and qwen2-vl's prefill ([2, 320, 12, 128] over 2 kv heads),
+  flash_prefill_paged at a nemotron chunk; decode_attention at
+  recurrentgemma's ring ([2, 16, 256]
   over [2, 512, 1, 256]) and whisper's cross-attention ([2, 12, 64] over
   1,500); decode_attention_paged over nemotron's pool (their device ms:
   `tools/attention_probe.py --zoo`);
@@ -392,7 +407,7 @@ from repro_torch.launch import scrub_index, serve  # noqa: E402
 from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.dense import (DenseLM, cache_len,  # noqa: E402
-                                      chunk_rows)
+                                      init_page_pool)
 from repro_torch.models import rglru  # noqa: E402
 from repro_torch.models.dense import N_IMG  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
@@ -551,6 +566,11 @@ REPLACES = {
     # no pallas_call): the port reads the int8 cache in a kernel
     "decode_attention_q8": "src/repro/models/layers.py:227",
     "decode_attention_paged_q8": "src/repro/models/layers.py:227",
+    # the chunk's attention over its slot's pages has no pallas_call: the
+    # reference gathers the pages with jnp and calls layers.attention
+    # (paged_attn_chunk, ring and non-ring); the port reads the pages in
+    # the kernel
+    "flash_prefill_paged": "src/repro/models/dense.py:335",
 }
 # the source of each kernel (the int8 kernels share their siblings')
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in
@@ -566,48 +586,52 @@ SOURCES["flash_prefill"] = PREFILL_SOURCES["wgmma"]
 # the kernels each path must launch
 PATH_KERNELS = {
     "main": ("kmeans_assign", "ecoscan", "scr_select",
-             "decode_attention_paged", "flash_prefill"),
+             "decode_attention_paged", "flash_prefill_paged"),
     "wave": ("flash_prefill", "decode_attention"),
     "h2o": ("flash_prefill", "decode_attention"),
     "legacy": ("ecoscan", "scr_score", "decode_attention_paged",
-               "flash_prefill"),
+               "flash_prefill_paged"),
     "baselines": ("kmeans_assign", "pq_adc"),
     # the host search launches nothing; the legacy SCR of its MobileRAG
     # does
     "host_search": ("scr_score",),
     "graph_baselines": ("kmeans_assign",),
     "updates": ("ecoscan",),
-    "h2o_continuous": ("flash_prefill", "decode_attention_paged"),
-    "h2o_int8": ("flash_prefill", "decode_attention_q8",
-                 "decode_attention_paged_q8"),
-    "int8": ("flash_prefill", "decode_attention_q8",
+    # the chunks of the continuous engine attend on flash_prefill_paged,
+    # the waves' full prefills on flash_prefill
+    "h2o_continuous": ("flash_prefill_paged", "decode_attention_paged"),
+    "h2o_int8": ("flash_prefill", "flash_prefill_paged",
+                 "decode_attention_q8", "decode_attention_paged_q8"),
+    "int8": ("flash_prefill", "flash_prefill_paged", "decode_attention_q8",
              "decode_attention_paged_q8"),
-    "moe": ("flash_prefill", "decode_attention", "decode_attention_paged"),
-    "sampled": ("flash_prefill", "decode_attention_paged", "decode_attention",
-                "ecoscan", "scr_select"),
-    "window_updates": ("ecoscan", "scr_select", "flash_prefill",
+    "moe": ("flash_prefill", "flash_prefill_paged", "decode_attention",
+            "decode_attention_paged"),
+    "sampled": ("flash_prefill", "flash_prefill_paged",
+                "decode_attention_paged", "decode_attention", "ecoscan",
+                "scr_select"),
+    "window_updates": ("ecoscan", "scr_select", "flash_prefill_paged",
                        "decode_attention_paged"),
     # the session and scheduler ladders; the wave Scheduler's replicas
     # run the wave Engine
-    "fire": ("ecoscan", "scr_select", "flash_prefill",
+    "fire": ("ecoscan", "scr_select", "flash_prefill", "flash_prefill_paged",
              "decode_attention_paged", "decode_attention"),
     # save, journal, tiered loads and a restored pipeline answering
-    "durable": ("ecoscan", "scr_select", "flash_prefill",
+    "durable": ("ecoscan", "scr_select", "flash_prefill_paged",
                 "decode_attention_paged"),
     # the four Table-5 pipelines (the baselines search on the host) and
     # launch.serve's stream
-    "pipelines": ("kmeans_assign", "ecoscan", "scr_select", "flash_prefill",
-                  "decode_attention_paged"),
+    "pipelines": ("kmeans_assign", "ecoscan", "scr_select",
+                  "flash_prefill_paged", "decode_attention_paged"),
     # gte-small embeds the corpus and the windows (non-causal
     # flash_prefill), then MobileRAG answers on it
     "embedder": ("kmeans_assign", "ecoscan", "scr_select", "flash_prefill",
-                 "decode_attention_paged"),
+                 "flash_prefill_paged", "decode_attention_paged"),
     # recurrentgemma's local attention and ring, whisper's encoder, cross
     # and self attention, qwen2-vl's prefill and decode (mamba2 runs no
     # kernel)
     "families": ("flash_prefill", "decode_attention"),
     # nemotron and the cut large configs on the continuous engine
-    "zoo": ("flash_prefill", "decode_attention_paged"),
+    "zoo": ("flash_prefill_paged", "decode_attention_paged"),
     # training attends through the plain layers.attention: no kernel
     # (each launch count must read 0, `train_path`)
     "train": (),
@@ -646,6 +670,18 @@ def close(name, got, want, rtol, atol):
         raise AssertionError(f"{name}: max error {err.max().item():.3g} "
                              f"beyond rtol {rtol} / atol {atol}")
     return err.max().item()
+
+
+def close_scaled(name, got, want, tol=2e-2):
+    """`close` at rtol `tol` and atol `tol` times the output's largest
+    plain value, capped at `tol`: an attention output that averages
+    thousands of keys is a few hundredths, where a fixed atol of 2e-2
+    would pass a kernel that dropped a key tile or misweighted a merge.
+    Returns what it held: the max abs error, the atol, max |want|."""
+    top = want.float().abs().max().item()
+    atol = tol * min(1.0, top)
+    return {"max_abs_err": close(name, got, want, tol, atol), "atol": atol,
+            "max_abs_want": top}
 
 
 def same_or_tied(name, got_ids, want_ids, value_of, rtol, atol):
@@ -1339,20 +1375,6 @@ def _expand(t, rep):
     return t.repeat_interleave(rep, dim=2).transpose(1, 2)
 
 
-def chunk_buffer(kp, vp, row, offset, c, ps, ring_len=0):
-    """The K/V buffers `prefill_chunk_paged` hands flash_prefill for a
-    chunk at `offset` through page-table `row` of one layer's pool (its
-    `chunk_rows`): the slot's history in position order, then the chunk,
-    here the pool rows the chunk writes. Returns (k, v, lo); the chunk's
-    queries sit at q_offset offset - lo."""
-    tile = ops.prefill_key_tile(kp.dtype, kp.shape[-1])
-    lo, gather, (pg, off) = chunk_rows(row, offset, c, offset + c, ps,
-                                       ring_len, tile=tile)
-    k, v = (torch.cat([t.reshape((-1,) + t.shape[2:])[gather], t[pg, off]]
-                      )[None] for t in (kp, vp))
-    return k, v, lo
-
-
 def check_flash_prefill(label, q, k, v, *, window=None, q_offset=0,
                         kv_len=None, causal=True, plain_iters=20):
     """flash_prefill at one path shape: kernel against plain in q's type
@@ -1407,6 +1429,246 @@ def check_flash_prefill(label, q, k, v, *, window=None, q_offset=0,
         out["wgmma_launch_ms"] = sum(turns["wgmma"]) / 2
         out["plan"] = ops.prefill_plan(dh, Sq, Sk, B * H)
     return out
+
+
+def paged_chunk_buffer(q, k, v, kp, vp, row, kw):
+    """The K/V buffers that the parent's `prefill_chunk_paged` built for a
+    flash_prefill_paged call's arguments (`kw`): the history [lo,
+    offset) gathered through the row (`ref.history_rows`; an int8 pool
+    dequantized to q's dtype, `L.dequantize_kv`), then the chunk."""
+    ps, ring_len = kw["page_size"], kw["ring_len"]
+    gi = ref.history_rows(row, kw["lo"], kw["offset"], ps,
+                          ring_len or row.shape[0] * ps)
+    out = []
+    for t, c, s in ((kp, k, kw.get("k_scale")), (vp, v, kw.get("v_scale"))):
+        h = t.reshape((-1,) + t.shape[2:])[gi]
+        if s is not None:
+            h = L.dequantize_kv(h, s.reshape((-1,) + s.shape[2:])[gi],
+                                q.dtype)
+        out.append(torch.cat([h, c])[None])
+    return out
+
+
+def paged_chunk_kw(offset, ps, ring_len, window, dtype, dh, scales=None):
+    """flash_prefill_paged's keyword arguments for a chunk at `offset`:
+    lo as `dense.chunk_rows` rounds it (`ops.prefill_paged_key_tile`)."""
+    tile = ops.prefill_paged_key_tile(dtype, dh)
+    ring = ring_len
+    lo = max(0, offset - ring) // tile * tile if ring else 0
+    return dict(offset=offset, lo=lo, page_size=ps, ring_len=ring_len,
+                window=window, **(scales or {}))
+
+
+def paged_f32_equal(label, q, k, v, kp, vp, row, kw):
+    """The f32 route: flash_prefill_paged on f32 copies of q, k, v and of
+    a float pool (an int8 pool as it is), its history from the f32 key
+    tile, equal bit for bit to f32 `flash_prefill` on the gathered
+    buffer, the parent's way."""
+    f = [t.float() for t in (q, k, v)]
+    pools = [t if t.dtype == torch.int8 else t.float() for t in (kp, vp)]
+    kw = dict(kw, lo=paged_chunk_kw(kw["offset"], kw["page_size"],
+                                    kw["ring_len"], kw["window"],
+                                    torch.float32, q.shape[-1])["lo"])
+    kb, vb = paged_chunk_buffer(*f, *pools, row, kw)
+    lo, off, C = kw["lo"], kw["offset"], q.shape[1]
+    got = ops.flash_prefill_paged(*f, *pools, row, **kw)
+    want = ops.flash_prefill(f[0], kb, vb, causal=True, window=kw["window"],
+                             q_offset=off - lo, kv_len=off + C - lo)
+    assert torch.equal(got, want), \
+        f"flash_prefill_paged {label} f32: not bit-equal to flash_prefill " \
+        "on the gathered buffer"
+
+
+def check_flash_prefill_paged(label, q, k, v, kp, vp, row, kw):
+    """flash_prefill_paged at one path shape: against its plain version
+    in bf16 (`close_scaled`, 2e-2), its f32 route bit-equal to f32
+    flash_prefill on the gathered buffer; times (library: the parent's
+    gather + `cat`, then SDPA; beside it flash_prefill alone on the
+    gathered buffer, the parent's kernel), and the bound of the work."""
+    B, C, H, dh = q.shape
+    G = k.shape[1]
+    held = close_scaled(f"flash_prefill_paged {label}",
+                        ops.flash_prefill_paged(q, k, v, kp, vp, row, **kw),
+                        ref.flash_prefill_paged(q, k, v, kp, vp, row, **kw))
+    paged_f32_equal(label, q, k, v, kp, vp, row, kw)
+    b_ms, b_by = kcost.flash_prefill_paged(q, k, v, kp, vp, row,
+                                           **kw).bound_ms()
+    lo, off, window = kw["lo"], kw["offset"], kw["window"]
+    Sk = off - lo + C
+    qpos = off - lo + torch.arange(C, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = kpos <= qpos
+    if window:
+        mask = mask & (qpos - kpos < window)
+
+    def library():
+        kb, vb = paged_chunk_buffer(q, k, v, kp, vp, row, kw)
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), _expand(kb, H // G), _expand(vb, H // G),
+            attn_mask=mask)
+    kb, vb = paged_chunk_buffer(q, k, v, kp, vp, row, kw)
+    plan = ops.prefill_paged_plan(C, off - lo, G, H // G, dh, window)
+    return dict(
+        shape=f"{label}: q {list(q.shape)}, pool {list(kp.shape)} "
+              f"{kp.dtype}, row {row.shape[0]} entries, offset {off}, lo "
+              f"{lo}, ring {kw['ring_len']}, window {window}; plan "
+              f"{plan.splits} splits x {plan.row_blocks} row blocks x {G}",
+        err=held["max_abs_err"], held=held, ties=0,
+        ms=time_ms(lambda: ops.flash_prefill_paged(q, k, v, kp, vp, row,
+                                                   **kw)),
+        plain_ms=time_ms(lambda: ref.flash_prefill_paged(
+            q, k, v, kp, vp, row, **kw)),
+        library_ms=time_ms(library),
+        flash_prefill_ms=time_ms(lambda: ops.flash_prefill(
+            q, kb, vb, causal=True, window=window, q_offset=off - lo,
+            kv_len=Sk)),
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def profiled_chunk(model, ps, offset, ring_len=0):
+    """One 32-token chunk of `model` (`prefill_chunk_paged`) at `offset`
+    through a fresh pool's row (a ring of `ring_len`, or a row that never
+    wraps), under the profiler after a warm call: the launch counts of
+    the chunk (exactly one flash_prefill_paged a layer, no flash_prefill)
+    and its aten ops: no gather or cat of K/V is left, so aten::index runs
+    twice a chunk (the embedding, the rows the chunk writes) and aten::cat
+    only RoPE's two a layer; the kernels the profiler saw (none of
+    flash_prefill's; it may drop events, so the new kernel's count is
+    reported, not asserted)."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = model.cfg
+    W = -(-ring_len // ps) if ring_len else -(-(offset + 32) // ps)
+    pool = init_page_pool(cfg, W, ps, device=DEV)
+    row = torch.arange(W, dtype=torch.int32, device=DEV)
+    tok = torch.ones(1, 32, dtype=torch.long, device=DEV)
+
+    def chunk():
+        return model.prefill_chunk_paged(pool, tok, row, offset,
+                                         page_size=ps, ring_len=ring_len)
+    chunk()
+    before = ops.launch_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        chunk()
+        torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in ops.launch_counts().items()
+                if c != before[n]}
+    assert launched == {"flash_prefill_paged": cfg.num_layers}, launched
+    ops_ = {e.key: e.count for e in prof.key_averages()}
+    kernels = collections.Counter()
+    for name, _, count in _device_events(prof):
+        for k in ("paged_tc_kernel", "flash_prefill_tc_kernel",
+                  "flash_prefill_wgmma_kernel", "flash_prefill_f32_kernel",
+                  "index", "cat"):
+            if k in name:
+                kernels[k] += count
+    assert ops_.get("aten::index") == 2, ops_.get("aten::index")
+    assert ops_.get("aten::cat") == 2 * cfg.num_layers, ops_.get("aten::cat")
+    assert not any(kernels[k] for k in ("flash_prefill_tc_kernel",
+                                         "flash_prefill_wgmma_kernel",
+                                         "flash_prefill_f32_kernel")), kernels
+    del pool
+    return {"config": cfg.name, "offset": offset, "ring_len": ring_len,
+            "layers": cfg.num_layers, "launches": launched,
+            "aten_index": ops_.get("aten::index"),
+            "aten_cat": ops_.get("aten::cat"),
+            "device_kernels_seen": dict(kernels)}
+
+
+def prefill_paged_edges():
+    """Edge cases of flash_prefill_paged, each through the wrapper in
+    bf16 (`close_scaled` against the plain version, also at every split
+    count the key tiles allow up to 8, two wrapper calls bit-equal) and in f32
+    (bit-equal to f32 flash_prefill on the gathered buffer), over a bf16
+    (f32) pool and an int8 one: every dh of FLASH_PREFILL_DH; a key tile
+    across pages (16- and 24-position pages); a tile across the history /
+    chunk boundary; a wrapped ring whose lo rounds down past the ring
+    (offset - lo > ring: the rounded rows share cursors with newer
+    positions, masked); a ring_len that is not a page multiple; a table
+    that repeats and reverses pages; a history of 0; C not a multiple of
+    the tile (1, 20, 77); Hg 7, 12 and 16 (row blocks that straddle query
+    positions); a window shorter than the history; one call a kernel
+    node. Prints each case's largest error against its atol and max
+    |want|; returns the checks made."""
+    g = torch.Generator(device=DEV).manual_seed(11)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=DEV)
+    # (label, C, H, G, dh, ps, W, P, offset, ring_len, window, row kind)
+    cases = [
+        ("dh 32, Hg 2, 24-position pages", 32, 4, 2, 32, 24, 12, 40, 200, 0,
+         None, "perm"),
+        ("dh 64, Hg 7, history across the boundary", 32, 14, 2, 64, 32, 11,
+         44, 100, 0, None, "perm"),
+        ("dh 80, Hg 4, wrapped ring past lo rounding", 32, 32, 8, 80, 32, 8,
+         20, 600, 256, 256, "perm"),
+        ("dh 128, Hg 6, 16-position pages", 32, 48, 8, 128, 16, 24, 60, 300,
+         0, None, "perm"),
+        ("dh 256, Hg 16, window 40", 20, 16, 1, 256, 32, 8, 16, 150, 0, 40,
+         "perm"),
+        ("history 0", 32, 14, 2, 64, 32, 11, 44, 0, 0, None, "perm"),
+        ("C 1", 1, 14, 2, 64, 32, 11, 44, 257, 0, None, "perm"),
+        ("C 77, Hg 12", 77, 12, 1, 128, 32, 12, 30, 130, 0, None, "perm"),
+        ("ring 64 over 24-position pages", 32, 8, 2, 64, 24, 3, 10, 160, 64,
+         64, "perm"),
+        ("pages repeated and reversed", 32, 14, 2, 64, 32, 11, 44, 250, 0,
+         None, "repeat"),
+        ("long history, many splits", 32, 32, 8, 80, 32, 128, 256, 4576,
+         4096, 4096, "perm"),
+    ]
+    n, held = 0, {}
+    for (label, C, H, G, dh, ps, W, P, off, ring_len, window,
+         kind) in cases:
+        q, k, v = rnd(1, C, H, dh), rnd(C, G, dh), rnd(C, G, dh)
+        kp, vp = rnd(P, ps, G, dh), rnd(P, ps, G, dh)
+        if kind == "repeat":
+            half = torch.randperm(P, generator=g, device=DEV)[:(W + 1) // 2]
+            row = torch.cat([half, half.flip(0)])[:W]
+        else:
+            row = torch.randperm(P, generator=g, device=DEV)[:W]
+        row = row.to(torch.int32)
+        for q8 in (False, True):
+            qb, kb_, vb_ = (t.bfloat16() for t in (q, k, v))
+            if q8:
+                kb_, vb_ = (L.dequantize_kv(*L.quantize_kv(t), torch.bfloat16)
+                            for t in (kb_, vb_))
+                (kpp, ks), (vpp, vs) = L.quantize_kv(kp), L.quantize_kv(vp)
+                sc = {"k_scale": ks, "v_scale": vs}
+            else:
+                kpp, vpp, sc = kp.bfloat16(), vp.bfloat16(), {}
+            kw = paged_chunk_kw(off, ps, ring_len, window, torch.bfloat16,
+                                dh, sc)
+            a = (qb, kb_, vb_, kpp, vpp, row)
+            tag = f"flash_prefill_paged edge {label}{' int8' if q8 else ''}"
+            want = ref.flash_prefill_paged(*a, **kw)
+            one = ops.flash_prefill_paged(*a, **kw)
+            h = close_scaled(tag, one, want)
+            assert torch.equal(one, ops.flash_prefill_paged(*a, **kw)), \
+                f"{tag}: two calls differ"
+            plan = ops.prefill_paged_plan(C, off - kw["lo"], G, H // G, dh,
+                                          window)
+            for sp in range(1, min(plan.tiles, 8) + 1):
+                e = close_scaled(
+                    f"{tag}, {sp} splits",
+                    ops.flash_prefill_paged_launch(*a, splits=sp, **kw),
+                    want)["max_abs_err"]
+                h["max_abs_err"] = max(h["max_abs_err"], e)
+                n += 1
+            held[tag.removeprefix("flash_prefill_paged edge ")] = h
+            if q8:
+                k32, v32 = (L.dequantize_kv(*L.quantize_kv(t), torch.float32)
+                            for t in (k, v))
+                paged_f32_equal(tag, q, k32, v32, kpp, vpp, row, kw)
+            else:
+                paged_f32_equal(tag, q, k, v, kp, vp, row, kw)
+            n += 3
+            if label == "long history, many splits":
+                nodes = kernel_nodes(lambda: ops.flash_prefill_paged(*a, **kw))
+                assert nodes == 1, f"{tag}: {nodes} kernel nodes a call"
+    print("flash_prefill_paged edges held (bf16, every split count; max abs "
+          "err, atol, max |want|):", json.dumps(held))
+    return n
 
 
 def check_decode_attention(label, q, k, v, kv_len, ring):
@@ -4924,6 +5186,8 @@ def main() -> int:
         "index_build_split_s": dict(pipe.index.timings),
     }
     print("main path:", json.dumps(main))
+    print("a profiled prefill chunk, the main path's model:", json.dumps(
+        profiled_chunk(slm.model, slm.PAGE_SIZE, 64)))
 
     # ---- legacy SCR path: the same pipeline without the window index
     legacy_sink = TraceSink()
@@ -5099,6 +5363,9 @@ def main() -> int:
                       greedy_equal_share_wave=equal_share(h2o_cres, h2o_res))
     print("h2o-danube-1.8b continuous path:", json.dumps(h2o_c_info))
     h2o_pool = [h2o_ce.cache[n][0].clone() for n in ("k", "v")]
+    print("a profiled prefill chunk, h2o's last ring chunk:", json.dumps(
+        profiled_chunk(h2o, h2o_ce.page_size, (H2O_PROMPT - 1) // 32 * 32,
+                       h2o_ce.ring_len)))
     h2o_ring_len, h2o_W = h2o_ce.ring_len, h2o_ce.table_width
     h2o_ps = h2o_ce.page_size
     del h2o_c_eng, h2o_ce
@@ -5263,12 +5530,19 @@ def main() -> int:
     plens = [len(slm.encode_prompt(a.prompt)) + len(a.gen_tokens)
              for a in answers[:4]]
     kv_len = torch.tensor(plens, dtype=torch.int32, device=dev)
-    # the main path's prefill chunk: 32 queries at q_offset 64 over a
-    # slot's 64 positions of history and the chunk
-    k_slot, v_slot, _ = chunk_buffer(pool["k"][0], pool["v"][0], table[0],
-                                     64, slm.PREFILL_CHUNK, ps)
-    q_chunk = torch.randn(1, slm.PREFILL_CHUNK, H, dh, generator=g,
-                          device=dev).to(torch.bfloat16)
+    # the main path's prefill chunk: 32 queries at offset 64 through a
+    # random row of layer 0's pool (64 positions of history), the chunk's
+    # own K/V drawn beside them
+    C = slm.PREFILL_CHUNK
+
+    def chunk_kv(G_, dh_):
+        return [torch.randn(C, G_, dh_, generator=g, device=dev).to(
+            torch.bfloat16) for _ in range(2)]
+    q_chunk = torch.randn(1, C, H, dh, generator=g, device=dev
+                          ).to(torch.bfloat16)
+    main_chunk = (q_chunk, *chunk_kv(G, dh), pool["k"][0], pool["v"][0],
+                  table[0])
+    main_kw = paged_chunk_kw(64, ps, 0, None, torch.bfloat16, dh)
     # the qwen2.5 wave decode: the largest bucket's grown cache
     _, wcache = slm.model.prefill(torch.tensor(np.stack(big), dtype=torch.long,
                                                device=dev))
@@ -5282,16 +5556,18 @@ def main() -> int:
                          generator=g, device=dev).to(torch.bfloat16)
     len_ring = torch.tensor([H2O_PROMPT + 1], dtype=torch.int32, device=dev)
     window = H2O_CONFIG.sliding_window
-    C = slm.PREFILL_CHUNK
     # h2o's last prompt chunk on the continuous engine (the ring wrapped):
-    # its buffer from layer 0's pool through a random 128-page row, and
-    # the chunk's own queries
+    # layer 0's pool through a random 128-page row, the chunk's own
+    # queries and K/V
     Ph = h2o_pool[0].shape[0]
     table_h2o = torch.stack([torch.randperm(Ph, generator=g, device=dev)[
         :h2o_W] for _ in range(2)]).to(torch.int32)
     h_off = (H2O_PROMPT - 1) // C * C
-    k_ring, v_ring, h_lo = chunk_buffer(*h2o_pool, table_h2o[0], h_off, C,
-                                        h2o_ps, h2o_ring_len)
+    h_qkv = [t[0, h_off:h_off + C].contiguous() for t in (hq, hk, hv)]
+    h_qkv[0] = h_qkv[0][None]
+    h_kw = paged_chunk_kw(h_off, h2o_ps, h2o_ring_len, window,
+                          torch.bfloat16, H2O_CONFIG.head_dim)
+    h2o_chunk = (*h_qkv, *h2o_pool, table_h2o[0])
     # the moe path's grouping (16 heads over 8, dh 64): a chunk at offset
     # 64 through a random row of its pool, its wave decode over the
     # largest bucket's grown cache, and its paged decode
@@ -5299,23 +5575,17 @@ def main() -> int:
     Pm = moe_pool[0].shape[0]
     table_moe = torch.stack([torch.randperm(Pm, generator=g, device=dev)[:W]
                              for _ in range(4)]).to(torch.int32)
-    k_moe, v_moe, _ = chunk_buffer(*moe_pool, table_moe[0], 64, C, ps)
     q_moe_chunk = torch.randn(1, C, Hm, dhm, generator=g, device=dev
                               ).to(torch.bfloat16)
+    moe_chunk = (q_moe_chunk, *chunk_kv(MOE_CONFIG.num_kv_heads, dhm),
+                 *moe_pool, table_moe[0])
     q_moe_wave = torch.randn(len(big), Hm, dhm, generator=g, device=dev
                              ).to(torch.bfloat16)
     q_moe_dec = torch.randn(4, Hm, dhm, generator=g, device=dev
                             ).to(torch.bfloat16)
     flash_shapes = [
-        check_flash_prefill("main-path chunk", q_chunk, k_slot, v_slot,
-                            q_offset=64, kv_len=64 + slm.PREFILL_CHUNK),
         check_flash_prefill("h2o wave", hq, hk, hv, window=window,
                             plain_iters=3),
-        check_flash_prefill("h2o ring chunk", hq[:, h_off:h_off + C],
-                            k_ring, v_ring, window=window,
-                            q_offset=h_off - h_lo, kv_len=h_off + C - h_lo),
-        check_flash_prefill("moe chunk", q_moe_chunk, k_moe, v_moe,
-                            q_offset=64, kv_len=64 + C),
     ]
     decode_shapes = [
         check_decode_attention("qwen wave", q_wave, k_wave, v_wave,
@@ -5344,6 +5614,26 @@ def main() -> int:
         check_decode_paged_q8("h2o int8 ring pages", q_ring2, *h8_pool,
                               len_ring2, table_h8),
     ]
+    # the chunks over the int8 pools: the chunk's own K/V as the int8
+    # model attends them (fake-quantized); scales beside the pools
+    i8_kw = paged_chunk_kw(64, ps, 0, None, torch.bfloat16, dh,
+                           {"k_scale": i8_pool[1], "v_scale": i8_pool[3]})
+    i8_chunk = (q_chunk, *[L.dequantize_kv(*L.quantize_kv(t))
+                           for t in main_chunk[1:3]], i8_pool[0],
+                i8_pool[2], table8[0])
+    h8_kw = dict(h_kw, k_scale=h8_pool[1], v_scale=h8_pool[3])
+    h8_chunk = (h_qkv[0], *[L.dequantize_kv(*L.quantize_kv(t))
+                            for t in h_qkv[1:]], h8_pool[0], h8_pool[2],
+                table_h8[0])
+    paged_prefill_shapes = [
+        check_flash_prefill_paged("main-path chunk", *main_chunk, main_kw),
+        check_flash_prefill_paged("h2o last ring chunk", *h2o_chunk, h_kw),
+        check_flash_prefill_paged("qwen int8 chunk", *i8_chunk, i8_kw),
+        check_flash_prefill_paged("h2o int8 last ring chunk", *h8_chunk,
+                                  h8_kw),
+        check_flash_prefill_paged("moe chunk", *moe_chunk, paged_chunk_kw(
+            64, ps, 0, None, torch.bfloat16, dhm)),
+    ]
     assert ops.decode_paged_split_plan(4, G, W, ps, H // G)[0] > 1
     long_in = long_cache_inputs(H, G, dh, g)
     paged_shapes = [
@@ -5355,7 +5645,8 @@ def main() -> int:
                      table_moe),
         check_decode("long cache (not a path shape)", *long_in),
     ]
-    n_edges = attention_edges() + paged_edges(H, G, dh) + q8_edges()
+    n_edges = (attention_edges() + paged_edges(H, G, dh) + q8_edges()
+               + prefill_paged_edges())
     n_kmeans_edges = kmeans_edges()
     n_pq_edges = pq_adc_edges()
     n_retrieval_edges = ecoscan_edges() + scr_select_edges(w_t)
@@ -5396,6 +5687,8 @@ def main() -> int:
         "pq_adc": check_pq_adc(lut_q, pack, seg_q, lut_flat),
         "decode_attention_q8": dict(q8_shapes[0], shapes=q8_shapes),
         "decode_attention_paged_q8": dict(pq8_shapes[0], shapes=pq8_shapes),
+        "flash_prefill_paged": dict(paged_prefill_shapes[0],
+                                    shapes=paged_prefill_shapes),
     }
     calls = {
         "kmeans_assign": lambda: ops.kmeans_assign(x, cent),
@@ -5414,11 +5707,14 @@ def main() -> int:
             q_dec, pool["k"][0], pool["v"][0], kv_len, table),
         "decode_attention_paged long cache":
             lambda: ops.decode_attention_paged(*long_in),
-        "flash_prefill": lambda: ops.flash_prefill(
-            q_chunk, k_slot, v_slot, q_offset=64,
-            kv_len=64 + slm.PREFILL_CHUNK),
-        "flash_prefill h2o wave": lambda: ops.flash_prefill(
-            hq, hk, hv, window=window),
+        "flash_prefill": lambda: ops.flash_prefill(hq, hk, hv,
+                                                   window=window),
+        "flash_prefill_paged": lambda: ops.flash_prefill_paged(
+            *main_chunk, **main_kw),
+        "flash_prefill_paged h2o last ring chunk":
+            lambda: ops.flash_prefill_paged(*h2o_chunk, **h_kw),
+        "flash_prefill_paged h2o int8 last ring chunk":
+            lambda: ops.flash_prefill_paged(*h8_chunk, **h8_kw),
         "decode_attention": lambda: ops.decode_attention(
             q_wave, k_wave, v_wave, len_wave),
         "decode_attention h2o ring": lambda: ops.decode_attention(
@@ -5522,8 +5818,8 @@ def main() -> int:
         :zoo_in["W"]] for _ in range(4)]).to(torch.int32)
     len_nem = torch.full((4,), ZOO_PROMPT + MAX_NEW // 2, dtype=torch.int32,
                          device=dev)
-    k_nem, v_nem, _ = chunk_buffer(nkp, nvp, table_nem[0], 64, C,
-                                   zoo_in["ps"])
+    nem_chunk = (rbf(1, C, nH, ndh), rbf(C, nkp.shape[2], ndh),
+                 rbf(C, nkp.shape[2], ndh), nkp, nvp, table_nem[0])
     zoo_shapes = {
         "flash_prefill": [
             check_flash_prefill("recurrentgemma local window, dh 256, Hg 16",
@@ -5537,9 +5833,12 @@ def main() -> int:
                                 rbf(2, WHISPER_DEC, Hw, dhw),
                                 *fam_in["whisper_cross"], causal=False),
             check_flash_prefill("qwen2-vl prefill (M-RoPE)",
-                                *fam_in["vl_flash"], plain_iters=3),
-            check_flash_prefill("nemotron chunk", rbf(1, C, nH, ndh), k_nem,
-                                v_nem, q_offset=64, kv_len=64 + C)],
+                                *fam_in["vl_flash"], plain_iters=3)],
+        "flash_prefill_paged": [
+            check_flash_prefill_paged("nemotron chunk", *nem_chunk,
+                                      paged_chunk_kw(64, zoo_in["ps"], 0,
+                                                     None, torch.bfloat16,
+                                                     ndh))],
         "decode_attention": [
             check_decode_attention(
                 "recurrentgemma ring, Hg 16, dh 256",
@@ -5557,7 +5856,7 @@ def main() -> int:
     for name, shapes in zoo_shapes.items():
         results[name]["shapes"].extend(shapes)
     print("the model zoo's shapes:", json.dumps(zoo_shapes))
-    del fam_in, zoo_in, nkp, nvp, k_nem, v_nem
+    del fam_in, zoo_in, nkp, nvp, nem_chunk
     torch.cuda.empty_cache()
     # ---- training: full-width qwen2.5-0.5B and granite-moe steps, the
     # card's step against the CPU's; no hand-written kernel on the path
@@ -5693,6 +5992,9 @@ def main() -> int:
                      f", tc route {sh['tc_ms']:.4f} ms ("
                      f"{sh['tc_ms'] / sh['ms']:.3g}x the kernel's time)"
                      if "tc_ms" in sh else "")
+                  + (f", flash_prefill alone on the gathered buffer "
+                     f"{sh['flash_prefill_ms']:.4f} ms"
+                     if "flash_prefill_ms" in sh else "")
                   + (f" [{sh['shape']}]" if "shape" in sh else ""))
     # no clean path's pipeline fell back, no clean session failed or
     # retried
@@ -5733,7 +6035,8 @@ def main() -> int:
         "device_ms": prof["kernel_device_ms"][name],
         "shapes": [{k: sh[k] for k in ("shape", "ms", "plain_ms", "library_ms",
                                        "bound_ms", "err", "tc_ms",
-                                       "wgmma_launch_ms", "held") if k in sh}
+                                       "wgmma_launch_ms", "held",
+                                       "flash_prefill_ms") if k in sh}
                    for sh in r.get("shapes", [])]}
         for name, r in results.items()]
     fp = next(k for k in kernels if k["name"] == "flash_prefill")
@@ -5742,8 +6045,10 @@ def main() -> int:
     fp["launches_by_route_and_path"] = PREFILL_ROUTES
     fp["sources_by_route"] = PREFILL_SOURCES
     fp["tc_ms"] = results["flash_prefill"].get("tc_ms")
-    # the main path's chunks and the roofline path's prefill run on wgmma
-    assert PREFILL_ROUTES["main"]["wgmma"] > 0, PREFILL_ROUTES["main"]
+    # the wave path's prefill (qwen2.5, dh 64) and the roofline path's
+    # run on wgmma; the main path's chunks on flash_prefill_paged alone
+    assert PREFILL_ROUTES["wave"]["wgmma"] > 0, PREFILL_ROUTES["wave"]
+    assert not any(PREFILL_ROUTES["main"].values()), PREFILL_ROUTES["main"]
     assert PREFILL_ROUTES["roofline"]["wgmma"] > 0, PREFILL_ROUTES["roofline"]
     assert len(kernels) == len(ops.KERNELS)
     assert all(k["launches"] > 0 for k in kernels)

@@ -11,7 +11,8 @@ values are at hand (tensors with data, and plain ints: chip_smoke's
 lens, probes, block maps, kv lengths) it counts what this call's data
 needs, the distinct rows it reads. `flash_prefill` counts the (query,
 key) pairs that causal, window, q_offset and kv_len leave unmasked,
-which shapes and ints decide.
+which shapes and ints decide, and `flash_prefill_paged` the same pairs
+over the history rows its queries attend.
 
 The trace route: a wrapper handed a fake or meta tensor (`traced`)
 records one node named after its kernel, costed here, in the active
@@ -139,6 +140,28 @@ def flash_prefill(q, k, v, *, causal: bool = True, window=None,
     return Cost(4.0 * dh * H * B * pairs,
                 (2 * q.numel() + 2 * B * kv * G * dh) * esz,
                 hw.peak_kind(q.dtype))
+
+
+def flash_prefill_paged(q, k, v, k_pool, v_pool, row, *, offset: int,
+                        lo: int, page_size: int, ring_len: int = 0,
+                        window=None, k_scale=None, v_scale=None) -> Cost:
+    """q read and the output written, the chunk's K/V and the history's
+    rows that some query attends (positions [max(lo, offset - window +
+    1), offset), each row of K and V once, with its f32 scales from an
+    int8 pool), the table entries they sit on; FLOPs 4 dh a head and
+    unmasked (query, key) pair. Shapes and ints decide it all."""
+    _, C, H, dh = q.shape
+    G = k.shape[1]
+    esz = q.element_size()
+    first = max(lo, offset - window + 1) if window else lo
+    rows = max(0, offset - first)
+    row_bytes = 2 * G * (dh * k_pool.element_size()
+                         + (4 if k_scale is not None else 0))
+    pages = -(-rows // page_size) + (1 if rows else 0)
+    pairs = unmasked_pairs(C, offset - lo, offset + C - lo, window, True)
+    return Cost(4.0 * dh * H * pairs,
+                2 * q.numel() * esz + 2 * C * G * dh * esz + rows * row_bytes
+                + min(pages, row.shape[0]) * 4, hw.peak_kind(q.dtype))
 
 
 def _decode_positions(kv_len, B: int, S: int) -> int:

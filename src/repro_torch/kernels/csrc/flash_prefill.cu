@@ -56,137 +56,29 @@
 // (the 32-byte swizzle, or the head dim padded to 128).
 //
 // f32 route (`flash_prefill_f32`), kept on the CUDA cores as the 1e-5
-// check (tensor cores would take f32 as TF32): one block per (query tile
-// of 32 rows, head, batch) with a loop over key tiles of 32; each query
-// row is held by 4 threads, each owning dh/4 of its columns of q and of
-// the f32 accumulator in registers, a score being their partial dot
-// products summed with two shuffles; key and value tiles are staged in
-// shared memory as f32. At dh 256 a row is held by 8 threads and a key
-// tile is 16 keys (`F32Tile`).
+// check: csrc/prefill_f32.cuh, whose body csrc/flash_prefill_paged.cu
+// shares over a page table.
 #include "common.cuh"
 #include "mma.cuh"
+#include "prefill_f32.cuh"
 #include "prefill_keys.cuh"
 
 namespace {
 
 // ------------------------------------------------- f32 on the CUDA cores
 
-constexpr int kBQ = 32;                        // query rows per block
-constexpr int kTPR = 4;                        // threads per query row
-constexpr int kTK = 32;                        // keys per tile
-
-// the tile at a head dim: dh 256 holds a row over 8 threads (q and the
-// accumulator in 64 registers a thread) and takes key tiles of 16, so
-// that the K and V tiles (32 KB) stay within 48 KB of static shared
-// memory
-template <int DH> struct F32Tile {
-  static constexpr int TPR = DH > 128 ? 2 * kTPR : kTPR;
-  static constexpr int TK = DH > 128 ? kTK / 2 : kTK;
-  static constexpr int THREADS = kBQ * TPR;
+// keys and values in contiguous buffers k, v [B, Sk, G, dh]
+struct DenseKV {
+  const float* k;
+  const float* v;
+  int Sk, G, dh;
+  __device__ void load(int b, int g, int j, int c, float4& kv,
+                       float4& vv) const {
+    const size_t off = (((size_t)b * Sk + j) * G + g) * dh + c;
+    kv = *reinterpret_cast<const float4*>(k + off);
+    vv = *reinterpret_cast<const float4*>(v + off);
+  }
 };
-
-template <int DH>
-__global__ void __launch_bounds__(F32Tile<DH>::THREADS)
-flash_prefill_f32_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v, int Sq, int Sk, int H,
-                         int G, int causal, int window, int q_offset,
-                         int kv_len, float scale, float* __restrict__ out) {
-  constexpr int TPR = F32Tile<DH>::TPR, TK = F32Tile<DH>::TK;
-  constexpr int THREADS = F32Tile<DH>::THREADS;
-  constexpr int RW = DH / 4;                   // float4 per key row
-  constexpr int NV = RW / TPR;                 // float4 per thread
-  static_assert(RW % TPR == 0, "dh must be a multiple of 4 * TPR");
-  __shared__ float4 ks[TK * RW];
-  __shared__ float4 vs[TK * RW];
-  const int tid = threadIdx.x, r = tid / TPR, t = tid % TPR;
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int g = h / (H / G);
-  const int row = q0 + r;
-  const bool live = row < Sq;
-  const int qpos = q_offset + row;
-  const size_t qoff = (((size_t)b * Sq + (live ? row : 0)) * H + h) * DH;
-  float4 qr[NV], acc[NV];
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    qr[i] = *reinterpret_cast<const float4*>(q + qoff + (i * TPR + t) * 4);
-    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  float m = kMask, l = 0.f;
-  int kbeg, kend;
-  key_range(q_offset + q0, q_offset + min(q0 + kBQ, Sq) - 1, Sk, causal,
-            window, kv_len, TK, kbeg, kend);
-  const size_t krow = (size_t)G * DH;
-  const float* kbase = k + (size_t)b * Sk * krow + (size_t)g * DH;
-  const float* vbase = v + (size_t)b * Sk * krow + (size_t)g * DH;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int k0 = kbeg; k0 < kend; k0 += TK) {
-    __syncthreads();                           // the previous tile is consumed
-    for (int e = tid; e < TK * RW; e += THREADS) {
-      const int j = e / RW, c = (e % RW) * 4;
-      const bool in = k0 + j < kend;
-      const size_t off = (size_t)(k0 + j) * krow + c;
-      ks[e] = in ? *reinterpret_cast<const float4*>(kbase + off) : zero;
-      vs[e] = in ? *reinterpret_cast<const float4*>(vbase + off) : zero;
-    }
-    __syncthreads();
-    float s[TK];
-    float mt = kMask;
-#pragma unroll
-    for (int j = 0; j < TK; ++j) {
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        const float4 kk = ks[j * RW + i * TPR + t];
-        part = fmaf(qr[i].x, kk.x, part);
-        part = fmaf(qr[i].y, kk.y, part);
-        part = fmaf(qr[i].z, kk.z, part);
-        part = fmaf(qr[i].w, kk.w, part);
-      }
-      // the TPR threads of a row end with bit-identical sums
-#pragma unroll
-      for (int w = 1; w < TPR; w *= 2)
-        part += __shfl_xor_sync(0xffffffffu, part, w);
-      const int kp = k0 + j;
-      const bool ok = kp < kv_len && (!causal || kp <= qpos) &&
-                      (window <= 0 || qpos - kp < window);
-      s[j] = ok ? part * scale : kMask;
-      mt = fmaxf(mt, s[j]);
-    }
-    const float mn = fmaxf(m, mt);
-    const float corr = expf(m - mn);
-    l *= corr;
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      acc[i].x *= corr;
-      acc[i].y *= corr;
-      acc[i].z *= corr;
-      acc[i].w *= corr;
-    }
-#pragma unroll
-    for (int j = 0; j < TK; ++j) {
-      const float p = k0 + j < Sk ? expf(s[j] - mn) : 0.f;
-      l += p;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        const float4 vv = vs[j * RW + i * TPR + t];
-        acc[i].x = fmaf(p, vv.x, acc[i].x);
-        acc[i].y = fmaf(p, vv.y, acc[i].y);
-        acc[i].z = fmaf(p, vv.z, acc[i].z);
-        acc[i].w = fmaf(p, vv.w, acc[i].w);
-      }
-    }
-    m = mn;
-  }
-  if (live) {
-    const float den = fmaxf(l, 1e-30f);
-#pragma unroll
-    for (int i = 0; i < NV; ++i)
-      *reinterpret_cast<float4*>(out + qoff + (i * TPR + t) * 4) =
-          make_float4(acc[i].x / den, acc[i].y / den, acc[i].z / den,
-                      acc[i].w / den);
-  }
-}
 
 // ------------------------------------------- bf16 on the tensor cores
 
@@ -447,18 +339,6 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }  // namespace tc
 
 template <int DH>
-int launch_f32(const void* q, const void* k, const void* v, int B, int Sq,
-               int Sk, int H, int G, int causal, int window, int q_offset,
-               int kv_len, float scale, void* out, cudaStream_t stream) {
-  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_prefill_f32_kernel<DH><<<grid, F32Tile<DH>::THREADS, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), Sq, Sk, H, G, causal, window, q_offset,
-      kv_len, scale, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int DH>
 int launch_bf16(const void* q, const void* k, const void* v, int B, int Sq,
                 int Sk, int H, int G, int causal, int window, int q_offset,
                 int kv_len, float scale, void* out, cudaStream_t stream) {
@@ -500,7 +380,11 @@ extern "C" int flash_prefill_f32(const void* q, const void* k, const void* v,
                                  int kv_len, float scale, void* out,
                                  void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_PREFILL_DISPATCH(launch_f32)
+  return launch_f32(static_cast<const float*>(q),
+                    DenseKV{static_cast<const float*>(k),
+                            static_cast<const float*>(v), Sk, G, dh},
+                    B, Sq, Sk, H, G, dh, causal, window, q_offset, kv_len,
+                    scale, static_cast<float*>(out), st);
 }
 
 extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v,

@@ -13,12 +13,12 @@ microseconds of device time: one pass of checks per wrapper (`_checked`),
 the C entry point from `build.ENTRY`, and the current stream's raw handle
 without building a `torch.cuda.Stream` (`_stream`).
 
-A wrapper on the dry run's path (`flash_prefill`, `decode_attention`,
-`decode_attention_q8`, `ecoscan`) handed a tensor without data (fake or
-meta) takes the trace route of `cost.node`: it records its kernel's
-node, costed by `kernels/cost.py`, in the active dry-run trace and
-returns empty outputs; outside a trace it raises. It computes nothing
-there: no plain version runs.
+A wrapper on the dry run's path (`flash_prefill`, `flash_prefill_paged`,
+`decode_attention`, `decode_attention_q8`, `ecoscan`) handed a tensor
+without data (fake or meta) takes the trace route of `cost.node`: it
+records its kernel's node, costed by `kernels/cost.py`, in the active
+dry-run trace and returns empty outputs; outside a trace it raises. It
+computes nothing there: no plain version runs.
 
 A launch that fails raises `KernelError` (as does a kernel that does not
 build or load). `is_kernel_fault` tells such a fault, or a CUDA error
@@ -28,8 +28,9 @@ strikes) degrade around the others and re-raise kernel faults.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -38,7 +39,8 @@ from repro_torch.kernels.build import KernelError
 
 KERNELS = ("kmeans_assign", "ecoscan", "scr_select", "decode_attention_paged",
            "flash_prefill", "decode_attention", "scr_score", "pq_adc",
-           "decode_attention_q8", "decode_attention_paged_q8")
+           "decode_attention_q8", "decode_attention_paged_q8",
+           "flash_prefill_paged")
 
 
 def _checked(*specs) -> torch.device:
@@ -274,7 +276,8 @@ def scr_select(q: torch.Tensor, data: torch.Tensor, lens: torch.Tensor,
 SM_COUNT = 132        # streaming multiprocessors of an H100 SXM
 FLASH_PREFILL_DH = (32, 64, 80, 128, 256)
 # keys per tile of flash_prefill: 64 on the bf16 `tc` route
-# (csrc/flash_prefill.cu `kBK`), 32 on the f32 route (`kTK`). Keys that
+# (csrc/flash_prefill.cu `kBK`), 32 on the f32 route
+# (csrc/prefill_f32.cuh `kTK`). Keys that
 # start at a multiple of it split into the same tiles, summed in the same
 # order, as keys that start at position 0
 FLASH_KEY_TILE = 64
@@ -354,17 +357,6 @@ def prefill_plan(dh: int, Sq: Optional[int] = None, Sk: Optional[int] = None,
         elif Sq is not None and blocks * -(-Sq // (64 * long_[2])) < SM_COUNT:
             plan = narrow
     return _PLAN_INFO[(dh, tuple(plan))]
-
-
-def prefill_key_tile(dtype: torch.dtype, dh: int) -> int:
-    """Keys per tile of the route that `flash_prefill` takes at (dtype,
-    dh): the long wgmma plan's keys, or FLASH_KEY_TILE (the tc route's
-    tile, a multiple of the f32 route's). A chunk whose keys start at a
-    multiple of it sums in the same tiles as the wave's full prefill
-    (`dense.chunk_rows`)."""
-    if prefill_route(dtype, dh) == "wgmma":
-        return PREFILL_PLANS[dh][0][0]
-    return FLASH_KEY_TILE
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -454,6 +446,179 @@ def flash_prefill_launch(q, k, v, *, causal: bool = True,
             *args, out.data_ptr(), stream)
     if err:
         _raise_on(err, f"flash_prefill ({route}, plan {plan})")
+    return out
+
+
+# flash_prefill_paged's bf16 route (csrc/flash_prefill_paged.cu
+# namespace tc): 64 query rows a block (a warp's m-tile each), key tiles
+# of 64 (32 at dh 256, which divides it). A chunk's history starts at a
+# multiple of PAGED_KEY_TILE in bf16 (`prefill_paged_key_tile`)
+PAGED_ROWS = 64
+PAGED_KEY_TILE = 64
+
+
+def prefill_paged_key_tile(dtype: torch.dtype, dh: int) -> int:
+    """The key tile that a chunk's first history position rounds down to
+    (`dense.chunk_rows`) on the route `flash_prefill_paged` takes at
+    (dtype, dh): PAGED_KEY_TILE for bf16 (the tensor-core route's tiles),
+    FLASH_KEY_TILE in f32 (a multiple of the f32 route's 32-key tiles, so
+    that a chunk sums in the tiles of the wave's full prefill, bit for
+    bit)."""
+    return PAGED_KEY_TILE if dtype is torch.bfloat16 else FLASH_KEY_TILE
+
+
+class PagedPlan(NamedTuple):
+    """A flash_prefill_paged launch on the tensor cores: grid (splits,
+    row_blocks, G); the call's `tiles` key tiles of `key_tile` keys from
+    key-buffer position `kbeg` (the kernel takes all three from here).
+    The kernel's split s walks the tiles [s * tiles // splits,
+    (s + 1) * tiles // splits)."""
+    splits: int
+    row_blocks: int
+    key_tile: int
+    kbeg: int
+    tiles: int
+
+
+@functools.lru_cache(maxsize=4096)
+def prefill_paged_plan(C: int, hist: int, G: int, Hg: int, dh: int,
+                       window: Optional[int] = None,
+                       splits: Optional[int] = None) -> PagedPlan:
+    """The bf16 route's plan for a chunk of C queries over `hist`
+    history keys (offset - lo), G kv heads of Hg query heads at dh, from
+    these host-known ints alone (a chunk's call is launch-bound, so the
+    plan is a cached lookup). The key walk starts at the first query's
+    window rounded down to the key tile (`kbeg`) and ends at the last
+    query (key-buffer position hist + C). Row blocks of PAGED_ROWS of
+    the group's Hg * C (position, head) rows; as many splits as one wave of
+    G * row_blocks * splits blocks over the card's SM_COUNT SMs holds (a
+    block past them waits for a whole split's walk: at h2o's last ring
+    chunk on an H100, 9 splits, 144 blocks, took 0.0315 ms against 8's
+    0.0265 by attention_probe --chunk), at least two tiles a split, one
+    split where that gives fewer than two (a one-tile history); `splits`
+    forces a count (1 .. tiles) for checks and probes."""
+    bk = PAGED_KEY_TILE if dh <= 128 else PAGED_KEY_TILE // 2
+    kbeg = max(0, hist - window + 1) // bk * bk if window else 0
+    tiles = -(-(hist + C - kbeg) // bk)
+    rows = -(-Hg * C // PAGED_ROWS)
+    if splits is None:
+        splits = min(tiles // 2, SM_COUNT // (G * rows))
+        splits = splits if splits >= 2 else 1
+    elif not 1 <= splits <= max(1, tiles):
+        raise ValueError(f"flash_prefill_paged: {splits} splits of {tiles} "
+                         "key tiles")
+    return PagedPlan(splits, rows, bk, kbeg, tiles)
+
+
+def flash_prefill_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        k_pool: torch.Tensor, v_pool: torch.Tensor,
+                        row: torch.Tensor, *, offset: int, lo: int,
+                        page_size: int, ring_len: int = 0,
+                        window: Optional[int] = None,
+                        k_scale: Optional[torch.Tensor] = None,
+                        v_scale: Optional[torch.Tensor] = None):
+    """A prompt chunk's attention over its slot's page pool, the history
+    read in the kernel. q [1, C, H, dh] (f32 or bf16); k, v [C, G, dh] the
+    chunk's own keys in q's dtype; k_pool, v_pool [P, page_size, G, dh]
+    one layer of the pool, in q's dtype or int8 with f32 scales k_scale,
+    v_scale [P, page_size, G]; row [W] i32 the slot's page-table row;
+    `offset`, `lo` the chunk's first position and its history's
+    (`dense.chunk_rows`), offset - lo within the ring (`ring_len`, or
+    W * page_size for a row that never wraps). Computes
+    `ref.flash_prefill_paged`: the history [lo, offset) through the row,
+    then the chunk, causal within `window`. Returns [1, C, H, dh] in q's
+    dtype. On the card one launch: bf16 q on the tensor cores, the
+    splits of `prefill_paged_plan` merged in their last block; f32 q on
+    the CUDA cores, bit-equal to `flash_prefill` on the gathered
+    buffer. Refuses inputs that require grad (`_no_backward`)."""
+    _no_backward("flash_prefill_paged", q, k, v)
+    _attention_dtype(q)
+    q8 = k_pool.dtype == torch.int8
+    pool = torch.int8 if q8 else q.dtype
+    specs = ((q, "q", q.dtype, 4), (k, "k", q.dtype, 3), (v, "v", q.dtype, 3),
+             (k_pool, "k_pool", pool, 4), (v_pool, "v_pool", pool, 4),
+             (row, "row", torch.int32, 1))
+    if (k_scale is not None) != q8 or (v_scale is not None) != q8:
+        raise ValueError("flash_prefill_paged: an int8 pool takes k_scale "
+                         "and v_scale, a float pool neither")
+    if q8:
+        specs += ((k_scale, "k_scale", torch.float32, 3),
+                  (v_scale, "v_scale", torch.float32, 3))
+    dev = _checked(*specs)
+    B, C, H, dh = q.shape
+    P, ps, G, dh2 = k_pool.shape
+    W = row.shape[0]
+    ring = ring_len or W * ps
+    if (B != 1 or k.shape != (C, G, dh) or v.shape != k.shape
+            or v_pool.shape != k_pool.shape or dh2 != dh or G == 0 or H % G
+            or ps != page_size
+            or (q8 and (k_scale.shape != k_pool.shape[:3]
+                        or v_scale.shape != k_pool.shape[:3]))):
+        raise ValueError(f"flash_prefill_paged shapes disagree: q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}, pool "
+                         f"{tuple(k_pool.shape)}, page_size {page_size}")
+    if (not 0 <= lo <= offset or offset - lo >= ring + PAGED_KEY_TILE
+            or ring > W * ps or (window is not None and window < 1)):
+        raise ValueError(f"flash_prefill_paged: offset {offset}, lo {lo}, "
+                         f"ring {ring} over {W} pages of {ps}, window "
+                         f"{window}")
+    kw = dict(offset=offset, lo=lo, page_size=page_size, ring_len=ring_len,
+              window=window, k_scale=k_scale, v_scale=v_scale)
+    if cost.traced(q):
+        return cost.node("flash_prefill_paged", lambda: torch.empty_like(q),
+                         q, k, v, k_pool, v_pool, row, **kw)
+    if dev.type == "cpu":
+        return ref.flash_prefill_paged(q, k, v, k_pool, v_pool, row, **kw)
+    if dh not in FLASH_PREFILL_DH:
+        raise ValueError(f"flash_prefill_paged: dh {dh} not in "
+                         f"{FLASH_PREFILL_DH}")
+    if any(t.data_ptr() % 16 for t in (q, k, v, k_pool, v_pool)):
+        raise ValueError("flash_prefill_paged: q, k, v and the pools must be "
+                         "16-byte aligned")
+    out = flash_prefill_paged_launch(q, k, v, k_pool, v_pool, row, **kw)
+    if C:
+        flash_prefill_paged.launches += 1
+    return out
+
+
+def flash_prefill_paged_launch(q, k, v, k_pool, v_pool, row, *, offset: int,
+                               lo: int, page_size: int, ring_len: int = 0,
+                               window: Optional[int] = None, k_scale=None,
+                               v_scale=None, splits: Optional[int] = None):
+    """Launch flash_prefill_paged on CUDA tensors that pass its wrapper's
+    checks (no launch counted) -> [1, C, H, dh]: bf16 q on the tensor
+    cores at `prefill_paged_plan`'s splits, or a forced count (1 .. the
+    call's key tiles) for checks and probes; f32 q on the CUDA cores
+    (splits 1 only)."""
+    C, H, dh = q.shape[1:]
+    G = k.shape[1]
+    hist = offset - lo
+    out = torch.empty_like(q)
+    if C == 0:
+        return out
+    ring = ring_len or row.shape[0] * page_size
+    stream = _stream(q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), k_pool.data_ptr(),
+            _ptr(k_scale), v_pool.data_ptr(), _ptr(v_scale), row.data_ptr(),
+            C, H, G, dh, page_size, ring, lo, hist, window or 0,
+            1.0 / math.sqrt(dh))
+    if q.dtype is torch.bfloat16:
+        plan = prefill_paged_plan(C, hist, G, H // G, dh, window, splits)
+        n = plan.splits
+        part, tick = _split_scratch(q.device, stream, G * plan.row_blocks,
+                                    PAGED_ROWS * (dh + 2), n, 1)
+        err = build.entry("flash_prefill_paged_bf16")(
+            *args, plan.kbeg, plan.tiles, plan.row_blocks, n, _ptr(part),
+            _ptr(tick), out.data_ptr(), stream)
+    elif splits not in (None, 1):
+        raise ValueError("flash_prefill_paged: the f32 route takes one "
+                         "split")
+    else:
+        n = 1
+        err = build.entry("flash_prefill_paged_f32")(*args, out.data_ptr(),
+                                                     stream)
+    if err:
+        _raise_on(err, f"flash_prefill_paged ({n} splits)")
     return out
 
 

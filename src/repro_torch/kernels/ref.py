@@ -298,6 +298,44 @@ def flash_prefill(q, k, v, *, causal: bool = True, window=None,
     return ctx.reshape(b, sq, h, dh).to(q.dtype)
 
 
+def history_rows(row, lo: int, offset: int, page_size: int, ring: int):
+    """The flat pool rows (page * page_size + offset in it) of positions
+    [lo, offset) of the slot whose page-table row is `row` ([W]), in
+    position order: position p at ring cursor p % ring, on page
+    row[cursor // page_size] (a row that never wraps is a ring of W *
+    page_size)."""
+    cur = torch.arange(lo, offset, device=row.device) % ring
+    return row.long()[cur // page_size] * page_size + cur % page_size
+
+
+def flash_prefill_paged(q, k, v, k_pool, v_pool, row, *, offset: int,
+                        lo: int, page_size: int, ring_len: int = 0,
+                        window=None, k_scale=None, v_scale=None):
+    """A prompt chunk's attention over its slot's pages. q [1, C, H, dh];
+    k, v [C, G, dh] the chunk's own keys (q's dtype); k_pool, v_pool
+    [P, ps, G, dh] one layer of the pool (q's dtype, or int8 with f32
+    scales k_scale, v_scale [P, ps, G]); row [W] the slot's page-table
+    row. The history, positions [lo, offset) read through `row`
+    (`history_rows`, ring `ring_len` or W * ps; int8 dequantized as
+    `layers.dequantize_kv` does, (q.f32 * s).to(q's dtype)), then the
+    chunk, go to `flash_prefill` causally with `window` at q_offset
+    offset - lo and kv_len offset + C - lo. Returns [1, C, H, dh]."""
+    c = k.shape[0]
+    ring = ring_len or row.shape[0] * page_size
+    gather = history_rows(row, lo, offset, page_size, ring)
+    hist = []
+    for pool, scale in ((k_pool, k_scale), (v_pool, v_scale)):
+        flat = pool.reshape((-1,) + pool.shape[2:])[gather]
+        if scale is not None:
+            s = scale.reshape((-1,) + scale.shape[2:])[gather]
+            flat = flat.float() * s[..., None].float()
+        hist.append(flat.to(q.dtype))
+    return flash_prefill(q, torch.cat([hist[0], k])[None],
+                         torch.cat([hist[1], v])[None], causal=True,
+                         window=window, q_offset=offset - lo,
+                         kv_len=offset + c - lo)
+
+
 def decode_attention(q, k, v, kv_len, ring: bool = False):
     """q [B, H, dh]; k, v [B, S, G, dh]; kv_len an int (shared length)
     or a [B] tensor. Softmax over each row's first kv_len positions

@@ -18,11 +18,13 @@ Two serving paths, each attention on a kernel:
 - the paged path: `decode_step_paged` runs one `decode_attention_paged`
   kernel per layer directly on that layer's page pool (the reference
   gathers pages with jnp and calls `layers.decode_attention`, the same
-  function); `prefill_chunk_paged` gathers the slot's history in
-  position order, appends the chunk and runs `flash_prefill` with the
-  chunk's query offset and kv length. A sliding-window slot is a ring
-  of `ring_len` positions over its pages: position p at ring cursor
-  p % ring_len (a slot without a window is a ring that never wraps).
+  function); `prefill_chunk_paged` runs one `flash_prefill_paged`
+  kernel per layer, which reads the slot's history through its page
+  table (positions in order, from the pool; the reference gathers them
+  with jnp and calls `layers.attention`), then the chunk, at the
+  chunk's query offset. A sliding-window slot is a ring of `ring_len`
+  positions over its pages: position p at ring cursor p % ring_len (a
+  slot without a window is a ring that never wraps).
 
 With `kv_quant` the caches and pools hold int8 values and f32 scales per
 position and kv head ({"k", "k_s", "v", "v_s"}): prefill and chunks
@@ -184,28 +186,25 @@ def chunk_rows(row, offset: int, c: int, limit: int, page_size: int,
     reads and writes the slot whose page-table row is `row` ([W] int32).
     Position p lives at cursor p % ring_len of a sliding-window ring, at
     cursor p without one (a ring of W * page_size that never wraps).
-    Returns (lo, gather, (page, offset)): the history is positions
-    [lo, offset), their flat pool rows `gather` (page * page_size +
-    offset) in position order; the chunk's real tokens (p < limit, and
-    p < W * page_size without a ring) are written at (page, offset).
-    lo is max(0, offset - ring) rounded down to `tile`, the key tile of
-    the route that flash_prefill takes at the attention's dtype and head
-    dim (`ops.prefill_key_tile`): the history holds every query's window (the
-    positions the rounding adds lie outside it, masked), attention
-    depends on positions only through their differences, and the keys
-    fall into the tiles they fill at absolute positions, as in the wave
-    path's full prefill. The chunk attends [lo, offset + C) at query
-    offset offset - lo."""
+    Returns (lo, (page, offset)): the history is positions [lo, offset)
+    (their flat pool rows: `ref.history_rows`); the chunk's real tokens
+    (p < limit, and p < W * page_size without a ring) are written at
+    (page, offset). lo is max(0, offset - ring) rounded down to `tile`,
+    the key tile of the route that flash_prefill_paged takes at the
+    attention's dtype and head dim (`ops.prefill_paged_key_tile`): the
+    history holds every query's window (the positions the rounding adds
+    lie outside it, masked), attention depends on positions only through
+    their differences, and the keys fall into the kernel's tiles at
+    absolute positions, as in the wave path's full prefill. The chunk
+    attends [lo, offset + C) at query offset offset - lo."""
     ps = page_size
     ring = ring_len or row.shape[0] * ps
     end = limit if ring_len else min(limit, ring)
-    dev = row.device
     rowl = row.long()
     lo = max(0, offset - ring) // tile * tile
-    hist = torch.arange(lo, offset, device=dev) % ring
     lw = torch.arange(offset, max(offset, min(offset + c, end)),
-                      device=dev) % ring
-    return lo, rowl[hist // ps] * ps + hist % ps, (rowl[lw // ps], lw % ps)
+                      device=row.device) % ring
+    return lo, (rowl[lw // ps], lw % ps)
 
 
 def _fake_quant(t):
@@ -628,20 +627,6 @@ class DenseLM(LM):
         x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
         return self.logits_from_hidden(x)[:, 0]
 
-    def _gather_slot(self, cache, i: int, gather, dtype):
-        """Layer i's K and V at the pool rows `gather` ([n] flat page *
-        ps + offset), in `dtype` (dequantized from an int8 pool)."""
-        out = []
-        for name in ("k", "v"):
-            c = cache[name][i]
-            flat = c.reshape((-1,) + c.shape[2:])[gather]
-            if self.cfg.kv_quant:
-                s = cache[name + "_s"][i]
-                flat = L.dequantize_kv(flat, s.reshape((-1,) + s.shape[2:])[
-                    gather], dtype)
-            out.append(flat.to(dtype))
-        return out
-
     def _write_kv(self, cache, i: int, idx, k, v) -> None:
         """Write k, v [..., G, dh] into layer i of a cache or pool at index
         `idx` (a tuple over its leading axes; () for all of it): their
@@ -660,34 +645,40 @@ class DenseLM(LM):
         """One [1, C] prompt chunk at logical positions [offset, offset+C)
         of the slot whose page-table row is `row` ([W] int32); `limit`:
         offset + the chunk's real token count (offset + C when None).
-        The slot's history (`chunk_rows`), read before this chunk's
-        writes, with the chunk appended, goes to `flash_prefill` with the
-        window; its queries attend causally up to offset + C. Only the
-        real tokens (p < limit) are written, at ring cursors
+        Each layer is one `flash_prefill_paged` call: the slot's history
+        (positions [lo, offset), `chunk_rows`) read through `row` in the
+        kernel, then the chunk, with the window; its queries attend
+        causally up to offset + C. The chunk's K/V are written after the
+        call, so a ring chunk evicts nothing its own queries attend; only
+        the real tokens (p < limit) are written, at ring cursors
         p % ring_len, so a ragged last chunk's padding evicts nothing
         another query's window still needs. With `kv_quant` the history
-        is dequantized and the chunk's own K/V fake-quantized. Returns
-        chunk logits [1, C, V]; `cache` is updated in place."""
+        is attended dequantized and the chunk's own K/V fake-quantized.
+        Returns chunk logits [1, C, V]; `cache` is updated in place."""
         cfg = self.cfg
         c = tokens.shape[1]
         limit = offset + c if limit is None else limit
-        tile = ops.prefill_key_tile(cfg.torch_dtype, cfg.resolved_head_dim)
-        lo, gather, dst = chunk_rows(row, offset, c, limit, page_size,
-                                     ring_len, tile=tile)
+        tile = ops.prefill_paged_key_tile(cfg.torch_dtype,
+                                          cfg.resolved_head_dim)
+        lo, dst = chunk_rows(row, offset, c, limit, page_size, ring_len,
+                             tile=tile)
         n_keep = dst[0].numel()
+        row = row.to(torch.int32).contiguous()
         positions = offset + torch.arange(c, device=tokens.device)[None, :]
         x = self._embed(tokens)
         for i in range(cfg.num_layers):
             y = L.rmsnorm(x, self.attn_norm[i], cfg.norm_eps)
             q, k, v = self._qkv(i, y, positions)
-            kh, vh = self._gather_slot(cache, i, gather, k.dtype)
             kc, vc = ((_fake_quant(k[0]), _fake_quant(v[0])) if cfg.kv_quant
                       else (k[0], v[0]))
+            scales = ({"k_scale": cache["k_s"][i], "v_scale": cache["v_s"][i]}
+                      if cfg.kv_quant else {})
+            ctx = ops.flash_prefill_paged(
+                q, kc.contiguous(), vc.contiguous(), cache["k"][i],
+                cache["v"][i], row, offset=offset, lo=lo,
+                page_size=page_size, ring_len=ring_len,
+                window=cfg.sliding_window, **scales)
             self._write_kv(cache, i, dst, k[0, :n_keep], v[0, :n_keep])
-            ctx = ops.flash_prefill(
-                q, torch.cat([kh, kc])[None], torch.cat([vh, vc])[None],
-                causal=True, window=cfg.sliding_window, q_offset=offset - lo,
-                kv_len=offset + c - lo)
             x = x + ctx.reshape(1, c, -1) @ self.wo[i]
             x = self._mlp_residual(i, x)
         x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)

@@ -16,8 +16,10 @@ min(window, abs_len) positions over ceil(ring_len / page_size) pages,
 with no prefix cache. The host-side control flow is the reference's,
 line for line, so the same requests get the same slots, pages and chunk
 boundaries; the device work goes through the model (`DenseLM` or
-`MoELM`) and its `flash_prefill` and `decode_attention_paged` kernels
-(`decode_attention_paged_q8` on an int8 pool).
+`MoELM`): its prompt chunks attend the slot's pages on
+`flash_prefill_paged`, its decode steps on `decode_attention_paged`
+(`decode_attention_paged_q8` on an int8 pool). The wave engine's full
+prefill stays on `flash_prefill`.
 
 Both greedy and sampled requests run on either engine. A sampled request
 draws from its own stream `fold_in(PRNGKey(seed), rid)`, draw t under

@@ -249,6 +249,10 @@ def _wrapper_cases():
             qd, k8, s8.double(), k8, s8, kv), TypeError),
         "decode_attention_paged_q8": (lambda: ops.decode_attention_paged_q8(
             qd, pk8, ps, pk8.transpose(1, 2), ps, kv, tb), ValueError),
+        "flash_prefill_paged": (lambda: ops.flash_prefill_paged(
+            torch.zeros(1, 4, 4, 32), kd[0, :4], kd[0, :4], pk,
+            pk.transpose(1, 2), tb[0], offset=8, lo=0, page_size=8),
+            ValueError),
     }
 
 

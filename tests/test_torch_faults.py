@@ -536,12 +536,12 @@ def test_kernel_fault_propagates_from_legacy_scr(slms, corpus50,
 
 
 @pytest.mark.parametrize("wrapper", ["ecoscan", "scr_select",
-                                     "flash_prefill"])
+                                     "flash_prefill_paged"])
 def test_kernel_fault_propagates_from_session_step(fresh, monkeypatch,
                                                    wrapper):
     """The fused chunk and the isolated retry both re-raise a kernel
-    fault: `step()` raises and no counter moves (no retry, no failure,
-    no fallback)."""
+    fault (the prompt chunks' attention is flash_prefill_paged): `step()`
+    raises and no counter moves (no retry, no failure, no fallback)."""
     pipe, qs = fresh
     sess = pipe.session(max_new=4, slots=2)
     for q in qs:

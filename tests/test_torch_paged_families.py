@@ -23,7 +23,7 @@ from repro.models import model as jmodel
 from repro.serving.engine import Engine as JEngine
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.convert import params_from_reference
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.dense import chunk_rows
 from repro_torch.models.model import build_model, supports_paged
 from repro_torch.models.moe import MoELM
@@ -135,9 +135,10 @@ def test_chunk_rows(offset, limit, ring_len):
     written."""
     ps, W, c = 8, (ring_len or 168) // 8, 32
     row = torch.randperm(64)[:W].to(torch.int32)
-    lo, gather, (pg, off) = chunk_rows(row, offset, c, limit, ps, ring_len,
-                                       tile=ops.FLASH_KEY_TILE)
+    lo, (pg, off) = chunk_rows(row, offset, c, limit, ps, ring_len,
+                               tile=ops.FLASH_KEY_TILE)
     ring = ring_len or W * ps
+    gather = ref.history_rows(row, lo, offset, ps, ring)
     assert lo % ops.FLASH_KEY_TILE == 0
     assert lo <= max(0, offset - ring) < lo + ops.FLASH_KEY_TILE
     cur = torch.arange(lo, offset) % ring
@@ -149,8 +150,9 @@ def test_chunk_rows(offset, limit, ring_len):
 
 
 def test_flash_key_tile_is_the_kernels():
-    src = (Path(ops.__file__).parent / "csrc" / "flash_prefill.cu"
-           ).read_text()
+    csrc = Path(ops.__file__).parent / "csrc"
+    src = "".join((csrc / name).read_text() for name in (
+        "flash_prefill.cu", "prefill_f32.cuh"))
     tile = {name: int(re.search(rf"^constexpr int {name} = (\d+);", src,
                                 re.M).group(1)) for name in ("kBK", "kTK")}
     assert tile["kBK"] == ops.FLASH_KEY_TILE

@@ -4,7 +4,8 @@ refusal of a forced route or plan that the dtype or dh cannot take,
 `ops.prefill_plan` per dh (the plans that csrc/flash_prefill_sm90.cu
 compiles, their shared memory within the card's, the pick by shape), and
 `dense.chunk_rows` rounding a ring chunk's first key to the key tile of
-the route that the model's dtype and dh take. The kernels themselves run on the
+the route that `flash_prefill_paged` takes at the model's dtype and dh
+(`ops.prefill_paged_key_tile`). The kernels themselves run on the
 card only: chip_smoke.py holds every route against the plain version
 there."""
 import re
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import dense
 from repro_torch.models.dense import DenseLM, chunk_rows
 
@@ -30,9 +31,6 @@ def test_prefill_route(dtype, dh):
     want = ("cuda" if dtype is torch.float32
             else "wgmma" if dh in (64, 128) else "tc")
     assert ops.prefill_route(dtype, dh) == want
-    tile = ops.prefill_key_tile(dtype, dh)
-    assert tile == (ops.PREFILL_PLANS[dh][0][0] if want == "wgmma"
-                    else ops.FLASH_KEY_TILE)
 
 
 def _qkv(dtype, dh, sq=8, sk=8):
@@ -106,10 +104,10 @@ def test_plans_fit_the_card(dh):
 def test_plan_picked_by_shape_keeps_the_key_tile(dh):
     """The wrapper's pick: the short plan at <= 64 keys, the narrow plan
     (one consumer) where the long plan's grid leaves SMs idle, else the
-    long plan; every pick's keys are the route's key tile, or all keys
-    fall in one tile (so each gives the long plan's sums)."""
+    long plan; every pick's keys are the long plan's key tile, or all
+    keys fall in one tile (so each gives the long plan's sums)."""
     long_ = ops.prefill_plan(dh)
-    tile = ops.prefill_key_tile(torch.bfloat16, dh)
+    tile = ops.PREFILL_PLANS[dh][0][0]
     assert long_["keys"] == tile
     for sq, sk, blocks in ((32768, 32768, 28), (32, 96, 14), (64, 64, 1536),
                            (1, 50, 14), (320, 320, 24), (8192, 8192, 24),
@@ -131,24 +129,26 @@ def test_plan_picked_by_shape_keeps_the_key_tile(dh):
     (0, 64), (96, 64), (160, 64), (288, 96), (4160, 4096), (200, 0)])
 def test_chunk_rows_rounds_to_the_routes_key_tile(dtype, dh, offset,
                                                   ring_len):
-    """A 32-token chunk's history starts on the key tile of the route
-    that (dtype, dh) takes, at or before offset - ring: the chunk's keys
-    fall into the tiles they fill in the wave's full prefill."""
+    """A 32-token chunk's history starts on the key tile of the
+    flash_prefill_paged route that (dtype, dh) takes, at or before
+    offset - ring: the chunk's keys fall into the kernel's tiles at
+    absolute positions (in f32 the wave's full prefill's tiles)."""
     ps, c = 8, 32
     W = (ring_len or 256) // ps
     row = torch.arange(W, dtype=torch.int32)
-    tile = ops.prefill_key_tile(dtype, dh)
-    lo, gather, _ = chunk_rows(row, offset, c, offset + c, ps, ring_len,
-                               tile=tile)
+    tile = ops.prefill_paged_key_tile(dtype, dh)
+    assert tile % (ops.PAGED_KEY_TILE if dtype is torch.bfloat16 else 32) == 0
+    lo, _ = chunk_rows(row, offset, c, offset + c, ps, ring_len, tile=tile)
     ring = ring_len or W * ps
     assert lo % tile == 0
     assert lo <= max(0, offset - ring) < lo + tile
-    assert gather.numel() == offset - lo
+    assert ref.history_rows(row, lo, offset, ps, ring).numel() == offset - lo
 
 
 def test_chunked_prefill_passes_its_routes_key_tile(monkeypatch):
-    """`prefill_chunk_paged` rounds to the key tile of the route that the
-    model's compute dtype and head dim take."""
+    """`prefill_chunk_paged` rounds to the key tile of the
+    flash_prefill_paged route that the model's compute dtype and head dim
+    take (`ops.prefill_paged_key_tile`)."""
     cfg = get_config("h2o_danube_1_8b").reduced()
     lm = DenseLM(cfg, device="cpu")
     asked, seen = [], {}
@@ -160,7 +160,7 @@ def test_chunked_prefill_passes_its_routes_key_tile(monkeypatch):
     def spy(*args, **kw):
         seen.update(kw)
         raise StopIteration
-    monkeypatch.setattr(ops, "prefill_key_tile", key_tile)
+    monkeypatch.setattr(ops, "prefill_paged_key_tile", key_tile)
     monkeypatch.setattr(dense, "chunk_rows", spy)
     with pytest.raises(StopIteration):
         lm.prefill_chunk_paged({}, torch.zeros((1, 4), dtype=torch.long),

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Tile-shape probe of the port's three attention kernels on one GPU:
+"""Tile-shape probe of the port's attention kernels on one GPU:
 `python3 tools/attention_probe.py [--prefill | --paged | --decode | --q8 |
---zoo] [--src DIR]` (`--prefill` runs only flash_prefill's routes at its
-dh-64 and dh-128 path shapes, `--paged` only the decode_attention_paged
+--zoo | --chunk [--q8]] [--src DIR]` (`--prefill` runs only
+flash_prefill's routes at its dh-64 and dh-128 path shapes, `--paged` only the decode_attention_paged
 rows, `--decode` only the decode_attention rows, `--q8` only the int8
 rows, `--paged --q8` both, `--zoo` only the model zoo's shapes; `--src`
 names the `src` directory whose `repro_torch` is imported, so that a
@@ -68,6 +68,29 @@ path shapes: the qwen2.5 wave (q [16, 14, 64], K/V [16, 280, 2, 64],
 kv_len 136), h2o's ring (q [1, 32, 80], K/V [1, 4096, 8, 80], kv_len
 4609), the main path's pages and h2o's ring pages; each held against its
 plain version (2e-2).
+
+chunk (`--chunk`, with `--q8` over int8 pools): nvcc's registers and
+spills of every flash_prefill_paged instantiation, then
+flash_prefill_paged at the main path's chunk (qwen2.5-0.5B: q [1, 32,
+14, 64] at offset 64 through an 11-entry row of a 44-page pool of
+32-position pages) and at h2o's last ring chunk (q [1, 32, 32, 80] at
+offset 4,576 through a 128-entry row of a 256-page pool, ring 4,096,
+window 4,096), held against `ref.flash_prefill_paged` (bf16: rtol 2e-2,
+atol 2e-2 times the output's largest value, capped at 2e-2) and,
+with `--src` naming a parent tree, timed in turns with it: its
+flash_prefill_paged (parent, new, new, parent) where it has one, else
+its way before (parent call, parent flash_prefill, new, new, parent
+flash_prefill, parent call): its model's gather of the history through
+the row (and int8 dequantization), `cat` with the chunk, then its
+flash_prefill (`parent call`), and its flash_prefill alone on that
+buffer (`parent flash_prefill`), with the history starting at the
+parent's key tile; beside them gather + `cat` + SDPA and the bound of
+`kernels/cost.py`.
+Then the f32 route equal bit for bit to this tree's f32 flash_prefill on
+the gathered buffer, and the bf16 route at forced split counts; last the
+main path's chunk taken apart in turns (`chunk_anatomy`: forced splits,
+an identity row, a history of 0, flash_prefill's wgmma and tc routes on
+the gathered buffer).
 
 zoo (`--zoo`): nvcc's registers and spills of every flash_prefill,
 decode_attention and decode_attention_paged instantiation (`-Xptxas -v`,
@@ -772,6 +795,200 @@ def prefill_probe(g):
                               "device_ms": device_ms(fn, n)}))
 
 
+# flash_prefill_paged's path shapes: (label, H, G, dh, ps, W, P, offset,
+# ring_len, window)
+CHUNK_SHAPES = [("main path chunk", 14, 2, 64, 32, 11, 44, 64, 0, None),
+                ("h2o last ring chunk", 32, 8, 80, 32, 128, 256, 4576, 4096,
+                 4096)]
+
+
+def chunk_inputs(g, H, G, dh, ps, W, P, q8, dtype=torch.bfloat16):
+    """q [1, 32, H, dh], the chunk's k, v [32, G, dh] (fake-quantized with
+    `q8`), the pools [P, ps, G, dh] (int8 with their scales, as a dict of
+    keyword arguments), a random W-entry row."""
+    from repro_torch.models import layers as L
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+    q, k, v = rnd(1, 32, H, dh), rnd(32, G, dh), rnd(32, G, dh)
+    kp, vp = rnd(P, ps, G, dh), rnd(P, ps, G, dh)
+    scales = {}
+    if q8:
+        k = L.dequantize_kv(*L.quantize_kv(k), dtype)
+        v = L.dequantize_kv(*L.quantize_kv(v), dtype)
+        (kp, ks), (vp, vs) = L.quantize_kv(kp), L.quantize_kv(vp)
+        scales = {"k_scale": ks, "v_scale": vs}
+    row = torch.randperm(P, generator=g, device="cuda")[:W].to(torch.int32)
+    return q, k, v, kp, vp, row, scales
+
+
+def gathered(q, k, v, kp, vp, row, scales, offset, lo, ps, ring):
+    """The parent model's K/V buffers for a chunk: the history [lo,
+    offset) gathered through the row (int8: dequantized to q's dtype),
+    then the chunk."""
+    gi = ref.history_rows(row, lo, offset, ps, ring)
+    out = []
+    for t, c, s in ((kp, k, scales.get("k_scale")),
+                    (vp, v, scales.get("v_scale"))):
+        h = t.reshape((-1,) + t.shape[2:])[gi]
+        if s is not None:
+            h = (h.float() * s.reshape(-1, s.shape[-1])[gi][..., None]
+                 ).to(q.dtype)
+        out.append(torch.cat([h, c])[None])
+    return out
+
+
+def chunk_held(got, want, what):
+    """A chunk's bf16 output held against the plain one (`want`, f32) at
+    rtol 2e-2 and atol 2e-2 times its largest value, capped at 2e-2 (an
+    output over thousands of keys is a few hundredths); its max abs
+    error."""
+    err = (got.float() - want).abs()
+    atol = 2e-2 * min(1.0, want.abs().max().item())
+    assert bool((err <= atol + 2e-2 * want.abs()).all()), what
+    return err.max().item()
+
+
+def chunk_anatomy(g, q8):
+    """Where the main path's chunk (CHUNK_SHAPES[0]) spends its device
+    time against flash_prefill on the gathered buffer, in turns (listed
+    order, then reversed): the new call (its plan's one split, 8
+    blocks); forced two splits of one key tile each (16 blocks and the
+    merge); the call through an identity row (contiguous pages); then
+    flash_prefill on the gathered buffer on its wgmma route (the
+    wrapper's, 14 blocks) and on its tc route (the `mma.sync` body the new
+    kernel grew from, 14 blocks); and the same at a history of 0 (offset
+    0: the new kernel reads no table row; flash_prefill on the chunk's
+    own K/V). Each held against the plain version first."""
+    label, H, G, dh, ps, W, P, offset, ring_len, window = CHUNK_SHAPES[0]
+    q, k, v, kp, vp, row, sc = chunk_inputs(g, H, G, dh, ps, W, P, q8)
+    ident = torch.arange(W, dtype=torch.int32, device="cuda")
+    C = q.shape[1]
+    for off in (offset, 0):
+        kw = dict(offset=off, lo=0, page_size=ps, ring_len=ring_len,
+                  window=window, **sc)
+        want = ref.flash_prefill_paged(q, k, v, kp, vp, row, **kw).float()
+        kb, vb = gathered(q, k, v, kp, vp, row, sc, off, 0, ps, W * ps)
+        pkw = dict(causal=True, window=window, q_offset=off, kv_len=off + C)
+        fns = {
+            "new": lambda kw=kw: ops.flash_prefill_paged(q, k, v, kp, vp,
+                                                         row, **kw),
+            "flash_prefill wgmma": lambda kb=kb, vb=vb, pkw=pkw:
+                ops.flash_prefill_launch(q, kb, vb, route="wgmma", **pkw),
+            "flash_prefill tc": lambda kb=kb, vb=vb, pkw=pkw:
+                ops.flash_prefill_launch(q, kb, vb, route="tc", **pkw)}
+        if off:
+            fns["new 2 splits"] = lambda kw=kw: \
+                ops.flash_prefill_paged_launch(q, k, v, kp, vp, row,
+                                               splits=2, **kw)
+            fns["new identity row"] = lambda kw=kw: ops.flash_prefill_paged(
+                q, k, v, kp, vp, ident, **kw)
+            want_i = ref.flash_prefill_paged(q, k, v, kp, vp, ident,
+                                             **kw).float()
+        out = {"chunk anatomy": f"{label}{' int8' if q8 else ''}, offset "
+               f"{off}", "plan": ops.prefill_paged_plan(
+                   C, off, G, H // G, dh, window)._asdict()}
+        for name, fn in fns.items():
+            out[f"{name} max_abs_err"] = chunk_held(
+                fn(), want_i if name == "new identity row" else want,
+                (off, name))
+        order = list(fns) + list(fns)[::-1]
+        for turn, name in enumerate(order):
+            out[f"{name} device_ms {turn}"] = device_ms(fns[name], 50)
+        print(json.dumps(out))
+
+
+def chunk_probe(g, q8, parent):
+    """flash_prefill_paged at CHUNK_SHAPES in turns with the parent's way
+    (module doc), then its f32 route bit for bit and forced splits."""
+    for label, H, G, dh, ps, W, P, offset, ring_len, window in CHUNK_SHAPES:
+        q, k, v, kp, vp, row, sc = chunk_inputs(g, H, G, dh, ps, W, P, q8)
+        ring = ring_len or W * ps
+        C = q.shape[1]
+        tile = ops.prefill_paged_key_tile(q.dtype, dh)
+        lo = max(0, offset - ring) // tile * tile
+        kw = dict(offset=offset, lo=lo, page_size=ps, ring_len=ring_len,
+                  window=window, **sc)
+        want = ref.flash_prefill_paged(q, k, v, kp, vp, row, **kw).float()
+        fns = {"new": lambda kw=kw: ops.flash_prefill_paged(
+            q, k, v, kp, vp, row, **kw)}
+        plan = ops.prefill_paged_plan(C, offset - lo, G, H // G, dh, window)
+        b_ms, b_by = kcost.flash_prefill_paged(q, k, v, kp, vp, row,
+                                               **kw).bound_ms()
+        out = {"flash_prefill_paged": label + (" int8" if q8 else ""),
+               "plan": plan._asdict(), "bound_ms": b_ms, "bound_by": b_by}
+        order = ("new", "new")
+        if parent and hasattr(parent[1], "flash_prefill_paged"):
+            fns["parent"] = lambda kw=kw: parent[1].flash_prefill_paged(
+                q, k, v, kp, vp, row, **kw)
+            order = ("parent", "new", "new", "parent")
+        elif parent:            # a parent that gathers the history in torch
+            p_ops = parent[1]
+            tile = p_ops.prefill_key_tile(q.dtype, dh)
+            plo = max(0, offset - ring) // tile * tile
+            pkw = dict(causal=True, window=window, q_offset=offset - plo,
+                       kv_len=offset + C - plo)
+            kb, vb = gathered(q, k, v, kp, vp, row, sc, offset, plo, ps, ring)
+            fns["parent flash_prefill"] = lambda pkw=pkw, kb=kb, vb=vb: \
+                p_ops.flash_prefill(q, kb, vb, **pkw)
+
+            def parent_call(pkw=pkw, plo=plo):
+                kb_, vb_ = gathered(q, k, v, kp, vp, row, sc, offset, plo, ps,
+                                    ring)
+                return p_ops.flash_prefill(q, kb_, vb_, **pkw)
+            fns["parent call"] = parent_call
+            out["parent_lo"] = plo
+            order = ("parent call", "parent flash_prefill", "new", "new",
+                     "parent flash_prefill", "parent call")
+        out["max_abs_want"] = want.abs().max().item()
+        for name, fn in fns.items():
+            out[f"{name} max_abs_err"] = chunk_held(fn(), want, (label, name))
+        for turn, name in enumerate(order):
+            out[f"{name} device_ms {turn}"] = device_ms(fns[name], 50)
+            out[f"{name} call_ms {turn}"] = call_ms(fns[name], 50)
+        kb, vb = gathered(q, k, v, kp, vp, row, sc, offset, lo, ps, ring)
+        Sk = kb.shape[1]
+        qpos = offset - lo + torch.arange(C, device="cuda")[:, None]
+        kpos = torch.arange(Sk, device="cuda")[None, :]
+        mask = kpos <= qpos
+        if window:
+            mask = mask & (qpos - kpos < window)
+
+        def library():
+            kb_, vb_ = gathered(q, k, v, kp, vp, row, sc, offset, lo, ps,
+                                ring)
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), kb_.repeat_interleave(H // G, 2
+                                                         ).transpose(1, 2),
+                vb_.repeat_interleave(H // G, 2).transpose(1, 2),
+                attn_mask=mask)
+        out["gather + cat + sdpa device_ms"] = device_ms(library)
+        out["gather + cat + sdpa call_ms"] = call_ms(library)
+        out["plain call_ms"] = call_ms(lambda: ref.flash_prefill_paged(
+            q, k, v, kp, vp, row, **kw), 5)
+        # the f32 route: bit-equal to f32 flash_prefill on the buffer
+        a32 = chunk_inputs(g, H, G, dh, ps, W, P, q8, torch.float32)
+        tile = ops.prefill_paged_key_tile(torch.float32, dh)
+        lo32 = max(0, offset - ring) // tile * tile
+        kw32 = dict(kw, lo=lo32, **a32[-1])
+        got32 = ops.flash_prefill_paged(*a32[:6], **kw32)
+        kb32, vb32 = gathered(*a32, offset, lo32, ps, ring)
+        assert torch.equal(got32, ops.flash_prefill(
+            a32[0], kb32, vb32, causal=True, window=window,
+            q_offset=offset - lo32, kv_len=offset + C - lo32)), label
+        out["f32 bit-equal to flash_prefill on the buffer"] = True
+        print(json.dumps(out))
+        for n in sorted({1, 2, 4, 8, 12, 16, 24, 32, plan.splits,
+                         plan.tiles} & set(range(1, plan.tiles + 1))):
+            def call(n=n):
+                return ops.flash_prefill_paged_launch(q, k, v, kp, vp, row,
+                                                      splits=n, **kw)
+            print(json.dumps({"flash_prefill_paged": label + (
+                " int8" if q8 else ""), "splits": n,
+                "max_abs_err": chunk_held(call(), want, (label, n)),
+                "device_ms": device_ms(call, 50)}))
+
+
 def main() -> int:
     global build, ops, ref, kcost
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -782,17 +999,20 @@ def main() -> int:
     only.add_argument("--zoo", action="store_true")
     ap.add_argument("--paged", action="store_true")
     ap.add_argument("--q8", action="store_true")
+    ap.add_argument("--chunk", action="store_true")
     args = ap.parse_args()
-    if (args.paged or args.q8) and (args.prefill or args.decode
-                                     or args.zoo):
-        ap.error("--paged and --q8 go with each other only")
+    if (args.paged or args.q8 or args.chunk) and (args.prefill or args.decode
+                                                  or args.zoo):
+        ap.error("--paged, --chunk and --q8 go with each other only")
+    if args.chunk and args.paged:
+        ap.error("--chunk and --paged: one at a time")
     if not torch.cuda.is_available():
         print("attention_probe: no CUDA device", file=sys.stderr)
         return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    paged = args.paged or args.q8
+    paged = args.paged or args.q8 or args.chunk
     parent = None
     if paged and Path(args.src).resolve() != (ROOT / "src").resolve():
         parent = load_tree(args.src)
@@ -803,6 +1023,11 @@ def main() -> int:
     print(json.dumps({"src": str(ROOT / "src") if paged else args.src}))
     build.build_all()
     g = torch.Generator(device="cuda").manual_seed(0)
+    if args.chunk:
+        print_ptxas(("flash_prefill_paged",))
+        chunk_probe(g, args.q8, parent)
+        chunk_anatomy(g, args.q8)
+        return 0
     if paged:
         print_ptxas(("decode_attention_paged", "decode_attention"))
         if args.paged:

@@ -1,22 +1,30 @@
 #!/usr/bin/env python3
 """TTFT probe of the port's continuous engine on one GPU:
-`python3 tools/serve_probe.py [--src DIR] [--rounds N]`.
+`python3 tools/serve_probe.py [--arch ARCH] [--kv-quant] [--src DIR]
+[--rounds N]`.
 
-Full-width qwen2.5-0.5B in bf16 (random weights from seed 0) on
-`ContinuousEngine` at the main path's settings (`serving/slm.py`: 4
-slots, 32-position pages, 32-token prefill chunks, max_len 280), 16
-prompts of random tokens with lengths drawn from a seed in [97, 256]
-(the main path's prompts run 100-256 tokens), max_new 16, greedy. One
-warm-up round, then `--rounds` rounds of the same requests, each
-printing TTFT p50 and max (each request's `prefill_s`), the round's wall
-seconds and the mean ms of one `prefill_chunk_paged` call (synchronized,
-the model's whole chunk: every layer). `--src` names the `src` directory
-whose `repro_torch` is imported (default: this checkout's), so that two
-trees, such as a parent commit unpacked with `git archive`, can be timed
-in turns on one card. Prints the card (`nvidia-smi` name and power
-limit), then one JSON line a round; exits 2 without a GPU.
+`--arch qwen25_0_5b` (the default): full-width qwen2.5-0.5B in bf16
+(random weights from seed 0) on `ContinuousEngine` at the main path's
+settings (`serving/slm.py`: 4 slots, 32-position pages, 32-token prefill
+chunks, max_len 280), 16 prompts of random tokens with lengths drawn
+from a seed in [97, 256] (the main path's prompts run 100-256 tokens).
+`--arch h2o_danube_1_8b`: full-width h2o-danube-1.8b in bf16 (random
+weights from seed 1) at chip_smoke's h2o continuous settings: 2 slots,
+2 prompts of 4,608 random tokens, max_len 4,624, so each slot's
+4,096-position ring of 32-position pages wraps, and each prompt is 144
+chunks of 32. `--kv-quant` gives the model an int8 KV pool (the same
+weights). max_new 16, greedy. One warm-up round, then `--rounds` rounds
+of the same requests, each printing TTFT p50 and max (each request's
+`prefill_s`), the round's wall seconds and the mean ms of one
+`prefill_chunk_paged` call (synchronized, the model's whole chunk: every
+layer). `--src` names the `src` directory whose `repro_torch` is
+imported (default: this checkout's), so that two trees, such as a
+parent commit unpacked with `git archive`, can be timed in turns on one
+card. Prints the card (`nvidia-smi` name and power limit), then one JSON
+line a round; exits 2 without a GPU.
 """
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -27,11 +35,19 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+# (weights' seed, slots, max_len, prompt lengths from rng(0)) by arch
+SETTINGS = {
+    "qwen25_0_5b": (0, 4, 280,
+                    lambda rng: rng.integers(97, 257, 16)),
+    "h2o_danube_1_8b": (1, 2, 4608 + 16, lambda rng: [4608, 4608]),
+}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--arch", default="qwen25_0_5b", choices=list(SETTINGS))
+    ap.add_argument("--kv-quant", action="store_true")
     ap.add_argument("--rounds", type=int, default=3)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -46,11 +62,12 @@ def main() -> int:
     from repro_torch.models.dense import DenseLM
     from repro_torch.serving.engine import ContinuousEngine
     build.build_all()
-    cfg = get_config("qwen25_0_5b")
-    lm = DenseLM(cfg, device="cuda", seed=0)
+    seed, slots, max_len, lengths = SETTINGS[args.arch]
+    cfg = dataclasses.replace(get_config(args.arch), kv_quant=args.kv_quant)
+    lm = DenseLM(cfg, device="cuda", seed=seed)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(4, cfg.vocab_size, n).astype(np.int32)
-               for n in rng.integers(97, 257, 16)]
+               for n in lengths(rng)]
     chunk_s = []
     chunk = lm.prefill_chunk_paged
 
@@ -62,7 +79,7 @@ def main() -> int:
         chunk_s.append(time.perf_counter() - t0)
         return out
     lm.prefill_chunk_paged = timed_chunk
-    eng = ContinuousEngine(lm, slots=4, max_len=280, eos_id=-1,
+    eng = ContinuousEngine(lm, slots=slots, max_len=max_len, eos_id=-1,
                            prefill_chunk=32, page_size=32)
     for r in range(args.rounds + 1):
         chunk_s.clear()
@@ -73,7 +90,8 @@ def main() -> int:
         ttft = sorted(x.prefill_s for x in res)
         if r:
             print(json.dumps({
-                "src": args.src, "round": r,
+                "src": args.src, "arch": args.arch,
+                "kv_quant": args.kv_quant, "round": r,
                 "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
                 "wall_s": wall, "chunks": len(chunk_s),
                 "chunk_ms_mean": sum(chunk_s) / len(chunk_s) * 1e3,
