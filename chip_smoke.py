@@ -60,14 +60,18 @@ Phases, any failure exits non-zero (nothing is caught):
    path none: its chunks run flash_prefill_paged). flash_prefill_paged
    runs at every chunk shape of the paths (the main path's, h2o's last
    ring chunk, both over int8 pools, the MoE chunk, nemotron's) against
-   its plain version (bf16, 2e-2), its f32 route bit-equal to f32
-   flash_prefill on the gathered buffer, timed beside the parent's way
-   (gather + `cat`, then SDPA as the library's time, and flash_prefill
-   alone on the gathered buffer), and at its edge cases
-   (`prefill_paged_edges`: every dh, tiles across pages and across the
-   history / chunk boundary, a wrapped ring, lo's rounding, a table that
-   repeats and reverses pages, a history of 0, ragged C, every split
-   count up to 8, two calls bit-equal, one kernel node a call).
+   its plain version (bf16, 2e-2) on its route (`ops.prefill_paged_route`:
+   `wgmma` at dh 64, 80 and 128) and on the forced `tc` route, timed in
+   turns with it, its f32 route bit-equal to f32 flash_prefill on the
+   gathered buffer, timed beside the parent's way (gather + `cat`, then
+   SDPA as the library's time, and flash_prefill alone on the gathered
+   buffer), and at its edge cases (`prefill_paged_edges`: every dh, tiles
+   across pages and across the history / chunk boundary, a wrapped ring,
+   lo's rounding, a ring that wraps inside an 8-row atom, 4-position
+   pages, a table that repeats and reverses pages, a history of 0, ragged
+   C, both bf16 routes at every split count up to 8, two calls bit-equal,
+   one kernel node a call). Each driven path prints flash_prefill_paged's
+   launches by route: no bf16 chunk on the tc route.
    kmeans_assign runs at the five shapes of its paths (the EcoVector
    build's, the IVF partition's and a PQ sub-quantizer's, on the
    baselines' own data; the graph baselines' partition and HNSWPQ's
@@ -583,6 +587,14 @@ PREFILL_SOURCES = {
     "wgmma": "src/repro_torch/kernels/csrc/flash_prefill_sm90.cu",
     "tc": SOURCES["flash_prefill"], "cuda": SOURCES["flash_prefill"]}
 SOURCES["flash_prefill"] = PREFILL_SOURCES["wgmma"]
+# flash_prefill_paged's routes (`ops.prefill_paged_route`): bf16 at dh 64,
+# 80 and 128 on wgmma fed by TMA boxes of the pages, at the other dh on
+# mma.sync, f32 on the CUDA cores
+PAGED_SOURCES = {
+    "wgmma": "src/repro_torch/kernels/csrc/flash_prefill_paged_sm90.cu",
+    "tc": SOURCES["flash_prefill_paged"],
+    "cuda": SOURCES["flash_prefill_paged"]}
+SOURCES["flash_prefill_paged"] = PAGED_SOURCES["wgmma"]
 # the kernels each path must launch
 PATH_KERNELS = {
     "main": ("kmeans_assign", "ecoscan", "scr_select",
@@ -643,8 +655,10 @@ PATH_KERNELS = {
 }
 # each driven path's seconds, in the order they ran, and the script's start
 PATH_S = {}
-# flash_prefill's launches by route on each driven path
+# flash_prefill's and flash_prefill_paged's launches by route on each
+# driven path
 PREFILL_ROUTES = {}
+PAGED_ROUTES = {}
 T_START = [0.0]
 
 
@@ -1484,12 +1498,25 @@ def check_flash_prefill_paged(label, q, k, v, kp, vp, row, kw):
     in bf16 (`close_scaled`, 2e-2), its f32 route bit-equal to f32
     flash_prefill on the gathered buffer; times (library: the parent's
     gather + `cat`, then SDPA; beside it flash_prefill alone on the
-    gathered buffer, the parent's kernel), and the bound of the work."""
+    gathered buffer, the parent's kernel), and the bound of the work; on
+    the wgmma route also the forced tc route, held and timed in turns
+    with it (`tc_ms`, `wgmma_launch_ms`)."""
     B, C, H, dh = q.shape
     G = k.shape[1]
+    want = ref.flash_prefill_paged(q, k, v, kp, vp, row, **kw)
     held = close_scaled(f"flash_prefill_paged {label}",
                         ops.flash_prefill_paged(q, k, v, kp, vp, row, **kw),
-                        ref.flash_prefill_paged(q, k, v, kp, vp, row, **kw))
+                        want)
+    route = ops.prefill_paged_route(q.dtype, dh)
+    turns = {}
+    if route == "wgmma":
+        close_scaled(f"flash_prefill_paged {label}, tc route",
+                     ops.flash_prefill_paged_launch(q, k, v, kp, vp, row,
+                                                    route="tc", **kw), want)
+        turns = {"tc": [], "wgmma": []}
+        for r in ("tc", "wgmma", "wgmma", "tc"):
+            turns[r].append(time_ms(lambda: ops.flash_prefill_paged_launch(
+                q, k, v, kp, vp, row, route=r, **kw)))
     paged_f32_equal(label, q, k, v, kp, vp, row, kw)
     b_ms, b_by = kcost.flash_prefill_paged(q, k, v, kp, vp, row,
                                            **kw).bound_ms()
@@ -1511,9 +1538,12 @@ def check_flash_prefill_paged(label, q, k, v, kp, vp, row, kw):
     return dict(
         shape=f"{label}: q {list(q.shape)}, pool {list(kp.shape)} "
               f"{kp.dtype}, row {row.shape[0]} entries, offset {off}, lo "
-              f"{lo}, ring {kw['ring_len']}, window {window}; plan "
-              f"{plan.splits} splits x {plan.row_blocks} row blocks x {G}",
-        err=held["max_abs_err"], held=held, ties=0,
+              f"{lo}, ring {kw['ring_len']}, window {window}; route "
+              f"{route}, plan {plan.splits} splits x {plan.row_blocks} row "
+              f"blocks x {G}",
+        err=held["max_abs_err"], held=held, ties=0, route=route,
+        **({"tc_ms": sum(turns["tc"]) / 2,
+            "wgmma_launch_ms": sum(turns["wgmma"]) / 2} if turns else {}),
         ms=time_ms(lambda: ops.flash_prefill_paged(q, k, v, kp, vp, row,
                                                    **kw)),
         plain_ms=time_ms(lambda: ref.flash_prefill_paged(
@@ -1558,7 +1588,8 @@ def profiled_chunk(model, ps, offset, ring_len=0):
     ops_ = {e.key: e.count for e in prof.key_averages()}
     kernels = collections.Counter()
     for name, _, count in _device_events(prof):
-        for k in ("paged_tc_kernel", "flash_prefill_tc_kernel",
+        for k in ("paged_wgmma_kernel", "paged_tc_kernel",
+                  "flash_prefill_tc_kernel",
                   "flash_prefill_wgmma_kernel", "flash_prefill_f32_kernel",
                   "index", "cat"):
             if k in name:
@@ -1588,8 +1619,12 @@ def prefill_paged_edges():
     positions, masked); a ring_len that is not a page multiple; a table
     that repeats and reverses pages; a history of 0; C not a multiple of
     the tile (1, 20, 77); Hg 7, 12 and 16 (row blocks that straddle query
-    positions); a window shorter than the history; one call a kernel
-    node. Prints each case's largest error against its atol and max
+    positions); a window shorter than the history; a ring that wraps
+    inside an 8-row atom and pages of 4 positions (the wgmma route copies
+    such rows one by one, TMA boxes the rest); one call a kernel node.
+    Each bf16 check runs on the tc route and, at dh 64, 80 and 128, on
+    the wgmma route (`flash_prefill_paged_launch(route=)`), at every split
+    count. Prints each case's largest error against its atol and max
     |want|; returns the checks made."""
     g = torch.Generator(device=DEV).manual_seed(11)
 
@@ -1616,6 +1651,10 @@ def prefill_paged_edges():
          None, "repeat"),
         ("long history, many splits", 32, 32, 8, 80, 32, 128, 256, 4576,
          4096, 4096, "perm"),
+        ("ring 60 over 16-position pages, wraps inside an atom", 32, 8, 2,
+         128, 16, 4, 12, 200, 60, 60, "perm"),
+        ("dh 80, 4-position pages", 32, 8, 2, 80, 4, 40, 60, 120, 0, None,
+         "perm"),
     ]
     n, held = 0, {}
     for (label, C, H, G, dh, ps, W, P, off, ring_len, window,
@@ -1648,13 +1687,16 @@ def prefill_paged_edges():
                 f"{tag}: two calls differ"
             plan = ops.prefill_paged_plan(C, off - kw["lo"], G, H // G, dh,
                                           window)
-            for sp in range(1, min(plan.tiles, 8) + 1):
-                e = close_scaled(
-                    f"{tag}, {sp} splits",
-                    ops.flash_prefill_paged_launch(*a, splits=sp, **kw),
-                    want)["max_abs_err"]
-                h["max_abs_err"] = max(h["max_abs_err"], e)
-                n += 1
+            routes = ["tc"] + (["wgmma"] if dh in ops.PAGED_WGMMA_DH else [])
+            for r in routes:
+                for sp in range(1, min(plan.tiles, 8) + 1):
+                    e = close_scaled(
+                        f"{tag}, {r}, {sp} splits",
+                        ops.flash_prefill_paged_launch(*a, splits=sp,
+                                                       route=r, **kw),
+                        want)["max_abs_err"]
+                    h["max_abs_err"] = max(h["max_abs_err"], e)
+                    n += 1
             held[tag.removeprefix("flash_prefill_paged edge ")] = h
             if q8:
                 k32, v32 = (L.dequantize_kv(*L.quantize_kv(t), torch.float32)
@@ -1666,8 +1708,8 @@ def prefill_paged_edges():
             if label == "long history, many splits":
                 nodes = kernel_nodes(lambda: ops.flash_prefill_paged(*a, **kw))
                 assert nodes == 1, f"{tag}: {nodes} kernel nodes a call"
-    print("flash_prefill_paged edges held (bf16, every split count; max abs "
-          "err, atol, max |want|):", json.dumps(held))
+    print("flash_prefill_paged edges held (bf16, both routes, every split "
+          "count; max abs err, atol, max |want|):", json.dumps(held))
     return n
 
 
@@ -2199,10 +2241,17 @@ def drive(path, fn):
     CURRENT[0] = None
     counts = ops.launch_counts()
     PREFILL_ROUTES[path] = dict(ops.flash_prefill.routes)
+    PAGED_ROUTES[path] = dict(ops.flash_prefill_paged.routes)
     missing = [n for n in PATH_KERNELS[path] if counts[n] == 0]
     assert not missing, f"kernels not launched on the {path} path: {missing}"
+    # every chunk of a path is bf16 at dh 64, 80 or 128 (wgmma) or f32
+    assert PAGED_ROUTES[path]["tc"] == 0 and sum(
+        PAGED_ROUTES[path].values()) == counts["flash_prefill_paged"], \
+        (path, PAGED_ROUTES[path])
     print(f"launches on the {path} path:", json.dumps(counts),
           "; flash_prefill's by route:", json.dumps(PREFILL_ROUTES[path]),
+          "; flash_prefill_paged's by route:",
+          json.dumps(PAGED_ROUTES[path]),
           f"; the path took {PATH_S[path]:.1f} s")
     return out, counts
 
@@ -6045,6 +6094,17 @@ def main() -> int:
     fp["launches_by_route_and_path"] = PREFILL_ROUTES
     fp["sources_by_route"] = PREFILL_SOURCES
     fp["tc_ms"] = results["flash_prefill"].get("tc_ms")
+    fpp = next(k for k in kernels if k["name"] == "flash_prefill_paged")
+    fpp["launches_by_route"] = {r: sum(c[r] for c in PAGED_ROUTES.values())
+                                for r in ops.PAGED_ROUTES}
+    fpp["launches_by_route_and_path"] = PAGED_ROUTES
+    fpp["sources_by_route"] = PAGED_SOURCES
+    fpp["tc_ms"] = results["flash_prefill_paged"].get("tc_ms")
+    # the bf16 chunks of every path run on wgmma (dh 64, 80 and 128)
+    assert fpp["launches_by_route"]["tc"] == 0, fpp["launches_by_route"]
+    for p_ in ("main", "h2o_continuous", "h2o_int8", "int8", "moe", "zoo"):
+        assert PAGED_ROUTES[p_]["wgmma"] == paths[p_]["flash_prefill_paged"] \
+            > 0, (p_, PAGED_ROUTES[p_])
     # the wave path's prefill (qwen2.5, dh 64) and the roofline path's
     # run on wgmma; the main path's chunks on flash_prefill_paged alone
     assert PREFILL_ROUTES["wave"]["wgmma"] > 0, PREFILL_ROUTES["wave"]

@@ -39,9 +39,12 @@
 //   scale loaded beside them) before the tile's barrier. Nothing is
 //   written to global memory but the output (and the partials below).
 //
-// - bf16 q on the tensor cores (`tc`): a block's 64 query rows are
-//   (query position, head) pairs of ONE kv group, position-major (row r of
-//   the group's Hg * C rows is query r / Hg, head r % Hg), so each K/V
+// - bf16 q on the tensor cores (`tc`: at dh 32 and 256, and at any dh when
+//   forced, the yardstick of the wgmma route that takes dh 64, 80 and 128
+//   in csrc/flash_prefill_paged_sm90.cu; `ops.prefill_paged_route`): a
+//   block's 64 query rows are (query position, head) pairs of ONE kv
+//   group, position-major (row r of the group's Hg * C rows is query
+//   r / Hg, head r % Hg), so each K/V
 //   tile is read once per group and its row block, not once per head:
 //   M = Hg * C rows (128 at h2o, 224 on the main path) in blocks of 64.
 //   FlashAttention-2 per warp (16 rows, `mma.sync.m16n8k16` bf16 -> f32,
@@ -60,7 +63,9 @@
 //   ops._split_scratch: decode_split.cuh's scheme, one launch a call).
 //   Every split holds keys of every row's range or none that its rows
 //   attend; a row whose keys are all masked within a split gets weight 0
-//   in the merge (its own key, in the chunk, is in the last split).
+//   in the merge (its own key, in the chunk, is in the last split). The
+//   rows' source, the int8 widening and the merge are those of
+//   csrc/prefill_paged.cuh, shared with the wgmma route.
 //
 // - f32 q on the CUDA cores (`cuda`, the 1e-5 check): flash_prefill's f32
 //   body (csrc/prefill_f32.cuh), one split, its key tiles of 32 over the
@@ -70,23 +75,10 @@
 #include <type_traits>
 
 #include "decode_split.cuh"
-#include "mma.cuh"
 #include "prefill_f32.cuh"
+#include "prefill_paged.cuh"
 
 namespace {
-
-// Where key-buffer position j lies: j < hist is absolute position lo + j
-// of the slot's history, at ring cursor (lo + j) % ring of the row's
-// pages [W] (page row[cursor / ps], offset cursor % ps); hist <= j is row
-// j - hist of the chunk's own keys.
-struct Hist {
-  const int* row;
-  int ps, ring, lo, hist;
-  __device__ size_t slot(int j) const {
-    const int cur = (lo + j) % ring;
-    return (size_t)__ldg(row + cur / ps) * ps + cur % ps;
-  }
-};
 
 // ------------------------------------------------- f32 on the CUDA cores
 
@@ -155,119 +147,6 @@ template <int DH> struct Tile {
 template <int DH, bool Q8> constexpr int smem_bytes() {
   return (kRows + 4 * Tile<DH>::BK) * (DH + 8) * 2 + 2 * Tile<DH>::BK * 8 +
          (Q8 ? 2 * Tile<DH>::BK * DH : 0);
-}
-
-// 2^x on the MUFU (2 ulp; x = -1e30 or so gives 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// the 16 int8 values of u times s, rounded to bf16 (dequantize_kv's
-// bf16(q * s)), at d
-__device__ __forceinline__ void widen16(const uint4& u, float s, bf16* d) {
-  const unsigned w[4] = {u.x, u.y, u.z, u.w};
-  uint32_t o[8];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      o[2 * j + i] = pack_bf16(
-          static_cast<float>(static_cast<signed char>(w[j] >> (16 * i))) * s,
-          static_cast<float>(static_cast<signed char>(w[j] >> (16 * i + 8))) *
-              s);
-  }
-  reinterpret_cast<uint4*>(d)[0] = make_uint4(o[0], o[1], o[2], o[3]);
-  reinterpret_cast<uint4*>(d)[1] = make_uint4(o[4], o[5], o[6], o[7]);
-}
-
-// The output row of the group's row R (query R / Hg, head g * Hg + R % Hg)
-__device__ __forceinline__ bf16* out_row(bf16* out, int R, int Hg, int H,
-                                         int g, int dh) {
-  return out + ((size_t)(R / Hg) * H + (size_t)g * Hg + R % Hg) * dh;
-}
-
-// The merge of a (kv head, row block)'s partials by its last split block:
-// out_r = sum_s acc_s,r w_s,r / max(sum_s l_s,r w_s,r, 1e-30) with
-// w_s,r = 2^(m_s,r - max_s m_s,r) over the splits where l > 0, each output
-// summed in split order (the same bits whichever block merges). acc: the
-// first split's acc [kRows, dh] (a split's is kRows * dh on), ml: its m
-// [kRows] then l [kRows] (2 * kRows a split); rows [r0, r0 + n) of the
-// group's. sm: the shared m, l and weights [splits][kRows] each and the
-// denominators [kRows]. Contains barriers: call from every thread.
-template <int DH>
-__device__ void merge_rows(const float* acc, const float* ml, int splits,
-                           int r0, int n, int Hg, int H, int g, float* sm,
-                           bf16* out) {
-  const int ns = splits * kRows;
-  float* m_s = sm;
-  float* l_s = m_s + ns;
-  float* w_s = l_s + ns;
-  float* den = w_s + ns;
-  for (int e = threadIdx.x; e < ns; e += kThreads) {
-    const float* p = ml + (size_t)(e / kRows) * 2 * kRows + e % kRows;
-    m_s[e] = __ldcg(p);
-    l_s[e] = __ldcg(p + kRows);
-  }
-  __syncthreads();
-  for (int r = threadIdx.x; r < kRows; r += kThreads) {
-    float mt = kMask;
-    for (int s = 0; s < splits; ++s)
-      if (l_s[s * kRows + r] > 0.f) mt = fmaxf(mt, m_s[s * kRows + r]);
-    float lt = 0.f;
-    for (int s = 0; s < splits; ++s) {
-      const float ls = l_s[s * kRows + r];
-      const float w = ls > 0.f ? ex2(m_s[s * kRows + r] - mt) : 0.f;
-      w_s[s * kRows + r] = w;
-      lt += ls * w;
-    }
-    den[r] = fmaxf(lt, 1e-30f);
-  }
-  __syncthreads();
-  // four neighbouring outputs a float4; a thread takes kU of them at
-  // once, so that their splits' loads are in flight together (dh is a
-  // multiple of 16)
-  constexpr int kU = 4;
-  const int n4 = n * DH / 4;
-  for (int f0 = threadIdx.x; f0 < n4; f0 += kU * kThreads) {
-    float4 a[kU];
-#pragma unroll
-    for (int u = 0; u < kU; ++u) a[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-    for (int s = 0; s < splits; ++s) {
-      const float4* src =
-          reinterpret_cast<const float4*>(acc + (size_t)s * kRows * DH);
-      float4 x[kU];
-#pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        const int f = f0 + u * kThreads;
-        x[u] = f < n4 ? __ldcg(src + f) : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-#pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        const int f = f0 + u * kThreads;
-        const float w = f < n4 ? w_s[s * kRows + 4 * f / DH] : 0.f;
-        if (w != 0.f) {
-          a[u].x += x[u].x * w;
-          a[u].y += x[u].y * w;
-          a[u].z += x[u].z * w;
-          a[u].w += x[u].w * w;
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const int f = f0 + u * kThreads;
-      if (f < n4) {
-        const int r = 4 * f / DH, c = 4 * f % DH;
-        const float d = den[r];
-        bf16* o = out_row(out, r0 + r, Hg, H, g, DH) + c;
-        *reinterpret_cast<uint2*>(o) = make_uint2(
-            pack_bf16(a[u].x / d, a[u].y / d), pack_bf16(a[u].z / d, a[u].w / d));
-      }
-    }
-  }
 }
 
 // Grid (splits, row blocks, G). P: the pool's type (bf16, or int8 with
@@ -381,10 +260,12 @@ paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
         const int t = c / CPR8, col = (c % CPR8) * 16;
         if (sl[stage * BK + t] >= 0) {
           const size_t d = (size_t)(stage * BK + t) * R + col;
+          uint4* kd = reinterpret_cast<uint4*>(ks + d);
+          uint4* vd = reinterpret_cast<uint4*>(vs + d);
           widen16(*reinterpret_cast<const uint4*>(k8 + t * DH + col), ksr[j],
-                  ks + d);
+                  kd[0], kd[1]);
           widen16(*reinterpret_cast<const uint4*>(v8 + t * DH + col), vsr[j],
-                  vs + d);
+                  vd[0], vd[1]);
         }
       }
     }
@@ -571,21 +452,10 @@ paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
     }
   }
   // publish the partial, take the ticket; the last split block merges
-  // (decode_split.cuh's `finish_split`, over rows of this layout)
-  __syncthreads();
-  int last = 0;
-  if (tid == 0) {
-    __threadfence();
-    int* ticket = tickets + pair;
-    last = atomicAdd(ticket, 1) == splits - 1;
-    if (last) {
-      *ticket = 0;
-      __threadfence();
-    }
-  }
-  if (!__syncthreads_or(last)) return;
-  merge_rows<DH>(accb, mlb, splits, r0, min(kRows, M - r0), Hg, H, g,
-                 reinterpret_cast<float*>(smem), out);
+  if (!last_split(tickets + pair, splits)) return;
+  merge_rows<DH, kRows, kThreads>(accb, mlb, splits, r0, min(kRows, M - r0),
+                                  Hg, H, g, reinterpret_cast<float*>(smem),
+                                  out);
 }
 
 // kbeg, ntiles, rblocks, splits: ops.prefill_paged_plan's (checked here,

@@ -449,30 +449,48 @@ def flash_prefill_launch(q, k, v, *, causal: bool = True,
     return out
 
 
-# flash_prefill_paged's bf16 route (csrc/flash_prefill_paged.cu
-# namespace tc): 64 query rows a block (a warp's m-tile each), key tiles
-# of 64 (32 at dh 256, which divides it). A chunk's history starts at a
-# multiple of PAGED_KEY_TILE in bf16 (`prefill_paged_key_tile`)
+# flash_prefill_paged's bf16 routes (csrc/flash_prefill_paged.cu
+# namespace tc: a warp's m-tile of 16 rows each; csrc/
+# flash_prefill_paged_sm90.cu: one consumer warpgroup's wgmma rows): 64
+# query rows a block, key tiles of 64 (32 at dh 256 on tc, which divides
+# it). A chunk's history starts at a multiple of PAGED_KEY_TILE in bf16
+# (`prefill_paged_key_tile`)
 PAGED_ROWS = 64
 PAGED_KEY_TILE = 64
+# flash_prefill_paged's routes: "cuda" (f32 q on the CUDA cores,
+# bit-equal to flash_prefill on the gathered buffer), "tc" (bf16 q on
+# `mma.sync`), "wgmma" (bf16 q on `wgmma` fed by TMA boxes of the pages)
+# at PAGED_WGMMA_DH: every paged path's dh (qwen2.5 and granite-moe 64,
+# h2o-danube 80, the zoo's 128)
+PAGED_ROUTES = ("cuda", "tc", "wgmma")
+PAGED_WGMMA_DH = (64, 80, 128)
+
+
+def prefill_paged_route(dtype: torch.dtype, dh: int) -> str:
+    """The route of a `flash_prefill_paged` call, by q's dtype and dh
+    alone (a bf16 or an int8 pool alike): "wgmma" for bf16 at dh in
+    PAGED_WGMMA_DH, "tc" for bf16 at any other dh, "cuda" for f32."""
+    if dtype is torch.bfloat16:
+        return "wgmma" if dh in PAGED_WGMMA_DH else "tc"
+    return "cuda"
 
 
 def prefill_paged_key_tile(dtype: torch.dtype, dh: int) -> int:
     """The key tile that a chunk's first history position rounds down to
     (`dense.chunk_rows`) on the route `flash_prefill_paged` takes at
-    (dtype, dh): PAGED_KEY_TILE for bf16 (the tensor-core route's tiles),
-    FLASH_KEY_TILE in f32 (a multiple of the f32 route's 32-key tiles, so
-    that a chunk sums in the tiles of the wave's full prefill, bit for
-    bit)."""
+    (dtype, dh): PAGED_KEY_TILE for bf16 (both tensor-core routes'
+    tiles), FLASH_KEY_TILE in f32 (a multiple of the f32 route's 32-key
+    tiles, so that a chunk sums in the tiles of the wave's full prefill,
+    bit for bit)."""
     return PAGED_KEY_TILE if dtype is torch.bfloat16 else FLASH_KEY_TILE
 
 
 class PagedPlan(NamedTuple):
-    """A flash_prefill_paged launch on the tensor cores: grid (splits,
-    row_blocks, G); the call's `tiles` key tiles of `key_tile` keys from
-    key-buffer position `kbeg` (the kernel takes all three from here).
-    The kernel's split s walks the tiles [s * tiles // splits,
-    (s + 1) * tiles // splits)."""
+    """A flash_prefill_paged launch on the tensor cores (route tc or
+    wgmma, the same plan): grid (splits, row_blocks, G); the call's
+    `tiles` key tiles of `key_tile` keys from key-buffer position `kbeg`
+    (the kernel takes all three from here). The kernel's split s walks
+    the tiles [s * tiles // splits, (s + 1) * tiles // splits)."""
     splits: int
     row_blocks: int
     key_tile: int
@@ -484,7 +502,7 @@ class PagedPlan(NamedTuple):
 def prefill_paged_plan(C: int, hist: int, G: int, Hg: int, dh: int,
                        window: Optional[int] = None,
                        splits: Optional[int] = None) -> PagedPlan:
-    """The bf16 route's plan for a chunk of C queries over `hist`
+    """The bf16 routes' plan for a chunk of C queries over `hist`
     history keys (offset - lo), G kv heads of Hg query heads at dh, from
     these host-known ints alone (a chunk's call is launch-bound, so the
     plan is a cached lookup). The key walk starts at the first query's
@@ -530,7 +548,10 @@ def flash_prefill_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype. On the card one launch: bf16 q on the tensor cores, the
     splits of `prefill_paged_plan` merged in their last block; f32 q on
     the CUDA cores, bit-equal to `flash_prefill` on the gathered
-    buffer. Refuses inputs that require grad (`_no_backward`)."""
+    buffer; the route by `prefill_paged_route` (bf16 at dh 64, 80 and
+    128 on wgmma, at the others on tc), its launches counted by route in
+    `flash_prefill_paged.routes`. Refuses inputs that require grad
+    (`_no_backward`)."""
     _no_backward("flash_prefill_paged", q, k, v)
     _attention_dtype(q)
     q8 = k_pool.dtype == torch.int8
@@ -575,24 +596,39 @@ def flash_prefill_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.data_ptr() % 16 for t in (q, k, v, k_pool, v_pool)):
         raise ValueError("flash_prefill_paged: q, k, v and the pools must be "
                          "16-byte aligned")
-    out = flash_prefill_paged_launch(q, k, v, k_pool, v_pool, row, **kw)
+    route = prefill_paged_route(q.dtype, dh)
+    out = flash_prefill_paged_launch(q, k, v, k_pool, v_pool, row,
+                                     route=route, **kw)
     if C:
         flash_prefill_paged.launches += 1
+        flash_prefill_paged.routes[route] += 1
     return out
 
 
 def flash_prefill_paged_launch(q, k, v, k_pool, v_pool, row, *, offset: int,
                                lo: int, page_size: int, ring_len: int = 0,
                                window: Optional[int] = None, k_scale=None,
-                               v_scale=None, splits: Optional[int] = None):
+                               v_scale=None, splits: Optional[int] = None,
+                               route: Optional[str] = None):
     """Launch flash_prefill_paged on CUDA tensors that pass its wrapper's
-    checks (no launch counted) -> [1, C, H, dh]: bf16 q on the tensor
-    cores at `prefill_paged_plan`'s splits, or a forced count (1 .. the
-    call's key tiles) for checks and probes; f32 q on the CUDA cores
-    (splits 1 only)."""
+    checks (no launch counted) -> [1, C, H, dh]: on the route
+    `prefill_paged_route` picks where `route` is None, else on a forced
+    route for checks and probes ("cuda" takes f32 q, "tc" bf16, "wgmma"
+    bf16 at PAGED_WGMMA_DH; ValueError otherwise); bf16 at
+    `prefill_paged_plan`'s splits, or a forced count (1 .. the call's key
+    tiles); f32 one split only."""
     C, H, dh = q.shape[1:]
     G = k.shape[1]
     hist = offset - lo
+    route = prefill_paged_route(q.dtype, dh) if route is None else route
+    if (route not in PAGED_ROUTES
+            or (route == "cuda") != (q.dtype is torch.float32)
+            or (route == "wgmma" and dh not in PAGED_WGMMA_DH)):
+        raise ValueError(f"flash_prefill_paged: route {route!r} not taken "
+                         f"at q {tuple(q.shape)} ({q.dtype})")
+    if route == "cuda" and splits not in (None, 1):
+        raise ValueError("flash_prefill_paged: the f32 route takes one "
+                         "split")
     out = torch.empty_like(q)
     if C == 0:
         return out
@@ -602,23 +638,24 @@ def flash_prefill_paged_launch(q, k, v, k_pool, v_pool, row, *, offset: int,
             _ptr(k_scale), v_pool.data_ptr(), _ptr(v_scale), row.data_ptr(),
             C, H, G, dh, page_size, ring, lo, hist, window or 0,
             1.0 / math.sqrt(dh))
-    if q.dtype is torch.bfloat16:
+    n = 1
+    if route == "cuda":
+        err = build.entry("flash_prefill_paged_f32")(*args, out.data_ptr(),
+                                                     stream)
+    else:
         plan = prefill_paged_plan(C, hist, G, H // G, dh, window, splits)
         n = plan.splits
         part, tick = _split_scratch(q.device, stream, G * plan.row_blocks,
                                     PAGED_ROWS * (dh + 2), n, 1)
-        err = build.entry("flash_prefill_paged_bf16")(
-            *args, plan.kbeg, plan.tiles, plan.row_blocks, n, _ptr(part),
-            _ptr(tick), out.data_ptr(), stream)
-    elif splits not in (None, 1):
-        raise ValueError("flash_prefill_paged: the f32 route takes one "
-                         "split")
-    else:
-        n = 1
-        err = build.entry("flash_prefill_paged_f32")(*args, out.data_ptr(),
-                                                     stream)
+        tail = (plan.kbeg, plan.tiles, plan.row_blocks, n, _ptr(part),
+                _ptr(tick), out.data_ptr(), stream)
+        if route == "wgmma":
+            err = build.entry("flash_prefill_paged_wgmma")(
+                *args, k_pool.shape[0], *tail)
+        else:
+            err = build.entry("flash_prefill_paged_bf16")(*args, *tail)
     if err:
-        _raise_on(err, f"flash_prefill_paged ({n} splits)")
+        _raise_on(err, f"flash_prefill_paged ({route}, {n} splits)")
     return out
 
 
@@ -1213,6 +1250,7 @@ def reset_launch_counts() -> None:
     for w in _WRAPPERS.values():
         w.launches = 0
     flash_prefill.routes = dict.fromkeys(PREFILL_ROUTES, 0)
+    flash_prefill_paged.routes = dict.fromkeys(PAGED_ROUTES, 0)
 
 
 def launch_counts() -> Dict[str, int]:

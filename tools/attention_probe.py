@@ -70,27 +70,29 @@ kv_len 136), h2o's ring (q [1, 32, 80], K/V [1, 4096, 8, 80], kv_len
 plain version (2e-2).
 
 chunk (`--chunk`, with `--q8` over int8 pools): nvcc's registers and
-spills of every flash_prefill_paged instantiation, then
-flash_prefill_paged at the main path's chunk (qwen2.5-0.5B: q [1, 32,
-14, 64] at offset 64 through an 11-entry row of a 44-page pool of
-32-position pages) and at h2o's last ring chunk (q [1, 32, 32, 80] at
-offset 4,576 through a 128-entry row of a 256-page pool, ring 4,096,
-window 4,096), held against `ref.flash_prefill_paged` (bf16: rtol 2e-2,
-atol 2e-2 times the output's largest value, capped at 2e-2) and,
-with `--src` naming a parent tree, timed in turns with it: its
-flash_prefill_paged (parent, new, new, parent) where it has one, else
-its way before (parent call, parent flash_prefill, new, new, parent
-flash_prefill, parent call): its model's gather of the history through
-the row (and int8 dequantization), `cat` with the chunk, then its
-flash_prefill (`parent call`), and its flash_prefill alone on that
-buffer (`parent flash_prefill`), with the history starting at the
-parent's key tile; beside them gather + `cat` + SDPA and the bound of
-`kernels/cost.py`.
-Then the f32 route equal bit for bit to this tree's f32 flash_prefill on
-the gathered buffer, and the bf16 route at forced split counts; last the
-main path's chunk taken apart in turns (`chunk_anatomy`: forced splits,
-an identity row, a history of 0, flash_prefill's wgmma and tc routes on
-the gathered buffer).
+spills of every flash_prefill_paged instantiation (both sources), then
+flash_prefill_paged at its path shapes (CHUNK_SHAPES: the main path's
+chunk, qwen2.5-0.5B's q [1, 32, 14, 64] at offset 64 through an 11-entry
+row of a 44-page pool of 32-position pages, and the same at offset 0;
+h2o's last ring chunk, q [1, 32, 32, 80] at offset 4,576 through a
+128-entry row of a 256-page pool, ring and window 4,096; the MoE chunk, q
+[1, 32, 16, 64] over 8 kv heads; nemotron's, q [1, 32, 48, 128] over 8
+kv heads at dh 128): the host microseconds of the wgmma route's four
+tensor maps (the C entry `flash_prefill_paged_wgmma_maps`), both bf16
+routes (`ops.flash_prefill_paged_launch(route=)`: wgmma, tc) held against
+`ref.flash_prefill_paged` (bf16: rtol 2e-2, atol 2e-2 times the output's
+largest value, capped at 2e-2) and timed in turns, with `--src` naming a
+parent tree between that tree's flash_prefill_paged (parent, tc, wgmma,
+wgmma, tc, parent); each route's share of the bound of
+`kernels/cost.py`, and beside them gather + `cat` + SDPA. Then the f32
+route equal bit for bit to this tree's f32 flash_prefill on the gathered
+buffer, both bf16 routes at forced split counts; last the main path's
+chunk taken apart in turns (`chunk_anatomy`: both routes, the wgmma route
+at forced splits and through an identity row, a history of 0,
+flash_prefill's wgmma and tc routes on the gathered buffer), and the
+wgmma route rebuilt at each setting of its knobs (`chunk_knobs`:
+CHUNK_KNOBS, the tallest TMA box, the ring's stages, the tiles of row
+entries fetched ahead), timed in turns at every path shape.
 
 zoo (`--zoo`): nvcc's registers and spills of every flash_prefill,
 decode_attention and decode_attention_paged instantiation (`-Xptxas -v`,
@@ -797,9 +799,16 @@ def prefill_probe(g):
 
 # flash_prefill_paged's path shapes: (label, H, G, dh, ps, W, P, offset,
 # ring_len, window)
+# flash_prefill_paged's path shapes: (label, H, G, dh, ps, W, P, offset,
+# ring_len, window); with --q8 over int8 pools (the qwen int8 chunk, h2o's
+# int8 last ring chunk)
 CHUNK_SHAPES = [("main path chunk", 14, 2, 64, 32, 11, 44, 64, 0, None),
+                ("main path chunk, history 0", 14, 2, 64, 32, 11, 44, 0, 0,
+                 None),
                 ("h2o last ring chunk", 32, 8, 80, 32, 128, 256, 4576, 4096,
-                 4096)]
+                 4096),
+                ("moe chunk", 16, 8, 64, 32, 11, 44, 64, 0, None),
+                ("nemotron chunk", 48, 8, 128, 32, 11, 44, 64, 0, None)]
 
 
 def chunk_inputs(g, H, G, dh, ps, W, P, q8, dtype=torch.bfloat16):
@@ -823,9 +832,9 @@ def chunk_inputs(g, H, G, dh, ps, W, P, q8, dtype=torch.bfloat16):
 
 
 def gathered(q, k, v, kp, vp, row, scales, offset, lo, ps, ring):
-    """The parent model's K/V buffers for a chunk: the history [lo,
-    offset) gathered through the row (int8: dequantized to q's dtype),
-    then the chunk."""
+    """The K/V buffers of the chunk's way before flash_prefill_paged: the
+    history [lo, offset) gathered through the row (int8: dequantized to
+    q's dtype), then the chunk."""
     gi = ref.history_rows(row, lo, offset, ps, ring)
     out = []
     for t, c, s in ((kp, k, scales.get("k_scale")),
@@ -849,17 +858,30 @@ def chunk_held(got, want, what):
     return err.max().item()
 
 
+def maps_host_us(q, k, v, kp, vp, sc, ps, n=2000):
+    """Host microseconds of the wgmma route's tensor maps for one call
+    (the C entry flash_prefill_paged_wgmma_maps: the pool's and the
+    chunk's K and V maps encoded n times)."""
+    G, dh = k.shape[1], k.shape[2]
+    fn = build.entry("flash_prefill_paged_wgmma_maps")
+    args = (k.data_ptr(), v.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+            int(bool(sc)), kp.shape[0], ps, G, dh, q.shape[1])
+    assert fn(*args, 1) == 0
+    t0 = time.perf_counter()
+    assert fn(*args, n) == 0
+    return (time.perf_counter() - t0) / n * 1e6
+
+
 def chunk_anatomy(g, q8):
     """Where the main path's chunk (CHUNK_SHAPES[0]) spends its device
     time against flash_prefill on the gathered buffer, in turns (listed
-    order, then reversed): the new call (its plan's one split, 8
-    blocks); forced two splits of one key tile each (16 blocks and the
-    merge); the call through an identity row (contiguous pages); then
-    flash_prefill on the gathered buffer on its wgmma route (the
-    wrapper's, 14 blocks) and on its tc route (the `mma.sync` body the new
-    kernel grew from, 14 blocks); and the same at a history of 0 (offset
-    0: the new kernel reads no table row; flash_prefill on the chunk's
-    own K/V). Each held against the plain version first."""
+    order, then reversed): the call on both bf16 routes (the plan's one
+    split, 8 blocks); the wgmma route at forced two splits of one key tile
+    each (16 blocks and the merge) and through an identity row (contiguous
+    pages); then flash_prefill on the gathered buffer on its wgmma route
+    (the wrapper's, 14 blocks) and its tc route; and the same at a history
+    of 0 (offset 0: no table row read; flash_prefill on the chunk's own
+    K/V). Each held against the plain version first."""
     label, H, G, dh, ps, W, P, offset, ring_len, window = CHUNK_SHAPES[0]
     q, k, v, kp, vp, row, sc = chunk_inputs(g, H, G, dh, ps, W, P, q8)
     ident = torch.arange(W, dtype=torch.int32, device="cuda")
@@ -871,18 +893,21 @@ def chunk_anatomy(g, q8):
         kb, vb = gathered(q, k, v, kp, vp, row, sc, off, 0, ps, W * ps)
         pkw = dict(causal=True, window=window, q_offset=off, kv_len=off + C)
         fns = {
-            "new": lambda kw=kw: ops.flash_prefill_paged(q, k, v, kp, vp,
-                                                         row, **kw),
+            "wgmma": lambda kw=kw: ops.flash_prefill_paged_launch(
+                q, k, v, kp, vp, row, route="wgmma", **kw),
+            "tc": lambda kw=kw: ops.flash_prefill_paged_launch(
+                q, k, v, kp, vp, row, route="tc", **kw),
             "flash_prefill wgmma": lambda kb=kb, vb=vb, pkw=pkw:
                 ops.flash_prefill_launch(q, kb, vb, route="wgmma", **pkw),
             "flash_prefill tc": lambda kb=kb, vb=vb, pkw=pkw:
                 ops.flash_prefill_launch(q, kb, vb, route="tc", **pkw)}
         if off:
-            fns["new 2 splits"] = lambda kw=kw: \
+            fns["wgmma 2 splits"] = lambda kw=kw: \
                 ops.flash_prefill_paged_launch(q, k, v, kp, vp, row,
-                                               splits=2, **kw)
-            fns["new identity row"] = lambda kw=kw: ops.flash_prefill_paged(
-                q, k, v, kp, vp, ident, **kw)
+                                               splits=2, route="wgmma", **kw)
+            fns["wgmma identity row"] = lambda kw=kw: \
+                ops.flash_prefill_paged_launch(q, k, v, kp, vp, ident,
+                                               route="wgmma", **kw)
             want_i = ref.flash_prefill_paged(q, k, v, kp, vp, ident,
                                              **kw).float()
         out = {"chunk anatomy": f"{label}{' int8' if q8 else ''}, offset "
@@ -890,7 +915,7 @@ def chunk_anatomy(g, q8):
                    C, off, G, H // G, dh, window)._asdict()}
         for name, fn in fns.items():
             out[f"{name} max_abs_err"] = chunk_held(
-                fn(), want_i if name == "new identity row" else want,
+                fn(), want_i if name == "wgmma identity row" else want,
                 (off, name))
         order = list(fns) + list(fns)[::-1]
         for turn, name in enumerate(order):
@@ -898,9 +923,53 @@ def chunk_anatomy(g, q8):
         print(json.dumps(out))
 
 
+# knob settings of the wgmma route's source (csrc/
+# flash_prefill_paged_sm90.cu); the first is the committed one
+CHUNK_KNOBS = [dict(kBoxRows=64, kStages=3, kAhead=2), dict(kBoxRows=8),
+               dict(kStages=2), dict(kAhead=4)]
+
+
+def chunk_knobs(g, q8):
+    """The wgmma route rebuilt at each CHUNK_KNOBS setting (`build_variants`:
+    the tallest TMA box, the ring's stages, the tiles of row entries
+    fetched ahead), each held against the plain version and timed at
+    CHUNK_SHAPES in turns (the settings in order, then reversed)."""
+    variants = build_variants("flash_prefill_paged_sm90",
+                              "flash_prefill_paged_wgmma", CHUNK_KNOBS)
+    real = build.ENTRY["flash_prefill_paged_wgmma"]
+    try:
+        for label, H, G, dh, ps, W, P, offset, ring_len, window in \
+                CHUNK_SHAPES:
+            q, k, v, kp, vp, row, sc = chunk_inputs(g, H, G, dh, ps, W, P,
+                                                    q8)
+            ring = ring_len or W * ps
+            lo = max(0, offset - ring) // 64 * 64
+            kw = dict(offset=offset, lo=lo, page_size=ps, ring_len=ring_len,
+                      window=window, **sc)
+            want = ref.flash_prefill_paged(q, k, v, kp, vp, row,
+                                           **kw).float()
+            out = {"chunk knobs": label + (" int8" if q8 else "")}
+
+            def call():
+                return ops.flash_prefill_paged_launch(
+                    q, k, v, kp, vp, row, route="wgmma", **kw)
+            order = list(range(len(variants))) + \
+                list(range(len(variants)))[::-1]
+            for turn, i in enumerate(order):
+                knobs, fn = variants[i]
+                build.ENTRY["flash_prefill_paged_wgmma"] = fn
+                chunk_held(call(), want, (label, knobs))
+                out[f"{json.dumps(knobs)} device_ms {turn}"] = device_ms(
+                    call, 50)
+            print(json.dumps(out))
+    finally:
+        build.ENTRY["flash_prefill_paged_wgmma"] = real
+
+
 def chunk_probe(g, q8, parent):
-    """flash_prefill_paged at CHUNK_SHAPES in turns with the parent's way
-    (module doc), then its f32 route bit for bit and forced splits."""
+    """flash_prefill_paged at CHUNK_SHAPES on both bf16 routes in turns
+    with the parent's wrapper (module doc), the maps' host cost, then its
+    f32 route bit for bit and both bf16 routes at forced splits."""
     for label, H, G, dh, ps, W, P, offset, ring_len, window in CHUNK_SHAPES:
         q, k, v, kp, vp, row, sc = chunk_inputs(g, H, G, dh, ps, W, P, q8)
         ring = ring_len or W * ps
@@ -910,42 +979,30 @@ def chunk_probe(g, q8, parent):
         kw = dict(offset=offset, lo=lo, page_size=ps, ring_len=ring_len,
                   window=window, **sc)
         want = ref.flash_prefill_paged(q, k, v, kp, vp, row, **kw).float()
-        fns = {"new": lambda kw=kw: ops.flash_prefill_paged(
-            q, k, v, kp, vp, row, **kw)}
+        fns = {r: lambda kw=kw, r=r: ops.flash_prefill_paged_launch(
+            q, k, v, kp, vp, row, route=r, **kw) for r in ("wgmma", "tc")}
         plan = ops.prefill_paged_plan(C, offset - lo, G, H // G, dh, window)
         b_ms, b_by = kcost.flash_prefill_paged(q, k, v, kp, vp, row,
                                                **kw).bound_ms()
         out = {"flash_prefill_paged": label + (" int8" if q8 else ""),
-               "plan": plan._asdict(), "bound_ms": b_ms, "bound_by": b_by}
-        order = ("new", "new")
-        if parent and hasattr(parent[1], "flash_prefill_paged"):
+               "route": ops.prefill_paged_route(q.dtype, dh),
+               "plan": plan._asdict(), "bound_ms": b_ms, "bound_by": b_by,
+               "maps host_us": maps_host_us(q, k, v, kp, vp, sc, ps)}
+        order = ("tc", "wgmma", "wgmma", "tc")
+        if parent:
             fns["parent"] = lambda kw=kw: parent[1].flash_prefill_paged(
                 q, k, v, kp, vp, row, **kw)
-            order = ("parent", "new", "new", "parent")
-        elif parent:            # a parent that gathers the history in torch
-            p_ops = parent[1]
-            tile = p_ops.prefill_key_tile(q.dtype, dh)
-            plo = max(0, offset - ring) // tile * tile
-            pkw = dict(causal=True, window=window, q_offset=offset - plo,
-                       kv_len=offset + C - plo)
-            kb, vb = gathered(q, k, v, kp, vp, row, sc, offset, plo, ps, ring)
-            fns["parent flash_prefill"] = lambda pkw=pkw, kb=kb, vb=vb: \
-                p_ops.flash_prefill(q, kb, vb, **pkw)
-
-            def parent_call(pkw=pkw, plo=plo):
-                kb_, vb_ = gathered(q, k, v, kp, vp, row, sc, offset, plo, ps,
-                                    ring)
-                return p_ops.flash_prefill(q, kb_, vb_, **pkw)
-            fns["parent call"] = parent_call
-            out["parent_lo"] = plo
-            order = ("parent call", "parent flash_prefill", "new", "new",
-                     "parent flash_prefill", "parent call")
+            order = ("parent",) + order + ("parent",)
         out["max_abs_want"] = want.abs().max().item()
         for name, fn in fns.items():
             out[f"{name} max_abs_err"] = chunk_held(fn(), want, (label, name))
         for turn, name in enumerate(order):
             out[f"{name} device_ms {turn}"] = device_ms(fns[name], 50)
             out[f"{name} call_ms {turn}"] = call_ms(fns[name], 50)
+        for name in fns:
+            dev = [out[f"{name} device_ms {t}"] for t, n in enumerate(order)
+                   if n == name]
+            out[f"{name} bound share"] = b_ms / (sum(dev) / len(dev))
         kb, vb = gathered(q, k, v, kp, vp, row, sc, offset, lo, ps, ring)
         Sk = kb.shape[1]
         qpos = offset - lo + torch.arange(C, device="cuda")[:, None]
@@ -978,15 +1035,18 @@ def chunk_probe(g, q8, parent):
             q_offset=offset - lo32, kv_len=offset + C - lo32)), label
         out["f32 bit-equal to flash_prefill on the buffer"] = True
         print(json.dumps(out))
-        for n in sorted({1, 2, 4, 8, 12, 16, 24, 32, plan.splits,
-                         plan.tiles} & set(range(1, plan.tiles + 1))):
-            def call(n=n):
-                return ops.flash_prefill_paged_launch(q, k, v, kp, vp, row,
-                                                      splits=n, **kw)
-            print(json.dumps({"flash_prefill_paged": label + (
-                " int8" if q8 else ""), "splits": n,
-                "max_abs_err": chunk_held(call(), want, (label, n)),
-                "device_ms": device_ms(call, 50)}))
+        for n in sorted({1, 2, 4, 8, 16, plan.splits}
+                        & set(range(1, plan.tiles + 1))):
+            res = {"flash_prefill_paged": label + (" int8" if q8 else ""),
+                   "splits": n}
+            for r in ("wgmma", "tc"):
+                def call(n=n, r=r):
+                    return ops.flash_prefill_paged_launch(
+                        q, k, v, kp, vp, row, splits=n, route=r, **kw)
+                res[f"{r} max_abs_err"] = chunk_held(call(), want,
+                                                     (label, r, n))
+                res[f"{r} device_ms"] = device_ms(call, 50)
+            print(json.dumps(res))
 
 
 def main() -> int:
@@ -1024,9 +1084,10 @@ def main() -> int:
     build.build_all()
     g = torch.Generator(device="cuda").manual_seed(0)
     if args.chunk:
-        print_ptxas(("flash_prefill_paged",))
+        print_ptxas(("flash_prefill_paged_sm90", "flash_prefill_paged"))
         chunk_probe(g, args.q8, parent)
         chunk_anatomy(g, args.q8)
+        chunk_knobs(g, args.q8)
         return 0
     if paged:
         print_ptxas(("decode_attention_paged", "decode_attention"))
