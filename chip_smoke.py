@@ -35,7 +35,10 @@ Phases, any failure exits non-zero (nothing is caught):
    times (CUDA events) and the bound of the work: ids exact except at
    ties within the value tolerance, ecoscan and scr_select values 2e-5,
    kmeans_assign 1e-4 (relative), attention 1e-5 in f32 and 2e-2 in bf16
-   (the attention edge cases run in both); ecoscan and scr_select also
+   (the attention edge cases run in both; flash_prefill's and
+   flash_prefill_paged's path shapes at an atol of 2e-2 times each row's
+   or the output's own largest plain value, so that rows which average
+   thousands of keys are held at their own scale); ecoscan and scr_select also
    give the same bits on two calls. ecoscan runs at the main path's shape
    and at scale (no path runs it: 16 queries of 8 probes over a [1024,
    512, 384] pack, k 10, with the identity and with a masked block_map),
@@ -51,11 +54,14 @@ Phases, any failure exits non-zero (nothing is caught):
    route (tensor cores or CUDA cores), split count and head grouping
    (`decode_forced_edges`, `paged_forced_edges`), each giving the same
    bits on two calls, and a call of each is one kernel node (its last
-   split block merges; no merge kernel in any profile). flash_prefill's dh-64/128 bf16 edge cases also run at
-   both bf16 routes (`tc` on mma.sync, `wgmma` on wgmma fed by TMA) and
-   at every compiled wgmma plan (`prefill_forced_edges`), two wgmma calls
-   bit-equal; at its wgmma path shapes the tc route is held and timed
-   beside it. Each driven path prints flash_prefill's launches by route,
+   split block merges; no merge kernel in any profile). flash_prefill's
+   bf16 edge cases at dh 64, 80, 128 and 256 also run at both bf16
+   routes (`tc` on mma.sync, `wgmma` on wgmma fed by TMA) and at every
+   compiled wgmma plan (`prefill_forced_edges`), two wgmma calls
+   bit-equal; at its path shapes (h2o's wave row and recurrentgemma's
+   window among them) the tc route is held and timed beside it in turns.
+   Each driven path prints flash_prefill's launches by route; no path
+   but the roofline one (its forced tc prefill) launches the tc route,
    and the wave and roofline paths must launch the wgmma route (the main
    path none: its chunks run flash_prefill_paged). flash_prefill_paged
    runs at every chunk shape of the paths (the main path's, h2o's last
@@ -581,8 +587,9 @@ SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in
            ops.KERNELS}
 SOURCES["decode_attention_q8"] = SOURCES["decode_attention"]
 SOURCES["decode_attention_paged_q8"] = SOURCES["decode_attention_paged"]
-# flash_prefill's routes (`ops.prefill_route`): bf16 at dh 64 and 128 on
-# wgmma, at the other dh on mma.sync, f32 on the CUDA cores
+# flash_prefill's routes (`ops.prefill_route`): bf16 at dh 64, 80, 128
+# and 256 (every dh of the zoo) on wgmma, at dh 32 on mma.sync, f32 on
+# the CUDA cores
 PREFILL_SOURCES = {
     "wgmma": "src/repro_torch/kernels/csrc/flash_prefill_sm90.cu",
     "tc": SOURCES["flash_prefill"], "cuda": SOURCES["flash_prefill"]}
@@ -696,6 +703,36 @@ def close_scaled(name, got, want, tol=2e-2):
     atol = tol * min(1.0, top)
     return {"max_abs_err": close(name, got, want, tol, atol), "atol": atol,
             "max_abs_want": top}
+
+
+def close_rows(name, got, want, tol=2e-2):
+    """`close_scaled` on each query row of an attention output [B, S, H,
+    dh] at once: rtol `tol`, and an atol of `tol` times the row's largest
+    plain value over its heads, capped at `tol`. A row late in a long
+    window averages thousands of keys, so its values are a few
+    hundredths, and one atol for the whole output would pass a kernel
+    that dropped a key tile or misweighted a merge in those rows alone.
+    Returns what it held: the max abs error, the largest ratio of an
+    error to its limit, the atol of the first and of the last row, and
+    max |want| overall and in the last row."""
+    w = want.float()
+    top = w.abs().amax(dim=(2, 3), keepdim=True)
+    atol = tol * top.clamp(max=1.0)
+    err = (got.float() - w).abs()
+    lim = atol + tol * w.abs()
+    if not bool((err <= lim).all()):
+        bad = (err > lim).nonzero()[0].tolist()
+        raise AssertionError(
+            f"{name}: max error {err.max().item():.3g}; first row past its "
+            f"limit: (batch, row, head, col) {bad}, error "
+            f"{err[tuple(bad)].item():.3g}, atol "
+            f"{atol[bad[0], bad[1]].item():.3g}, rtol {tol}")
+    return {"max_abs_err": err.max().item(),
+            "err_over_limit": (err / lim.clamp(min=1e-30)).max().item(),
+            "atol_first_row": atol[:, 0].min().item(),
+            "atol_last_row": atol[:, -1].min().item(),
+            "max_abs_want": top.max().item(),
+            "last_row_max_abs_want": top[:, -1].max().item()}
 
 
 def same_or_tied(name, got_ids, want_ids, value_of, rtol, atol):
@@ -1392,16 +1429,25 @@ def _expand(t, rep):
 def check_flash_prefill(label, q, k, v, *, window=None, q_offset=0,
                         kv_len=None, causal=True, plain_iters=20):
     """flash_prefill at one path shape: kernel against plain in q's type
-    (bf16: 2e-2) and in f32 (1e-5); times, and the bound of the work."""
+    (bf16: `close_rows`, 2e-2 of each row's own scale; f32: 1e-5); on the
+    wgmma route the forced tc route held the same way and timed in turns
+    with it; times, and the bound of the work."""
     kw = dict(causal=causal, window=window, q_offset=q_offset,
               kv_len=kv_len)
     B, Sq, H, dh = q.shape
     Sk, G = k.shape[1], k.shape[2]
     kv = Sk if kv_len is None else min(kv_len, Sk)
     bf16 = q.dtype == torch.bfloat16
-    tol = 2e-2 if bf16 else 1e-5
-    err = close(f"flash_prefill {label}", ops.flash_prefill(q, k, v, **kw),
-                ref.flash_prefill(q, k, v, **kw), tol, tol)
+    route = ops.prefill_route(q.dtype, dh)
+    want = ref.flash_prefill(q, k, v, **kw)
+    held = {}
+    if bf16:
+        held[route] = close_rows(f"flash_prefill {label}",
+                                 ops.flash_prefill(q, k, v, **kw), want)
+        err = held[route]["max_abs_err"]
+    else:
+        err = close(f"flash_prefill {label}", ops.flash_prefill(q, k, v, **kw),
+                    want, 1e-5, 1e-5)
     if bf16:
         a32 = [t.float() for t in (q, k, v)]
         close(f"flash_prefill {label} f32", ops.flash_prefill(*a32, **kw),
@@ -1416,12 +1462,11 @@ def check_flash_prefill(label, q, k, v, *, window=None, q_offset=0,
     if window:
         mask = mask & (qpos - kpos < window)
     qq, kk, vv = q.transpose(1, 2), _expand(k, H // G), _expand(v, H // G)
-    route = ops.prefill_route(q.dtype, dh)
     out = dict(
         shape=f"{label}: q {list(q.shape)}, k {list(k.shape)}, window "
               f"{window}, q_offset {q_offset}, kv_len {kv}, {q.dtype}, "
               f"route {route}",
-        err=err, ties=0,
+        err=err, ties=0, held=held,
         ms=time_ms(lambda: ops.flash_prefill(q, k, v, **kw)),
         plain_ms=time_ms(lambda: ref.flash_prefill(q, k, v, **kw),
                          iters=plain_iters),
@@ -1432,9 +1477,9 @@ def check_flash_prefill(label, q, k, v, *, window=None, q_offset=0,
         # the tc route beside it (held against the plain version too),
         # both through `flash_prefill_launch` in turns (tc, wgmma, wgmma,
         # tc): the wrapper's checks are in neither
-        close(f"flash_prefill {label}, tc route",
-              ops.flash_prefill_launch(q, k, v, route="tc", **kw),
-              ref.flash_prefill(q, k, v, **kw), tol, tol)
+        held["tc"] = close_rows(f"flash_prefill {label}, tc route",
+                                ops.flash_prefill_launch(q, k, v, route="tc",
+                                                         **kw), want)
         turns = {"tc": [], "wgmma": []}
         for r in ("tc", "wgmma", "wgmma", "tc"):
             turns[r].append(time_ms(lambda: ops.flash_prefill_launch(
@@ -1783,6 +1828,10 @@ def attention_edges():
     kc2, vc2 = rnd(1, 300, 2, 128), rnd(1, 300, 2, 128)
     kc2[:, 250:] = 1e4
     vc2[:, 250:] = 1e4
+    kc80, vc80, kc256, vc256 = (rnd(1, 300, 1, d) for d in (80, 80, 256,
+                                                           256))
+    for t in (kc80, vc80, kc256, vc256):
+        t[:, 250:] = 1e4
     flash = [
         ("dh 32, Sq 77", (rnd(2, 77, 4, 32), rnd(2, 77, 2, 32),
                           rnd(2, 77, 2, 32)), dict()),
@@ -1802,6 +1851,24 @@ def attention_edges():
          dict(window=40)),
         ("dh 256, not causal, Sq 33 over 100", qkv(33, 4, 100, 2, 256),
          dict(causal=False)),
+        # dh 80 and 256 again, for their wgmma plans (dh 80 padded to 128
+        # columns by TMA's zero fill): a chunk at a query offset over a
+        # longer buffer whose keys past kv_len hold 1e4, G 1 with Hg 4,
+        # a window shorter than a tile at Hg 4, rows with every key
+        # masked, kv_len 0
+        ("dh 80, G 1, Hg 4, Sq 77 over 300 at q_offset 223, 1e4 past "
+         "kv_len 250", (rnd(1, 77, 4, 80), kc80, vc80),
+         dict(q_offset=223, kv_len=250)),
+        ("dh 80, every key masked", qkv(40, 4, 100, 2, 80),
+         dict(q_offset=60, window=8, kv_len=20)),
+        ("dh 80, kv_len 0", qkv(70, 4, 90, 2, 80), dict(kv_len=0)),
+        ("dh 256, G 1, Hg 4, Sq 77 over 300 at q_offset 223, 1e4 past "
+         "kv_len 250", (rnd(1, 77, 4, 256), kc256, vc256),
+         dict(q_offset=223, kv_len=250)),
+        ("dh 256, Hg 4, window 5", qkv(100, 8, 100, 2, 256),
+         dict(window=5)),
+        ("dh 256, every key masked", qkv(40, 4, 100, 2, 256),
+         dict(q_offset=60, window=8, kv_len=20)),
         # dh 64 and 128 again, for the wgmma route: Sq 1 and 77, Hg 7,
         # windows, 1e4 past kv_len, kv_len 0, every key masked, not
         # causal with Sq != Sk, several key tiles (the ring wraps) at a
@@ -2244,6 +2311,11 @@ def drive(path, fn):
     PAGED_ROUTES[path] = dict(ops.flash_prefill_paged.routes)
     missing = [n for n in PATH_KERNELS[path] if counts[n] == 0]
     assert not missing, f"kernels not launched on the {path} path: {missing}"
+    # every bf16 flash_prefill of a path is at dh 64, 80, 128 or 256
+    # (wgmma); the roofline path forces tc on a second prefill, its
+    # yardstick (asserted at the end)
+    assert path == "roofline" or PREFILL_ROUTES[path]["tc"] == 0, \
+        (path, PREFILL_ROUTES[path])
     # every chunk of a path is bf16 at dh 64, 80 or 128 (wgmma) or f32
     assert PAGED_ROUTES[path]["tc"] == 0 and sum(
         PAGED_ROUTES[path].values()) == counts["flash_prefill_paged"], \
@@ -6110,6 +6182,10 @@ def main() -> int:
     assert PREFILL_ROUTES["wave"]["wgmma"] > 0, PREFILL_ROUTES["wave"]
     assert not any(PREFILL_ROUTES["main"].values()), PREFILL_ROUTES["main"]
     assert PREFILL_ROUTES["roofline"]["wgmma"] > 0, PREFILL_ROUTES["roofline"]
+    # ... and its tc launches are the forced prefills' alone, one for each
+    # of the wgmma prefills' launches
+    assert PREFILL_ROUTES["roofline"]["tc"] == \
+        PREFILL_ROUTES["roofline"]["wgmma"], PREFILL_ROUTES["roofline"]
     assert len(kernels) == len(ops.KERNELS)
     assert all(k["launches"] > 0 for k in kernels)
     assert all(math.isfinite(k["ms"]) for k in kernels)

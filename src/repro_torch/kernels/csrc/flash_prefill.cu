@@ -47,13 +47,12 @@
 // it by less than a tenth (PERF.md): neither the K/V traffic nor the
 // shared-memory reads bound it, but each warp's serial chain of Q K^T,
 // softmax (one MUFU exponential per pair, which at dh 80 costs most of
-// the matmul's time) and P V. At dh 64 and 128 bf16 now takes the
-// `wgmma` route instead (csrc/flash_prefill_sm90.cu: TMA from a producer
-// warp, consumer warpgroups overlapping each other's exponentials and
-// products; `ops.prefill_route`); this kernel keeps dh 32, 80 and 256 and
-// stays the probe's and chip_smoke's forced "tc" route at every dh. Next
-// step: dh 80 on `wgmma`, whose 160-byte rows fit no 128-byte swizzle
-// (the 32-byte swizzle, or the head dim padded to 128).
+// the matmul's time) and P V. At dh 64, 80, 128 and 256 bf16 now takes
+// the `wgmma` route instead (csrc/flash_prefill_sm90.cu: TMA from a
+// producer warp, consumer warpgroups overlapping each other's
+// exponentials and products; `ops.prefill_route`); this kernel keeps dh
+// 32 and stays the probe's and chip_smoke's forced "tc" route at every
+// dh.
 //
 // f32 route (`flash_prefill_f32`), kept on the CUDA cores as the 1e-5
 // check: csrc/prefill_f32.cuh, whose body csrc/flash_prefill_paged.cu

@@ -4,7 +4,7 @@
 //
 // Replaces the Pallas kernel
 // src/repro/kernels/flash_prefill.py::flash_prefill (pallas_call at :95)
-// on flash_prefill's "wgmma" route: bf16 at dh 64 and 128
+// on flash_prefill's "wgmma" route: bf16 at dh 64, 80, 128 and 256
 // (`ops.prefill_route`). What it computes is the contract of
 // csrc/flash_prefill.cu's header, unchanged: q [B, Sq, H, dh], k/v
 // [B, Sk, G, dh], query head h on kv head h / (H/G), query i at
@@ -17,9 +17,10 @@
 //
 // What bounds it: one unmasked (query, key) pair costs 4 * dh flops on
 // the tensor cores and one exponential on the MUFU. An H100 SM does
-// about 4,096 dense bf16 flops a clock (16 pairs at dh 64, 8 at dh 128)
-// and 16 `ex2` a clock. So at dh 64 the exponentials alone take as long
-// as the two products, and at dh 128 half as long: a warp that runs
+// about 4,096 dense bf16 flops a clock (16 pairs at dh 64, 12.8 at dh
+// 80, 8 at dh 128, 4 at dh 256) and 16 `ex2` a clock. So at dh 64 the
+// exponentials alone take as long as the two products, at dh 80 0.8 of
+// it, at dh 128 half as long and at dh 256 a quarter: a warp that runs
 // Q K^T, the softmax and P V one after the other, as the `tc` route's
 // warps do (mma.sync, csrc/flash_prefill.cu), cannot pass about half of
 // the bound at dh 64 even with perfect products.
@@ -31,15 +32,21 @@
 //   (4-d tensor maps over [B, S, heads, dh] encoded on the host per call,
 //   0.3-0.4 us for the three, passed as __grid_constant__ parameters and
 //   prefetched) into a ring of ST stages with the 128-byte swizzle (a
-//   dh-64 row is one 128-byte atom, a dh-128 row two, stored as column
-//   chunks [dh / 64][rows][64]). K and V of a stage have their own full
-//   and empty mbarriers, so that a tile's K can land while the previous
-//   tile's V is still read. Rows past Sq or Sk come in as zeros.
+//   dh-64 row is one 128-byte atom, a dh-128 row two, a dh-256 row four,
+//   stored as column chunks [dh / 64][rows][64]). A dh-80 row (160
+//   bytes) fits no atom: it is padded to two, 128 columns, in shared
+//   memory only; the maps keep dh 80 as their extent, so TMA's
+//   out-of-bounds fill writes the zeros and no byte more is read (as in
+//   csrc/flash_prefill_paged_sm90.cu). K and V of a stage have their own
+//   full and empty mbarriers, so that a tile's K can land while the
+//   previous tile's V is still read. Rows past Sq or Sk come in as zeros.
 // - Warpgroups 1..NC are consumers of 64 query rows each, with the
 //   registers the producer gave up. Each runs S = Q K^T as
 //   `wgmma.mma_async` m64nBKk16 with Q and K from shared memory (both
-//   K-major), the online softmax on S's f32 accumulator in registers,
-//   and O += P V as `wgmma` m64n(dh)k16 with P from registers (S's
+//   K-major; dh / 16 k-steps, 5 at dh 80), the online softmax on S's f32
+//   accumulator in registers, and O += P V as `wgmma` m64n(dh)k16 (n80
+//   at dh 80: V's first 64-column chunk and 16 columns of the second, not
+//   the padded n128) with P from registers (S's
 //   accumulator fragments rounded to bf16 are the A-fragments) and V from
 //   shared memory as an MN-major B operand (the descriptor's transpose
 //   bit). Within a warpgroup, tile j's Q K^T is issued together with tile
@@ -54,7 +61,13 @@
 //   at 2 x 8,192 rows): there O's 64 registers a thread leave room for one
 //   block an SM only (attention_probe --prefill, PERF.md). A share of the
 //   exponentials on the FMA pipe (a cubic) moved neither, so it is not
-//   kept: the MUFU no longer sets the pace once they overlap.
+//   kept: the MUFU no longer sets the pace once they overlap. dh 80 takes
+//   dh 128's way, its rows padded to dh 128's shared bytes: 0.282 ms at
+//   h2o's wave row against 0.359 for dh 64's way at 64-key tiles, whose
+//   83,200 bytes fit twice an SM. dh 256 has one consumer and one block
+//   an SM (Q 32 KB and two stages of 32 KB K and V tiles, 165,120 bytes;
+//   O 128 registers a thread): at 1,024 flops a pair the products set
+//   the pace.
 // - Masks as on the `tc` route: only the key tiles that causal, window and
 //   kv_len leave partly unmasked for the block (`key_range`), the mask
 //   applied only on tiles that hold a masked pair of the warpgroup's rows;
@@ -81,10 +94,12 @@ constexpr float kLog2e = 1.4426950408889634f;
 // blocks' threads); `setmaxnreg` takes the producer down to 24 and
 // gives what that frees to the consumers (240 at most): 168 -> 240 for
 // 2 consumers and 1 block, 128 -> 232 for 1 and 2 blocks, 80 -> 136 for
-// 1 and 3. Shared memory: 1 KB to align the tiles to the swizzle's
-// 1,024-byte period, Q [dh / 64][rows][64], the K and V rings
-// [ST][dh / 64][BK][64] each, then 256 bytes of mbarriers.
+// 1 and 3, 240 for 1 and 1. Shared memory: 1 KB to align the tiles to
+// the swizzle's 1,024-byte period, Q [DHP / 64][rows][64], the K and V
+// rings [ST][DHP / 64][BK][64] each (DHP: dh padded to the 64-column
+// atoms, 128 at dh 80), then 256 bytes of mbarriers.
 template <int DH, int BK, int ST, int NC, int NB> struct Plan {
+  static constexpr int DHP = (DH + 63) / 64 * 64;
   static constexpr int ROWS = 64 * NC;
   static constexpr int THREADS = 128 * (NC + 1);
   static constexpr int L = 65536 / (THREADS * NB) / 8 * 8;
@@ -93,10 +108,10 @@ template <int DH, int BK, int ST, int NC, int NB> struct Plan {
           ? (L + (L - kProducerRegs) / NC) / 8 * 8
           : 240;
   static constexpr int Q_CHUNK = ROWS * kAtom;
-  static constexpr int Q_BYTES = ROWS * DH * 2;
-  static constexpr int KV_BYTES = BK * DH * 2;  // one K (or V) tile
+  static constexpr int Q_BYTES = ROWS * DHP * 2;
+  static constexpr int KV_BYTES = BK * DHP * 2;  // one K (or V) tile
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * ST * KV_BYTES + 256;
-  static_assert(DH % 64 == 0 && BK % 16 == 0, "dh 64k, keys 16k");
+  static_assert(DH % 16 == 0 && BK % 16 == 0, "dh 16k, keys 16k");
   static_assert(NB * (SMEM + 1024) <= 233472, "the plan's blocks pass 228 KB");
 };
 
@@ -113,7 +128,7 @@ flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                            const Args a, bf16* __restrict__ out) {
   using P = Plan<DH, BK, ST, NC, NB>;
   constexpr int ROWS = P::ROWS;
-  constexpr int CH = DH / 64;                  // 128-byte chunks of a row
+  constexpr int CH = P::DHP / 64;              // 128-byte chunks of a row
   extern __shared__ unsigned char smem_raw[];
   const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t k_s = q_s + P::Q_BYTES;       // [ST][CH][BK][64]
@@ -466,9 +481,13 @@ extern "C" int flash_prefill_wgmma(const void* q, const void* k,
     return sm90::launch<D, K, S, C, N>(q, k, v, B, a, smem, out, st);
   FLASH_WGMMA_PLAN(64, 128, 2, 1, 2)
   FLASH_WGMMA_PLAN(64, 64, 2, 1, 3)
+  FLASH_WGMMA_PLAN(80, 128, 2, 2, 1)
+  FLASH_WGMMA_PLAN(80, 128, 2, 1, 1)
+  FLASH_WGMMA_PLAN(80, 64, 2, 1, 2)
   FLASH_WGMMA_PLAN(128, 128, 2, 2, 1)
   FLASH_WGMMA_PLAN(128, 128, 2, 1, 1)
   FLASH_WGMMA_PLAN(128, 64, 2, 1, 2)
+  FLASH_WGMMA_PLAN(256, 64, 2, 1, 1)
 #undef FLASH_WGMMA_PLAN
   return static_cast<int>(cudaErrorInvalidValue);
 }

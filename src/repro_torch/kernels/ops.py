@@ -285,19 +285,25 @@ FLASH_KEY_TILE = 64
 # check), "tc" (bf16 on `mma.sync`, csrc/flash_prefill.cu), "wgmma" (bf16
 # on `wgmma` fed by TMA, csrc/flash_prefill_sm90.cu) at PREFILL_WGMMA_DH
 PREFILL_ROUTES = ("cuda", "tc", "wgmma")
-PREFILL_WGMMA_DH = (64, 128)
+PREFILL_WGMMA_DH = (64, 80, 128, 256)
 # the plans (keys a tile, stages, consumer warpgroups of 64 query rows,
 # blocks an SM) that csrc/flash_prefill_sm90.cu compiles
 # (FLASH_WGMMA_PLAN) at each dh. The first is the long plan, whose keys
 # are the route's key tile: at dh 64 one consumer, two blocks an SM (the
 # two blocks' warpgroups overlap each other's exponentials and products
 # with no turns to take; two consumers taking turns measured slower,
-# PERF.md), at dh 128 two consumers taking turns. The narrow plan (the
-# long plan's keys, one consumer: at dh 64 the long plan itself) takes a
-# grid that the long plan's blocks would not spread over every SM, the
-# short plan (64-key tiles, one consumer) at most PREFILL_SHORT keys
+# PERF.md), at dh 80 (rows padded to 128 columns in shared memory) and
+# dh 128 two consumers taking turns (at h2o's wave row 0.282 ms against
+# 0.359 for dh 64's way at 64-key tiles, PERF.md), at dh 256 one consumer
+# and one block an SM. The narrow plan (the long plan's keys, one
+# consumer: at dh 64 and 256 the long plan itself) takes a grid that the
+# long plan's blocks would not spread over every SM, the short plan
+# (64-key tiles, one consumer: at dh 256 the long plan too) at most
+# PREFILL_SHORT keys
 PREFILL_PLANS = {64: ((128, 2, 1, 2), (64, 2, 1, 3)),
-                 128: ((128, 2, 2, 1), (128, 2, 1, 1), (64, 2, 1, 2))}
+                 80: ((128, 2, 2, 1), (128, 2, 1, 1), (64, 2, 1, 2)),
+                 128: ((128, 2, 2, 1), (128, 2, 1, 1), (64, 2, 1, 2)),
+                 256: ((64, 2, 1, 1),)}
 PREFILL_SHORT = 64    # keys that the short plan takes
 
 
@@ -305,7 +311,8 @@ def prefill_route(dtype: torch.dtype, dh: int) -> str:
     """The route of a `flash_prefill` call, by dtype and dh alone (so a
     wave's full prefill and the continuous engine's chunks of one model
     take the same): "wgmma" for bf16 at dh in PREFILL_WGMMA_DH, "tc" for
-    bf16 at any other dh, "cuda" for f32."""
+    bf16 at any other dh (32; the tc route stays as the yardstick that
+    `flash_prefill_launch(route="tc")` forces), "cuda" for f32."""
     if dtype is torch.bfloat16:
         return "wgmma" if dh in PREFILL_WGMMA_DH else "tc"
     return "cuda"
@@ -314,9 +321,10 @@ def prefill_route(dtype: torch.dtype, dh: int) -> str:
 def _plan_info(dh: int, plan: Tuple[int, int, int, int]) -> Dict[str, int]:
     keys, stages, consumers, per_sm = plan
     rows = 64 * consumers
+    dhp = -(-dh // 64) * 64     # a row padded to the 64-column atoms
     return {"keys": keys, "stages": stages, "consumers": consumers,
             "blocks_per_sm": per_sm, "rows": rows,
-            "smem": 1024 + (rows + 2 * stages * keys) * dh * 2 + 256}
+            "smem": 1024 + (rows + 2 * stages * keys) * dhp * 2 + 256}
 
 
 # every compiled plan's info, and each dh's (long, narrow, short) plans,
@@ -346,9 +354,9 @@ def prefill_plan(dh: int, Sq: Optional[int] = None, Sk: Optional[int] = None,
     Returns (a shared dict: read, do not change) keys, stages,
     consumers, blocks_per_sm, rows (64 a consumer) and the block's shared
     bytes (`Plan::SMEM`: 1 KB of alignment, Q [rows, dh] and the K and V
-    rings [stages, keys, dh] in bf16, 256 bytes of mbarriers), which the
-    wrapper hands to the kernel: it refuses a plan it does not compile or
-    bytes that are not the plan's."""
+    rings [stages, keys, dh] in bf16 with dh padded to a multiple of 64,
+    256 bytes of mbarriers), which the wrapper hands to the kernel: it
+    refuses a plan it does not compile or bytes that are not the plan's."""
     if plan is None:
         long_, narrow, short = _PLAN_PICKS[dh]
         plan = long_
@@ -367,8 +375,8 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     keys at positions < kv_len (Sk when None) that `causal` and `window`
     leave unmasked. Returns [B, Sq, H, dh] in q's dtype. On the card the
     call is one launch on the route `prefill_route` picks (bf16 on the
-    tensor cores, by `wgmma` at dh 64 and 128 and by `mma.sync` at the
-    others; f32 on the CUDA cores, in full f32); dh is one of
+    tensor cores, by `wgmma` at dh 64, 80, 128 and 256 and by `mma.sync`
+    at dh 32; f32 on the CUDA cores, in full f32); dh is one of
     FLASH_PREFILL_DH. Counts its launches by route in
     `flash_prefill.routes`. Refuses inputs that require grad
     (`_no_backward`)."""

@@ -1,6 +1,7 @@
 """The port's attention kernels' plain versions against the JAX package,
 in float32 on the CPU: `flash_prefill` against the Pallas kernel
-(interpret mode) on the sweep shapes of tests/test_kernels.py and against
+(interpret mode) on the sweep shapes of tests/test_kernels.py and at the
+zoo's other head dims (h2o's 80, recurrentgemma's 256), and against
 `models.layers.attention` with a query offset, a kv length and a window;
 `decode_attention` against the Pallas kernel (interpret mode) and the
 jnp oracle with a scalar, a per-row and a ring kv_len. Plus the wrappers'
@@ -36,6 +37,8 @@ def _normal(seed, *shapes):
     (1, 2, 256, 32, None),
     (1, 2, 300, 64, 64),
     (2, 4, 128, 32, None),
+    (1, 4, 200, 80, 48),        # h2o's dh, window < S, S not a 64k
+    (1, 2, 160, 256, 96),       # recurrentgemma's dh, window
 ])
 def test_flash_prefill_matches_pallas(B, H, S, dh, window):
     q, k, v = _normal(0, *[(B, H, S, dh)] * 3)

@@ -2,7 +2,8 @@
 `ops.prefill_route` for every (dtype, dh), `ops.flash_prefill_launch`'s
 refusal of a forced route or plan that the dtype or dh cannot take,
 `ops.prefill_plan` per dh (the plans that csrc/flash_prefill_sm90.cu
-compiles, their shared memory within the card's, the pick by shape), and
+compiles, their shared memory within the card's with dh 80's rows
+padded to 128 columns, the pick by shape), and
 `dense.chunk_rows` rounding a ring chunk's first key to the key tile of
 the route that `flash_prefill_paged` takes at the model's dtype and dh
 (`ops.prefill_paged_key_tile`). The kernels themselves run on the
@@ -29,7 +30,7 @@ SMEM_SM = 233472           # shared memory of an SM (228 KB)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_prefill_route(dtype, dh):
     want = ("cuda" if dtype is torch.float32
-            else "wgmma" if dh in (64, 128) else "tc")
+            else "wgmma" if dh in (64, 80, 128, 256) else "tc")
     assert ops.prefill_route(dtype, dh) == want
 
 
@@ -43,9 +44,9 @@ def _qkv(dtype, dh, sq=8, sk=8):
     (torch.float32, 64, "tc", None),
     (torch.float32, 64, "wgmma", None),
     (torch.bfloat16, 64, "cuda", None),
-    (torch.bfloat16, 80, "wgmma", None),
+    (torch.bfloat16, 80, "wgmma", (128, 2, 1, 2)),
     (torch.bfloat16, 32, "wgmma", None),
-    (torch.bfloat16, 256, "wgmma", None),
+    (torch.bfloat16, 256, "wgmma", (128, 2, 1, 1)),
     (torch.bfloat16, 64, "tc", (128, 2, 1, 2)),
     (torch.bfloat16, 64, "wgmma", (128, 2, 2, 2)),
     (torch.bfloat16, 128, "wgmma", (128, 2, 1, 2)),
@@ -54,6 +55,9 @@ def _qkv(dtype, dh, sq=8, sk=8):
         "dh 32 on wgmma", "dh 256 on wgmma", "a plan on tc",
         "a plan not compiled", "dh 128 at dh 64's plan", "no such route"])
 def test_launch_refuses_what_the_route_cannot_take(dtype, dh, route, plan):
+    """Refused before any launch: a route the dtype does not take, dh 32
+    on wgmma, a plan on tc, and a plan not compiled at its dh (dh 80 at dh
+    64's long plan, dh 256 at dh 128's narrow one)."""
     with pytest.raises(ValueError, match="not taken"):
         ops.flash_prefill_launch(*_qkv(dtype, dh), route=route, plan=plan)
 
@@ -82,9 +86,10 @@ def _consumer_regs(consumers, per_sm):
 @pytest.mark.parametrize("dh", ops.PREFILL_WGMMA_DH)
 def test_plans_fit_the_card(dh):
     """Every plan at dh: keys a multiple of wgmma's k-step and its N,
-    64 rows a consumer, shared memory within a block's and its blocks'
-    within an SM's, and registers for S, P and O (f32 keys / 2, bf16
-    keys / 4 and f32 dh / 2 a thread) with room to spare."""
+    64 rows a consumer, shared memory (rows padded to the 64-column
+    atoms) within a block's and its blocks' within an SM's, and
+    registers for S, P and O (f32 keys / 2, bf16 keys / 4 and f32 dh / 2
+    a thread) with room to spare."""
     for plan in ops.PREFILL_PLANS[dh]:
         p = ops.prefill_plan(dh, plan=plan)
         keys, stages, consumers, per_sm = plan
@@ -92,12 +97,29 @@ def test_plans_fit_the_card(dh):
                 p["blocks_per_sm"]) == plan
         assert keys % 16 == 0 and keys <= 256 and stages >= 1
         assert consumers in (1, 2) and p["rows"] == 64 * consumers
-        assert p["smem"] == (1024 + (p["rows"] + 2 * stages * keys) * dh * 2
+        dhp = -(-dh // 64) * 64
+        assert p["smem"] == (1024 + (p["rows"] + 2 * stages * keys) * dhp * 2
                              + 256)
         assert p["smem"] <= SMEM_BLOCK
         assert per_sm * (p["smem"] + 1024) <= SMEM_SM
         assert keys // 2 + keys // 4 + dh // 2 + 24 <= _consumer_regs(
             consumers, per_sm)
+
+
+@pytest.mark.parametrize("plan", ops.PREFILL_PLANS[80])
+def test_dh80_shared_memory_counts_the_padded_columns(plan):
+    """dh 80's 160-byte rows sit in 128 columns of shared memory (TMA's
+    zero fill pads them): each of its plans takes the bytes of dh 128's
+    rows at the same tiles, more than 160-byte rows would, and its
+    blocks still fit an SM."""
+    keys, stages, consumers, per_sm = plan
+    p = ops.prefill_plan(80, plan=plan)
+    rows = 64 * consumers + 2 * stages * keys
+    assert p["smem"] == 1024 + rows * 128 * 2 + 256
+    assert p["smem"] == ops._plan_info(128, plan)["smem"]
+    assert p["smem"] > 1024 + rows * 80 * 2 + 256
+    assert per_sm * (p["smem"] + 1024) <= SMEM_SM
+    assert ops.prefill_plan(80)["smem"] == 165120      # the long plan
 
 
 @pytest.mark.parametrize("dh", ops.PREFILL_WGMMA_DH)

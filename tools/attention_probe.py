@@ -2,7 +2,7 @@
 """Tile-shape probe of the port's attention kernels on one GPU:
 `python3 tools/attention_probe.py [--prefill | --paged | --decode | --q8 |
 --zoo | --chunk [--q8]] [--src DIR]` (`--prefill` runs only
-flash_prefill's routes at its dh-64 and dh-128 path shapes, `--paged` only the decode_attention_paged
+flash_prefill's routes at its bf16 path shapes, `--paged` only the decode_attention_paged
 rows, `--decode` only the decode_attention rows, `--q8` only the int8
 rows, `--paged --q8` both, `--zoo` only the model zoo's shapes; `--src`
 names the `src` directory whose `repro_torch` is imported, so that a
@@ -14,15 +14,21 @@ prefill (`--prefill`): nvcc's registers and spills of every
 flash_prefill instantiation (`-Xptxas -v`; the wgmma plans' shared bytes
 from `ops.prefill_plan`, which ptxas does not see: they are dynamic),
 the host microseconds of the wgmma route's three tensor maps (the C entry
-`flash_prefill_wgmma_maps`), then at each dh-64/128 path shape
-(PREFILL_SHAPES: one device's share of qwen2.5's prefill_32k, whisper's
+`flash_prefill_wgmma_maps`), then at each bf16 path shape
+(PREFILL_SHAPES: h2o-danube-1.8b's wave prefill at B 1 and at the wave
+path's B 2, q [B, 4608, 32, 80] over 8 kv heads, window 4,096;
+recurrentgemma-9b's local window, q [1, 512, 16, 256] over one kv head,
+window 2,048; one device's share of qwen2.5's prefill_32k, whisper's
 encoder and cross-attention, gte-small's encoder, qwen2-vl's prefill, the
-main path's chunk and nemotron's chunk) the `tc` and `wgmma` routes
-(`ops.flash_prefill_launch`) held against `ref.flash_prefill` (bf16,
-2e-2; the share on its first and last 32 queries) and timed in turns
-with SDPA (tc, wgmma, SDPA, SDPA, wgmma, tc: profiler device ms, and call
-ms), then every compiled wgmma plan (`ops.PREFILL_PLANS`, the tile
-knobs: keys a tile, stages, consumers, blocks an SM) at each shape. A
+main path's chunk and nemotron's chunk) the `tc` route and, where the
+tree routes the dh there, the `wgmma` route (`ops.flash_prefill_launch`)
+held against `ref.flash_prefill` (bf16, 2e-2; the share on its first and
+last 32 queries) and timed in turns with SDPA (tc, wgmma, SDPA, SDPA,
+wgmma, tc: profiler device ms, and call ms), then every compiled wgmma
+plan (`ops.PREFILL_PLANS`, the tile knobs: keys a tile, stages,
+consumers, blocks an SM) at each shape; each route's share of the bound
+of `kernels/cost.py` beside it. A timing is the mean of 20 calls, of 5
+where Sq passes 8,192. A
 `--src` tree without `ops.prefill_route` (a parent of the wgmma route):
 its wrapper and SDPA at each shape.
 
@@ -136,18 +142,22 @@ KNOBS = [dict(kMT=1, kBK=64, kStages=2), dict(kMT=2, kBK=64, kStages=2),
          dict(kMT=1, kBK=128, kStages=2), dict(kMT=1, kBK=32, kStages=2),
          dict(kMT=1, kBK=64, kStages=3)]
 SPLITS = (1, 8, 17, 32)
-# flash_prefill's dh-64/128 path shapes: (label, B, Sq, H, Sk, G, dh,
-# q_offset, kv_len, causal)
+# flash_prefill's bf16 path shapes: (label, B, Sq, H, Sk, G, dh,
+# q_offset, kv_len, causal, window)
 PREFILL_SHAPES = [
-    ("prefill_32k share", 2, 32768, 14, 32768, 2, 64, 0, 32768, True),
-    ("whisper encoder", 2, 1500, 12, 1500, 12, 64, 0, 1500, False),
-    ("whisper cross", 2, 32, 12, 1500, 12, 64, 0, 1500, False),
-    ("gte encoder", 256, 64, 6, 64, 6, 64, 0, 64, False),
-    ("qwen2-vl prefill", 2, 320, 12, 320, 2, 128, 0, 320, True),
-    ("main chunk", 1, 32, 14, 96, 2, 64, 64, 96, True),
-    ("nemotron chunk", 1, 32, 48, 96, 8, 128, 64, 96, True),
+    ("h2o wave B1", 1, 4608, 32, 4608, 8, 80, 0, 4608, True, 4096),
+    ("h2o wave B2 (the wave path's)", 2, 4608, 32, 4608, 8, 80, 0, 4608,
+     True, 4096),
+    ("recurrentgemma window", 1, 512, 16, 512, 1, 256, 0, 512, True, 2048),
+    ("prefill_32k share", 2, 32768, 14, 32768, 2, 64, 0, 32768, True, None),
+    ("whisper encoder", 2, 1500, 12, 1500, 12, 64, 0, 1500, False, None),
+    ("whisper cross", 2, 32, 12, 1500, 12, 64, 0, 1500, False, None),
+    ("gte encoder", 256, 64, 6, 64, 6, 64, 0, 64, False, None),
+    ("qwen2-vl prefill", 2, 320, 12, 320, 2, 128, 0, 320, True, None),
+    ("main chunk", 1, 32, 14, 96, 2, 64, 64, 96, True, None),
+    ("nemotron chunk", 1, 32, 48, 96, 8, 128, 64, 96, True, None),
     ("dh 128, 8k (not a path shape)", 2, 8192, 12, 8192, 2, 128, 0, 8192,
-     True),
+     True, None),
 ]
 
 
@@ -722,33 +732,36 @@ def prefill_held(got, q, k, v, kw):
     return err
 
 
-def prefill_sdpa(q, k, v, q_off, kv, causal):
+def prefill_sdpa(q, k, v, q_off, kv, causal, window=None):
     """SDPA on the same inputs, K/V expanded to H heads: is_causal where
     the mask is the plain causal one, else a boolean mask."""
     H, Sq, Sk, G = q.shape[2], q.shape[1], k.shape[1], k.shape[2]
     qq = q.transpose(1, 2)
     kk, vv = (t.repeat_interleave(H // G, 2).transpose(1, 2) for t in (k, v))
-    if causal and q_off == 0 and kv == Sk == Sq:
+    if causal and q_off == 0 and kv == Sk == Sq and not window:
         return lambda: F.scaled_dot_product_attention(  # noqa: E731
             qq, kk, vv, is_causal=True)
     qp = q_off + torch.arange(Sq, device="cuda")[:, None]
     kp = torch.arange(Sk, device="cuda")[None, :]
     mask = ((kp <= qp) | (not causal)) & (kp < kv)
+    if window:
+        mask &= qp - kp < window
     return lambda: F.scaled_dot_product_attention(  # noqa: E731
         qq, kk, vv, attn_mask=mask)
 
 
 def prefill_probe(g):
-    """flash_prefill's routes at its dh-64/128 path shapes (module doc)."""
+    """flash_prefill's routes at its bf16 path shapes (module doc)."""
     routed = hasattr(ops, "prefill_route")
     print_ptxas(("flash_prefill",) + (("flash_prefill_sm90",) if routed
                                       else ()))
     if not routed:
-        for label, B, Sq, H, Sk, G, dh, q_off, kv, causal in PREFILL_SHAPES:
+        for label, B, Sq, H, Sk, G, dh, q_off, kv, causal, win in \
+                PREFILL_SHAPES:
             q, k, v = prefill_inputs(g, B, Sq, H, Sk, G, dh)
-            kw = dict(causal=causal, q_offset=q_off, kv_len=kv)
+            kw = dict(causal=causal, q_offset=q_off, kv_len=kv, window=win)
             wrap = lambda: ops.flash_prefill(q, k, v, **kw)  # noqa: E731
-            sdpa = prefill_sdpa(q, k, v, q_off, kv, causal)
+            sdpa = prefill_sdpa(q, k, v, q_off, kv, causal, win)
             n = 5 if Sq > 4096 else 20
             print(json.dumps({"flash_prefill": label, "src": "wrapper",
                               "max_abs_err": prefill_held(wrap(), q, k, v,
@@ -771,24 +784,37 @@ def prefill_probe(g):
         assert err == 0, err
     print(json.dumps({"wgmma maps": "three tensor maps encoded on the host",
                       "us_per_call": us}))
-    for label, B, Sq, H, Sk, G, dh, q_off, kv, causal in PREFILL_SHAPES:
+    for label, B, Sq, H, Sk, G, dh, q_off, kv, causal, win in \
+            PREFILL_SHAPES:
         q, k, v = prefill_inputs(g, B, Sq, H, Sk, G, dh)
-        kw = dict(causal=causal, q_offset=q_off, kv_len=kv)
-        n = 5 if Sq > 4096 else 20
+        kw = dict(causal=causal, q_offset=q_off, kv_len=kv, window=win)
+        n = 5 if Sq > 8192 else 20
+        wgmma = dh in ops.PREFILL_WGMMA_DH
         calls = {route: lambda route=route: ops.flash_prefill_launch(
-            q, k, v, route=route, **kw) for route in ("tc", "wgmma")}
+            q, k, v, route=route, **kw)
+            for route in ("tc", "wgmma") if route == "tc" or wgmma}
+        b_ms, b_by = kcost.flash_prefill(q, k, v, **kw).bound_ms()
         row = {"flash_prefill": label, "route": ops.prefill_route(q.dtype,
                                                                   dh),
-               "plan": ops.prefill_plan(dh, Sq, Sk, B * H)}
+               "bound_ms": b_ms, "bound_by": b_by}
+        if wgmma:
+            row["plan"] = ops.prefill_plan(dh, Sq, Sk, B * H)
         for route, fn in calls.items():
             row[f"{route} max_abs_err"] = prefill_held(fn(), q, k, v, kw)
-        calls["sdpa"] = prefill_sdpa(q, k, v, q_off, kv, causal)
+        calls["sdpa"] = prefill_sdpa(q, k, v, q_off, kv, causal, win)
         for turn, name in enumerate(("tc", "wgmma", "sdpa", "sdpa", "wgmma",
                                      "tc")):
-            row[f"{name} device_ms {turn}"] = device_ms(calls[name], n)
+            if name in calls:
+                row[f"{name} device_ms {turn}"] = device_ms(calls[name], n)
         for name, fn in calls.items():
             row[f"{name} call_ms"] = call_ms(fn, n)
+            dev = [v_ for k_, v_ in row.items()
+                   if k_.startswith(f"{name} device_ms ")]
+            if sum(dev):
+                row[f"{name} bound share"] = b_ms / (sum(dev) / len(dev))
         print(json.dumps(row))
+        if not wgmma:
+            continue
         for plan in ops.PREFILL_PLANS[dh]:
             fn = lambda plan=plan: ops.flash_prefill_launch(  # noqa: E731
                 q, k, v, route="wgmma", plan=plan, **kw)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""TTFT probe of the port's continuous engine on one GPU:
-`python3 tools/serve_probe.py [--arch ARCH] [--kv-quant] [--src DIR]
-[--rounds N]`.
+"""TTFT probe of the port's continuous and wave engines on one GPU:
+`python3 tools/serve_probe.py [--arch ARCH] [--kv-quant] [--wave]
+[--src DIR] [--rounds N]`.
 
 `--arch qwen25_0_5b` (the default): full-width qwen2.5-0.5B in bf16
 (random weights from seed 0) on `ContinuousEngine` at the main path's
@@ -22,6 +22,14 @@ imported (default: this checkout's), so that two trees, such as a
 parent commit unpacked with `git archive`, can be timed in turns on one
 card. Prints the card (`nvidia-smi` name and power limit), then one JSON
 line a round; exits 2 without a GPU.
+
+`--wave` runs the wave engine instead (`Engine.generate(continuous=
+False)`, chip_smoke's h2o and families paths): one wave of the arch's
+prompts, whose prefill is one `flash_prefill` a layer; each round prints
+the wave's prefill seconds (through the first token's logits) and its
+flash_prefill launches by route. `--arch recurrentgemma_9b` (wave only):
+full-width recurrentgemma-9b in bf16 (random weights from seed 3), 2
+prompts of 512 random tokens, chip_smoke's families path.
 """
 import argparse
 import dataclasses
@@ -40,6 +48,7 @@ SETTINGS = {
     "qwen25_0_5b": (0, 4, 280,
                     lambda rng: rng.integers(97, 257, 16)),
     "h2o_danube_1_8b": (1, 2, 4608 + 16, lambda rng: [4608, 4608]),
+    "recurrentgemma_9b": (3, None, 512 + 16, lambda rng: [512, 512]),
 }
 
 
@@ -49,7 +58,10 @@ def main() -> int:
     ap.add_argument("--arch", default="qwen25_0_5b", choices=list(SETTINGS))
     ap.add_argument("--kv-quant", action="store_true")
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--wave", action="store_true")
     args = ap.parse_args()
+    if SETTINGS[args.arch][1] is None and not args.wave:
+        ap.error(f"--arch {args.arch} runs on waves only (--wave)")
     if not torch.cuda.is_available():
         print("serve_probe: no CUDA device", file=sys.stderr)
         return 2
@@ -64,6 +76,8 @@ def main() -> int:
     build.build_all()
     seed, slots, max_len, lengths = SETTINGS[args.arch]
     cfg = dataclasses.replace(get_config(args.arch), kv_quant=args.kv_quant)
+    if args.wave:
+        return wave_rounds(args, cfg, seed, max_len, lengths)
     lm = DenseLM(cfg, device="cuda", seed=seed)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(4, cfg.vocab_size, n).astype(np.int32)
@@ -95,6 +109,35 @@ def main() -> int:
                 "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
                 "wall_s": wall, "chunks": len(chunk_s),
                 "chunk_ms_mean": sum(chunk_s) / len(chunk_s) * 1e3,
+                "tokens": sum(len(x.tokens) for x in res)}))
+    return 0
+
+
+def wave_rounds(args, cfg, seed, max_len, lengths):
+    """`--wave`: one warm-up round, then `--rounds` rounds of one wave."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+    lm = build_model(cfg, device="cuda", seed=seed)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(4, cfg.vocab_size, n).astype(np.int32)
+               for n in lengths(rng)]
+    eng = Engine(lm, max_len=max_len, eos_id=-1)
+    routes = getattr(ops.flash_prefill, "routes", None)
+    for r in range(args.rounds + 1):
+        if routes is not None:
+            for k in routes:
+                routes[k] = 0
+        t0 = time.perf_counter()
+        res = eng.generate(prompts, max_new=16, continuous=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if r:
+            print(json.dumps({
+                "src": args.src, "arch": args.arch, "wave": True,
+                "kv_quant": args.kv_quant, "round": r,
+                "prefill_s": res[0].prefill_s, "wall_s": wall,
+                "flash_prefill_routes": dict(routes or {}),
                 "tokens": sum(len(x.tokens) for x in res)}))
     return 0
 
