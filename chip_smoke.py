@@ -332,7 +332,24 @@ determinism`; a whole CPU build and two card builds with the
   `use_mesh` (DTensor states) equals the unmeshed step's loss within
   1e-6; `reshard_restore` of the train path's checkpoint onto the mesh
   is bit-equal to a plain restore; the checkpoint's directory is then
-  removed;
+  removed. Full-width qwen2.5-0.5B built under the mesh (its
+  tensor-parallel part of tp 1: every weight whole) serves the wave
+  path's 16 prompts through `Engine.generate(continuous=False)` under
+  `use_mesh`, through the TP branch (its all-reduces and the logits'
+  gather on the one-rank group): its greedy tokens equal the unmeshed
+  wave's;
+- the tp_share path (after the mesh path; what earlier paths cached is
+  freed first): qwen2-72b at full width and all 80 layers as one rank's
+  share of tp 4 (16 query heads over 2 kv heads, d_ff 7,392, a quarter
+  of the vocabulary: ~36 GB of bf16 weights drawn on the card from a
+  seed) on a one-rank NCCL group, whose collectives are the identity:
+  a share of the work, not a 4-card run. A prefill of 2 x 512 tokens
+  and 8 decode steps, over a bf16 cache and over an int8 one (the same
+  weights drawn again with `kv_quant`): wall and profiled device ms,
+  peak memory, beside the dry run's modelled terms of the same share
+  (rank 0 of a tp-4 fake group, traced on the host); flash_prefill,
+  decode_attention and decode_attention_q8 then held to their plain
+  versions at the share's shapes;
 - the roofline path (after every other path, so that its lists fit
   beside what they hold): the dry run's cost model (`roofline/`,
   `kernels/cost.py`) against the card at one H100's share of its cells.
@@ -538,6 +555,11 @@ VL_TEXT = 64
 ZOO = (("nemotron_4_15b", None), ("qwen2_72b", 8),
        ("mistral_large_123b", 8), ("arctic_480b", 2))
 ZOO_PROMPT = 256
+# the tp_share path: qwen2-72b's part of rank 0 of tp 4, a prefill of
+# TP_ROWS x TP_PROMPT tokens and TP_STEPS decode steps
+TP_CONFIG = get_config("qwen2_72b")
+TP_SHARD = (4, 0)
+TP_ROWS, TP_PROMPT, TP_STEPS = 2, 512, 8
 # the train path: full-width qwen2.5-0.5B (f32 masters, bf16 compute,
 # remat), TRAIN_B x TRAIN_S tokens a step from an LMBatcher over an LM
 # stream of TRAIN_STREAM tokens: TRAIN_REPEAT steps on one batch, then
@@ -654,8 +676,12 @@ PATH_KERNELS = {
     # training attends through the plain layers.attention: no kernel
     # (each launch count must read 0, `train_path`)
     "train": (),
-    # the sharded retrieval's local scan on a (1, 1) mesh
-    "mesh": ("ecoscan",),
+    # the sharded retrieval's local scan on a (1, 1) mesh; the wave
+    # Engine of qwen2.5's tp-1 part under it
+    "mesh": ("ecoscan", "flash_prefill", "decode_attention"),
+    # qwen2-72b's share of tp 4: its wave prefill and decode steps over a
+    # bf16 and an int8 cache
+    "tp_share": ("flash_prefill", "decode_attention", "decode_attention_q8"),
     # one H100's share of the retrieval dry run; qwen2.5's prefill and
     # decode at one device's share of prefill_32k and decode_32k
     "roofline": ("ecoscan", "flash_prefill", "decode_attention"),
@@ -4791,7 +4817,7 @@ def same_first_step(tcfg, lr, plain, meshed):
                 max_rel_diff=worst)
 
 
-def mesh_path(pipe, embed, questions, want):
+def mesh_path(pipe, embed, questions, want, wave_prompts, wave):
     """The mesh path, on a one-rank NCCL group (a `file://` store in a
     temp dir, destroyed at the end) over a (1, 1) mesh of the card:
     `core.distributed.make_sharded_retrieval` over the main path's
@@ -4804,9 +4830,12 @@ def mesh_path(pipe, embed, questions, want):
     `trainer.place_states`) against the unmeshed step, loss within 1e-6
     relative and every updated master, m and v as `same_first_step`
     holds them; `reshard_restore` of the train path's checkpoint onto the
-    mesh, bit-equal to a plain restore. Removes the train path's
-    checkpoint directory. Returns (info, ecoscan's inputs at the
-    sharded shape)."""
+    mesh, bit-equal to a plain restore; the main path's model built
+    under the mesh (its tensor-parallel part of tp 1) serving
+    `wave_prompts` on the wave Engine under `use_mesh`, through the TP
+    branch, its greedy tokens equal to the unmeshed `wave`'s. Removes
+    the train path's checkpoint directory. Returns (info, ecoscan's
+    inputs at the sharded shape)."""
     import torch.distributed as tdist
     store = tempfile.mkdtemp(prefix="pg_")
     info = {}
@@ -4892,6 +4921,24 @@ def mesh_path(pipe, embed, questions, want):
                    for a, b in pairs)
         info["reshard_leaves_bit_equal"] = len(pairs)
         del tree, plain, pairs
+        # the wave Engine over qwen2.5's part of tp 1 under the mesh
+        slm = pipe.slm
+        with sharding.use_mesh(mesh):
+            part = DenseLM(slm.cfg, device=DEV,
+                           params=dict(slm.model.named_parameters()))
+            assert part.tp is not None and part.tp.tp == 1 and \
+                part.tp.attn and part.tp.ffn and part.tp.vocab, part.tp
+            eng = Engine(part, max_len=slm.wave.max_len,
+                         eos_id=slm.wave.eos_id)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = eng.generate(wave_prompts, max_new=MAX_NEW,
+                               continuous=False)
+            torch.cuda.synchronize()
+            info["tp_wave_s"] = time.perf_counter() - t0
+        assert [r.tokens for r in res] == [r.tokens for r in wave]
+        info["tp_wave_tokens_equal"] = sum(len(r.tokens) for r in res)
+        del part, eng
     finally:
         tdist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
@@ -4899,6 +4946,162 @@ def mesh_path(pipe, embed, questions, want):
             shutil.rmtree(CKPT.pop("dir"), ignore_errors=True)
     torch.cuda.empty_cache()
     return info, eco_in
+
+
+def tp_share_modelled(cfg):
+    """The dry run's terms of the tp_share path's work, traced on fake
+    tensors on the host: rank 0 of a tp-4 fake group ((1, 4) mesh), its
+    part built under the mesh as the dry run builds a serving cell's, a
+    prefill of TP_ROWS x TP_PROMPT tokens and a decode step over the
+    cache the path decodes into (its collectives priced at the group's
+    link rate)."""
+    dryrun.fake_world(TP_SHARD[0])
+    try:
+        mesh = make_test_mesh(1, TP_SHARD[0], device_type="cpu")
+        mode = graph.fake_mode()
+        with sharding.use_mesh(mesh), mode:
+            lm = dryrun.fake_model(cfg)
+            toks = torch.zeros((TP_ROWS, TP_PROMPT), dtype=torch.long)
+            cache = dryrun.decode_cache(cfg, TP_ROWS, TP_PROMPT + TP_STEPS,
+                                        lm.kv_heads)
+            tok = torch.zeros((TP_ROWS, 1), dtype=torch.long)
+        assert lm.tp == model_mod.tp_layout(cfg, *TP_SHARD), lm.tp
+        w = list(lm.parameters())
+        prefill = graph.trace_cost(lm.prefill, toks, live=w, mode=mode)
+        decode = graph.trace_cost(lm.decode_step, cache, tok,
+                                  TP_PROMPT + TP_STEPS - 1, live=w,
+                                  mode=mode)
+    finally:
+        dryrun.release()
+    return {"prefill": _terms(prefill), "decode_step": _terms(decode)}
+
+
+def tp_share_path():
+    """qwen2-72b at full width and depth as one rank's share of tp 4
+    (TP_SHARD: `DenseLM(shard=)` draws the part alone on the card) on a
+    one-rank NCCL group over a (1, 1) mesh, whose all-reduces and logits
+    gather are the identity (the logits: the rank's quarter of the
+    vocabulary). For a bf16 cache and an int8 one (the weights drawn
+    again from the same seed with `kv_quant`): a prefill of TP_ROWS x
+    TP_PROMPT tokens of the rank's vocabulary range (warm, then timed and
+    profiled), TP_STEPS greedy decode steps (timed; two more profiled),
+    the share's peak memory (above what was allocated before its model:
+    `held_gb`); finite logits of the share's shape. Then the dry
+    run's modelled terms of the same share (`tp_share_modelled`).
+    Returns (info, the kernels' inputs at the share's shapes: layer 0's
+    q, k, v of the prefill, and of the decode over each cache)."""
+    import torch.distributed as tdist
+    cfg0 = TP_CONFIG
+    store = tempfile.mkdtemp(prefix="pg_")
+    tdist.init_process_group("nccl" if DEV == "cuda" else "gloo",
+                             init_method=f"file://{store}/store", rank=0,
+                             world_size=1)
+    info, kin = {}, {}
+    g = torch.Generator(device=DEV).manual_seed(17)
+    try:
+        mesh = make_test_mesh(1, 1, device_type=DEV)
+        for kvq in (False, True):
+            cfg = dataclasses.replace(cfg0, kv_quant=kvq)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            with sharding.use_mesh(mesh):
+                lm = DenseLM(cfg, device=DEV, seed=5, shard=TP_SHARD)
+            torch.cuda.synchronize()
+            part = dict(draw_s=time.perf_counter() - t0,
+                        param_gb=param_bytes(lm) / 1e9, held_gb=held / 1e9)
+            tp = lm.tp
+            assert tp == model_mod.tp_layout(cfg, *TP_SHARD), tp
+            assert tp.attn and tp.ffn and tp.vocab, tp
+            vl = lm.tok_embed.shape[0]
+            toks = torch.randint(0, vl, (TP_ROWS, TP_PROMPT), generator=g,
+                                 device=DEV)
+            lm.prefill(toks)                                   # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = lm.prefill(toks)
+            torch.cuda.synchronize()
+            part["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            assert logits.shape == (TP_ROWS, vl)
+            assert bool(torch.isfinite(logits.float()).all())
+            part["prefill_profiled"] = _profiled(
+                lambda: lm.prefill(toks), 1, match="flash_prefill")
+            if not kvq:
+                y = L.rmsnorm(lm._embed(toks), lm.attn_norm[0], cfg.norm_eps)
+                kin["prefill"] = tuple(t.contiguous() for t in lm._qkv(
+                    0, y, torch.arange(TP_PROMPT, device=DEV)[None].expand(
+                        TP_ROWS, TP_PROMPT)))
+            cache = grow_cache(cfg, cache, TP_PROMPT + TP_STEPS + 2)
+            tok = ref.first_argmax(logits.float(), -1)[:, None]
+            steps = []
+            for i in range(TP_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = lm.decode_step(cache, tok, TP_PROMPT + i)
+                tok = ref.first_argmax(out.float(), -1)[:, None]
+                torch.cuda.synchronize()
+                steps.append((time.perf_counter() - t0) * 1e3)
+                assert bool(torch.isfinite(out.float()).all())
+            pos = iter(range(TP_PROMPT + TP_STEPS, TP_PROMPT + TP_STEPS + 2))
+            part["decode_step_ms"] = steps
+            part["decode_profiled"] = _profiled(
+                lambda: lm.decode_step(cache, tok, next(pos)), 2)
+            part["peak_gb"] = (torch.cuda.max_memory_allocated() - held) / 1e9
+            q = torch.randn(TP_ROWS, tp.heads, cfg.resolved_head_dim,
+                            generator=g, device=DEV).to(cfg.torch_dtype)
+            lens = torch.full((TP_ROWS,), TP_PROMPT + TP_STEPS,
+                              dtype=torch.int32, device=DEV)
+            names = ("k", "k_s", "v", "v_s") if kvq else ("k", "v")
+            kin["decode_q8" if kvq else "decode"] = (q, *(
+                cache[n][0].clone() for n in names), lens)
+            info["int8" if kvq else "bf16"] = part
+            del lm, logits, cache, out
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    info["modelled"] = {
+        "bf16": tp_share_modelled(cfg0),
+        "int8": tp_share_modelled(dataclasses.replace(cfg0, kv_quant=True))}
+    info["modelled_s"] = time.perf_counter() - t0
+    return info, kin
+
+
+def print_tp_share(info, smi):
+    """The tp_share path's readings beside the modelled terms."""
+    for kind in ("bf16", "int8"):
+        r, m = info[kind], info["modelled"][kind]
+        for name, wall, dev in (
+                ("prefill", r["prefill_ms"],
+                 r["prefill_profiled"]["device_ms"]),
+                ("decode step", float(np.mean(r["decode_step_ms"])),
+                 r["decode_profiled"]["device_ms"])):
+            t = m["prefill" if name == "prefill" else "decode_step"]
+            print(f"tp_share, {TP_CONFIG.name} x {TP_CONFIG.num_layers} "
+                  "layers as one rank's share of tp 4 "
+                  f"({TP_CONFIG.num_heads // 4} query heads over "
+                  f"{TP_CONFIG.num_kv_heads // 4} kv heads, d_ff "
+                  f"{TP_CONFIG.d_ff // 4}, a quarter of the vocabulary; "
+                  f"{r['param_gb']:.2f} GB of bf16 weights drawn in "
+                  f"{r['draw_s']:.2f} s), {kind} cache, {name} ("
+                  + (f"{TP_ROWS} x {TP_PROMPT} tokens" if name == "prefill"
+                     else f"{TP_ROWS} rows") + f") on {smi}, on a one-rank "
+                  "NCCL group whose all-reduces and gather are the identity "
+                  "(a share of the work, not a 4-card run): measured wall "
+                  f"{wall:.3f} ms, device "
+                  + ("not measured (the profiler recorded no event)"
+                     if dev is None else f"{dev:.3f} ms")
+                  + f", peak {r['peak_gb']:.2f} GB (beside the "
+                  f"{r['held_gb']:.2f} GB that earlier paths hold); "
+                  "modelled for rank 0 of "
+                  f"a tp-4 group: t_compute {t['t_compute_ms']:.3f} ms, "
+                  f"t_memory {t['t_memory_ms']:.3f} ms, t_collective "
+                  f"{t['t_collective_ms']:.3f} ms (not in the share's "
+                  f"run), {t['dominant']}-bound, peak {t['peak_gb']:.2f} "
+                  f"GB; wall {share(wall, t['bound_ms']):.1%} of the "
+                  "modelled bound")
 
 
 def _bound_ms(c):
@@ -6016,7 +6219,8 @@ def main() -> int:
     mesh_want = pipe.index.search_device_batched(
         embed(questions), k=10, n_probe=pipe.n_probe)
     (mesh_info, mesh_eco), mesh_launches = drive(
-        "mesh", lambda: mesh_path(pipe, embed, questions, mesh_want))
+        "mesh", lambda: mesh_path(pipe, embed, questions, mesh_want,
+                                  prompts, wave))
     mesh_s = time.perf_counter() - t_mesh
     results["ecoscan"]["shapes"].append(check_ecoscan(
         "mesh path: sharded retrieval's local scan, (1, 1) mesh",
@@ -6035,6 +6239,20 @@ def main() -> int:
           f"{tq_ck['max_param_diff']:.3g}")
     print("train launcher, kill and resume on the card:",
           json.dumps(train_info["launcher"]))
+    # ---- qwen2-72b's share of tp 4, then its kernels at its shapes
+    torch.cuda.empty_cache()
+    (tp_info, tp_in), tp_launches = drive("tp_share", tp_share_path)
+    print("tp_share path:", json.dumps(tp_info, default=str))
+    print_tp_share(tp_info, smi)
+    label = "qwen2-72b's share of tp 4"
+    results["flash_prefill"]["shapes"].append(check_flash_prefill(
+        f"{label}, prefill", *tp_in["prefill"]))
+    results["decode_attention"]["shapes"].append(check_decode_attention(
+        f"{label}, decode", *tp_in["decode"], False))
+    results["decode_attention_q8"]["shapes"].append(check_decode_q8(
+        f"{label}, decode over the int8 cache", *tp_in["decode_q8"], False))
+    del tp_in
+    torch.cuda.empty_cache()
     # ---- updates on the main path's index, after every path that uses
     # it; then ecoscan on the grown pack
     (upd, (ud_t, ul_t, uc_t)), upd_launches = drive(
@@ -6143,7 +6361,8 @@ def main() -> int:
              "durable": dur_launches, "pipelines": pipelines_launches,
              "embedder": embedder_launches, "families": families_launches,
              "zoo": zoo_launches, "train": train_launches,
-             "mesh": mesh_launches, "roofline": roof_launches}
+             "mesh": mesh_launches, "tp_share": tp_launches,
+             "roofline": roof_launches}
     kernels = [{
         "name": name, "route": "cuda",
         "source": SOURCES[name],

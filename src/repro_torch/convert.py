@@ -54,6 +54,19 @@ def params_from_reference(tree: Mapping, device="cuda"
             for k, v in flat_names(tree).items()}
 
 
+def shard_params(params: Mapping[str, torch.Tensor], cfg, tp: int,
+                 rank: int) -> Dict[str, torch.Tensor]:
+    """Whole parameters of a dense `cfg` (the port's, or the reference's
+    converted by `params_from_reference`) -> rank `rank`'s part on a
+    "model" axis of size `tp` (`models.model.tp_layout`): each cut
+    weight narrowed to the rank's heads, FFN columns or rows, or
+    vocabulary range (views, no copy), the rest as they are."""
+    from repro_torch.models.model import tp_layout
+    cuts = tp_layout(cfg, tp, rank).cuts
+    return {n: t.narrow(*cuts[n]) if n in cuts else t
+            for n, t in params.items()}
+
+
 # top-level entries of every family's reference tree (`embed_defs`)
 TOP_LEVEL = ("tok_embed", "final_norm", "lm_head", "patch_proj", "frame_proj")
 _TAIL = re.compile(r"^(tail\d+)_(.+)$")

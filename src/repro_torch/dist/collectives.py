@@ -14,6 +14,11 @@ functions are the pairs tensor and expert parallelism need:
                  replicated input read by ranks that each compute part)
   AllGather      forward: all-gather along a dimension; backward:
                  reduce-scatter of the gradient (sum)
+
+Serving has no gradients: `AxisGroup` is the ranks of some mesh axes as
+one group of no-grad collectives, the one tensor-parallel serving
+(`models.dense`) runs over "model"; `all_gather_object` collects a
+picklable value of every rank of some axes (the wave engine's tokens).
 """
 from __future__ import annotations
 
@@ -93,3 +98,33 @@ class AllGather(torch.autograd.Function):
         return (reduce_scatter(g, ctx.mesh, ctx.axes, ctx.dim), None, None,
                 None)
 
+
+
+class AxisGroup:
+    """The ranks of `axes` of `mesh` as one group: `size`, and the sum
+    (`all_reduce`, in place) and the concatenation (`all_gather`) over
+    them, without autograd."""
+
+    def __init__(self, mesh, axes: Sequence[str]):
+        self.mesh, self.axes = mesh, tuple(axes)
+        self.size = 1
+        for a in self.axes:
+            self.size *= dist.get_world_size(_group(mesh, a))
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        return all_reduce(t, self.mesh, self.axes)
+
+    def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        return all_gather(t, self.mesh, self.axes, dim % t.ndim)
+
+
+def all_gather_object(obj, mesh, axes: Sequence[str]) -> list:
+    """The list of every rank's `obj` over `axes` (picklable values), in
+    the axes' major-to-minor rank order: one list a rank."""
+    out = [obj]
+    for a in reversed(tuple(axes)):
+        g = _group(mesh, a)
+        parts = [None] * dist.get_world_size(g)
+        dist.all_gather_object(parts, out, group=g)
+        out = [o for p in parts for o in p]
+    return out

@@ -270,6 +270,17 @@ def local_index(mesh, axes: Sequence[str]) -> Tuple[int, int]:
     return idx, n
 
 
+def batch_part(mesh, n: int) -> Tuple[int, int, Tuple[str, ...]]:
+    """This rank's rows [start, stop) of n rows on "batch" (over ("pod",
+    "data"), as far as they divide n: `logical_to_spec`'s pruning), and
+    the mesh axes that split them (() off-mesh: all n rows)."""
+    if mesh is None:
+        return 0, n, ()
+    axes = spec_axes(logical_to_spec(mesh, ("batch",), (n,))[0])
+    idx, parts = local_index(mesh, axes)
+    return idx * (n // parts), (idx + 1) * (n // parts), axes
+
+
 def local_slice(t: torch.Tensor, mesh, spec: Spec) -> torch.Tensor:
     """This rank's part of the whole tensor `t` under spec entries `spec`
     (a view: each split dimension cut to its own chunk)."""

@@ -9,6 +9,8 @@ a TPU v5e; here nothing is compiled and nothing runs on a card.
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch \\
       h2o_danube_1_8b --shape train_4k [--multi-pod] [--out results/dryrun]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all   # every cell
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2_72b \
+      --shape decode_32k --one-device     # the whole cell on one device
 
 What a cell traces, as rank 0 of a fake process group (backend "fake")
 of the mesh's world size:
@@ -19,13 +21,20 @@ of the mesh's world size:
   config past 300 B parameters on two pods), MoE configs past 60 B
   parameters with int8 weight gathers. The model's own weights are not
   counted: the step reads only the masters.
-- serving cells (prefill, decode): the port has no tensor-parallel
-  serving, so a rank runs its rows of "batch" (over ("pod", "data"))
-  with the weights whole, in bf16; the "model" ranks repeat that work,
-  which `useful_flops_ratio` shows. Dense configs past 10 B parameters
-  decode from an int8 KV cache. The decode is the contiguous
+- serving cells (prefill, decode): a rank runs its rows of "batch"
+  (over ("pod", "data")), in bf16. A dense config is built under the
+  mesh, so the rank holds its tensor-parallel part (`models.model.
+  tp_layout` on "model": its query heads and their kv heads, its FFN
+  columns and rows, its vocabulary range) and its cache holds its kv
+  heads; the all-reduces after the attention, the FFN and the embedding
+  and the logits' all-gather over "model" are counted at the group's
+  link rate. The other families serve whole: their "model" ranks repeat
+  the work, which `useful_flops_ratio` shows. Dense configs past 10 B
+  parameters decode from an int8 KV cache. The decode is the contiguous
   `decode_step` over a cache of the cell's length (the paged step's
   `torch.nonzero` cannot be traced), as the reference's is.
+  `--one-device` traces a cell whole on a (1, 1) mesh of a one-rank
+  group (mesh tag "dev1"): the work the production meshes split.
 
 A cell that fails is recorded with status "error" and its traceback.
 """
@@ -87,6 +96,13 @@ def production_mesh(multi_pod: bool):
     return make_production_mesh(multi_pod=multi_pod, device_type="cpu")
 
 
+def one_device_mesh():
+    """A (1, 1) mesh of a one-rank fake group: a cell traced whole."""
+    from repro_torch.launch.mesh import make_test_mesh
+    fake_world(1)
+    return make_test_mesh(1, 1, device_type="cpu")
+
+
 def input_specs(arch: str, shape_name: str):
     """Meta tensors of every model input of a cell (global shapes)."""
     cfg = get_config(arch)
@@ -103,25 +119,33 @@ def input_specs(arch: str, shape_name: str):
 
 
 def fake_model(cfg):
-    """The config's model on fake weights (its dtype; F32_KEEP in f32).
-    Call under a fake mode."""
+    """The config's model on fake weights (its dtype; F32_KEEP in f32):
+    under a mesh with a "model" axis a dense config's tensor-parallel
+    part of this rank. Call under a fake mode."""
+    mesh, layout = sh.get_mesh(), None
+    if model_mod.FAMILIES[cfg.family].TENSOR_PARALLEL and \
+            "model" in sh.mesh_shape(mesh):
+        layout = model_mod.tp_layout(cfg, sh.mesh_shape(mesh)["model"],
+                                     sh.local_index(mesh, ("model",))[0])
     params = {n: torch.empty(s, dtype=torch.float32 if dense.keeps_f32(n)
                              else cfg.torch_dtype)
-              for n, s in model_mod.param_shapes(cfg).items()}
+              for n, s in model_mod.param_shapes(cfg, layout).items()}
     return model_mod.build_model(cfg, device="cpu", params=params)
 
 
-def decode_cache(cfg, b: int, seq_len: int):
+def decode_cache(cfg, b: int, seq_len: int, kv_heads=None):
     """A decode cache of `cfg`'s family for b rows of seq_len positions,
     as each family's prefill lays it out (zeros; the reference's
-    `init_cache`). Call under a fake mode."""
+    `init_cache`; a dense or MoE cache of `kv_heads`, a tensor-parallel
+    rank's, when given). Call under a fake mode."""
     dt, G, hd = cfg.torch_dtype, max(cfg.num_kv_heads, 1), \
         cfg.resolved_head_dim
 
     def z(*shape, dtype=dt):
         return torch.zeros(shape, dtype=dtype)
     if cfg.family in ("dense", "moe"):
-        return dense.init_cache(cfg, b, seq_len, device="cpu")
+        return dense.init_cache(cfg, b, seq_len, device="cpu",
+                                kv_heads=kv_heads)
     if cfg.family == "encdec":
         Ld, F_ = cfg.encdec.decoder_layers, cfg.encdec.cross_kv_len
         return {"k": z(Ld, b, seq_len, G, hd), "v": z(Ld, b, seq_len, G, hd),
@@ -166,12 +190,9 @@ def placed(meta: torch.Tensor, sharding) -> torch.Tensor:
 
 def batch_rows(mesh, global_batch: int) -> int:
     """A serving rank's rows: the global batch split on "batch" as far as
-    it divides."""
-    spec = sh.logical_to_spec(mesh, ("batch",), (global_batch,))[0]
-    n = 1
-    for a in sh.spec_axes(spec):
-        n *= sh.mesh_shape(mesh)[a]
-    return global_batch // n
+    it divides (`sharding.batch_part`)."""
+    lo, hi, _ = sh.batch_part(mesh, global_batch)
+    return hi - lo
 
 
 def serving_cfg(cfg, kind: str):
@@ -183,8 +204,9 @@ def serving_cfg(cfg, kind: str):
 
 
 def trace_cell(arch: str, shape_name: str, mesh):
-    """Trace one cell's step on `mesh` (train) or on one rank's rows
-    (serving). Returns (cost dict of `trace_cost`, extra fields)."""
+    """Trace one cell's step on `mesh` (train) or on one rank's rows and
+    tensor-parallel part (serving). Returns (cost dict of `trace_cost`,
+    extra fields)."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     mode = graph.fake_mode()
@@ -209,7 +231,7 @@ def trace_cell(arch: str, shape_name: str, mesh):
     cfg = serving_cfg(cfg, shape.kind)
     rows = batch_rows(mesh, shape.global_batch)
     S = shape.seq_len
-    with mode:
+    with sh.use_mesh(mesh), mode:
         lm = fake_model(cfg)
         weights = list(lm.parameters())
         if shape.kind == "prefill":
@@ -224,11 +246,17 @@ def trace_cell(arch: str, shape_name: str, mesh):
                                          dtype=torch.bfloat16),)
             fn = lm.prefill
         else:
-            args = (decode_cache(cfg, rows, S),
+            args = (decode_cache(cfg, rows, S, getattr(lm, "kv_heads",
+                                                       None)),
                     torch.zeros((rows, 1), dtype=torch.long), S - 1)
             fn = lm.decode_step
     res = graph.trace_cost(fn, *args, live=weights, mode=mode)
-    return res, {"rows_per_device": rows, "kv_quant": cfg.kv_quant}
+    tp = getattr(lm, "tp", None)
+    return res, {"rows_per_device": rows, "kv_quant": cfg.kv_quant,
+                 "tp": None if tp is None else {
+                     "tp": tp.tp, "attn": tp.attn, "heads": tp.heads,
+                     "kv_heads": tp.kv_heads, "ffn": tp.ffn,
+                     "vocab": tp.vocab}}
 
 
 def analyze(cost: dict, chips: int, cfg, shape) -> dict:
@@ -272,20 +300,22 @@ def analyze(cost: dict, chips: int, cfg, shape) -> dict:
     }
 
 
-def run_cell(arch: str, shape_name: str, multi_pod: bool, outdir: Path
-             ) -> dict:
-    mesh_tag = "pod2" if multi_pod else "pod1"
+def run_cell(arch: str, shape_name: str, multi_pod: bool, outdir: Path,
+             one_device: bool = False) -> dict:
+    mesh_tag = "dev1" if one_device else "pod2" if multi_pod else "pod1"
     tag = f"{arch}.{shape_name}.{mesh_tag}"
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     t0 = time.time()
     try:
-        mesh = production_mesh(multi_pod)
+        mesh = one_device_mesh() if one_device else production_mesh(
+            multi_pod)
         # 400B+ on two pods: ZeRO state spans the pods too
         sh.set_fsdp_spans_pods(multi_pod and cfg.param_count() >
                                FSDP_PODS_PARAMS)
         cost, extra = trace_cell(arch, shape_name, mesh)
-        res = analyze(cost, MeshConfig(multi_pod).num_devices, cfg, shape)
+        chips = 1 if one_device else MeshConfig(multi_pod).num_devices
+        res = analyze(cost, chips, cfg, shape)
         res.update(extra)
         res.update({"arch": arch, "shape": shape_name, "mesh": mesh_tag,
                     "status": "ok", "trace_s": time.time() - t0})
@@ -347,6 +377,8 @@ def main(argv=None):
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--one-device", action="store_true",
+                    help="trace each cell whole on one device (tag dev1)")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--out", default="results/dryrun")
@@ -354,6 +386,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     outdir = Path(args.out)
     meshes = (False, True) if args.both_meshes else (args.multi_pod,)
+    if args.one_device:
+        meshes = (False,)
     if args.all:
         jobs = [(arch, s.name, mp) for mp in meshes for arch in ARCH_IDS
                 for s in cells(arch)]
@@ -363,13 +397,14 @@ def main(argv=None):
         jobs = [(args.arch, args.shape, mp) for mp in meshes]
     ok = bad = 0
     for arch, shape_name, mp in jobs:
-        tag = f"{arch}.{shape_name}.{'pod2' if mp else 'pod1'}"
+        mesh_tag = "dev1" if args.one_device else "pod2" if mp else "pod1"
+        tag = f"{arch}.{shape_name}.{mesh_tag}"
         if args.skip_done and (outdir / f"{tag}.json").exists():
             prev = json.loads((outdir / f"{tag}.json").read_text())
             if prev.get("status") == "ok":
                 ok += 1
                 continue
-        res = run_cell(arch, shape_name, mp, outdir)
+        res = run_cell(arch, shape_name, mp, outdir, args.one_device)
         ok += res["status"] == "ok"
         bad += res["status"] != "ok"
     release()

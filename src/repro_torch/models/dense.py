@@ -1,6 +1,6 @@
-"""Dense LM (the port of `repro.models.dense`, tensor-parallel degree 1:
-RoPE, M-RoPE or no rotary embedding; a SwiGLU, squared-ReLU or GELU
-FFN; optionally a sliding window and an int8 KV cache), the
+"""Dense LM (the port of `repro.models.dense`: RoPE, M-RoPE or no rotary
+embedding; a SwiGLU, squared-ReLU or GELU FFN; optionally a sliding
+window, an int8 KV cache and tensor-parallel serving), the
 bidirectional encoder of gte-small (`encode`: mean-pooled, unit-norm
 sentence embeddings) and the vision branch of qwen2-vl-2b: the first
 N_IMG positions of a sequence are stub patch embeddings projected by
@@ -32,6 +32,20 @@ attend `dequantize_kv(quantize_kv(k))`, the values decode reads back, and
 decode runs the int8 kernels `decode_attention_q8` and
 `decode_attention_paged_q8` on the int8 bytes and the scales.
 
+Tensor-parallel serving: a `DenseLM` built while a mesh with a "model"
+axis is installed (`dist.sharding.use_mesh`), or given `shard=(tp,
+rank)`, holds rank r's part of the weights (`models.model.tp_layout`:
+the query heads, their kv heads, the FFN's columns and rows, the
+vocabulary range; whole `params` are narrowed, random ones drawn for the
+part alone) and serves Megatron-style, with no-grad collectives over
+"model" (`dist.collectives.AxisGroup`): q, k, v at its heads (the wave
+cache and the attention kernels at (H / tp, its kv heads)), `wo` and
+`w2` row-parallel, each followed by one all-reduce; the embedding
+vocabulary-parallel (the rank's rows, zeros elsewhere, one all-reduce);
+the logits of the rank's vocabulary slice all-gathered to [B, V]. A part
+that does not divide stays whole on every rank, with no collective.
+Training and the paged path serve one device: a TP model refuses them.
+
 `MoELM` (models/moe.py) shares all of this and replaces the FFN.
 Caches and page pools are updated in place. `LM` is the part every
 family shares: the parameters (the reference's init kinds and its f32
@@ -50,7 +64,8 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Dict, Mapping, Optional
+import zlib
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -58,6 +73,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
+from repro_torch.dist import sharding as sh
+from repro_torch.dist.collectives import AxisGroup
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -164,12 +181,14 @@ def _kv_planes(cfg: ModelConfig, shape, device) -> Dict[str, torch.Tensor]:
             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)}
 
 
-def init_cache(cfg: ModelConfig, b: int, seq_len: int, device="cuda"
-               ) -> Dict[str, torch.Tensor]:
+def init_cache(cfg: ModelConfig, b: int, seq_len: int, device="cuda",
+               kv_heads: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Contiguous wave KV cache: {"k", "v"} of [L, b, cache_len(cfg,
-    seq_len), G, dh] (+ "k_s", "v_s" [L, b, Sc, G] with `kv_quant`)."""
+    seq_len), G, dh] (+ "k_s", "v_s" [L, b, Sc, G] with `kv_quant`); G is
+    `kv_heads` (a tensor-parallel rank's) or the config's."""
     return _kv_planes(cfg, (cfg.num_layers, b, cache_len(cfg, seq_len),
-                            cfg.num_kv_heads, cfg.resolved_head_dim), device)
+                            kv_heads or cfg.num_kv_heads,
+                            cfg.resolved_head_dim), device)
 
 
 def init_page_pool(cfg: ModelConfig, num_pages: int, page_size: int,
@@ -244,6 +263,14 @@ def _draw(init: str, shape, gen, dev) -> torch.Tensor:
     raise ValueError(f"unknown init {init!r}")
 
 
+def part_generator(seed: int, name: str, part: int, dev) -> torch.Generator:
+    """The generator of a tensor-parallel part's random draw: from (seed,
+    the parameter's name, the part's index), so the ranks that hold the
+    same part draw the same values, whatever their rank."""
+    key = (seed * 1_000_003 + zlib.crc32(f"{name}/{part}".encode())) % 2**63
+    return torch.Generator(device=dev).manual_seed(key)
+
+
 def random_tensor(init: str, shape, dtype, gen, dev) -> torch.Tensor:
     """A random tensor of `init` kind in `dtype`, drawn in f32 from `gen`:
     whole, or in runs of DRAW_SLICE elements of its flat order when it
@@ -290,32 +317,91 @@ class LM(nn.Module):
     (scaled by sqrt(d) when tied) and the output head. `params` (name ->
     tensor) loads given weights; without it the weights are random from
     `seed`, drawn on the device. F32_KEEP parameters stay f32, the rest
-    take the config's dtype."""
+    take the config's dtype.
+
+    A family with `TENSOR_PARALLEL` (the dense one) built under a mesh
+    with a "model" axis, or given `shard=(tp, rank)`, holds rank's part
+    (`tp`: its `models.model.TPLayout`, None otherwise): whole `params`
+    are narrowed to it (`convert.shard_params`; a part given as it is is
+    taken), random ones drawn for the part alone from (seed, name, the
+    part's index). Its collectives run over `group` (an `AxisGroup` of
+    the mesh's "model" axis by default; any object with `all_reduce(t)`
+    and `all_gather(t, dim)`). A part of tp on a group of one rank is one
+    rank's share of the work: the collectives are the identity there."""
 
     FAMILY = ""
+    TENSOR_PARALLEL = False
     shapes = staticmethod(embed_shapes)
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0,
-                 params: Optional[Dict[str, torch.Tensor]] = None):
+                 params: Optional[Dict[str, torch.Tensor]] = None,
+                 shard: Optional[Tuple[int, int]] = None, group=None):
         super().__init__()
         if cfg.family != self.FAMILY:
             raise ValueError(f"{cfg.name}: family {cfg.family!r}, not "
                              f"{self.FAMILY!r} (models.model.build_model)")
         self.cfg = cfg
+        self.tp, self.tp_group = self._tp_part(shard, group)
+        self.heads = self.tp.heads if self.tp else cfg.num_heads
+        self.kv_heads = self.tp.kv_heads if self.tp else cfg.num_kv_heads
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        for name, (shape, init) in self.shapes(cfg).items():
+        for name, (whole, init) in self.shapes(cfg).items():
             dtype = torch.float32 if keeps_f32(name) else cfg.torch_dtype
+            shape = self.tp.local_shape(name, whole) if self.tp else whole
             if params is not None:
                 t = params[name]
+                if self.tp and tuple(t.shape) != shape and \
+                        tuple(t.shape) == whole:
+                    t = t.narrow(*self.tp.cuts[name])
                 if tuple(t.shape) != shape:
                     raise ValueError(f"{name}: {tuple(t.shape)} != {shape}")
                 t = t.to(device=dev, dtype=dtype).clone()
             elif init == "zeros":
                 t = torch.zeros(shape, dtype=dtype, device=dev)
             else:
-                t = random_tensor(init, shape, dtype, gen, dev)
+                g = (part_generator(seed, name, self.tp.part(name), dev)
+                     if self.tp else gen)
+                t = random_tensor(init, shape, dtype, g, dev)
             self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+
+    def _tp_part(self, shard, group):
+        """(the rank's TPLayout, its group), or (None, None) for a whole
+        model: off-mesh without `shard`, or a family without
+        TENSOR_PARALLEL."""
+        mesh = sh.get_mesh()
+        if not self.TENSOR_PARALLEL:
+            if shard is not None:
+                raise ValueError(f"{self.cfg.name}: the {self.FAMILY} "
+                                 "family serves one device")
+            return None, None
+        has_model = "model" in sh.mesh_shape(mesh)
+        if shard is None:
+            if not has_model:
+                return None, None
+            shard = (sh.mesh_shape(mesh)["model"],
+                     sh.local_index(mesh, ("model",))[0])
+        if group is None:
+            if not has_model:
+                raise ValueError("a tensor-parallel part needs a group: "
+                                 "a mesh with a \"model\" axis, or group=")
+            group = AxisGroup(mesh, ("model",))
+        if group.size not in (1, shard[0]):
+            raise ValueError(f"a part of tp {shard[0]} on a group of "
+                             f"{group.size} ranks")
+        from repro_torch.models.model import tp_layout
+        return tp_layout(self.cfg, *shard), group
+
+    def _one_device(self, what: str) -> None:
+        """Raise for a tensor-parallel part: `what` runs whole models."""
+        if self.tp:
+            raise NotImplementedError(f"{self.cfg.name}: {what} serves one "
+                                      "device, not a tensor-parallel part")
+
+    def _tp_sum(self, y, split: bool):
+        """y summed over "model" where the part it came from is `split`
+        (an attention or FFN output of the rank's heads or columns)."""
+        return self.tp_group.all_reduce(y) if split else y
 
     @property
     def device(self) -> torch.device:
@@ -350,9 +436,21 @@ class LM(nn.Module):
                 return fn(*a)
         return checkpoint(run, *args, use_reentrant=False)
 
+    def _token_rows(self, tokens):
+        """tok_embed's rows of tokens; under a vocabulary split the rank's
+        rows (zeros for a token outside its range) summed over "model"."""
+        if not (self.tp and self.tp.vocab):
+            return self.tok_embed[tokens]
+        _, lo, n = self.tp.cuts["tok_embed"]
+        local = tokens - lo
+        inside = ((local >= 0) & (local < n))[..., None]
+        rows = self.tok_embed[local.clamp(0, n - 1)]
+        return self.tp_group.all_reduce(
+            torch.where(inside, rows, torch.zeros_like(rows)))
+
     def _embed(self, tokens):
         scale = self.cfg.d_model ** 0.5 if self.cfg.tie_embeddings else 1.0
-        return (self.tok_embed[tokens] * scale).to(self.cfg.torch_dtype)
+        return (self._token_rows(tokens) * scale).to(self.cfg.torch_dtype)
 
     def _rope(self, x, positions):
         """RoPE over positions [B, S], M-RoPE over ids [B, S, 3], or x as
@@ -377,9 +475,14 @@ class LM(nn.Module):
         q, k, v = x @ p("wq"), x @ p("wk"), x @ p("wv")
         if cfg.qkv_bias:
             q, k, v = q + p("bq"), k + p("bk"), v + p("bv")
-        q = self._rope(q.reshape(b, s, cfg.num_heads, hd), positions)
-        k = self._rope(k.reshape(b, s, cfg.num_kv_heads, hd), positions)
-        return q, k, v.reshape(b, s, cfg.num_kv_heads, hd)
+        q = self._rope(q.reshape(b, s, self.heads, hd), positions)
+        k = self._rope(k.reshape(b, s, self.kv_heads, hd), positions)
+        return q, k, v.reshape(b, s, self.kv_heads, hd)
+
+    def _attn_out(self, i: int, ctx):
+        """Layer i's output projection of ctx [B, S, heads * dh] (the
+        rank's heads' rows of `wo`, summed over "model")."""
+        return self._tp_sum(ctx @ self.wo[i], bool(self.tp and self.tp.attn))
 
     def _ffn(self, i: int, x, prefix: str = ""):
         """x + the FFN `prefix` + "w1"... at index i (SwiGLU, or
@@ -390,11 +493,17 @@ class LM(nn.Module):
             return getattr(self, prefix + n)[i]
         y = L.rmsnorm(x, p("mlp_norm"), cfg.norm_eps)
         w3 = p("w3") if cfg.act == "swiglu" else None
-        return x + L.mlp(y, p("w1"), p("w2"), w3, cfg.act)
+        return x + self._tp_sum(L.mlp(y, p("w1"), p("w2"), w3, cfg.act),
+                                bool(self.tp and self.tp.ffn))
 
     def logits_from_hidden(self, x):
+        """Logits [..., V] of hidden states x [..., d]; under a vocabulary
+        split the rank's slice, all-gathered over "model"."""
         head = self.tok_embed.T if self.cfg.tie_embeddings else self.lm_head
-        return x @ head.to(x.dtype)
+        y = x @ head.to(x.dtype)
+        if self.tp and self.tp.vocab:
+            y = self.tp_group.all_gather(y, -1)
+        return y
 
     def final_logits(self, x):
         """Logits [B, V] of the last position of x [B, S, d]."""
@@ -407,6 +516,7 @@ class DenseLM(LM):
     `param_shapes` layout)."""
 
     FAMILY = "dense"
+    TENSOR_PARALLEL = True
     shapes = staticmethod(param_shapes)
 
     # ------------------------------------------------------------ blocks
@@ -424,7 +534,7 @@ class DenseLM(LM):
                 raise ValueError(f"{cfg.name}: a vision sequence starts "
                                  f"with {N_IMG} patches")
             scale = cfg.d_model ** 0.5 if cfg.tie_embeddings else 1.0
-            txt = self.tok_embed[tokens[:, N_IMG:]]
+            txt = self._token_rows(tokens[:, N_IMG:])
             img = patches.to(txt.dtype) @ self.patch_proj
             x = (torch.cat([img, txt], dim=1) * scale).to(cfg.torch_dtype)
             return x, mrope_positions(S, dev)[None].expand(b, S, 3)
@@ -458,7 +568,8 @@ class DenseLM(LM):
         cfg = self.cfg
         b, S = tokens.shape
         x, positions = self._embed_inputs(tokens, patches)
-        cache = init_cache(cfg, b, S, device=tokens.device)
+        cache = init_cache(cfg, b, S, device=tokens.device,
+                           kv_heads=self.kv_heads)
         sc = cache["k"].shape[2]
 
         def write(i, k, v):
@@ -487,7 +598,7 @@ class DenseLM(LM):
             k, v = kv(i, k, v)
         ctx = (attn or ops.flash_prefill)(q, k, v, causal=cfg.causal,
                                           window=cfg.sliding_window)
-        return x + ctx.reshape(b, S, -1) @ self.wo[i]
+        return x + self._attn_out(i, ctx.reshape(b, S, -1))
 
     def _full_block(self, i: int, x, positions, kv=None, attn=None):
         """Layer i over whole sequences x [B, S, d]: the attention
@@ -506,6 +617,7 @@ class DenseLM(LM):
         """The training forward to the final norm: (hidden states [B, S,
         d], the layers' MoE aux losses summed in layer order, or None).
         Attention is `L.attention`, each layer under `_remat`."""
+        self._one_device("training")
         x, positions = self._embed_inputs(tokens, patches)
         aux = None
         for i in range(self.cfg.num_layers):
@@ -579,7 +691,7 @@ class DenseLM(LM):
             else:
                 ctx = ops.decode_attention(q[:, 0], ck, cv, kv_len,
                                            ring=ring)
-            x = x + ctx.reshape(b, 1, -1) @ self.wo[i]
+            x = x + self._attn_out(i, ctx.reshape(b, 1, -1))
             x = self._mlp_residual(i, x)
         return self.final_logits(x)
 
@@ -597,6 +709,7 @@ class DenseLM(LM):
         every filled cursor (RoPE is in the stored keys, so the order in
         the ring does not matter). Returns logits [B, V]; `cache` is
         updated in place."""
+        self._one_device("the paged decode step")
         cfg = self.cfg
         ps = page_size
         b = token.shape[0]
@@ -655,6 +768,7 @@ class DenseLM(LM):
         another query's window still needs. With `kv_quant` the history
         is attended dequantized and the chunk's own K/V fake-quantized.
         Returns chunk logits [1, C, V]; `cache` is updated in place."""
+        self._one_device("the paged chunk prefill")
         cfg = self.cfg
         c = tokens.shape[1]
         limit = offset + c if limit is None else limit

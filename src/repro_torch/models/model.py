@@ -17,16 +17,23 @@ Sharding (the rest of it): `param_specs`, `batch_specs` and
 `cache_specs` give each tensor's logical axes (`dist.sharding`) by the
 port's names; `param_shapes` and `batch_struct` the shapes they are
 pruned against.
+
+Tensor-parallel serving (the dense family): `tp_layout(cfg, tp, rank)`
+is rank r's part of the model on a "model" axis of size tp, the cut of
+each weight from `param_specs`' "tp" entries (`TPLayout`);
+`param_shapes(cfg, layout)` the shapes of that part.
 """
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from types import SimpleNamespace
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig, ShapeConfig
+from repro_torch.dist import sharding as sh
 from repro_torch.models.dense import LM, N_IMG, DenseLM, bound, keeps_f32
 from repro_torch.models.encdec import DEC_RATIO, EncDecLM
 from repro_torch.models.mamba2 import Mamba2LM
@@ -191,10 +198,15 @@ _FAMILY_AXES = {"mamba2": {"conv_w": (None, None, None)}}
 _PREFIX = re.compile(r"^(?:enc_|dec_)?(?:s\d+_|tail\d+_)?(?:cross_)?")
 
 
-def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
-    """name -> shape of every parameter of `cfg`'s model."""
-    return {n: shape for n, (shape, _) in
-            FAMILIES[cfg.family].shapes(cfg).items()}
+def param_shapes(cfg: ModelConfig, layout: Optional["TPLayout"] = None
+                 ) -> Dict[str, tuple]:
+    """name -> shape of every parameter of `cfg`'s model (of the rank's
+    part under a tensor-parallel `layout`)."""
+    shapes = {n: shape for n, (shape, _) in
+              FAMILIES[cfg.family].shapes(cfg).items()}
+    if layout is None:
+        return shapes
+    return {n: layout.local_shape(n, s) for n, s in shapes.items()}
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, tuple]:
@@ -263,3 +275,91 @@ def cache_specs(cfg: ModelConfig) -> Dict[str, tuple]:
     if cfg.kv_quant:
         return {"k": kv, "v": kv, "k_s": kv[:-1], "v_s": kv[:-1]}
     return {"k": kv, "v": kv}
+
+
+# ------------------------------------------------ tensor-parallel serving
+
+# the attention weights, cut on head boundaries only: the query side by
+# query heads, the kv side by kv heads (a dimension of heads x head_dim)
+Q_SIDE = ("wq", "bq", "wo")
+KV_SIDE = ("wk", "wv", "bk", "bv")
+# "tp" entries that stay whole: the vision stub's projection (its output
+# would need a gather before the tokens' embeddings)
+TP_WHOLE = ("patch_proj",)
+
+
+class TPLayout(NamedTuple):
+    """Rank `rank`'s part of a dense model on a "model" axis of size
+    `tp`. `cuts`: name -> (dim, start, length) of every weight cut (the
+    others are whole on every rank). The attention splits (`attn`) when
+    the rank's `heads` query heads (from `q0`) all read its `kv_heads`
+    kv heads (from `kv0`); the FFN (`ffn`: w1, w3 on their outputs, w2 on
+    its input) and the vocabulary (`vocab`: tok_embed's rows, lm_head's
+    columns) where they divide."""
+    tp: int
+    rank: int
+    attn: bool
+    heads: int
+    kv_heads: int
+    q0: int
+    kv0: int
+    ffn: bool
+    vocab: bool
+    cuts: Dict[str, Tuple[int, int, int]]
+
+    def local_shape(self, name: str, shape: tuple) -> tuple:
+        """The rank's shape of parameter `name` of whole `shape`."""
+        if name not in self.cuts:
+            return tuple(shape)
+        dim, _, n = self.cuts[name]
+        return tuple(shape[:dim]) + (n,) + tuple(shape[dim + 1:])
+
+    def part(self, name: str) -> int:
+        """Which part of parameter `name` the rank holds (0 for a whole
+        one): the ranks that hold the same part hold the same values."""
+        if name not in self.cuts:
+            return 0
+        _, start, n = self.cuts[name]
+        return start // n
+
+
+def splits_heads(H: int, G: int, tp: int) -> bool:
+    """Whether tp ranks split the attention on head boundaries: H % tp
+    == 0, and G % tp == 0 (each rank G / tp kv heads) or tp % G == 0
+    (kv head g on the tp / G ranks of its query heads)."""
+    return H % tp == 0 and (G % tp == 0 or tp % G == 0)
+
+
+def tp_layout(cfg: ModelConfig, tp: int, rank: int) -> TPLayout:
+    """Rank `rank` of a "model" axis of size `tp`: the dimension of each
+    weight that `param_specs` names "tp" (pruned by
+    `sharding.logical_to_spec`: cut where tp divides it), with the
+    attention cut on head boundaries only (`splits_heads`; else whole
+    on every rank). Where the kv heads do not split, rank r holds kv
+    head floor(r G / tp), the group of its H / tp query heads."""
+    if not 0 <= rank < tp:
+        raise ValueError(f"rank {rank} of a tp {tp} axis")
+    H, G, hd = cfg.num_heads, max(cfg.num_kv_heads, 1), \
+        cfg.resolved_head_dim
+    attn = splits_heads(H, G, tp)
+    heads, kv_heads = (H // tp, max(G // tp, 1)) if attn else (H, G)
+    q0, kv0 = (rank * heads, rank * G // tp) if attn else (0, 0)
+    model = SimpleNamespace(shape={"model": tp})
+    shapes = param_shapes(cfg)
+    cuts = {}
+    for name, axes in param_specs(cfg).items():
+        base = _PREFIX.sub("", name)
+        if "tp" not in axes or base in TP_WHOLE:
+            continue
+        dim = axes.index("tp")
+        if base in Q_SIDE + KV_SIDE:
+            if attn:
+                first, n = (q0, heads) if base in Q_SIDE else (kv0, kv_heads)
+                cuts[name] = (dim, first * hd, n * hd)
+            continue
+        spec = sh.logical_to_spec(model, axes, shapes[name])
+        if spec[dim] is not None:
+            n = shapes[name][dim] // tp
+            cuts[name] = (dim, rank * n, n)
+    return TPLayout(tp, rank, attn, heads, kv_heads, q0, kv0,
+                    "w1" in cuts, "tok_embed" in cuts, cuts)

@@ -297,6 +297,9 @@ class MoELM(DenseLM):
     reference's MoE wave path does not define."""
 
     FAMILY = "moe"
+    # the MoE attention and the serving experts under "model" are not
+    # ported: a MoE model serves whole
+    TENSOR_PARALLEL = False
     shapes = staticmethod(param_shapes)
 
     def __init__(self, cfg: ModelConfig, **kw):

@@ -21,6 +21,13 @@ boundaries; the device work goes through the model (`DenseLM` or
 (`decode_attention_paged_q8` on an int8 pool). The wave engine's full
 prefill stays on `flash_prefill`.
 
+Under a mesh (`dist.sharding.use_mesh`) a wave's rows split over
+"batch" (("pod", "data"), as far as they divide), each rank running its
+rows through its model (a tensor-parallel part of a dense model built
+under the mesh, `models.dense`), and the tokens are gathered, so every
+rank returns every request's. The continuous engine serves one device,
+as the reference's does: it refuses a tensor-parallel part.
+
 Both greedy and sampled requests run on either engine. A sampled request
 draws from its own stream `fold_in(PRNGKey(seed), rid)`, draw t under
 `fold_in(stream, t)` with t the tokens it has already emitted (the
@@ -53,6 +60,8 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.dist.collectives import all_gather_object
+from repro_torch.dist.sharding import batch_part, get_mesh
 from repro_torch.models.dense import DenseLM, init_page_pool
 from repro_torch.models.model import supports_paged
 from repro_torch.serving.pager import PagePool, PoolStats, PrefixCache
@@ -127,6 +136,10 @@ class ContinuousEngine:
             raise ValueError(
                 f"{model.cfg.name}: config without slot-paged KV support "
                 "(use Engine's wave path)")
+        if model.tp:
+            raise ValueError(f"{model.cfg.name}: the continuous engine "
+                             "serves one device, not a tensor-parallel "
+                             "part (use Engine's wave path)")
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
@@ -609,13 +622,14 @@ class Engine:
                  continuous: Optional[bool] = None) -> List[GenResult]:
         """`continuous=None` takes the continuous engine when the config
         supports the paged path (`models.model.supports_paged`), as the
-        reference routes; `continuous=False`
+        reference routes, and the model is not a tensor-parallel part;
+        `continuous=False`
         runs waves of equal-length prompts, shortest first. Both draw a
         sampled request from fold_in(PRNGKey(seed), rid) with rid the
         prompt index, so greedy and sampled tokens are the same on
         both."""
         if continuous is None:
-            continuous = supports_paged(self.cfg)
+            continuous = supports_paged(self.cfg) and not self.model.tp
         if continuous:
             return self.continuous().generate(prompts, max_new=max_new,
                                               greedy=greedy, seed=seed)
@@ -638,12 +652,17 @@ class Engine:
         PRNGKey(seed), rid), t), as the continuous engine does; `rids`
         defaults to the batch indices. Every result carries the wave's
         prefill time (through the first token's logits) and its decode
-        time."""
-        b = len(prompts)
+        time (this rank's, under a mesh: its rows' part of the wave,
+        `dist.sharding.batch_part`)."""
         plen = max(len(p) for p in prompts)
         if any(len(p) != plen for p in prompts):
             raise ValueError("generate_wave requires equal-length prompts "
                              "(use generate())")
+        mesh = get_mesh()
+        lo, hi, axes = batch_part(mesh, len(prompts))
+        rids = list(range(len(prompts)) if rids is None else rids)[lo:hi]
+        prompts = prompts[lo:hi]
+        b = len(prompts)
         dev = self.device
         toks = torch.tensor(np.stack([np.asarray(p, np.int64)
                                       for p in prompts]), device=dev)
@@ -658,8 +677,7 @@ class Engine:
         gflags = np.full(b, greedy)
         keys = np.zeros((b, 2), np.int64)
         if not greedy:
-            keys = np.stack([stream_key(seed, r)
-                             for r in (range(b) if rids is None else rids)])
+            keys = np.stack([stream_key(seed, r) for r in rids])
         t1 = time.perf_counter()
         for step in range(max_new):
             tok = sample_rows(logits, keys, np.full(b, step), gflags)
@@ -674,5 +692,7 @@ class Engine:
             pos = min(plen + step, self.max_len - 1)
             logits = self.model.decode_step(cache, tok[:, None], pos)
         t_decode = time.perf_counter() - t1
-        return [GenResult(outs[i], len(prompts[i]), t_prefill, t_decode)
-                for i in range(b)]
+        if axes:
+            outs = [o for part in all_gather_object(outs, mesh, axes)
+                    for o in part]
+        return [GenResult(o, plen, t_prefill, t_decode) for o in outs]

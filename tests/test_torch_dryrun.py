@@ -1,6 +1,6 @@
 """The port's dry run end to end on the CPU: one train cell and one
-decode cell traced at full width on the 16 x 16 mesh (no plain version
-of a kernel in either trace), `roofline.report` over them and
+decode cell (a rank's tensor-parallel part) traced at full width on the
+16 x 16 mesh (no plain version of a kernel in either trace), `roofline.report` over them and
 `tools/roofline_diff.py` over two summaries; the decode caches each
 family's prefill lays out; the retrieval dry run's sizing at 80 GB; the
 MoE expert counts that replaced `bincount`."""
@@ -73,12 +73,20 @@ def test_train_cell(cells_dir):
 
 
 def test_decode_cell(cells_dir):
+    """qwen2.5-0.5B's rank of pod1 holds its tensor-parallel part of tp
+    16: its 14 heads do not split (attention whole), its FFN and
+    vocabulary do; so one all-reduce a layer (the FFN's), one after the
+    embedding and the logits' all-gather, and no other collective."""
     _, (_, decode), _ = cells_dir
     assert decode["status"] == "ok", decode.get("traceback")
     assert decode["rows_per_device"] == 8
     assert decode["kernel_nodes"] == {"decode_attention": 24}
     assert decode["dominant"] == "memory"
-    assert decode["t_collective_s"] == 0
+    assert decode["tp"] == {"tp": 16, "attn": False, "heads": 14,
+                            "kv_heads": 2, "ffn": True, "vocab": True}
+    coll = decode["collectives"]
+    assert coll["n_all-reduce"] == 24 + 1 and coll["n_all-gather"] == 1
+    assert coll["ops"] == 26 and decode["t_collective_s"] > 0
     # each layer reads its 8 rows' whole 32,768-slot cache once
     cfg = get_config("qwen25_0_5b")
     cache = 2 * 24 * 8 * 32768 * cfg.num_kv_heads * 64 * 2

@@ -12,11 +12,17 @@ The multi-rank cases (tests/torch_mesh_cases.py) run in one spawned
 4-rank gloo group (2 x 2 over ("data", "model")), joined within 120 s
 and killed past it; each case is reported as its own test. The
 reference's own mesh tests (tests/test_dist.py, tests/test_elastic.py)
-compile 8-device meshes and fail at the seed, so the cases hold the
-port to its single-device results, which the other test files hold to
-the reference's, at those tests' bounds."""
+compile 8-device meshes and fail at the seed, so the training cases
+hold the port to its single-device results, which the other test files
+hold to the reference's, at those tests' bounds. The tensor-parallel
+serving cases (`torch_mesh_cases.TP_CASES`) are held to the reference's
+single-device prefill and wave Engine, which this process runs before
+the group starts (`tp_references`)."""
+import json
 from datetime import timedelta
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -27,6 +33,7 @@ from repro.configs import get_config as j_get_config
 from repro.core import distributed as jcd
 from repro.dist import sharding as jsh
 from repro.models import model as jmodel
+from repro.serving.engine import Engine as JEngine
 from repro.train import optimizer as jopt
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.convert import flat_names
@@ -285,9 +292,34 @@ def test_restart_manager_async_save_commits_on_flush(tmp_path):
 # ------------------------------------------------------------ multi-rank
 
 
+def tp_references(out):
+    """For each tensor-parallel case: the reference's params (converted
+    to the port's flat names), its single-device prefill logits and
+    cache of the case's prompts, and its wave Engine's greedy tokens, in
+    <out>/tp_<name>.npz."""
+    for name, (arch, over, _, _) in torch_mesh_cases.TP_CASES.items():
+        jcfg = j_get_config(arch).reduced(dtype="float32", **over)
+        jparams = jmodel.init_params(jcfg, jax.random.PRNGKey(
+            torch_mesh_cases.TP_SEED))
+        toks = torch_mesh_cases.tp_prompts(name)
+        logits, cache = jmodel.prefill(jcfg, jparams,
+                                       {"tokens": jnp.asarray(toks)})
+        gen = JEngine(jcfg, jparams, max_len=torch_mesh_cases.TP_MAX_LEN
+                      ).generate(list(toks),
+                                 max_new=torch_mesh_cases.TP_MAX_NEW,
+                                 continuous=False)
+        arrays = {"p/" + n: np.asarray(v) for n, v in
+                  flat_names(jax.tree.map(np.asarray, jparams)).items()}
+        arrays.update({"c/" + n: np.asarray(v) for n, v in cache.items()})
+        np.savez(f"{out}/tp_{name}.npz", logits=np.asarray(logits),
+                 gen=np.array(json.dumps([r.tokens for r in gen])), **arrays)
+
+
 @pytest.fixture(scope="module")
 def mesh_results(tmp_path_factory):
-    return torch_mesh_cases.spawn(str(tmp_path_factory.mktemp("mesh")))
+    out = str(tmp_path_factory.mktemp("mesh"))
+    tp_references(out)
+    return torch_mesh_cases.spawn(out)
 
 
 @pytest.mark.parametrize("case", list(torch_mesh_cases.CASES))

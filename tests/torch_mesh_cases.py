@@ -1,10 +1,13 @@
 """The multi-rank cases of tests/test_torch_sharding.py, run by every
 rank of one spawned 4-rank gloo group on the CPU (a 2 x 2 mesh over
-("data", "model")). Each case raises on a mismatch; `run_rank` records
-each case's outcome ("ok" or the traceback) in <out>/rank<r>.json, so
-the test process reports each case as its own test. Imports torch and
-the port only (the reference's results come from the single-device
-port, which the other test files hold to the reference)."""
+("data", "model"), and a 1 x 4 one of the same ranks). Each case raises
+on a mismatch; `run_rank` records each case's outcome ("ok" or the
+traceback) in <out>/rank<r>.json, so the test process reports each case
+as its own test. Imports torch and the port only: the training cases
+hold the port to its single-device results, which the other test files
+hold to the reference; the tensor-parallel serving cases (`TP_CASES`)
+to the reference's single-device outputs, which the test process
+computes before the group starts and leaves in <out>/tp_<name>.npz."""
 import dataclasses
 import json
 import os
@@ -25,8 +28,11 @@ from repro_torch.dist import checkpoint as ckpt
 from repro_torch.dist import sharding as sh
 from repro_torch.dist.fault import reshard_restore
 from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.dist import collectives as C
 from repro_torch.models import model as tm
 from repro_torch.models import moe
+from repro_torch.models.dense import DenseLM
+from repro_torch.serving.engine import Engine
 from repro_torch.train import optimizer as opt
 from repro_torch.train import trainer
 
@@ -355,11 +361,114 @@ def dtensor_layout(mesh, out):
     assert sh.shard(dt, None) is dt                 # off-mesh: as it is
 
 
+# tensor-parallel serving: name -> (arch, reduced overrides, prompt
+# length, rows); the reduced dense configs (H 4, G 2, d 128) in f32, one
+# wave of equal-length prompts. The ring's 80 positions wrap h2o's
+# 64-position window.
+TP_CASES = {
+    "qwen": ("qwen25_0_5b", {}, 21, 4),
+    "h2o_ring": ("h2o_danube_1_8b", {}, 80, 4),
+    "qwen_int8": ("qwen25_0_5b", {"kv_quant": True}, 21, 4),
+}
+TP_MAX_NEW = 5          # the prefill's token, then 4 greedy decode steps
+TP_MAX_LEN = 96
+TP_SEED = 0
+_MESHES = {}
+
+
+def tp_config(name):
+    arch, over, _, _ = TP_CASES[name]
+    return get_reduced(arch).reduced(dtype="float32", **over)
+
+
+def tp_prompts(name):
+    """The case's prompts [rows, length] int32, made from its seed."""
+    _, _, S, B = TP_CASES[name]
+    rng = np.random.default_rng(TP_SEED)
+    return rng.integers(4, 500, (B, S)).astype(np.int32)
+
+
+def _mesh(shape):
+    """The (data, model) mesh of the four ranks, made once a shape."""
+    if shape not in _MESHES:
+        _MESHES[shape] = make_test_mesh(*shape, device_type="cpu")
+    return _MESHES[shape]
+
+
+def whole_cache(cache, lm, mesh, axes):
+    """The wave cache of every rank of `mesh` re-assembled: each plane's
+    kv heads gathered over "model" (the tp / G copies of a kv head that
+    ranks share checked bit-equal, one kept), its rows over the batch
+    `axes`."""
+    tp = lm.tp
+    out = {}
+    for n, t in cache.items():
+        if t.ndim == 4:                         # scales [L, b, Sc, G]
+            t = t[..., None]
+        g = C.all_gather(t, mesh, ("model",), 3) if tp.attn else t
+        if tp.attn and tp.kv_heads * tp.tp > lm.cfg.num_kv_heads:
+            rep = tp.tp // lm.cfg.num_kv_heads
+            parts = g.unflatten(3, (lm.cfg.num_kv_heads, rep))
+            assert all(torch.equal(parts[:, :, :, :, j], parts[:, :, :, :, 0])
+                       for j in range(rep)), n
+            g = parts[:, :, :, :, 0]
+        if axes:
+            g = C.all_gather(g, mesh, axes, 1)
+        out[n] = g[..., 0] if cache[n].ndim == 4 else g
+    return out
+
+
+def _tp_case(name, shape):
+    """A TP_CASES case on the (data, model) mesh `shape`: every rank
+    builds the dense model under the mesh from the reference's converted
+    params (its part: `tp_layout`), prefills its rows (a "batch" part,
+    `batch_part`) and decodes greedily through the wave Engine under the
+    mesh. Held to the reference's single-device prefill and Engine: the
+    logits within 1e-5, the cache re-assembled from the ranks within
+    1e-5 (int8 planes bit-equal, their scales within 1e-5 relative),
+    every rank's tokens equal."""
+    def case(mesh, out):
+        ref = np.load(os.path.join(out, f"tp_{name}.npz"))
+        params = {k[2:]: torch.tensor(ref[k]) for k in ref.files
+                  if k.startswith("p/")}
+        cfg = tp_config(name)
+        toks = tp_prompts(name)
+        m = mesh if tuple(sh.mesh_shape(mesh).values()) == shape \
+            else _mesh(shape)
+        with sh.use_mesh(m):
+            lm = DenseLM(cfg, device="cpu", params=params)
+            assert lm.tp.tp == shape[1]
+            lo, hi, axes = sh.batch_part(m, len(toks))
+            logits, cache = lm.prefill(torch.tensor(toks[lo:hi]).long())
+            np.testing.assert_allclose(logits.numpy(), ref["logits"][lo:hi],
+                                       rtol=1e-5, atol=1e-5)
+            whole = whole_cache(cache, lm, m, axes)
+            for n, t in whole.items():
+                want = ref["c/" + n]
+                if t.dtype == torch.int8:
+                    np.testing.assert_array_equal(t.numpy(), want, err_msg=n)
+                elif n.endswith("_s"):
+                    # max |k| / 127 of k's that differ in the last bits
+                    np.testing.assert_allclose(t.numpy(), want, rtol=1e-5,
+                                               atol=0, err_msg=n)
+                else:
+                    np.testing.assert_allclose(t.numpy(), want, rtol=1e-5,
+                                               atol=1e-5, err_msg=n)
+            res = Engine(lm, max_len=TP_MAX_LEN).generate(
+                list(toks), max_new=TP_MAX_NEW, continuous=False)
+        got = [r.tokens for r in res]
+        want = json.loads(str(ref["gen"]))
+        assert got == want, (got, want)
+    case.__name__ = f"tp_{name}_{shape[0]}x{shape[1]}"
+    return case
+
+
 CASES = {f.__name__: f for f in (
     sharded_retrieval, dtensor_layout, train_step_bf16, train_step_f32,
     train_step_int8_moments, moe_ep_loss_plain_gather,
     moe_ep_loss_int8_gather, moe_ep_step, moe_ep_ffn, q8_all_gather,
-    elastic)}
+    elastic) + tuple(_tp_case(n, s) for n in TP_CASES
+                     for s in ((2, 2), (1, 4)))}
 
 
 def run_rank(rank: int, store: str, out: str) -> None:

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Tile-shape probe of the port's attention kernels on one GPU:
 `python3 tools/attention_probe.py [--prefill | --paged | --decode | --q8 |
---zoo | --chunk [--q8]] [--src DIR]` (`--prefill` runs only
+--zoo | --tp | --chunk [--q8]] [--src DIR]` (`--tp` runs only the three
+attention kernels of qwen2-72b's tensor-parallel share, `--prefill` only
 flash_prefill's routes at its bf16 path shapes, `--paged` only the decode_attention_paged
 rows, `--decode` only the decode_attention rows, `--q8` only the int8
 rows, `--paged --q8` both, `--zoo` only the model zoo's shapes; `--src`
@@ -1075,6 +1076,62 @@ def chunk_probe(g, q8, parent):
             print(json.dumps(res))
 
 
+# qwen2-72b's share of tp 4 on chip_smoke's tp_share path: 16 query
+# heads over 2 kv heads of dh 128, a prefill of 2 x 512 tokens and
+# decode steps over its 520-slot cache (bf16 and int8)
+TP_SHARE = dict(B=2, S=512, H=16, G=2, dh=128, kv=520)
+
+
+def tp_probe(g):
+    """flash_prefill, decode_attention and decode_attention_q8 at the
+    tp-4 share's shapes (TP_SHARE), random bf16 inputs: each held
+    against its plain version (2e-2), then timed in turns with its
+    library call (kernel, library, library, kernel: call ms and profiler
+    device ms), beside its bound (`kernels/cost.py`)."""
+    from repro_torch.models import layers as L
+    B, S, H, G, dh, kv = (TP_SHARE[k] for k in
+                          ("B", "S", "H", "G", "dh", "kv"))
+    q, k, v = prefill_inputs(g, B, S, H, S, G, dh)
+    kw = dict(causal=True, window=None, q_offset=0, kv_len=None)
+    qd, kd, vd, lens = decode_inputs(g, B, H, kv, G, dh, kv)
+    a8 = (*L.quantize_kv(kd), *L.quantize_kv(vd), lens)
+
+    def q8_library():
+        kk, vv = (L.dequantize_kv(*a8[i:i + 2], qd.dtype) for i in (0, 2))
+        return sdpa_decode(qd, kk, vv, kv, False)()
+    rows = [
+        ("flash_prefill", lambda: ops.flash_prefill(q, k, v),
+         lambda: prefill_held(ops.flash_prefill(q, k, v), q, k, v, kw),
+         prefill_sdpa(q, k, v, 0, S, True),
+         kcost.flash_prefill(q, k, v), f"q {[B, S, H, dh]}, k "
+         f"{[B, S, G, dh]}, causal"),
+        ("decode_attention", lambda: ops.decode_attention(qd, kd, vd, lens),
+         lambda: (ops.decode_attention(qd, kd, vd, lens).float()
+                  - ref.decode_attention(qd, kd, vd, lens).float()
+                  ).abs().max().item(),
+         sdpa_decode(qd, kd, vd, kv, False),
+         kcost.decode_attention(qd, kd, vd, lens, False),
+         f"q {[B, H, dh]}, k {[B, kv, G, dh]}, kv_len {kv}"),
+        ("decode_attention_q8", lambda: ops.decode_attention_q8(qd, *a8),
+         lambda: (ops.decode_attention_q8(qd, *a8).float()
+                  - ref.decode_attention_q8(qd, *a8).float()
+                  ).abs().max().item(),
+         q8_library, kcost.decode_attention_q8(qd, *a8),
+         f"q {[B, H, dh]}, int8 k {[B, kv, G, dh]}, kv_len {kv}")]
+    for name, fn, held, lib, c, shape in rows:
+        err = held()
+        assert err <= 2e-2, (name, err)
+        bound, by = c.bound_ms()
+        row = {"tp_share": name, "shape": shape, "max_abs_err": err,
+               "bound_ms": bound, "bound_by": by}
+        for turn, (who, f) in enumerate((("kernel", fn), ("library", lib),
+                                         ("library", lib),
+                                         ("kernel", fn))):
+            row[f"{who} call_ms {turn}"] = call_ms(f)
+            row[f"{who} device_ms {turn}"] = device_ms(f)
+        print(json.dumps(row))
+
+
 def main() -> int:
     global build, ops, ref, kcost
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1083,12 +1140,13 @@ def main() -> int:
     only.add_argument("--prefill", action="store_true")
     only.add_argument("--decode", action="store_true")
     only.add_argument("--zoo", action="store_true")
+    only.add_argument("--tp", action="store_true")
     ap.add_argument("--paged", action="store_true")
     ap.add_argument("--q8", action="store_true")
     ap.add_argument("--chunk", action="store_true")
     args = ap.parse_args()
     if (args.paged or args.q8 or args.chunk) and (args.prefill or args.decode
-                                                  or args.zoo):
+                                                  or args.zoo or args.tp):
         ap.error("--paged, --chunk and --q8 go with each other only")
     if args.chunk and args.paged:
         ap.error("--chunk and --paged: one at a time")
@@ -1127,6 +1185,9 @@ def main() -> int:
         return 0
     if args.zoo:
         zoo_probe(g)
+        return 0
+    if args.tp:
+        tp_probe(g)
         return 0
     if args.prefill:
         prefill_probe(g)
